@@ -1,0 +1,19 @@
+"""melspec_gpt_vqvae_tpu_torch -- the PyTorch / CUDA port for NVIDIA Hopper.
+
+A second package beside the JAX reference ``melspec_gpt_vqvae_tpu``, laid
+out like it so each module's counterpart has the same name:
+
+  - ``ops/``     plain PyTorch functions and the wrappers of the hand-written
+                 Hopper kernels in ``csrc/`` (attention, VQ nearest index,
+                 mel frontend, MelGAN resblock stack);
+  - ``models/``  GPT (functional, KV-cached decode), VQ-VAE and MelGAN
+                 ``nn.Module``s;
+  - ``pipeline.py``, ``serving.py``  the generation round trip;
+  - ``bridge.py``  JAX parameter trees -> the port, and random inits;
+  - ``_build.py``  nvcc build of ``csrc/*.cu`` and the ctypes binding.
+
+Every kernel wrapper takes its plain PyTorch version for CPU tensors and
+launches its kernel (or raises) for CUDA tensors, and counts its launches
+in a ``launches`` attribute.  The package imports torch and never JAX; the
+framework-free ``melspec_gpt_vqvae_tpu.configs`` is shared by import.
+"""

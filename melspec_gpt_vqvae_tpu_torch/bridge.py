@@ -1,0 +1,113 @@
+"""Carry weights across from the JAX package, and random initialisation.
+
+The JAX package keeps the GPT as a nested dict of arrays and the conv nets
+as flax parameter trees.  This module maps them onto the port, one tensor
+per JAX leaf, taking the leaves as numpy arrays (``np.asarray`` of a JAX
+array) so that it never imports JAX:
+
+  * GPT: the same nested dict -- stacked (L, in, out) block matrices with
+    the fused ``attn_qkv`` (melspec_gpt_vqvae_tpu/models/gpt.py:61-84) --
+    as tensors;
+  * VQ-VAE and MelGAN: a ``state_dict`` whose names are the flax paths with
+    ``kernel``/``scale`` -> ``weight`` and the flax auto-names
+    ``GroupNorm_0/1``, ``Conv_0/1`` -> ``norm1/2``, ``conv1/2``.  Conv
+    kernels change layout: flax HWIO -> torch OIHW; a 1-D conv's (k, I, O)
+    -> (O, I, k); and a ``ConvTranspose(transpose_kernel=True)`` kernel's
+    (k, O, I) -> torch ConvTranspose1d's (I, O, k)
+    (models/vocoder.py:66-68) -- both 1-D cases reverse the axes.
+
+``load_state_dict(strict=True)`` then checks that every module tensor is
+covered once with the right shape.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from melspec_gpt_vqvae_tpu.configs import VocoderConfig, VQVAEConfig
+
+from .models.vocoder import MelGANGenerator
+from .models.vqvae import VectorQuantizer, VQModel
+
+_RENAME = {"GroupNorm_0": "norm1", "GroupNorm_1": "norm2",
+           "Conv_0": "conv1", "Conv_1": "conv2",
+           "kernel": "weight", "scale": "weight"}
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _tensor(leaf) -> torch.Tensor:
+    return torch.from_numpy(np.array(leaf, dtype=np.float32))
+
+
+def gpt_params_from_jax(params: Mapping) -> Dict:
+    """JAX GPT param tree (numpy leaves) -> the port's nested dict of
+    float32 CPU tensors (``models.gpt.tree_to`` moves it)."""
+    if isinstance(params, Mapping):
+        return {k: gpt_params_from_jax(v) for k, v in params.items()}
+    return _tensor(params)
+
+
+def conv_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax VQModel / MelGANGenerator params -> torch state dict."""
+    sd = {}
+    for path, leaf in _leaves(params):
+        t = _tensor(leaf)
+        if path[-1] == "kernel":
+            if t.ndim not in (3, 4):
+                raise ValueError(f"unexpected kernel rank at {path}")
+            t = t.permute(3, 2, 0, 1) if t.ndim == 4 else t.permute(2, 1, 0)
+        name = ".".join(_RENAME.get(p, p) for p in path)
+        if name in sd:
+            raise ValueError(f"two JAX leaves map to {name}")
+        sd[name] = t.contiguous()
+    return sd
+
+
+def load_vqvae(params: Mapping, cfg: VQVAEConfig) -> VQModel:
+    model = VQModel(cfg)
+    model.load_state_dict(conv_state_dict(params), strict=True)
+    return model.eval()
+
+
+def load_melgan(params: Mapping, cfg: VocoderConfig) -> MelGANGenerator:
+    model = MelGANGenerator(cfg)
+    model.load_state_dict(conv_state_dict(params), strict=True)
+    return model.eval()
+
+
+@torch.no_grad()
+def init_conv_net_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights in place, like the flax defaults the JAX package
+    initialises with: conv kernels N(0, 1 / fan_in) (LeCun), zero biases,
+    GroupNorm (1, 0), the codebook U(-1/K, 1/K) (models/vqvae.py:184-190).
+    Drawn on ``generator``'s device, so a seed gives the same weights
+    wherever the model lives afterwards."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d)):
+            w = m.weight
+            fan_in = w[0].numel() if not isinstance(
+                m, nn.ConvTranspose1d) else w.shape[1] * w.shape[2]
+            w.copy_(torch.randn(w.shape, generator=generator,
+                                device=generator.device) * fan_in ** -0.5)
+            m.bias.zero_()
+        elif isinstance(m, nn.GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, VectorQuantizer):
+            k = m.embedding.shape[0]
+            u = torch.rand(m.embedding.shape, generator=generator,
+                           device=generator.device)
+            m.embedding.copy_((2.0 * u - 1.0) / k)
+    return model

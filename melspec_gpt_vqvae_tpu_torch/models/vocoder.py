@@ -1,0 +1,76 @@
+"""MelGAN generator vocoder (inference path).
+
+Counterpart of melspec_gpt_vqvae_tpu/models/vocoder.py (reference
+vocoder/modules.py:23-80): reflect pad 3 + kernel-7 conv stem, one
+ConvTranspose1d upsample stage per ratio (8, 8, 2, 2), each followed by
+``n_residual_layers`` dilated ResnetBlocks (dilation 3**j), then LeakyReLU,
+reflect pad 3, a kernel-7 conv to one channel and tanh.
+
+Internally (B, C, T).  ``torch.nn.ConvTranspose1d(k=2r, stride=r,
+padding=r//2 + r%2, output_padding=r%2)`` is exactly the JAX module's VALID
+transpose followed by its crop (vocoder.py:63-72).  Each stage's resblock
+stack runs through ops/vocoder_stack.py::fused_resblock_stack (kernel B on
+the card).  Submodule names follow the flax parameter tree (``conv_in``,
+``up_{i}``, ``res_{i}_{j}``, ``conv_out``), so bridge.py maps weights by
+name.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from melspec_gpt_vqvae_tpu.configs import VocoderConfig
+
+from ..ops.vocoder_stack import fused_resblock_stack
+
+
+class MelGANResnetBlock(nn.Module):
+    """(reference: vocoder/modules.py:23-36)"""
+
+    def __init__(self, dim: int, dilation: int = 1):
+        super().__init__()
+        self.dilation = dilation
+        self.block_conv1 = nn.Conv1d(dim, dim, 3, dilation=dilation)
+        self.block_conv2 = nn.Conv1d(dim, dim, 1)
+        self.shortcut = nn.Conv1d(dim, dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.leaky_relu(x, 0.2)
+        h = F.pad(h, (self.dilation, self.dilation), mode="reflect")
+        h = F.leaky_relu(self.block_conv1(h), 0.2)
+        return self.shortcut(x) + self.block_conv2(h)
+
+
+class MelGANGenerator(nn.Module):
+    """mel (B, T, n_mel) in [0, 1] -> waveform (B, T * prod(ratios))
+    (reference: vocoder/modules.py:38-80)."""
+
+    def __init__(self, cfg: VocoderConfig = VocoderConfig()):
+        super().__init__()
+        self.cfg = cfg
+        mult = 2 ** len(cfg.ratios)
+        self.conv_in = nn.Conv1d(cfg.n_mel_channels, mult * cfg.ngf, 7)
+        for i, r in enumerate(cfg.ratios):
+            ch = mult * cfg.ngf // 2
+            self.add_module(f"up_{i}", nn.ConvTranspose1d(
+                mult * cfg.ngf, ch, 2 * r, stride=r,
+                padding=r // 2 + r % 2, output_padding=r % 2))
+            for j in range(cfg.n_residual_layers):
+                self.add_module(f"res_{i}_{j}", MelGANResnetBlock(ch, 3 ** j))
+            mult //= 2
+        self.conv_out = nn.Conv1d(cfg.ngf, 1, 7)
+
+    def stage_blocks(self, i: int):
+        return [getattr(self, f"res_{i}_{j}")
+                for j in range(self.cfg.n_residual_layers)]
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        x = F.pad(mel.transpose(1, 2), (3, 3), mode="reflect")
+        x = self.conv_in(x)
+        for i in range(len(self.cfg.ratios)):
+            x = getattr(self, f"up_{i}")(F.leaky_relu(x, 0.2))
+            x = fused_resblock_stack(x, self.stage_blocks(i))
+        x = F.pad(F.leaky_relu(x, 0.2), (3, 3), mode="reflect")
+        return torch.tanh(self.conv_out(x))[:, 0]

@@ -1,0 +1,224 @@
+"""SpecVQGAN-style VQ-VAE, inference path: encoder, decoder, quantiser.
+
+Counterpart of melspec_gpt_vqvae_tpu/models/vqvae.py (reference
+vqvae/big_model_attn_gan.py:8-392, 538-634): GroupNorm(min(32, C), eps
+1e-6) + swish ResnetBlocks, single-head 2-D self-attention, a
+right/bottom-padded stride-2 Downsample, a nearest-2x Upsample, and the
+L2-argmin quantiser, whose nearest-index search is kernel C on the card
+(ops/vq.py).
+
+Modules compute in NCHW.  The public methods of ``VQModel`` keep the JAX
+package's layouts: ``encode_to_indices`` takes (B, H, W, 1) and returns the
+(B, h, w) code grid; ``decode_code`` takes the code grid and returns
+(B, H, W, out_ch).  Submodule names follow the flax parameter tree
+(``down_{i}_block_{j}``, ``mid_attn_1``, ...), so bridge.py maps weights by
+name.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from melspec_gpt_vqvae_tpu.configs import VQVAEConfig
+
+from ..ops.vq import vq_lookup, vq_nearest_index
+
+
+def _group_norm(c: int) -> nn.GroupNorm:
+    """GroupNorm(32) at reference widths; the group count is clamped for
+    narrow test configs."""
+    return nn.GroupNorm(min(32, c), c, eps=1e-6)
+
+
+class ResnetBlock(nn.Module):
+    """GroupNorm-swish-conv x2 with a 1x1 shortcut on channel change
+    (reference: big_model_attn_gan.py:75-135)."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.norm1 = _group_norm(in_ch)
+        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.norm2 = _group_norm(out_ch)
+        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.nin_shortcut = (nn.Conv2d(in_ch, out_ch, 1)
+                             if in_ch != out_ch else None)
+
+    def forward(self, x):
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.nin_shortcut is not None:
+            x = self.nin_shortcut(x)
+        return x + h
+
+
+class AttnBlock(nn.Module):
+    """Single-head self-attention over all H*W positions
+    (reference: big_model_attn_gan.py:397-450); plain matmuls with float32
+    scores, as the JAX module leaves this to XLA."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.norm1 = _group_norm(c)
+        self.q = nn.Conv2d(c, c, 1)
+        self.k = nn.Conv2d(c, c, 1)
+        self.v = nn.Conv2d(c, c, 1)
+        self.proj_out = nn.Conv2d(c, c, 1)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        hn = self.norm1(x)
+        q = self.q(hn).reshape(b, c, h * w).transpose(1, 2)
+        k = self.k(hn).reshape(b, c, h * w)
+        v = self.v(hn).reshape(b, c, h * w).transpose(1, 2)
+        att = torch.softmax(torch.bmm(q.float(), k.float()) * c ** -0.5, 2)
+        out = torch.bmm(att.to(v.dtype).float(), v.float()).to(x.dtype)
+        return x + self.proj_out(out.transpose(1, 2).reshape(b, c, h, w))
+
+
+class Downsample(nn.Module):
+    """Pad right and bottom by one, then a stride-2 conv
+    (reference: big_model_attn_gan.py:145-162)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(c, c, 3, stride=2)
+
+    def forward(self, x):
+        return self.conv1(F.pad(x, (0, 1, 0, 1)))
+
+
+class Upsample(nn.Module):
+    """Nearest 2x, then a conv (reference: big_model_attn_gan.py:171-186)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(c, c, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv1(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class Encoder(nn.Module):
+    """(B, 1, H, W) -> (B, z, H/16, W/16)
+    (reference: big_model_attn_gan.py:190-282)."""
+
+    def __init__(self, cfg: VQVAEConfig):
+        super().__init__()
+        self.conv_in = nn.Conv2d(cfg.in_channels, cfg.ch, 3, padding=1)
+        self.layers = []
+        c, res = cfg.ch, cfg.resolution
+        num_res = len(cfg.ch_mult)
+        for i in range(num_res):
+            c_out = cfg.ch * cfg.ch_mult[i]
+            for j in range(cfg.num_res_blocks):
+                self._add(f"down_{i}_block_{j}", ResnetBlock(c, c_out))
+                c = c_out
+                if res in cfg.attn_resolutions:
+                    self._add(f"down_{i}_attn_{j}", AttnBlock(c))
+            if i != num_res - 1:
+                self._add(f"down_{i}_downsample", Downsample(c))
+                res //= 2
+        self._add("mid_block_1", ResnetBlock(c, c))
+        self._add("mid_attn_1", AttnBlock(c))
+        self._add("mid_block_2", ResnetBlock(c, c))
+        self.norm_out = _group_norm(c)
+        z_out = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
+        self.conv_out = nn.Conv2d(c, z_out, 3, padding=1)
+
+    def _add(self, name, module):
+        self.add_module(name, module)
+        self.layers.append(module)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for layer in self.layers:
+            h = layer(h)
+        return self.conv_out(F.silu(self.norm_out(h)))
+
+
+class Decoder(nn.Module):
+    """(B, z, h, w) -> (B, out_ch, 16 h, 16 w)
+    (reference: big_model_attn_gan.py:291-392)."""
+
+    def __init__(self, cfg: VQVAEConfig):
+        super().__init__()
+        num_res = len(cfg.ch_mult)
+        res = cfg.resolution // 2 ** (num_res - 1)
+        c = cfg.ch * cfg.ch_mult[-1]
+        self.conv_in = nn.Conv2d(cfg.z_channels, c, 3, padding=1)
+        self.layers = []
+        self._add("mid_block_1", ResnetBlock(c, c))
+        self._add("mid_attn_1", AttnBlock(c))
+        self._add("mid_block_2", ResnetBlock(c, c))
+        for i in reversed(range(num_res)):
+            c_out = cfg.ch * cfg.ch_mult[i]
+            for j in range(cfg.num_res_blocks + 1):
+                self._add(f"up_{i}_block_{j}", ResnetBlock(c, c_out))
+                c = c_out
+                if res in cfg.attn_resolutions:
+                    self._add(f"up_{i}_attn_{j}", AttnBlock(c))
+            if i != 0:
+                self._add(f"up_{i}_upsample", Upsample(c))
+                res *= 2
+        self.norm_out = _group_norm(c)
+        self.conv_out = nn.Conv2d(c, cfg.out_ch, 3, padding=1)
+
+    _add = Encoder._add
+
+    def forward(self, z):
+        h = self.conv_in(z)
+        for layer in self.layers:
+            h = layer(h)
+        return self.conv_out(F.silu(self.norm_out(h)))
+
+
+class VectorQuantizer(nn.Module):
+    """Codebook + L2-argmin quantisation, inference half
+    (reference: big_model_attn_gan.py:8-71)."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int):
+        super().__init__()
+        self.embedding = nn.Parameter(
+            torch.zeros(num_embeddings, embedding_dim))
+
+    def nearest_index(self, z: torch.Tensor) -> torch.Tensor:
+        """NCHW latents (B, D, h, w) -> int32 code grid (B, h, w)."""
+        b, d, h, w = z.shape
+        flat = z.permute(0, 2, 3, 1).reshape(-1, d)
+        return vq_nearest_index(flat, self.embedding).reshape(b, h, w)
+
+    def get_codebook_entry(self, indices: torch.Tensor, shape):
+        """indices (N,) -> NHWC latents of ``shape`` (b, h, w, c)
+        (reference: big_model_attn_gan.py:56-71)."""
+        return vq_lookup(indices, self.embedding).reshape(shape)
+
+
+class VQModel(nn.Module):
+    """``LitVQVAE`` inference surface (reference:
+    big_model_attn_gan.py:538-634)."""
+
+    def __init__(self, cfg: VQVAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = Encoder(cfg)
+        self.decoder = Decoder(cfg)
+        self.quantize = VectorQuantizer(cfg.num_embeddings, cfg.embedding_dim)
+        z_enc = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
+        self.quant_conv = nn.Conv2d(z_enc, cfg.embedding_dim, 1)
+        self.post_quant_conv = nn.Conv2d(cfg.embedding_dim, cfg.z_channels, 1)
+
+    def encode_to_indices(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, H, W, 1) -> code grid (B, h, w) int32
+        (reference: feature_extraction/extract_codes.py:48-50)."""
+        z = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2)))
+        return self.quantize.nearest_index(z)
+
+    def decode_code(self, code_grid: torch.Tensor) -> torch.Tensor:
+        """(B, h, w) indices -> reconstruction (B, H, W, out_ch)."""
+        b, h, w = code_grid.shape
+        quant = self.quantize.get_codebook_entry(
+            code_grid.reshape(-1), (b, h, w, self.cfg.embedding_dim))
+        out = self.decoder(self.post_quant_conv(quant.permute(0, 3, 1, 2)))
+        return out.permute(0, 2, 3, 1)

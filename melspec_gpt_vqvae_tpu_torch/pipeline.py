@@ -1,0 +1,149 @@
+"""Batched generation pipeline: class-conditional GPT sampling -> VQ-VAE
+decode -> MelGAN vocoder -> waveforms, plus the tokenize stage in front.
+
+Counterpart of melspec_gpt_vqvae_tpu/pipeline.py (the reference runs this
+flow only inside its logging callbacks, transformer/minGPT.py:530-612 and
+callbacks/GPT_callbacks.py:93-111).  As there: KV-cached segmented decode,
+the conv stages chunked so their activations do not cap the decode batch,
+and the conv stacks in bfloat16 on the card while every codebook argmin
+stays float32 (ops/vq.py).  PyTorch runs eagerly, so there is no compiled
+program to reuse; the stages are methods a caller can time one by one.
+"""
+
+from __future__ import annotations
+
+import io
+import wave
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from melspec_gpt_vqvae_tpu.configs import ExperimentConfig, MelConfig
+
+from .models.gpt import class_embed, gpt_generate
+from .models.vocoder import MelGANGenerator
+from .models.vqvae import VQModel
+from .ops.mel_kernel import waveform_to_mel_fused
+
+
+def _chunked(fn, x: torch.Tensor, chunk: int) -> torch.Tensor:
+    if not chunk or x.shape[0] <= chunk:
+        return fn(x)
+    return torch.cat([fn(x[i:i + chunk]) for i in range(0, x.shape[0], chunk)])
+
+
+class GenerationPipeline:
+    """Class ids -> tokens, spectrograms and waveforms on one device.
+
+    ``gpt_params`` is the nested dict of models/gpt.py, already in the model
+    dtype; ``vq`` and ``melgan`` are the port's modules.  With ``bf16``
+    (default: on CUDA) the conv modules are cast to bfloat16.
+    """
+
+    def __init__(self, exp: ExperimentConfig, gpt_params, vq: VQModel,
+                 melgan: MelGANGenerator, *, segments: int = 8,
+                 chunk: int = 128, bf16: Optional[bool] = None):
+        self.exp = exp
+        self.gcfg = exp.model
+        self.vcfg = exp.vqvae
+        self.device = gpt_params["tok_emb"].device
+        if bf16 is None:
+            bf16 = self.device.type == "cuda"
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        self.gpt_params = gpt_params
+        self.vq = vq.to(device=self.device, dtype=dtype).eval()
+        self.melgan = melgan.to(device=self.device, dtype=dtype).eval()
+        self.segments = segments
+        self.chunk = chunk
+        self.bf16 = bf16
+
+    @torch.inference_mode()
+    def generate_tokens(self, classes, generator: Optional[torch.Generator],
+                        *, temperature: float = 1.0,
+                        top_k: Optional[int] = 100,
+                        top_p: Optional[float] = None,
+                        sample: bool = True) -> torch.Tensor:
+        """classes (N,) -> (N, code_h * code_w) GPT-order tokens."""
+        cls = torch.as_tensor(np.asarray(classes), dtype=torch.int64,
+                              device=self.device)
+        cond = class_embed(self.gpt_params, cls)
+        return gpt_generate(self.gpt_params, self.gcfg, generator, cond,
+                            steps=self.vcfg.code_h * self.vcfg.code_w,
+                            temperature=temperature, top_k=top_k,
+                            top_p=top_p, sample=sample,
+                            segments=self.segments)
+
+    @torch.inference_mode()
+    def decode_specs(self, tokens: torch.Tensor) -> torch.Tensor:
+        """GPT-order tokens (N, S) -> spectrograms (N, H, W) in [-1, 1]."""
+        def dec(t):
+            # GPT order -> (B, code_h, code_w) raster: the tensor form of
+            # utils.codes.sequence_to_grid (melspec_gpt_vqvae_tpu/
+            # pipeline.py:163-165; reference minGPT.py:438-456)
+            grid = t.reshape(-1, self.vcfg.code_w, self.vcfg.code_h)
+            return self.vq.decode_code(grid.transpose(1, 2))[..., 0]
+        return _chunked(dec, tokens, self.chunk)
+
+    @torch.inference_mode()
+    def vocode(self, specs: torch.Tensor) -> torch.Tensor:
+        """Spectrograms (N, H, W) in [-1, 1] -> waveforms (N, W * hop)."""
+        def voc(spec):
+            # dataset scaling [-1, 1] -> [0, 1] mel (datasets/vas.py:81)
+            mel01 = torch.clamp((spec.float() + 1.0) / 2.0, 0.0, 1.0)
+            return self.melgan(mel01.to(self.melgan.conv_in.weight.dtype)
+                               .transpose(1, 2))
+        return _chunked(voc, specs, self.chunk)
+
+    def generate(self, classes, generator: Optional[torch.Generator], *,
+                 temperature: float = 1.0, top_k: Optional[int] = 100,
+                 top_p: Optional[float] = None,
+                 sample: bool = True) -> Dict[str, np.ndarray]:
+        """classes (N,) -> dict(tokens (N, S) int32, specs (N, H, W),
+        wavs (N, samples)) as host numpy arrays."""
+        toks = self.generate_tokens(classes, generator,
+                                    temperature=temperature, top_k=top_k,
+                                    top_p=top_p, sample=sample)
+        specs = self.decode_specs(toks)
+        wavs = self.vocode(specs)
+        return {"tokens": toks.to(torch.int32).cpu().numpy(),
+                "specs": specs.float().cpu().numpy(),
+                "wavs": wavs.float().cpu().numpy()}
+
+
+@torch.inference_mode()
+def tokenize(vq: VQModel, wav: torch.Tensor,
+             mel_cfg: MelConfig = MelConfig()) -> torch.Tensor:
+    """wav (B, samples) -> (B, code_h * code_w) GPT-order codes.
+
+    The tokenize stage that bench.py:86-103 times in front of generation:
+    mel (kernel D on the card), centre crop of the 860 frames to the
+    VQ-VAE's width (848: frames 6..853), scale to [-1, 1], encode in the
+    VQ-VAE's dtype, nearest codebook index in float32 (kernel C), then the
+    time-major flatten ``swapaxes(1, 2).reshape(B, -1)``.
+    """
+    mel = waveform_to_mel_fused(wav, mel_cfg)
+    lo = (mel.shape[-1] - vq.cfg.resolution) // 2
+    mel = mel[:, :, lo:lo + vq.cfg.resolution]
+    x = (2.0 * mel - 1.0)[..., None].to(vq.quant_conv.weight.dtype)
+    grid = vq.encode_to_indices(x)
+    return grid.transpose(1, 2).reshape(grid.shape[0], -1)
+
+
+def wav_bytes(wav: np.ndarray, sample_rate: int = 22050) -> bytes:
+    """PCM16 WAV encoded in memory with the standard library."""
+    data = np.clip(np.asarray(wav, np.float32).reshape(-1), -1.0, 1.0)
+    pcm = (data * 32767.0).astype("<i2")
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(pcm.tobytes())
+    return buf.getvalue()
+
+
+def write_wav(path: str, wav: np.ndarray, sample_rate: int = 22050):
+    """PCM16 WAV file (the buffer form above, on disk)."""
+    with open(path, "wb") as f:
+        f.write(wav_bytes(wav, sample_rate))
