@@ -6,13 +6,25 @@
 1. Builds the port's kernels from melspec_gpt_vqvae_tpu_torch/csrc (nvcc,
    sm_90a) and holds each against its plain PyTorch version on the card,
    at the shapes the generation round trip gives it, with TF32 off:
-   A attention, B MelGAN resblock stack, C VQ nearest index, D mel.
+   A attention, B MelGAN resblock stack, C VQ nearest index, D mel, E
+   decode attention over the int8 / int4 cache; and the int8 block product
+   (``_int8_mm``, cuBLASLt) bit for bit against the CPU.
 2. Drives the round trip at the full VAS width (24-layer GPT, VQ-VAE,
-   MelGAN) with seeded random weights, bf16 on the card: tokenize 48 clips
-   of the parity battery, then a batch-8 GenerationService answering three
-   requests.  Every kernel's launch count over this run must be > 0.
-3. Holds a float32 copy of the round trip (2 GPT layers, same widths) on
-   the card against the same weights on the CPU (plain PyTorch versions).
+   MelGAN) with seeded random weights, through ``build_pipeline`` and a
+   ``GenerationService``, on each serving path, with the kernels' launch
+   counts zeroed before each path and read after it:
+   - the card's default, as in the JAX package: bf16 model, int8 KV cache,
+     int8 streamed weights -- tokenize 48 clips of the parity battery,
+     then three batch-8 requests; every kernel A-E must launch;
+   - the bf16 KV cache with bf16 weights (one batch-8 request);
+   - the int4 KV cache (one batch-8 request);
+   - speculative decoding with a random 4-layer draft, gamma 4, at
+     batch 1 and batch 8 (kernel E runs in the draft's steps and in the
+     target's verification).
+3. Holds float32 copies (2 GPT layers, same widths) on the card against
+   the CPU: the round trip (PR 1's check), and for the int8 and int4
+   configurations the quantised cache values, the teacher-forced logits
+   and greedy speculative against greedy plain decoding.
 
 Exits non-zero, printing no result, when there is no CUDA card or any check
 fails.  The last three lines of stdout are: a JSON object of the kernels,
@@ -210,6 +222,98 @@ def check_mel(dev, wav, mel_cfg):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain}
 
 
+# the position-axis capacities of a VAS decode in 8 segments (class prompt
+# + 265 tokens): the cache lengths kernel E sees on the main path
+VAS_CAPS = (34, 67, 100, 133, 167, 200, 233, 266)
+
+
+def check_decode_attention(dev):
+    from melspec_gpt_vqvae_tpu_torch.models.gpt import (_quantize_kv,
+                                                        _quantize_kv4)
+    from melspec_gpt_vqvae_tpu_torch.ops.decode_attention import (
+        decode_attend_int8, decode_attend_int8_xla)
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def cache(b, t, bits):
+        """A 2-layer stacked cache of quantised unit-normal latents, as the
+        decode step writes it: (values, bf16 scales) for k and v."""
+        quant = _quantize_kv if bits == "int8" else _quantize_kv4
+        out = []
+        for _ in range(2):
+            q, s = quant(torch.randn(2, b, 16, t, 64, generator=g,
+                                     device=dev))
+            out += [q, s.to(torch.bfloat16)]
+        return out
+
+    # the JAX package's bound for this kernel (tests/test_gpt.py:363-364)
+    worst, n = 0.0, 0
+    for bits in ("int8", "int4"):
+        for b in (1, 8):
+            for t in VAS_CAPS:
+                k, ks, v, vs = cache(b, t, bits)
+                for qdt in (torch.float32, torch.bfloat16):
+                    q = torch.randn(b, 16, 64, generator=g,
+                                    device=dev).to(qdt)
+                    for pos in sorted({0, 1, t // 2, t - 1}):
+                        out = decode_attend_int8(q, k, v, ks, vs, 1, pos)
+                        ref = decode_attend_int8_xla(q, k, v, ks, vs, 1, pos)
+                        err = (out - ref).abs()
+                        check(bool((err <= 1e-4 + 1e-4 * ref.abs()).all()),
+                              f"decode attention {bits} B={b} T={t} "
+                              f"pos={pos} q {qdt}: max|err| "
+                              f"{err.max().item():.3g}")
+                        worst = max(worst, err.max().item())
+                        n += 1
+    print(f"  E decode attention, {n} cases (int8/int4, B 1/8, T {VAS_CAPS}, "
+          f"pos 0/1/T/2/T-1, q f32/bf16): max|err| {worst:.3g} "
+          "(atol = rtol = 1e-4)")
+    # the slice's shape: batch 8, the full cache, the last position, bf16 q
+    times = {}
+    for bits in ("int8", "int4"):
+        k, ks, v, vs = cache(8, 266, bits)
+        q = torch.randn(8, 16, 64, generator=g, device=dev).bfloat16()
+        times[bits] = (
+            cuda_ms(lambda: decode_attend_int8(q, k, v, ks, vs, 1, 265),
+                    reps=200),
+            cuda_ms(lambda: decode_attend_int8_xla(q, k, v, ks, vs, 1, 265),
+                    reps=200))
+        print(f"  E timing {bits} B=8 H=16 T=266 pos=265: kernel "
+              f"{times[bits][0]:.4f} ms, plain {times[bits][1]:.4f} ms")
+    return {"max_abs_err": worst, "ms": times["int8"][0],
+            "plain_ms": times["int8"][1]}
+
+
+def check_int8_mm(dev):
+    """The int8 block product on the card (cuBLASLt ``_int_mm``, rows
+    padded) against the CPU's int32 product: the int32 sums are exact and
+    the quantisers round alike, so the results must agree bit for bit."""
+    from melspec_gpt_vqvae_tpu_torch.models.gpt import (_int8_mm,
+                                                        quantize_block_weights)
+    g = torch.Generator().manual_seed(4)
+    shapes = {"attn_qkv": (1024, 3072), "attn_proj": (1024, 1024),
+              "mlp_up": (1024, 4096), "mlp_down": (4096, 1024)}
+    blocks = {n: {"w": 0.02 * torch.randn(1, *kn, generator=g)}
+              for n, kn in shapes.items()}
+    w_cpu = quantize_block_weights(blocks)
+    w_dev = quantize_block_weights({n: {"w": b["w"].to(dev)}
+                                    for n, b in blocks.items()})
+    for name, (kk, _) in shapes.items():
+        for f in ("q", "s"):
+            check(torch.equal(w_dev[name][f].cpu(), w_cpu[name][f]),
+                  f"quantize_block_weights {name}.{f}: card != CPU")
+        for m in (1, 8, 40):
+            x = torch.randn(m, kk, generator=g).bfloat16()
+            out = _int8_mm(x.to(dev), w_dev[name]["q"][0], w_dev[name]["s"][0])
+            ref = _int8_mm(x, w_cpu[name]["q"][0], w_cpu[name]["s"][0])
+            check(torch.equal(out.cpu(), ref),
+                  f"_int8_mm {name} M={m}: card != CPU")
+    x = torch.randn(8, 1024, generator=g).bfloat16().to(dev)
+    ms = cuda_ms(lambda: _int8_mm(x, w_dev["attn_qkv"]["q"][0],
+                                  w_dev["attn_qkv"]["s"][0]), reps=200)
+    print(f"  _int8_mm (cuBLASLt int8): 4 block shapes x M in (1, 8, 40) "
+          f"bitwise equal to the CPU; M=8 (1024, 3072) {ms:.4f} ms")
+
+
 # ---------------------------------------------------------------------------
 # 2. the main path, 3. float32 reference on the CPU
 # ---------------------------------------------------------------------------
@@ -227,20 +331,23 @@ def check_request(out, n):
 
 
 def reference_check(dev, exp, wav, seed):
+    """PR 1's check: the float32 round trip (model-dtype cache) on the card
+    against the CPU."""
     from melspec_gpt_vqvae_tpu_torch.models.gpt import gpt_apply, tree_to
     from melspec_gpt_vqvae_tpu_torch.pipeline import (GenerationPipeline,
                                                      tokenize)
     from melspec_gpt_vqvae_tpu_torch.serving import random_weights
     exp = dataclasses.replace(exp, model=exp.model.replace(
-        n_layer=2, dtype="float32"))
+        n_layer=2, dtype="float32", cache_dtype="auto",
+        decode_weight_dtype="auto"))
     gpt, vq, voc = random_weights(exp, seed)
     cpu = GenerationPipeline(exp, gpt, copy.deepcopy(vq), copy.deepcopy(voc),
                              bf16=False)
     gpu = GenerationPipeline(exp, tree_to(gpt, device=dev), vq, voc,
                              bf16=False)
     cls = [1, 6]
-    toks = cpu.generate_tokens(cls, None, sample=False)
-    toks_gpu = gpu.generate_tokens(cls, None, sample=False).cpu()
+    toks, _ = cpu.generate_tokens(cls, None, sample=False)
+    toks_gpu = gpu.generate_tokens(cls, None, sample=False)[0].cpu()
     with torch.inference_mode():
         cond = gpt["class_emb"][torch.tensor(cls)][:, None]
         l_cpu = gpt_apply(cpu.gpt_params, exp.model, toks[:, :-1], cond)
@@ -296,6 +403,190 @@ def unexplained_flips(codes, codes_gpu, vq_cpu, vq_gpu, wav, mel_cfg):
     return int((gap > allowed).sum())
 
 
+def teacher_forced(params, cfg, cond, toks, record=None):
+    """(logits (B, S, V) on the CPU, cache) of a prefill and S - 1 decode
+    steps fed ``toks`` (B, S): the logits that predict each token.  With
+    ``record`` (a list), every quantiser call appends its (latents, values)
+    on the CPU, in order."""
+    from melspec_gpt_vqvae_tpu_torch.models import gpt as G
+    orig = (G._quantize_kv, G._quantize_kv4)
+
+    def recording(fn):
+        def quant(x):
+            q, scale = fn(x)
+            record.append((x.float().cpu(), q.cpu()))
+            return q, scale
+        return quant
+    if record is not None:
+        G._quantize_kv, G._quantize_kv4 = map(recording, orig)
+    try:
+        with torch.inference_mode():
+            b, steps = toks.shape
+            cache = G.init_kv_cache(cfg, b, max_len=steps + 1,
+                                    device=cond.device)
+            logits, cache = G.gpt_prefill(params, cfg, cache, None, cond)
+            wq = (G.quantize_block_weights(params["blocks"])
+                  if cfg.decode_weight_dtype == "int8" else None)
+            out = [logits]
+            for i in range(steps - 1):
+                logits, cache = G.gpt_decode_step(params, cfg, cache,
+                                                  toks[:, i], wq)
+                out.append(logits)
+    finally:
+        G._quantize_kv, G._quantize_kv4 = orig
+    return torch.stack(out, 1).float().cpu(), cache
+
+
+def cache_flips(rec_cpu, rec_gpu, bits):
+    """Quantised cache values that differ between the CPU and the card.
+    Each recorded quantisation is recomputed on the CPU from its latents
+    (which must reproduce the values the device cached: the quantisers
+    round alike); a value may differ only by 1 and only where the .5
+    boundary between the two values lies between the two devices' scaled
+    latents.  Returns (values, differing, unexplained, max scaled-latent
+    difference)."""
+    from melspec_gpt_vqvae_tpu_torch.models.gpt import _unpack4
+    lim = 127.0 if bits == "int8" else 7.0
+    n = flips = bad = 0
+    worst = 0.0
+    for (zc, qc_dev), (zg, qg_dev) in zip(rec_cpu, rec_gpu):
+        ts, qs = [], []
+        for z, q_dev in ((zc, qc_dev), (zg, qg_dev)):
+            s = torch.clamp_min(z.abs().amax(-1) / torch.tensor(lim), 1e-8)
+            t = z / s[..., None]
+            q = torch.clamp(torch.round(t), -lim, lim)
+            cached = _unpack4(q_dev) if bits == "int4" else q_dev
+            check(torch.equal(cached.float(), q),
+                  f"{bits} quantiser: cached values differ from the "
+                  "rounding of their latents")
+            ts.append(t)
+            qs.append(q)
+        diff = qs[0] != qs[1]
+        mid = (qs[0] + qs[1]) / 2
+        explained = ((qs[0] - qs[1]).abs() == 1) \
+            & ((ts[0] - mid) * (ts[1] - mid) <= 0)
+        n += diff.numel()
+        flips += int(diff.sum())
+        bad += int((diff & ~explained).sum())
+        worst = max(worst, (ts[0] - ts[1]).abs().max().item())
+    return n, flips, bad, worst
+
+
+def quantised_reference_check(dev, exp, seed):
+    """float32, 2 GPT layers at the VAS widths, teacher-forced on the card
+    against the CPU, for the int8 and the int4 cache: with float32 weights
+    the cached values may differ only at rounding boundaries; with int8
+    weights (the serving configurations) the logits must stay within the
+    configuration's own quantisation error, and greedy speculative decoding
+    must equal greedy plain decoding on the card.
+
+    Why the int8-weight runs get no cache-value check: their activations
+    are re-quantised at every product, so a 1-ulp difference that moves
+    one activation across a rounding boundary moves every output of that
+    product by one quantum, and the two devices' runs part by whole quanta
+    (a CPU run with 3e-7 relative noise on the attention output reproduces
+    the card's differences: ~7,500 of 2.2 million cache values, up to 5
+    quanta, logits 0.033).  Each such flip is part of the quantisation
+    error itself, which is therefore the bound on the logits."""
+    from melspec_gpt_vqvae_tpu_torch.models import gpt as G
+    from melspec_gpt_vqvae_tpu_torch.models.speculative import \
+        gpt_speculative_generate
+    base = exp.model.replace(n_layer=2, dtype="float32", cache_dtype="auto",
+                             decode_weight_dtype="auto")
+    params = G.init_gpt_params(base, torch.Generator().manual_seed(seed))
+    draft = G.init_gpt_params(base.replace(n_layer=1),
+                              torch.Generator().manual_seed(seed + 1))
+    params_d, draft_d = (G.tree_to(p, device=dev) for p in (params, draft))
+    cls = torch.tensor([1, 6])
+    cond, cond_d = G.class_embed(params, cls), G.class_embed(params_d,
+                                                             cls.to(dev))
+    dcond_d = G.class_embed(draft_d, cls.to(dev))
+    with torch.inference_mode():
+        toks = G.gpt_generate(params, base, None, cond, steps=265,
+                              sample=False)
+    logits_f32, _ = teacher_forced(params, base, cond, toks)
+    for bits in ("int8", "int4"):
+        for weights in ("auto", "int8"):
+            cfg = base.replace(cache_dtype=bits, decode_weight_dtype=weights)
+            rec_c, rec_g = [], []
+            l_cpu, c_cpu = teacher_forced(params, cfg, cond, toks, rec_c)
+            l_gpu, c_gpu = teacher_forced(params_d, cfg, cond_d,
+                                          toks.to(dev), rec_g)
+            # the configuration's quantisation error on the CPU
+            bound = max_err(l_cpu, logits_f32)
+            res = {"teacher_forced_logits": max_err(l_gpu, l_cpu),
+                   "logits_bound_quantisation_error": bound}
+            if weights == "auto":
+                n, flips, bad, worst = cache_flips(rec_c, rec_g, bits)
+                vals = [G._unpack4(c[k].cpu()) if bits == "int4"
+                        else c[k].cpu() for c in (c_cpu, c_gpu)
+                        for k in ("k", "v")]
+                dv = torch.cat([(a.int() - b.int()).reshape(-1)
+                                for a, b in zip(vals[:2], vals[2:])])
+                sc, sg = (torch.cat([c[k].float().cpu().reshape(-1)
+                                     for k in ("k_scale", "v_scale")])
+                          for c in (c_cpu, c_gpu))
+                res.update({"cache_values": n, "cache_flips": flips,
+                            "unexplained_flips": bad,
+                            "cached_value_diffs": int((dv != 0).sum()),
+                            "max_scaled_latent_diff": worst,
+                            "scale_diffs": int((sc != sg).sum())})
+                check(bad == 0 and res["cached_value_diffs"] == flips
+                      and int(dv.abs().max()) <= 1,
+                      f"{bits} cache values vs CPU: {json.dumps(res)}")
+                check(bool(((sc - sg).abs() <= 2.0 ** -7 * sc.abs()).all()),
+                      f"{bits} cache scales vs CPU: more than one bf16 ulp")
+            else:
+                dcfg = cfg.replace(n_layer=1)
+                with torch.inference_mode():
+                    plain = G.gpt_generate(params_d, cfg, None, cond_d,
+                                           steps=265, sample=False,
+                                           segments=8)
+                    spec, stats = gpt_speculative_generate(
+                        params_d, cfg, draft_d, dcfg, None, cond_d, dcond_d,
+                        steps=265, gamma=4, sample=False)
+                res.update({"greedy_spec_equals_plain":
+                            bool(torch.equal(plain, spec)),
+                            "spec_stats": stats})
+                check(res["greedy_spec_equals_plain"],
+                      f"{bits} greedy speculative != greedy plain on the "
+                      "card")
+            print(f"  {bits} cache, {weights} weights (f32, 2-layer GPT) "
+                  f"card vs CPU: {json.dumps(res)}")
+            check(res["teacher_forced_logits"] <= bound,
+                  f"{bits} cache, {weights} weights: teacher-forced logits "
+                  "vs CPU")
+
+
+def serve_path(exp, pipe, dev, requests):
+    """Answer ``requests`` ((batch, kwargs, classes) each) through a
+    GenerationService, printing each request's seconds and the seconds of
+    its last batch's three stages (host clock around synchronised work).
+    Returns (generate calls, summed speculative rounds)."""
+    from melspec_gpt_vqvae_tpu_torch.serving import GenerationService
+    stage = {}
+    for name, attr in (("gpt_decode", "generate_tokens"),
+                       ("vq_decode", "decode_specs"), ("vocoder", "vocode")):
+        def timed(*a, _fn=getattr(pipe, attr), _name=name, **kw):
+            res, stage[_name] = wall(lambda: _fn(*a, **kw))
+            return res
+        setattr(pipe, attr, timed)
+    calls = rounds = 0
+    for batch, kw, cls in requests:
+        svc = GenerationService(exp, pipe, batch=batch, seed=1)
+        out, dt = wall(lambda: svc.generate(cls, **kw))
+        check_request(out, len(cls))
+        calls += -(-len(cls) // batch)
+        rounds += out.get("spec_stats", {}).get("rounds", 0)
+        extra = (f", spec_stats {json.dumps(out['spec_stats'])}"
+                 if "spec_stats" in out else "")
+        print(f"  request batch {batch} {kw or 'sampled top_k=100'}: "
+              f"{dt:.2f} s, stage seconds "
+              f"{json.dumps({k: round(v, 4) for k, v in stage.items()})}"
+              f"{extra}")
+    return calls, rounds
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs "
@@ -309,14 +600,15 @@ def main():
 
     from melspec_gpt_vqvae_tpu_torch import _build
     from melspec_gpt_vqvae_tpu_torch.ops.attention import attend
+    from melspec_gpt_vqvae_tpu_torch.ops.decode_attention import \
+        decode_attend_int8
     from melspec_gpt_vqvae_tpu_torch.ops.mel_kernel import \
         waveform_to_mel_fused
     from melspec_gpt_vqvae_tpu_torch.ops.vocoder_stack import \
         fused_resblock_stack
     from melspec_gpt_vqvae_tpu_torch.ops.vq import vq_nearest_index
     from melspec_gpt_vqvae_tpu_torch.pipeline import tokenize
-    from melspec_gpt_vqvae_tpu_torch.serving import (GenerationService,
-                                                     build_pipeline)
+    from melspec_gpt_vqvae_tpu_torch.serving import build_pipeline
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
@@ -335,8 +627,13 @@ def main():
     smi_line = smi.stdout.strip().splitlines()[0]
     print(f"card: {smi_line}")
 
+    # the card's default configuration, as the JAX package's on its chip
     exp, pipe = build_pipeline("vas", init_random=True, seed=783435,
                                device=dev)
+    m = exp.model
+    check((m.dtype, m.cache_dtype, m.decode_weight_dtype)
+          == ("bfloat16", "int8", "int8"),
+          f"card default {m.dtype}/{m.cache_dtype}/{m.decode_weight_dtype}")
     wav = torch.from_numpy(make_battery(exp.mel.clip_samples)).to(dev)
     check(wav.shape[0] == 48, "battery size")
 
@@ -344,46 +641,89 @@ def main():
     results = {"attention": check_attention(dev),
                "vocoder_stack": check_vocoder_stack(dev, pipe.melgan),
                "vq_nearest": check_vq(dev),
-               "mel": check_mel(dev, wav, exp.mel)}
+               "mel": check_mel(dev, wav, exp.mel),
+               "decode_attention": check_decode_attention(dev)}
+    check_int8_mm(dev)
 
     wrappers = {"attention": attend, "vocoder_stack": fused_resblock_stack,
-                "vq_nearest": vq_nearest_index, "mel": waveform_to_mel_fused}
-    for w in wrappers.values():
-        w.launches = 0
-    print("main path (VAS width, bf16, random weights):")
+                "vq_nearest": vq_nearest_index, "mel": waveform_to_mel_fused,
+                "decode_attention": decode_attend_int8}
+    steps, n_layer = 265, m.n_layer
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts(title):
+        c = {k: w.launches for k, w in wrappers.items()}
+        print(f"  launches ({title}): {json.dumps(c)}")
+        return c
+
+    print("main path (VAS width, bf16, int8 KV cache, int8 weights, "
+          "random weights):")
     tokenize(pipe.vq, wav, exp.mel)        # first call: cuDNN set-up
+    zero()
     codes, t_tok = wall(lambda: tokenize(pipe.vq, wav, exp.mel))
-    stage = {"tokenize": t_tok}
+    print(f"  tokenize 48 clips: {t_tok:.4f} s")
     check(codes.shape == (48, 265) and int(codes.min()) >= 0
           and int(codes.max()) < 128, f"tokenize codes {codes.shape}")
-    svc = GenerationService(exp, pipe, batch=8, seed=1)
-    requests = [({}, list(range(8))), ({"sample": False}, [3] * 8),
-                ({"seed": 1234, "top_p": 0.9}, [0, 1, 2, 3, 4, 5, 6, 7])]
-    for kw, cls in requests:
-        t0 = time.perf_counter()
-        out = svc.generate(cls, **kw)
-        check_request(out, 8)
-        print(f"  request {kw or 'sampled top_k=100'}: "
-              f"{time.perf_counter() - t0:.2f} s")
-    gen = torch.Generator(device=dev).manual_seed(5)
-    toks, stage["gpt_decode"] = wall(
-        lambda: pipe.generate_tokens(list(range(8)), gen))
-    specs, stage["vq_decode"] = wall(lambda: pipe.decode_specs(toks))
-    _, stage["vocoder"] = wall(lambda: pipe.vocode(specs))
-    launches = {k: w.launches for k, w in wrappers.items()}
-    print(f"  stage seconds (batch 8; tokenize 48 clips): "
-          f"{json.dumps({k: round(v, 4) for k, v in stage.items()})}")
-    print(f"  launches: {json.dumps(launches)}")
+    calls, _ = serve_path(exp, pipe, dev, [
+        (8, {}, list(range(8))), (8, {"sample": False}, [3] * 8),
+        (8, {"seed": 1234, "top_p": 0.9}, [0, 1, 2, 3, 4, 5, 6, 7])])
+    launches = counts("main path")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched by the main path")
+    check(launches["decode_attention"] == calls * steps * n_layer,
+          "kernel E: one launch per layer and decode step")
+    del pipe
+
+    print("bf16 KV cache and bf16 weights (PR 1's path):")
+    exp_b, pipe = build_pipeline("vas", init_random=True, seed=783435,
+                                 device=dev, kv_cache="auto", int8_weights=0)
+    zero()
+    serve_path(exp_b, pipe, dev, [(8, {}, list(range(8)))])
+    c = counts("bf16 cache")
+    check(c["attention"] > 0 and c["vocoder_stack"] > 0
+          and c["decode_attention"] == 0, "bf16 path kernels")
+    del pipe
+
+    print("int4 KV cache, int8 weights:")
+    exp_4, pipe = build_pipeline("vas", init_random=True, seed=783435,
+                                 device=dev, kv_cache="int4")
+    zero()
+    calls, _ = serve_path(exp_4, pipe, dev, [(8, {}, list(range(8)))])
+    c = counts("int4 cache")
+    check(c["attention"] > 0 and c["vocoder_stack"] > 0
+          and c["decode_attention"] == calls * steps * n_layer,
+          "int4 path kernels")
+    del pipe
+
+    print("speculative decoding, random 4-layer draft, gamma 4 (int8 cache "
+          "and weights):")
+    exp_s, pipe = build_pipeline("vas", init_random=True, seed=783435,
+                                 device=dev, draft_random="n_layer=4",
+                                 gamma=4)
+    zero()
+    _, rounds = serve_path(exp_s, pipe, dev, [(1, {}, [3]),
+                                              (8, {}, list(range(8)))])
+    c = counts("speculative")
+    # per round: gamma + 1 draft steps and a target chunk of gamma + 1
+    check(c["attention"] > 0 and c["vocoder_stack"] > 0
+          and c["decode_attention"] == rounds * 5 * (4 + n_layer),
+          "speculative path: kernel E in the draft and the verification")
+    del pipe
+    torch.cuda.empty_cache()
 
     print("float32 reference on the CPU:")
     reference_check(dev, exp, wav, seed=7)
+    quantised_reference_check(dev, exp, seed=7)
 
     meta = {"attention": ("attention.cu", "attention.py:114"),
             "vocoder_stack": ("vocoder_stack.cu", "vocoder_pallas.py:143"),
             "vq_nearest": ("vq.cu", "vq.py:37"),
-            "mel": ("mel.cu", "mel_pallas.py:54")}
+            "mel": ("mel.cu", "mel_pallas.py:54"),
+            "decode_attention": ("decode_attention.cu",
+                                 "decode_attention.py:64")}
     kernels = [{"name": name, "route": "cuda",
                 "source": "melspec_gpt_vqvae_tpu_torch/csrc/" + src,
                 "replaces": "melspec_gpt_vqvae_tpu/ops/" + rep,

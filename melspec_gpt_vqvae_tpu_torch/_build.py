@@ -37,6 +37,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # an undeclared pointer would be passed as a 32-bit int and cut.
 SIGNATURES = {
     "msgv_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "msgv_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _P],
     "msgv_resblock_stack": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P],
     "msgv_vq_nearest": [_P, _P, _P, _P, _I, _I, _I, _P],

@@ -7,13 +7,18 @@ in the JAX package's layout -- blocks stacked on a leading layer axis,
 JAX param tree across leaf for leaf; the layer loop is a Python loop where
 the JAX package scans.
 
-Decode keeps a preallocated KV cache of layout (L, B, H, T, hd) in the
-model dtype (float32 or bfloat16) and updates it in place: the JAX
-functions return a new cache, these write the new slots into the given one
-and return it.  ``cache["len"]`` is a Python int, so the decode loop makes
-no host-device round trip.  Prefill attention is kernel A on the card
-(ops/attention.py); the decode step's attention over the cache is plain
-torch, as the JAX step's is XLA einsums (gpt.py:545-551).
+Decode keeps a preallocated KV cache of layout (L, B, H, T, hd) and
+updates it in place: the JAX functions return a new cache, these write the
+new slots into the given one and return it.  ``cache["len"]`` is a Python
+int, so the decode loop makes no host-device round trip.  The cache holds
+the model dtype (``cache_dtype="auto"``), or absmax-quantised int8 values
+or int4 nibble pairs with bfloat16 scales per (layer, batch, head,
+position) (``"int8"``, ``"int4"``), as in the JAX package.  Prefill
+attention is kernel A on the card (ops/attention.py).  The decode step's
+attention is kernel E over a quantised cache (ops/decode_attention.py) and
+plain torch over a model-dtype cache, as the JAX step's is XLA einsums
+(gpt.py:545-551).  ``decode_weight_dtype="int8"`` streams per-channel int8
+block weights through an int8 x int8 -> int32 product (``_int8_mm``).
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import torch.nn.functional as F
 from melspec_gpt_vqvae_tpu.configs import GPTConfig
 
 from ..ops.attention import attend
+from ..ops.decode_attention import decode_attend_int8
+from ..ops.decode_attention import unpack4 as _unpack4  # noqa: F401
 from ..ops.sampling import sample_logits
 
 Params = Dict[str, object]
@@ -162,17 +169,74 @@ def gpt_apply(params: Params, cfg: GPTConfig, idx: Optional[torch.Tensor],
 
 def init_kv_cache(cfg: GPTConfig, batch: int, max_len: Optional[int] = None,
                   device=None) -> Dict:
-    """Zeroed (L, B, H, T, hd) key and value caches in the model dtype."""
-    if cfg.cache_dtype != "auto":
-        raise NotImplementedError(
-            f"cache_dtype={cfg.cache_dtype!r}: the int8/int4 KV cache is not "
-            "ported yet (ROADMAP A1, with kernel E)")
+    """Zeroed (L, B, H, T, hd) key and value caches: in the model dtype, or
+    int8 values (uint8 (..., hd/2) for int4) with bfloat16 (L, B, H, T)
+    scales (gpt.py:302-325)."""
     shape = (cfg.n_layer, batch, cfg.n_head, max_len or cfg.block_size,
              cfg.head_dim)
+    if cfg.cache_dtype in ("int8", "int4"):
+        int4 = cfg.cache_dtype == "int4"
+        vshape = shape[:-1] + (cfg.head_dim // 2,) if int4 else shape
+        vdtype = torch.uint8 if int4 else torch.int8
+        return {"k": torch.zeros(vshape, dtype=vdtype, device=device),
+                "v": torch.zeros(vshape, dtype=vdtype, device=device),
+                "k_scale": torch.zeros(shape[:4], dtype=torch.bfloat16,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:4], dtype=torch.bfloat16,
+                                       device=device),
+                "len": 0}
+    if cfg.cache_dtype != "auto":
+        raise ValueError(f"cache_dtype={cfg.cache_dtype!r}: expected 'auto', "
+                         "'int8' or 'int4'")
     dtype = DTYPES[cfg.dtype]
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "len": 0}
+
+
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as a true division also on the card, where PyTorch turns
+    division by a Python number into a multiply by its reciprocal (which
+    may differ by one bit, and the quantisers must round as JAX does)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def _quantize_kv(x: torch.Tensor):
+    """(..., hd) -> (int8 values, float32 absmax scale over hd)
+    (gpt.py:328-334).  Rounds half to even, as jnp.round does."""
+    x = x.float()
+    scale = torch.clamp_min(_div(x.abs().amax(-1), 127.0), 1e-8)
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _quantize_kv4(x: torch.Tensor):
+    """(..., hd) -> (uint8 nibble-packed int4 values (..., hd/2), float32
+    absmax scale over hd) (gpt.py:337-347): values clip to [-7, 7], even
+    head dims go to the low nibble, odd ones to the high nibble."""
+    x = x.float()
+    scale = torch.clamp_min(_div(x.abs().amax(-1), 7.0), 1e-8)
+    q = torch.clamp(torch.round(x / scale[..., None]), -7, 7).to(torch.int32)
+    packed = (q[..., 0::2] & 0xF) | ((q[..., 1::2] & 0xF) << 4)
+    return packed.to(torch.uint8), scale
+
+
+def _write_kv(cache: Dict, cfg: GPTConfig, l: int, pos: int,
+              k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write (B, H, c, hd) keys and values into layer ``l`` of the cache
+    at positions pos .. pos + c - 1, quantising them for an int8 / int4
+    cache: the values from the float32 scale, the scale stored in
+    bfloat16 (gpt.py:401-414, 501-516)."""
+    sl = slice(pos, pos + k.shape[2])
+    if cfg.cache_dtype in ("int8", "int4"):
+        quant = _quantize_kv4 if cfg.cache_dtype == "int4" else _quantize_kv
+        for name, x in (("k", k), ("v", v)):
+            q, scale = quant(x)
+            cache[name][l, :, :, sl] = q
+            cache[name + "_scale"][l, :, :, sl] = scale.to(torch.bfloat16)
+    else:
+        cache["k"][l, :, :, sl] = k
+        cache["v"][l, :, :, sl] = v
 
 
 def gpt_prefill(params: Params, cfg: GPTConfig, cache: Dict,
@@ -187,40 +251,98 @@ def gpt_prefill(params: Params, cfg: GPTConfig, cache: Dict,
     for l in range(cfg.n_layer):
         p = _layer(params["blocks"], l)
         x, k, v = _attn_block(x, p, cfg)
-        cache["k"][l, :, :, :t0] = k
-        cache["v"][l, :, :, :t0] = v
+        _write_kv(cache, cfg, l, 0, k, v)
         x = x + _mlp(_layer_norm(x, p["ln2_s"], p["ln2_b"]), p)
     cache["len"] = t0
     x = _layer_norm(x[:, -1], params["ln_f_s"], params["ln_f_b"])
     return x @ params["head"]["w"], cache
 
 
+def quantize_block_weights(blocks: Params) -> Dict:
+    """Per-output-channel absmax int8 quantisation of the four block
+    matrices (gpt.py:426-438): ``{name: {"q": (L, in, out) int8, "s":
+    (L, out) float32}}``.  Each layer's ``q`` is stored column-major (its
+    ``in`` axis contiguous), the layout the card's int8 product takes."""
+    def q(w):
+        w = w.float()
+        scale = torch.clamp_min(_div(w.abs().amax(1), 127.0), 1e-8)
+        wq = torch.clamp(torch.round(w / scale[:, None, :]), -127, 127)
+        wq = wq.to(torch.int8).transpose(1, 2).contiguous().transpose(1, 2)
+        return {"q": wq, "s": scale}
+    return {name: q(blocks[name]["w"])
+            for name in ("attn_qkv", "attn_proj", "mlp_up", "mlp_down")}
+
+
+def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 (M, K) @ int8 (K, N) -> exact int32 sums, by ``torch._int_mm``
+    (cuBLASLt on the card, oneDNN on the CPU).  cuBLASLt needs more than 16
+    rows: there the rows are zero-padded to a multiple of 8, at least 32,
+    and dropped again (zero rows are exact)."""
+    m = a.shape[0]
+    if a.is_cuda:
+        a = F.pad(a, (0, 0, 0, max(32, -(-m // 8) * 8) - m))
+    return torch._int_mm(a, b)[:m]
+
+
+def _int8_mm(x: torch.Tensor, wq: torch.Tensor,
+             ws: torch.Tensor) -> torch.Tensor:
+    """x (M, in) @ int8 weights (in, out) with per-row absmax activation
+    quantisation and exact int32 accumulation, rescaled in float32 as
+    ``acc * xs * ws`` from left to right (gpt.py:441-450)."""
+    xf = x.float()
+    xs = torch.clamp_min(_div(xf.abs().amax(-1), 127.0), 1e-8)
+    xq = torch.clamp(torch.round(xf / xs[:, None]), -127, 127)
+    acc = _int_matmul(xq.to(torch.int8), wq)
+    return acc.float() * xs[:, None] * ws[None, :]
+
+
+def _mm(a: torch.Tensor, p: Params, pw: Optional[Dict],
+        name: str) -> torch.Tensor:
+    """One block matrix product with bias: in the model dtype, or through
+    the int8 weights ``pw`` of this layer (gpt.py:484-494)."""
+    if pw is None:
+        return a @ p[name]["w"] + p[name]["b"]
+    out = _int8_mm(a.reshape(-1, a.shape[-1]), pw[name]["q"], pw[name]["s"])
+    return out.reshape(*a.shape[:-1], -1).to(a.dtype) + p[name]["b"]
+
+
 def gpt_decode_step(params: Params, cfg: GPTConfig, cache: Dict,
-                    token: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+                    token: torch.Tensor, wq: Optional[Dict] = None
+                    ) -> Tuple[torch.Tensor, Dict]:
     """One cached decode step.  token (B,) -> (logits (B, out), cache).
-    Attention covers the whole cache length with positions after the
-    current one masked, as in the JAX step."""
+    Attention covers the positions up to the current one, as the JAX step
+    masks the rest; ``wq`` are the int8 block weights of
+    ``quantize_block_weights`` (None: the model-dtype weights)."""
     pos = cache["len"]
-    x = params["tok_emb"][token.long()] + params["pos_emb"][pos]   # (B, D)
+    # the position embedding index clamps as the JAX step's
+    # dynamic_index_in_dim does (speculative drafts run past the block)
+    x = params["tok_emb"][token.long()] \
+        + params["pos_emb"][min(pos, cfg.block_size - 1)]       # (B, D)
     b = x.shape[0]
     max_len = cache["k"].shape[3]
-    valid = torch.arange(max_len, device=x.device) <= pos
-    scale = 1.0 / cfg.head_dim ** 0.5
+    quantised = cfg.cache_dtype in ("int8", "int4")
+    if not quantised:
+        valid = torch.arange(max_len, device=x.device) <= pos
+        scale = 1.0 / cfg.head_dim ** 0.5
     for l in range(cfg.n_layer):
         p = _layer(params["blocks"], l)
+        pw = None if wq is None else _layer(wq, l)
         h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
-        q, k, v = (h @ p["attn_qkv"]["w"] + p["attn_qkv"]["b"]).chunk(3, -1)
-        cache["k"][l, :, :, pos] = k.reshape(b, cfg.n_head, cfg.head_dim)
-        cache["v"][l, :, :, pos] = v.reshape(b, cfg.n_head, cfg.head_dim)
-        k_l, v_l = cache["k"][l], cache["v"][l]
-        qh = q.reshape(b, cfg.n_head, 1, cfg.head_dim).float()
-        scores = (qh @ k_l.float().transpose(-1, -2))[:, :, 0] * scale
-        probs = torch.softmax(torch.where(valid, scores, -1e30), dim=-1)
-        o = (probs.to(v_l.dtype).float()[:, :, None] @ v_l.float())
-        y = o.reshape(b, cfg.n_embd).to(x.dtype) @ p["attn_proj"]["w"] \
-            + p["attn_proj"]["b"]
-        x = x + y
-        x = x + _mlp(_layer_norm(x, p["ln2_s"], p["ln2_b"]), p)
+        q, k, v = (a.reshape(b, cfg.n_head, 1, cfg.head_dim)
+                   for a in _mm(h, p, pw, "attn_qkv").chunk(3, -1))
+        _write_kv(cache, cfg, l, pos, k, v)
+        if quantised:
+            o = decode_attend_int8(q[:, :, 0], cache["k"], cache["v"],
+                                   cache["k_scale"], cache["v_scale"], l, pos)
+        else:
+            k_l, v_l = cache["k"][l], cache["v"][l]
+            scores = (q.float() @ k_l.float().transpose(-1, -2))[:, :, 0] \
+                * scale
+            probs = torch.softmax(torch.where(valid, scores, -1e30), dim=-1)
+            o = (probs.to(v_l.dtype).float()[:, :, None] @ v_l.float())
+        x = x + _mm(o.reshape(b, cfg.n_embd).to(x.dtype), p, pw, "attn_proj")
+        h2 = _layer_norm(x, p["ln2_s"], p["ln2_b"])
+        x = x + _mm(F.gelu(_mm(h2, p, pw, "mlp_up")), p, pw, "mlp_down")
     cache["len"] = pos + 1
     x = _layer_norm(x, params["ln_f_s"], params["ln_f_b"])
     return x @ params["head"]["w"], cache
@@ -228,13 +350,17 @@ def gpt_decode_step(params: Params, cfg: GPTConfig, cache: Dict,
 
 def _grow_cache(cache: Dict, new_len: int) -> Dict:
     """Zero-pad the cache's position axis to ``new_len`` (segmented
-    decode)."""
+    decode), scales included (gpt.py:577-590)."""
     cur = cache["k"].shape[3]
     if new_len <= cur:
         return cache
-    pad = (0, 0, 0, new_len - cur)
-    return {"k": F.pad(cache["k"], pad), "v": F.pad(cache["v"], pad),
-            "len": cache["len"]}
+    out = dict(cache)
+    for name in ("k", "v"):
+        out[name] = F.pad(cache[name], (0, 0, 0, new_len - cur))
+    for name in ("k_scale", "v_scale"):
+        if name in cache:
+            out[name] = F.pad(cache[name], (0, new_len - cur))
+    return out
 
 
 def gpt_generate(params: Params, cfg: GPTConfig,
@@ -251,11 +377,12 @@ def gpt_generate(params: Params, cfg: GPTConfig,
     ``segments > 1`` grows the cache in stages so attention reads scale
     with the valid prefix; the capacities follow the JAX formula exactly
     (gpt.py:624-660), so one segment and several give the same tokens.
-    Returns (B, T0 + steps) int64 tokens.
+    With ``decode_weight_dtype="int8"`` the block weights are quantised
+    once per call (gpt.py:633-636).  The sampling uniforms of all
+    positions are drawn from ``generator`` up front, one (steps, B, V)
+    tensor, so that speculative decoding can reuse them position for
+    position.  Returns (B, T0 + steps) int64 tokens.
     """
-    if cfg.decode_weight_dtype != "auto":
-        raise NotImplementedError("int8 streamed decode weights are not "
-                                  "ported yet (ROADMAP A1)")
     b, p = cond_emb.shape[0], cond_emb.shape[1]
     t0 = 0 if given is None else given.shape[1]
     total_len = p + t0 + steps
@@ -266,6 +393,10 @@ def gpt_generate(params: Params, cfg: GPTConfig,
 
     cache = init_kv_cache(cfg, b, max_len=caps[0], device=cond_emb.device)
     logits, cache = gpt_prefill(params, cfg, cache, given, cond_emb)
+    wq = (quantize_block_weights(params["blocks"])
+          if cfg.decode_weight_dtype == "int8" else None)
+    u = (torch.rand((steps,) + logits.shape, generator=generator,
+                    device=logits.device) if sample else None)
     toks = []
     for i, cap in enumerate(caps):
         cache = _grow_cache(cache, cap)
@@ -273,9 +404,10 @@ def gpt_generate(params: Params, cfg: GPTConfig,
         if i == len(caps) - 1:
             seg = steps - len(toks)
         for _ in range(max(seg, 0)):
-            tok = sample_logits(generator, logits, temperature=temperature,
-                                top_k=top_k, top_p=top_p, sample=sample)
-            logits, cache = gpt_decode_step(params, cfg, cache, tok)
+            tok = sample_logits(None, logits, temperature=temperature,
+                                top_k=top_k, top_p=top_p, sample=sample,
+                                u=None if u is None else u[len(toks)])
+            logits, cache = gpt_decode_step(params, cfg, cache, tok, wq)
             toks.append(tok)
     out = torch.stack(toks, dim=1)
     if t0 > 0:

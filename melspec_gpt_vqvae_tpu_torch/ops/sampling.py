@@ -43,23 +43,33 @@ def _filter(logits, temperature, top_k, top_p):
     return logits
 
 
+def categorical(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Categorical draw over the last axis by the Gumbel-max trick, as
+    ``jax.random.categorical`` does, from uniforms ``u`` of logits'
+    shape."""
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
 def sample_logits(generator: Optional[torch.Generator],
                   logits: torch.Tensor, *, temperature: float = 1.0,
                   top_k: Optional[int] = None, top_p: Optional[float] = None,
-                  sample: bool = True) -> torch.Tensor:
+                  sample: bool = True,
+                  u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One sampling step over the last (vocab) axis -> int64 tokens.
 
     ``sample=False`` is argmax (the reference's ``torch.topk(probs, k=1)``);
     otherwise a categorical draw after temperature and top-k / top-p
-    filtering, by the Gumbel-max trick as ``jax.random.categorical`` does,
-    with uniforms from ``generator`` (which must live on logits' device).
+    filtering, from the uniforms ``u`` or, when None, uniforms drawn from
+    ``generator`` (which must live on logits' device).
     """
     logits = _filter(logits.float(), temperature, top_k, top_p)
     if not sample:
         return torch.argmax(logits, dim=-1)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    u = u.clamp_min(torch.finfo(torch.float32).tiny)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+    if u is None:
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device)
+    return categorical(logits, u)
 
 
 def filtered_log_probs(logits: torch.Tensor, *, temperature: float = 1.0,

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import io
 import wave
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +22,7 @@ import torch
 from melspec_gpt_vqvae_tpu.configs import ExperimentConfig, MelConfig
 
 from .models.gpt import class_embed, gpt_generate
+from .models.speculative import gpt_speculative_generate
 from .models.vocoder import MelGANGenerator
 from .models.vqvae import VQModel
 from .ops.mel_kernel import waveform_to_mel_fused
@@ -38,15 +39,26 @@ class GenerationPipeline:
 
     ``gpt_params`` is the nested dict of models/gpt.py, already in the model
     dtype; ``vq`` and ``melgan`` are the port's modules.  With ``bf16``
-    (default: on CUDA) the conv modules are cast to bfloat16.
+    (default: on CUDA) the conv modules are cast to bfloat16.  With
+    ``draft_params`` and ``draft_cfg`` the tokens come from speculative
+    decoding (models/speculative.py), ``gamma`` proposals a round, and
+    ``generate`` reports its acceptance as ``spec_stats``
+    (pipeline.py:128-146, 227-233 of the JAX package).
     """
 
     def __init__(self, exp: ExperimentConfig, gpt_params, vq: VQModel,
                  melgan: MelGANGenerator, *, segments: int = 8,
-                 chunk: int = 128, bf16: Optional[bool] = None):
+                 chunk: int = 128, bf16: Optional[bool] = None,
+                 draft_params=None, draft_cfg=None, gamma: int = 4):
+        if (draft_params is None) != (draft_cfg is None):
+            raise ValueError("pass both draft_params and draft_cfg, or "
+                             "neither")
         self.exp = exp
         self.gcfg = exp.model
         self.vcfg = exp.vqvae
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.gamma = gamma
         self.device = gpt_params["tok_emb"].device
         if bf16 is None:
             bf16 = self.device.type == "cuda"
@@ -63,16 +75,22 @@ class GenerationPipeline:
                         *, temperature: float = 1.0,
                         top_k: Optional[int] = 100,
                         top_p: Optional[float] = None,
-                        sample: bool = True) -> torch.Tensor:
-        """classes (N,) -> (N, code_h * code_w) GPT-order tokens."""
+                        sample: bool = True) -> Tuple[torch.Tensor, Dict]:
+        """classes (N,) -> ((N, code_h * code_w) GPT-order tokens,
+        speculative stats ({} without a draft))."""
         cls = torch.as_tensor(np.asarray(classes), dtype=torch.int64,
                               device=self.device)
         cond = class_embed(self.gpt_params, cls)
-        return gpt_generate(self.gpt_params, self.gcfg, generator, cond,
-                            steps=self.vcfg.code_h * self.vcfg.code_w,
-                            temperature=temperature, top_k=top_k,
-                            top_p=top_p, sample=sample,
-                            segments=self.segments)
+        kw = dict(steps=self.vcfg.code_h * self.vcfg.code_w,
+                  temperature=temperature, top_k=top_k, top_p=top_p,
+                  sample=sample)
+        if self.draft_params is None:
+            return gpt_generate(self.gpt_params, self.gcfg, generator, cond,
+                                segments=self.segments, **kw), {}
+        return gpt_speculative_generate(
+            self.gpt_params, self.gcfg, self.draft_params, self.draft_cfg,
+            generator, cond, class_embed(self.draft_params, cls),
+            gamma=self.gamma, **kw)
 
     @torch.inference_mode()
     def decode_specs(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -100,15 +118,22 @@ class GenerationPipeline:
                  top_p: Optional[float] = None,
                  sample: bool = True) -> Dict[str, np.ndarray]:
         """classes (N,) -> dict(tokens (N, S) int32, specs (N, H, W),
-        wavs (N, samples)) as host numpy arrays."""
-        toks = self.generate_tokens(classes, generator,
-                                    temperature=temperature, top_k=top_k,
-                                    top_p=top_p, sample=sample)
+        wavs (N, samples)) as host numpy arrays, plus ``spec_stats``
+        (rounds, drafted, accepted, accept_rate) with a draft."""
+        toks, stats = self.generate_tokens(
+            classes, generator, temperature=temperature, top_k=top_k,
+            top_p=top_p, sample=sample)
         specs = self.decode_specs(toks)
         wavs = self.vocode(specs)
-        return {"tokens": toks.to(torch.int32).cpu().numpy(),
-                "specs": specs.float().cpu().numpy(),
-                "wavs": wavs.float().cpu().numpy()}
+        out = {"tokens": toks.to(torch.int32).cpu().numpy(),
+               "specs": specs.float().cpu().numpy(),
+               "wavs": wavs.float().cpu().numpy()}
+        if stats:
+            drafted = max(1, stats["drafted"])
+            out["spec_stats"] = {**stats, "drafted": drafted,
+                                 "accept_rate": round(
+                                     stats["accepted"] / drafted, 4)}
+        return out
 
 
 @torch.inference_mode()

@@ -2,15 +2,17 @@
 
 Counterpart of melspec_gpt_vqvae_tpu/serving.py without its HTTP server:
 ``build_pipeline`` makes the pipeline from random weights (seeded) or from
-JAX parameter trees carried across by bridge.py, with the bfloat16 model
-dtype and KV cache on the card (``sample.py --kv_cache auto
---int8_weights 0``); ``GenerationService`` pads requests to a fixed batch,
-serialises generation with a lock, sheds load past a bounded queue and
-seeds each request's ``torch.Generator``.
+JAX parameter trees carried across by bridge.py, with the JAX package's
+defaults: on the card the bfloat16 model dtype, an int8 KV cache and int8
+streamed block weights (serving.py:95-102), on the CPU float32 and neither;
+optionally with a speculative draft.  ``GenerationService`` pads requests
+to a fixed batch, serialises generation with a lock, sheds load past a
+bounded queue, seeds each request's ``torch.Generator`` and sums the
+speculative stats of a request.
 
-Not ported yet, and refused with NotImplementedError: the int8 / int4 KV
-cache and int8 streamed weights, mesh serving, speculative decoding, the
-int8 decode stage and the HTTP server (ROADMAP queue A).
+Not ported yet, and refused with NotImplementedError (ROADMAP queue A):
+mesh serving, the int8 decode stage, draft weights from a run checkpoint
+(``draft_experiment``) and the HTTP server.
 """
 
 from __future__ import annotations
@@ -47,29 +49,43 @@ def random_weights(exp: ExperimentConfig, seed: int):
 def build_pipeline(dataset: str = "vas", *, init_random: bool = False,
                    params: Optional[Mapping] = None, override: str = "",
                    seed: int = 783435, segments: int = 8, chunk: int = 128,
-                   kv_cache: str = "auto", int8_weights: int = 0,
-                   device=None, mesh_spec: str = "",
-                   draft_random: str = "", int8_decode: bool = False):
+                   kv_cache: Optional[str] = None,
+                   int8_weights: Optional[int] = None, device=None,
+                   mesh_spec: str = "", draft_random: str = "",
+                   draft_override: str = "", gamma: int = 4,
+                   draft_experiment: Optional[str] = None,
+                   int8_decode: bool = False):
     """Construct the GenerationPipeline on ``device`` (default: CUDA when
     present).  Weights are random (``init_random``, from ``seed``) or
     ``params = {"gpt": ..., "vqvae": ..., "vocoder": ...}``, the JAX
-    package's parameter trees with numpy leaves.  Returns ``(exp, pipe)``.
+    package's parameter trees with numpy leaves.  ``kv_cache`` is "auto",
+    "int8" or "int4" (None: "int8" on the card, "auto" on the CPU);
+    ``int8_weights`` streams int8 block weights in decode (None: on the
+    card).  A speculative draft comes from ``params["draft"]`` or, with
+    ``draft_random`` (overrides such as "n_layer=4"), random weights from
+    ``seed + 1``; its config is the target's overrides plus
+    ``draft_override`` and ``draft_random`` (serving.py:115-146).
+    Returns ``(exp, pipe)``.
     """
-    if kv_cache != "auto" or int8_weights:
-        raise NotImplementedError("int8/int4 KV cache and int8 streamed "
-                                  "weights are not ported yet (ROADMAP)")
-    if mesh_spec or draft_random or int8_decode:
-        raise NotImplementedError("mesh serving, speculative decoding and "
-                                  "the int8 decode stage are not ported "
-                                  "yet (ROADMAP)")
+    if mesh_spec or int8_decode or draft_experiment:
+        raise NotImplementedError("mesh serving, the int8 decode stage and "
+                                  "draft weights from a run checkpoint are "
+                                  "not ported yet (ROADMAP)")
     if init_random == (params is not None):
         raise ValueError("pass exactly one of init_random=True or params")
     device = torch.device(device or ("cuda" if torch.cuda.is_available()
                                      else "cpu"))
+    on_card = device.type == "cuda"
+    kv = kv_cache or ("int8" if on_card else "auto")
+    if kv not in ("auto", "int8", "int4"):
+        raise ValueError(f"kv_cache={kv!r}: expected 'auto', 'int8' or "
+                         "'int4'")
+    int8_w = int8_weights if int8_weights is not None else int(on_card)
+    dtypes = dict(dtype="bfloat16" if on_card else "float32",
+                  cache_dtype=kv,
+                  decode_weight_dtype="int8" if int8_w else "auto")
     exp = load_preset("GPT", dataset, **parse_overrides(override))
-    exp = dataclasses.replace(exp, model=exp.model.replace(
-        dtype="bfloat16" if device.type == "cuda" else "float32",
-        cache_dtype="auto", decode_weight_dtype="auto"))
+    exp = dataclasses.replace(exp, model=exp.model.replace(**dtypes))
     if init_random:
         gpt, vq, voc = random_weights(exp, seed)
     else:
@@ -77,8 +93,31 @@ def build_pipeline(dataset: str = "vas", *, init_random: bool = False,
         vq = bridge.load_vqvae(params["vqvae"], exp.vqvae)
         voc = bridge.load_melgan(params["vocoder"], exp.vocoder)
     gpt = tree_to(gpt, device=device, dtype=DTYPES[exp.model.dtype])
+
+    draft, draft_cfg = None, None
+    carried = params is not None and "draft" in params
+    if draft_override and not (draft_random or carried):
+        raise ValueError("draft_override needs draft_random or "
+                         "params['draft']")
+    if draft_random or carried:
+        d_ov = {**parse_overrides(override),
+                **parse_overrides(draft_override),
+                **parse_overrides(draft_random)}
+        draft_cfg = load_preset("GPT", dataset, **d_ov).model.replace(
+            **dtypes)
+        for f in ("vocab_size", "block_size", "class_size"):
+            if getattr(draft_cfg, f) != getattr(exp.model, f):
+                raise ValueError(
+                    f"draft {f}={getattr(draft_cfg, f)} must equal the "
+                    f"target's {getattr(exp.model, f)} (the speculative "
+                    "accept/reject compares the two distributions)")
+        draft = (bridge.gpt_params_from_jax(params["draft"]) if carried else
+                 init_gpt_params(draft_cfg,
+                                 torch.Generator().manual_seed(seed + 1)))
+        draft = tree_to(draft, device=device, dtype=DTYPES[draft_cfg.dtype])
     pipe = GenerationPipeline(exp, gpt, vq, voc, segments=segments,
-                              chunk=chunk)
+                              chunk=chunk, draft_params=draft,
+                              draft_cfg=draft_cfg, gamma=gamma)
     return exp, pipe
 
 
@@ -148,6 +187,7 @@ class GenerationService:
 
     def _generate_locked(self, cs, t, k, p, sample, seed):
         wavs, toks, specs = [], [], []
+        agg = {"rounds": 0, "drafted": 0, "accepted": 0}
         with self._lock:
             for i in range(0, len(cs), self.batch):
                 part = cs[i:i + self.batch]
@@ -163,10 +203,16 @@ class GenerationService:
                 wavs.append(out["wavs"][:n])
                 toks.append(out["tokens"][:n])
                 specs.append(out["specs"][:n])
+                for f in agg:   # whole-request stats, not the last part's
+                    agg[f] += out.get("spec_stats", {}).get(f, 0)
             self.requests += 1
-        return {"wavs": np.concatenate(wavs),
-                "tokens": np.concatenate(toks),
-                "specs": np.concatenate(specs)}
+        res = {"wavs": np.concatenate(wavs),
+               "tokens": np.concatenate(toks),
+               "specs": np.concatenate(specs)}
+        if agg["drafted"]:
+            agg["accept_rate"] = round(agg["accepted"] / agg["drafted"], 4)
+            res["spec_stats"] = agg
+        return res
 
     def warmup(self):
         """Run one request in each sample mode before taking traffic (the

@@ -171,9 +171,21 @@ def test_segmented_generate_equals_one_segment(gpt):
     assert outs[0].shape == (2, 12)
 
 
-def test_int8_cache_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TG.init_kv_cache(GPT.replace(cache_dtype="int8"), 1)
+@pytest.mark.parametrize("cache_dtype", ["auto", "int8", "int4"])
+def test_init_kv_cache_matches_jax(cache_dtype):
+    cfg = GPT.replace(cache_dtype=cache_dtype)
+    ref = JG.init_kv_cache(cfg, 3, max_len=10)
+    out = TG.init_kv_cache(cfg, 3, max_len=10)
+    assert set(out) == set(ref) and out["len"] == int(ref["len"]) == 0
+    for name in set(ref) - {"len"}:
+        assert out[name].shape == ref[name].shape, name
+        assert str(out[name].dtype)[6:] == str(ref[name].dtype), name
+        assert not out[name].any()
+
+
+def test_unknown_cache_dtype_is_refused():
+    with pytest.raises(ValueError, match="cache_dtype"):
+        TG.init_kv_cache(GPT.replace(cache_dtype="fp8"), 1)
 
 
 # ---------------------------- VQ-VAE ----------------------------------------

@@ -21,6 +21,7 @@ from melspec_gpt_vqvae_tpu.ops import mel as JM
 from melspec_gpt_vqvae_tpu.ops import sampling as JS
 from melspec_gpt_vqvae_tpu.ops import vq as JV
 from melspec_gpt_vqvae_tpu_torch.ops import attention as TA
+from melspec_gpt_vqvae_tpu_torch.ops import decode_attention as TDA
 from melspec_gpt_vqvae_tpu_torch.ops import mel as TM
 from melspec_gpt_vqvae_tpu_torch.ops import mel_kernel as TMK
 from melspec_gpt_vqvae_tpu_torch.ops import sampling as TS
@@ -34,12 +35,14 @@ PORT_MODULES = [
     "melspec_gpt_vqvae_tpu_torch._build",
     "melspec_gpt_vqvae_tpu_torch.bridge",
     "melspec_gpt_vqvae_tpu_torch.ops.attention",
+    "melspec_gpt_vqvae_tpu_torch.ops.decode_attention",
     "melspec_gpt_vqvae_tpu_torch.ops.mel",
     "melspec_gpt_vqvae_tpu_torch.ops.mel_kernel",
     "melspec_gpt_vqvae_tpu_torch.ops.sampling",
     "melspec_gpt_vqvae_tpu_torch.ops.vocoder_stack",
     "melspec_gpt_vqvae_tpu_torch.ops.vq",
     "melspec_gpt_vqvae_tpu_torch.models.gpt",
+    "melspec_gpt_vqvae_tpu_torch.models.speculative",
     "melspec_gpt_vqvae_tpu_torch.models.vocoder",
     "melspec_gpt_vqvae_tpu_torch.models.vqvae",
     "melspec_gpt_vqvae_tpu_torch.pipeline",
@@ -171,7 +174,14 @@ def _wrapper_cases():
     torch.manual_seed(0)
     blocks = [MelGANResnetBlock(4, 3 ** j) for j in range(3)]
     h = torch.from_numpy(rng.standard_normal((2, 4, 40)).astype(np.float32))
+    kq = torch.from_numpy(rng.integers(-127, 128, (2, 1, 2, 6, 8)).astype(
+        np.int8))
+    ks = torch.from_numpy(rng.random((2, 1, 2, 6)).astype(np.float32)).to(
+        torch.bfloat16)
     return {
+        "decode_attend_int8": (TDA.decode_attend_int8,
+                               (q[:, :, 0], kq, kq, ks, ks, 1, 3),
+                               TDA.decode_attend_int8_xla),
         "attend": (TA.attend, (q, q, q, 2), TA.attend_xla),
         "vq_nearest_index": (TV.vq_nearest_index, (x, cb),
                              TV.vq_nearest_index_xla),
@@ -182,7 +192,8 @@ def _wrapper_cases():
     }
 
 
-@pytest.mark.parametrize("name", ["attend", "vq_nearest_index",
+@pytest.mark.parametrize("name", ["attend", "decode_attend_int8",
+                                  "vq_nearest_index",
                                   "waveform_to_mel_fused",
                                   "fused_resblock_stack"])
 def test_wrapper_takes_plain_version_on_cpu(name):

@@ -19,7 +19,8 @@ import torch
 
 from melspec_gpt_vqvae_tpu.configs import (ExperimentConfig, GPTConfig,
                                            MelConfig, VocoderConfig,
-                                           VQVAEConfig)
+                                           VQVAEConfig, load_preset,
+                                           parse_overrides)
 from melspec_gpt_vqvae_tpu.models.gpt import init_gpt_params
 from melspec_gpt_vqvae_tpu.models.vocoder import MelGANGenerator as JMelGAN
 from melspec_gpt_vqvae_tpu.models.vqvae import VQModel as JVQModel
@@ -67,8 +68,9 @@ def _tiny_exp():
                                vocoder=voc)
 
 
-@pytest.fixture(scope="module")
-def pipes():
+def tiny_pipelines():
+    """(exp, JAX pipeline, port pipeline) of the tiny round trip on the
+    same weights."""
     exp = _tiny_exp()
     gp = jax.tree_util.tree_map(
         np.asarray, init_gpt_params(jax.random.PRNGKey(0), exp.model))
@@ -80,6 +82,11 @@ def pipes():
         bridge.load_vqvae(vp, exp.vqvae),
         bridge.load_melgan(op, exp.vocoder), segments=2, chunk=3, bf16=False)
     return exp, jpipe, tpipe
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    return tiny_pipelines()
 
 
 def test_greedy_generation_round_trip_matches_jax(pipes):
@@ -151,15 +158,100 @@ def test_service_sheds_load_past_the_queue_bound(pipes):
     assert svc.shed == 1
 
 
-@pytest.mark.parametrize("kw", [{"kv_cache": "int8"}, {"int8_weights": 1},
-                                {"mesh_spec": "data=2"},
-                                {"draft_random": "n_layer=1"},
-                                {"int8_decode": True}])
+@pytest.mark.parametrize("kw", [{"mesh_spec": "data=2"},
+                                {"int8_decode": True},
+                                {"draft_experiment": "my_draft"}])
 def test_build_pipeline_refuses_what_is_not_ported(kw):
     with pytest.raises(NotImplementedError):
         TSV.build_pipeline("vas", init_random=True, **kw)
     with pytest.raises(NotImplementedError):
         TSV.serve()
+
+
+# a one-layer, 32-wide GPT in front of the VAS VQ-VAE and MelGAN
+SMALL = "n_layer=1,n_head=2,n_embd=32"
+
+
+@pytest.mark.parametrize("kw, cache, weights", [
+    ({}, "auto", "auto"),                       # the CPU's defaults
+    ({"kv_cache": "int8"}, "int8", "auto"),
+    ({"int8_weights": 1}, "auto", "int8"),
+    ({"kv_cache": "int4", "int8_weights": 1}, "int4", "int8"),
+])
+def test_build_pipeline_serves_each_cache_and_weight_dtype(kw, cache,
+                                                           weights):
+    """build_pipeline on the CPU takes the JAX package's defaults there
+    (float32, no quantisation) and builds every quantised variant; greedy
+    decoding through it equals gpt_generate on its weights and config."""
+    exp, pipe = TSV.build_pipeline("vas", init_random=True, override=SMALL,
+                                   seed=3, **kw)
+    m = exp.model
+    assert (m.dtype, m.cache_dtype, m.decode_weight_dtype) == (
+        "float32", cache, weights)
+    assert pipe.device.type == "cpu" and pipe.draft_params is None
+    toks, stats = pipe.generate_tokens([0, 5], None, sample=False)
+    assert toks.shape == (2, 265) and stats == {}
+    assert 0 <= int(toks.min()) and int(toks.max()) < m.vocab_size
+    from melspec_gpt_vqvae_tpu_torch.models.gpt import (class_embed,
+                                                        gpt_generate)
+    ref = gpt_generate(pipe.gpt_params, m, None,
+                       class_embed(pipe.gpt_params, torch.tensor([0, 5])),
+                       steps=265, sample=False, segments=pipe.segments)
+    torch.testing.assert_close(toks, ref, rtol=0, atol=0)
+
+
+def test_build_pipeline_with_a_random_draft():
+    """draft_random builds a draft from the target's overrides plus its
+    own, seeded from seed + 1; greedy speculative tokens equal the plain
+    pipeline's on the same target weights."""
+    exp, spec = TSV.build_pipeline("vas", init_random=True, override=SMALL,
+                                   seed=3, kv_cache="int8",
+                                   draft_random="n_layer=1,n_embd=16",
+                                   gamma=3)
+    dcfg = spec.draft_cfg
+    assert (dcfg.n_layer, dcfg.n_embd, dcfg.n_head) == (1, 16, 2)
+    assert (dcfg.cache_dtype, dcfg.dtype) == ("int8", "float32")
+    assert spec.gamma == 3 and spec.draft_params["tok_emb"].shape == (128, 16)
+    _, plain = TSV.build_pipeline("vas", init_random=True, override=SMALL,
+                                  seed=3, kv_cache="int8")
+    toks, stats = spec.generate_tokens([1, 2], None, sample=False)
+    ref, _ = plain.generate_tokens([1, 2], None, sample=False)
+    torch.testing.assert_close(toks, ref, rtol=0, atol=0)
+    assert stats["rounds"] >= 1 and stats["drafted"] == 3 * stats["rounds"]
+    with pytest.raises(ValueError, match="vocab_size"):
+        TSV.build_pipeline("vas", init_random=True, override=SMALL,
+                           draft_random="n_layer=1",
+                           draft_override="vocab_size=64")
+    with pytest.raises(ValueError, match="draft_override"):
+        TSV.build_pipeline("vas", init_random=True, override=SMALL,
+                           draft_override="n_layer=1")
+
+
+def test_build_pipeline_carries_jax_weights_and_draft():
+    """params= carries the JAX package's trees across, the draft's
+    included (``params["draft"]``, config from the overrides), and greedy
+    speculative tokens equal greedy tokens without the draft."""
+    exp = load_preset("GPT", "vas", **parse_overrides(SMALL))
+    d_model = exp.model.replace(n_layer=1, n_embd=16)
+    gpt, draft = (jax.tree_util.tree_map(np.asarray, init_gpt_params(
+        jax.random.PRNGKey(s), m)) for s, m in ((0, exp.model), (1, d_model)))
+    params = {"gpt": gpt,
+              "vqvae": flax_params(JVQModel(exp.vqvae),
+                                   jnp.zeros((1, 80, 848, 1)), 1),
+              "vocoder": flax_params(JMelGAN(exp.vocoder),
+                                     jnp.zeros((1, 848, 80)), 2)}
+    _, plain = TSV.build_pipeline("vas", params=params, override=SMALL)
+    _, spec = TSV.build_pipeline("vas", params={**params, "draft": draft},
+                                 override=SMALL,
+                                 draft_override="n_layer=1,n_embd=16")
+    np.testing.assert_array_equal(spec.draft_params["head"]["w"].numpy(),
+                                  draft["head"]["w"])
+    np.testing.assert_array_equal(plain.gpt_params["tok_emb"].numpy(),
+                                  gpt["tok_emb"])
+    toks, stats = spec.generate_tokens([2, 7], None, sample=False)
+    ref, _ = plain.generate_tokens([2, 7], None, sample=False)
+    torch.testing.assert_close(toks, ref, rtol=0, atol=0)
+    assert stats["rounds"] >= 1
 
 
 def test_wav_bytes_match_jax():
