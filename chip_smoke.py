@@ -25,6 +25,15 @@
    the CPU: the round trip (PR 1's check), and for the int8 and int4
    configurations the quantised cache values, the teacher-forced logits
    and greedy speculative against greedy plain decoding.
+4. Trains: kernel F (training attention, forward and backward) against
+   its plain version at (8, 16, 265, 64) and T = 37; then the VAS GPT
+   preset at full width with ``use_flash_train=True`` through
+   ``train_gpt.main`` on a synthetic VAS tree of the 48 battery clips and
+   their codes (a few steps, a validation pass, a checkpoint save), with
+   F's launches counted; the checkpoint restored bit for bit; steps timed
+   against the plain-attention step; the loss on one repeated batch
+   falling; and one float32 train step of a 2-layer copy on the card
+   against the CPU.
 
 Exits non-zero, printing no result, when there is no CUDA card or any check
 fails.  The last three lines of stdout are: a JSON object of the kernels,
@@ -35,8 +44,11 @@ the card's ``nvidia-smi`` name and power limit, and
 import copy
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -73,6 +85,17 @@ def wall(fn):
 
 def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
+
+
+def trees_equal(a, b):
+    """Nested dicts of tensors and numbers equal bit for bit (tensors
+    compared on the CPU)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(trees_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.cpu(), b.cpu())
+    return a == b
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +335,58 @@ def check_int8_mm(dev):
                                   w_dev["attn_qkv"]["s"][0]), reps=200)
     print(f"  _int8_mm (cuBLASLt int8): 4 block shapes x M in (1, 8, 40) "
           f"bitwise equal to the CPU; M=8 (1024, 3072) {ms:.4f} ms")
+
+
+def check_flash(dev):
+    """Kernel F forward (O, lse) and backward (dQ, dK, dV) against the
+    plain versions, at the training shape and a small odd T, with and
+    without a keep-mask, n_unmasked 0 and T.  Bounds: the JAX package's
+    (tests/test_flash_attention.py:26,44): 3e-5 outputs, 5e-5 gradients."""
+    from melspec_gpt_vqvae_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd, flash_attention_ref_bwd,
+        flash_attention_ref_fwd, make_dropout_mask)
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst_o = worst_g = 0.0
+    for t in (265, 37):
+        for nu in (0, t):
+            for rate in (0.0, 0.5):
+                q, k, v, do = (torch.randn(8, 16, t, 64, generator=g,
+                                           device=dev) for _ in range(4))
+                keep = make_dropout_mask(g, (8, 16, t, t), rate)
+                args = (nu, 1.0 - rate)
+                o, lse = flash_attention_fwd(q, k, v, keep, *args)
+                o_ref, lse_ref = flash_attention_ref_fwd(q, k, v, keep, *args)
+                grads = flash_attention_bwd(q, k, v, keep, o, lse, do, *args)
+                refs = flash_attention_ref_bwd(q, k, v, keep, lse_ref, do,
+                                               *args)
+                torch.cuda.synchronize()
+                e_o = max(max_err(o, o_ref), max_err(lse, lse_ref))
+                e_g = max(max_err(a, b) for a, b in zip(grads, refs))
+                scale = max(r.abs().max().item() for r in refs)
+                print(f"  F flash attention T={t:3d} n_unmasked={nu:3d} "
+                      f"keep={1 - rate:.1f}: O/lse max|err| {e_o:.3g} (tol "
+                      f"3e-5), dQ/dK/dV {e_g:.3g} (tol 5e-5, max|grad| "
+                      f"{scale:.3g})")
+                check(e_o <= 3e-5, f"flash forward T={t} nu={nu} rate={rate}")
+                check(e_g <= 5e-5, f"flash backward T={t} nu={nu} "
+                                   f"rate={rate}")
+                worst_o, worst_g = max(worst_o, e_o), max(worst_g, e_g)
+    # the slice's shape: batch 8, 16 heads, T = 265, the preset's keep 0.5
+    q, k, v, do = (torch.randn(8, 16, 265, 64, generator=g, device=dev)
+                   for _ in range(4))
+    keep = make_dropout_mask(g, (8, 16, 265, 265), 0.5)
+    o, lse = flash_attention_fwd(q, k, v, keep, 0, 0.5)
+    fwd = (cuda_ms(lambda: flash_attention_fwd(q, k, v, keep, 0, 0.5)),
+           cuda_ms(lambda: flash_attention_ref_fwd(q, k, v, keep, 0, 0.5)))
+    bwd = (cuda_ms(lambda: flash_attention_bwd(q, k, v, keep, o, lse, do,
+                                               0, 0.5)),
+           cuda_ms(lambda: flash_attention_ref_bwd(q, k, v, keep, lse, do,
+                                                   0, 0.5)))
+    print(f"  F timing f32 (8,16,265,64) keep 0.5: forward kernel "
+          f"{fwd[0]:.4f} ms, plain {fwd[1]:.4f} ms; backward kernel "
+          f"{bwd[0]:.4f} ms, plain {bwd[1]:.4f} ms")
+    return ({"max_abs_err": worst_o, "ms": fwd[0], "plain_ms": fwd[1]},
+            {"max_abs_err": worst_g, "ms": bwd[0], "plain_ms": bwd[1]})
 
 
 # ---------------------------------------------------------------------------
@@ -587,6 +662,180 @@ def serve_path(exp, pipe, dev, requests):
     return calls, rounds
 
 
+# ---------------------------------------------------------------------------
+# 4. training
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, VAL_BATCHES = 4, 1
+TRAIN_ROOT = Path("build") / "chip_smoke_train"
+
+
+def write_vas_tree(root, mels, codes):
+    """A VAS tree under ``root`` as GPT_train reads it: 8 classes of six
+    clips (the battery's 48 mels and their VQ codes, as (5, 53) grids),
+    five per class in the train split (40 lines) and one in the valid
+    split (8 lines)."""
+    shutil.rmtree(root, ignore_errors=True)
+    grids = codes.reshape(-1, 53, 5).transpose(1, 2).cpu().numpy()
+    mels = mels.cpu().numpy()
+    train, valid = [], []
+    for i in range(48):
+        cls, vid = f"class{i % 8}", f"clip_{i:03d}"
+        feat = root / "data" / "vas" / "features" / cls
+        for sub in ("melspec_10s_22050hz", "codes_10s"):
+            (feat / sub).mkdir(parents=True, exist_ok=True)
+        np.save(feat / "melspec_10s_22050hz" / f"{vid}_mel.npy", mels[i])
+        np.save(feat / "codes_10s" / f"{vid}_mel_code.npy",
+                grids[i].astype(np.int64))
+        (valid if i >= 40 else train).append(f"{cls}/{vid}")
+    (root / "data" / "vas_train.txt").write_text("\n".join(train) + "\n")
+    (root / "data" / "vas_valid.txt").write_text("\n".join(valid) + "\n")
+
+
+def run_train_cli(root, flash):
+    """``train_gpt.main`` from ``root``: the VAS preset (full width, batch
+    8, dropout 0.5) for TRAIN_STEPS steps, VAL_BATCHES validation batches
+    and the final checkpoint."""
+    from melspec_gpt_vqvae_tpu_torch import train_gpt
+    argv = ["--dataset", "vas", "--experiment", "smoke", "--train", "1",
+            "--device", "cuda", "--epochs_override", "1",
+            "--limit_train_batches", str(TRAIN_STEPS),
+            "--limit_val_batches", str(VAL_BATCHES), "--ckpt_every", "0",
+            "--override", f"use_flash_train={flash}"]
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        return train_gpt.main(train_gpt.init_config(argv))
+    finally:
+        os.chdir(cwd)
+
+
+def timed_steps(task, state, batch, n, lr=None):
+    """``n`` train steps on one batch (dropout generators as fit_gpt draws
+    them); returns (losses, ms per step over the last n - 2 steps, peak
+    device bytes)."""
+    from melspec_gpt_vqvae_tpu_torch.training.optim import with_lr
+    from melspec_gpt_vqvae_tpu_torch.training.runner import step_generator
+    if lr is not None:
+        with_lr(state["optimizer"], lr)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(n):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, loss = task.train_step(state, batch,
+                                      step_generator(1, 0, i, task.device))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (n - 2)
+    return ([l.item() for l in losses], ms,
+            torch.cuda.max_memory_allocated())
+
+
+def train_check(dev, mels, codes):
+    """The training main path, its launch counts, the checkpoint, step
+    times against the plain attention, and the learning check.  Returns
+    F's launches (forward, backward) on the main path and the batch the
+    steps were timed on."""
+    from melspec_gpt_vqvae_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    from melspec_gpt_vqvae_tpu_torch.training.gpt_task import GPTTask
+    write_vas_tree(TRAIN_ROOT, mels, codes)
+    flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+    (task, state, ckpt), dt = wall(lambda: run_train_cli(TRAIN_ROOT, True))
+    launches = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    n_layer = task.cfg.n_layer
+    print(f"  train_gpt.main (VAS preset, use_flash_train, {TRAIN_STEPS} "
+          f"steps, {VAL_BATCHES} val batch, checkpoint): {dt:.1f} s; F "
+          f"launches forward {launches[0]}, backward {launches[1]}")
+    check(state["step"] == TRAIN_STEPS, f"train steps {state['step']}")
+    check(launches == (n_layer * (TRAIN_STEPS + VAL_BATCHES),
+                       n_layer * TRAIN_STEPS),
+          "kernel F: n_layer forward launches per train or val forward, "
+          "n_layer backward launches per train step")
+
+    same = trees_equal(ckpt.restore("last")["state"], task.state_tree(state))
+    print(f"  checkpoint restore('last') equals the live params and AdamW "
+          f"state bit for bit: {same}")
+    check(same, "checkpoint round trip")
+
+    batch = first_train_batch()
+    losses, ms, mem = timed_steps(task, state, batch, 30, lr=3e-4)
+    tokens = 8 * 265 / (ms / 1e3)
+    print(f"  flash attention: {ms:.1f} ms per step, {tokens:.0f} tokens/s, "
+          f"peak {mem / 2 ** 30:.2f} GiB; repeated batch at lr 3e-4: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} in 30 steps")
+    check(all(np.isfinite(losses)), "non-finite training loss")
+    check(losses[-1] < losses[0], "loss on a repeated batch did not fall")
+    del task, state, ckpt
+    torch.cuda.empty_cache()
+
+    plain = GPTTask(load_vas_exp(use_flash_train=False), dev)
+    pstate = plain.init_state()
+    _, pms, pmem = timed_steps(plain, pstate, batch, 10)
+    print(f"  plain attention (attend_xla): {pms:.1f} ms per step, "
+          f"{8 * 265 / (pms / 1e3):.0f} tokens/s, peak "
+          f"{pmem / 2 ** 30:.2f} GiB")
+    del plain, pstate
+    torch.cuda.empty_cache()
+    return launches, batch
+
+
+def load_vas_exp(**override):
+    from melspec_gpt_vqvae_tpu.configs import load_preset
+    return load_preset("GPT", "vas", **override)
+
+
+def first_train_batch():
+    """The first batch of the synthetic tree's shuffled train split."""
+    from melspec_gpt_vqvae_tpu.data import DataModule
+    dm = DataModule(batch_size=8, spec_dir_path=str(
+        TRAIN_ROOT / "data" / "vas" / "features" / "*" /
+        "melspec_10s_22050hz"), data_root=str(TRAIN_ROOT / "data"))
+    dm.setup()
+    return next(iter(dm.train_dataloader()))
+
+
+def train_reference_check(dev, batch):
+    """One float32 train step of a 2-layer GPT at the VAS widths, dropout
+    0, kernel F, on the card against the CPU: the loss, every gradient and
+    the updated parameters."""
+    from melspec_gpt_vqvae_tpu_torch.training.gpt_task import GPTTask
+    from melspec_gpt_vqvae_tpu_torch.training.optim import named_leaves
+    exp = load_vas_exp(n_layer=2, embd_pdrop=0.0, resid_pdrop=0.0,
+                       attn_pdrop=0.0, use_flash_train=True,
+                       learning_rate=3e-4)
+    out = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        task = GPTTask(exp, d)
+        state = task.init_state(11)
+        state, loss = task.train_step(state, batch, torch.Generator(device=d))
+        out[name] = (loss.item(), {n: (t.detach().cpu(), t.grad.cpu())
+                                   for n, t in named_leaves(state["params"])})
+    (l_cpu, cpu), (l_card, card) = out["cpu"], out["card"]
+    g_rel = max(max_err(card[n][1], cpu[n][1])
+                / cpu[n][1].abs().max().clamp_min(1e-30).item() for n in cpu)
+    # Adam's first step is ~lr * sign(g): a parameter may differ only where
+    # its gradient is within the gradient bound of 0
+    p_err, p_bad = 0.0, 0
+    for n in cpu:
+        dp = (card[n][0] - cpu[n][0]).abs()
+        p_err = max(p_err, dp.max().item())
+        p_bad += int(((dp > 1e-6 + 1e-6 * cpu[n][0].abs())
+                      & (cpu[n][1].abs() > 1e-4 * cpu[n][1].abs().max()))
+                     .sum())
+    res = {"loss_cpu": l_cpu, "loss_diff": abs(l_card - l_cpu),
+           "grad_max_rel_err": g_rel, "param_max_diff": p_err,
+           "params_differing_beyond_grad_noise": p_bad}
+    print(f"  train step (f32, 2-layer GPT, VAS widths, dropout 0, kernel F) "
+          f"card vs CPU: {json.dumps(res)} (bounds: loss 5e-5, gradients "
+          f"1e-4 of each leaf's max|g|)")
+    check(res["loss_diff"] <= 5e-5, "train step loss vs CPU")
+    check(g_rel <= 1e-4, "train step gradients vs CPU")
+    check(p_bad == 0, "updated parameters vs CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs "
@@ -643,6 +892,8 @@ def main():
                "vq_nearest": check_vq(dev),
                "mel": check_mel(dev, wav, exp.mel),
                "decode_attention": check_decode_attention(dev)}
+    results["flash_attention_fwd"], results["flash_attention_bwd"] = \
+        check_flash(dev)
     check_int8_mm(dev)
 
     wrappers = {"attention": attend, "vocoder_stack": fused_resblock_stack,
@@ -718,12 +969,25 @@ def main():
     reference_check(dev, exp, wav, seed=7)
     quantised_reference_check(dev, exp, seed=7)
 
+    print("training (VAS GPT preset, full width, float32, random weights):")
+    with torch.inference_mode():
+        mels = waveform_to_mel_fused(wav, exp.mel)
+    f_launches, batch = train_check(dev, mels, codes)
+    launches["flash_attention_fwd"], launches["flash_attention_bwd"] = \
+        f_launches
+    train_reference_check(dev, batch)
+    shutil.rmtree(TRAIN_ROOT)
+
     meta = {"attention": ("attention.cu", "attention.py:114"),
             "vocoder_stack": ("vocoder_stack.cu", "vocoder_pallas.py:143"),
             "vq_nearest": ("vq.cu", "vq.py:37"),
             "mel": ("mel.cu", "mel_pallas.py:54"),
             "decode_attention": ("decode_attention.cu",
-                                 "decode_attention.py:64")}
+                                 "decode_attention.py:64"),
+            "flash_attention_fwd": ("flash_attention.cu",
+                                    "flash_attention.py:51"),
+            "flash_attention_bwd": ("flash_attention.cu",
+                                    "flash_attention.py:70")}
     kernels = [{"name": name, "route": "cuda",
                 "source": "melspec_gpt_vqvae_tpu_torch/csrc/" + src,
                 "replaces": "melspec_gpt_vqvae_tpu/ops/" + rep,

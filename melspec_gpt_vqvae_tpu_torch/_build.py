@@ -39,6 +39,8 @@ SIGNATURES = {
     "msgv_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "msgv_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _P],
+    "msgv_flash_attention_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
+    "msgv_flash_attention_bwd": [_P] * 11 + [_I] * 4 + [_F, _P],
     "msgv_resblock_stack": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P],
     "msgv_vq_nearest": [_P, _P, _P, _P, _I, _I, _I, _P],

@@ -18,6 +18,11 @@ array) so that it never imports JAX:
 
 ``load_state_dict(strict=True)`` then checks that every module tensor is
 covered once with the right shape.
+
+A JAX ``GPTTask`` train state crosses as the port's ``state_tree`` form
+(training/gpt_task.py): the params, the AdamW moments and count of the
+optax ``inject_hyperparams`` state's ``inner_state[0]``
+(``ScaleByAdamState``), its live learning rate and the step.
 """
 
 from __future__ import annotations
@@ -57,6 +62,30 @@ def gpt_params_from_jax(params: Mapping) -> Dict:
     if isinstance(params, Mapping):
         return {k: gpt_params_from_jax(v) for k, v in params.items()}
     return _tensor(params)
+
+
+def train_state_from_jax(params: Mapping, opt_state, step) -> Dict:
+    """A JAX ``GPTTask`` state -- params, the ``gpt_adamw`` opt state
+    (``InjectStatefulHyperparamsState``) and step -- as the port's
+    ``state_tree`` dict of float32 CPU tensors, for
+    ``GPTTask.load_state``.  Reads the opt state by attribute, so it
+    needs no JAX import."""
+    adam = opt_state.inner_state[0]
+    return {"params": gpt_params_from_jax(params),
+            "mu": gpt_params_from_jax(adam.mu),
+            "nu": gpt_params_from_jax(adam.nu),
+            "count": int(np.asarray(adam.count)),
+            "lr": float(np.asarray(opt_state.hyperparams["learning_rate"])),
+            "step": int(np.asarray(step))}
+
+
+def train_state_to_numpy(tree: Dict) -> Dict:
+    """A ``state_tree`` dict with numpy leaves in place of tensors."""
+    if isinstance(tree, dict):
+        return {k: train_state_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
 
 
 def conv_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:

@@ -1,11 +1,18 @@
-"""Class-conditional GPT, inference: eval forward and KV-cached decode.
+"""Class-conditional GPT: training and eval forward, KV-cached decode.
 
 Counterpart of melspec_gpt_vqvae_tpu/models/gpt.py (reference
 transformer/minGPT.py:30-212, 331-360).  Parameters are a dict of tensors
 in the JAX package's layout -- blocks stacked on a leading layer axis,
 ``(L, in, out)`` matrices, a fused ``attn_qkv`` -- so bridge.py carries a
 JAX param tree across leaf for leaf; the layer loop is a Python loop where
-the JAX package scans.
+the JAX package scans.  For training the leaves are tensors with
+``requires_grad``, and ``gpt_apply(train=True, generator=)`` draws the
+dropout masks from one ``torch.Generator``: the embedding's first, then
+per layer the attention's, the projection's and the MLP's (gpt.py:110-179,
+235-294).  With ``use_flash_train`` the attention of every forward, train
+and eval, is kernel F (ops/flash_attention.py); otherwise a training
+forward runs the plain differentiable ``attend_xla`` and an eval forward
+kernel A (ops/attention.py), as the JAX package's XLA and Pallas paths.
 
 Decode keeps a preallocated KV cache of layout (L, B, H, T, hd) and
 updates it in place: the JAX functions return a new cache, these write the
@@ -30,9 +37,10 @@ import torch.nn.functional as F
 
 from melspec_gpt_vqvae_tpu.configs import GPTConfig
 
-from ..ops.attention import attend
+from ..ops.attention import attend, attend_xla, bernoulli_u8
 from ..ops.decode_attention import decode_attend_int8
 from ..ops.decode_attention import unpack4 as _unpack4  # noqa: F401
+from ..ops.flash_attention import flash_attention, make_dropout_mask
 from ..ops.sampling import sample_logits
 
 Params = Dict[str, object]
@@ -135,31 +143,106 @@ def _embed(params, cfg, idx, cond_emb):
     return x + params["pos_emb"][:t]
 
 
-def _attn_block(x, p, cfg):
-    """Pre-LN attention half of a block; returns (x', k, v) with k, v of
-    layout (B, H, T, hd)."""
+def count_params(params: Params) -> int:
+    """Number of parameter values in a nested dict of tensors."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return params.numel()
+
+
+def _layers(blocks) -> list:
+    """The stacked block parameters as one dict per layer.  ``unbind``
+    gives every layer a view whose backward stacks the layer gradients
+    into one (L, ...) tensor, where indexing layer by layer would add L
+    full-size gradient tensors."""
+    per = {k: ({kk: vv.unbind(0) for kk, vv in v.items()}
+               if isinstance(v, dict) else v.unbind(0))
+           for k, v in blocks.items()}
+    return [{k: ({kk: vv[l] for kk, vv in v.items()} if isinstance(v, dict)
+                 else v[l]) for k, v in per.items()}
+            for l in range(len(blocks["ln1_s"]))]
+
+
+def _qkv(x, p, cfg):
+    """Pre-LN fused projection -> q, k, v of layout (B, H, T, hd)."""
     h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
     qkv = h @ p["attn_qkv"]["w"] + p["attn_qkv"]["b"]
-    q, k, v = (_split_heads(a, cfg.n_head) for a in qkv.chunk(3, dim=-1))
+    return (_split_heads(a, cfg.n_head) for a in qkv.chunk(3, dim=-1))
+
+
+def _attn_block(x, p, cfg):
+    """Pre-LN attention half of an inference block; returns (x', k, v)
+    with k, v of layout (B, H, T, hd)."""
+    q, k, v = _qkv(x, p, cfg)
     res = attend(q, k, v, cfg.n_unmasked)
     y = _merge_heads(res) @ p["attn_proj"]["w"] + p["attn_proj"]["b"]
     return x + y, k, v
 
 
+def _dropout(x, rate: float, generator: Optional[torch.Generator],
+             train: bool):
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = bernoulli_u8(generator, 1.0 - rate, x.shape)
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def _block(x, p, cfg: GPTConfig, train: bool,
+           generator: Optional[torch.Generator]):
+    """One pre-LN block of ``gpt_apply`` (gpt.py:132-179).  The attention
+    branch is taken as the JAX block takes it: kernel F whenever
+    ``use_flash_train`` (with a keep-mask only in training), else the
+    plain ``attend_xla`` in training and kernel A in eval."""
+    q, k, v = _qkv(x, p, cfg)
+    if cfg.use_flash_train:
+        rate = cfg.attn_pdrop if train else 0.0
+        b, h, t = q.shape[:3]
+        mask = make_dropout_mask(generator if train else None,
+                                 (b, h, t, t), rate)
+        res = flash_attention(q.float(), k.float(), v.float(), mask,
+                              cfg.n_unmasked, 1.0 - rate).to(x.dtype)
+    elif train:
+        res = attend_xla(q, k, v, cfg.n_unmasked,
+                         dropout_rate=cfg.attn_pdrop, generator=generator)
+    else:
+        res = attend(q, k, v, cfg.n_unmasked)
+    y = _merge_heads(res) @ p["attn_proj"]["w"] + p["attn_proj"]["b"]
+    x = x + _dropout(y, cfg.resid_pdrop, generator, train)
+    m = _mlp(_layer_norm(x, p["ln2_s"], p["ln2_b"]), p)
+    return x + _dropout(m, cfg.resid_pdrop, generator, train)
+
+
 def gpt_apply(params: Params, cfg: GPTConfig, idx: Optional[torch.Tensor],
-              cond_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Eval forward (no dropout).  idx (B, T) tokens or None; cond_emb
-    (B, P, D) prepended embeddings.  Returns logits (B, P + T, out)."""
+              cond_emb: Optional[torch.Tensor] = None, *,
+              train: bool = False,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Full forward.  idx (B, T) tokens or None; cond_emb (B, P, D)
+    prepended embeddings.  ``train`` with a ``generator`` applies the three
+    dropout rates (a training forward without a generator has no dropout,
+    as the JAX one without an rng).  Returns logits (B, P + T, out); the
+    JAX function's second result, the attention maps, is not ported."""
     if cfg.mixed_precision:
         raise NotImplementedError("mixed-precision training forward is not "
-                                  "ported (ROADMAP A7)")
+                                  "ported (ROADMAP A8)")
     x = _embed(params, cfg, idx, cond_emb)
-    for l in range(cfg.n_layer):
-        p = _layer(params["blocks"], l)
-        x, _, _ = _attn_block(x, p, cfg)
-        x = x + _mlp(_layer_norm(x, p["ln2_s"], p["ln2_b"]), p)
+    train = bool(train) and generator is not None
+    x = _dropout(x, cfg.embd_pdrop, generator, train)
+    for p in _layers(params["blocks"]):
+        x = _block(x, p, cfg, train, generator)
     x = _layer_norm(x, params["ln_f_s"], params["ln_f_b"])
     return x @ params["head"]["w"]
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       reduce: str = "mean") -> torch.Tensor:
+    """F.cross_entropy over the last axis in float32 (gpt.py:297-307)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    if reduce == "mean":
+        return nll.mean()
+    if reduce == "sum":
+        return nll.sum()
+    return nll
 
 
 # ---------------------------------------------------------------------------

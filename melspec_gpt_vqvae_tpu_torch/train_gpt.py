@@ -1,0 +1,136 @@
+"""Class-conditional GPT training CLI of the PyTorch port.
+
+    python -m melspec_gpt_vqvae_tpu_torch.train_gpt --dataset vas \\
+        --experiment my_gpt --train 1 [--device cuda] [--override k=v,...]
+
+The counterpart of the JAX package's GPT_train.py, with its flags, preset
+merge (``load_preset("GPT", dataset)`` plus ``--override``) and log and
+checkpoint layout (``lightning_logs/{experiment}-{dataset}``, TensorBoard
+scalars in ``TensorBoardLoggs/version_N``, checkpoints in
+``checkpoints/version_N``), minus the JAX-only ``--mesh``, ``--pp_micro``,
+``--prng`` and ``--platform`` and plus ``--device``.  The data are the
+same split files and ``_mel.npy`` / ``_mel_code.npy`` trees, read by the
+JAX package's framework-free ``data`` module.  The media callbacks are not
+ported: ``--reconstruct_spec`` and ``--vocoder`` are refused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def init_config(argv=None):
+    parser = argparse.ArgumentParser(
+        description="GPT transformer for VQVAE_spec (PyTorch port)")
+    parser.add_argument("--dataset", type=str, required=True)
+    parser.add_argument("--experiment", type=str, required=True)
+    parser.add_argument("--train", type=int, default=0)
+    parser.add_argument("--resume", type=str, default=None)
+    # --workers, --logging_frequency (media logging) and
+    # --test_interpolation are taken for GPT_train.py's command lines and
+    # change nothing here, as --workers and --test_interpolation change
+    # nothing there
+    parser.add_argument("--workers", type=int, default=1)
+    parser.add_argument("--eval", type=int, default=0)
+    parser.add_argument("--test", type=int, default=0)
+    parser.add_argument("--logging_frequency", type=int, default=200)
+    parser.add_argument("--test_interpolation", type=int, default=0)
+    parser.add_argument("--reconstruct_spec", type=str, default="",
+                        help="frozen VQ-VAE ckpt for spectrogram decode "
+                             "(media logging; not ported)")
+    parser.add_argument("--vocoder", type=str, default="",
+                        help="frozen MelGAN ckpt dir for audio decode "
+                             "(media logging; not ported)")
+    parser.add_argument("--data_root", type=str, default="./data")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to train on, e.g. 'cuda', "
+                             "'cuda:1' or 'cpu'")
+    parser.add_argument("--limit_train_batches", type=int, default=0)
+    parser.add_argument("--limit_val_batches", type=int, default=0)
+    parser.add_argument("--epochs_override", type=int, default=0)
+    parser.add_argument("--ckpt_every", type=int, default=1,
+                        help="checkpoint every N epochs (+ final); 0 = "
+                             "final only, -1 = never")
+    parser.add_argument("--ckpt_every_steps", type=int, default=0,
+                        help="also save 'last' every N train steps with "
+                             "its mid-epoch position; resume continues at "
+                             "the exact next batch (0 = off)")
+    parser.add_argument("--max_steps", type=int, default=0,
+                        help="stop (and checkpoint) after this many total "
+                             "optimizer steps, possibly mid-epoch (0 = no "
+                             "budget)")
+    parser.add_argument("--profile", type=str, default="",
+                        help="write a torch.profiler trace into this dir")
+    parser.add_argument("--override", type=str, default="",
+                        help="comma k=v preset overrides, e.g. "
+                             "'n_layer=2,n_embd=32,use_flash_train=True'")
+    args = parser.parse_args(argv)
+    args.seed = 783435
+    return args
+
+
+def main(args):
+    """Run the CLI.  Returns (task, final train state or None, checkpoint
+    manager) for callers that drive it from Python."""
+    import numpy as np
+    import torch
+
+    from melspec_gpt_vqvae_tpu.configs import load_preset, parse_overrides
+    from melspec_gpt_vqvae_tpu.data import DataModule
+
+    from .training import runner
+    from .training.checkpoint import CheckpointManager
+    from .training.gpt_task import GPTTask
+    from .training.logging import TBLogger
+    from .utils.profiling import trace
+
+    if args.reconstruct_spec or args.vocoder:
+        raise NotImplementedError("media logging (--reconstruct_spec, "
+                                  "--vocoder) is not ported (ROADMAP A7)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device")
+
+    np.random.seed(args.seed)
+    exp = load_preset("GPT", args.dataset, **parse_overrides(args.override))
+    if args.epochs_override:
+        exp.train = exp.train.__class__(
+            learning_rate=exp.train.learning_rate,
+            epochs=args.epochs_override, batch_size=exp.train.batch_size)
+    print(f"device: {device}"
+          + (f" ({torch.cuda.get_device_name(device)})"
+             if device.type == "cuda" else ""))
+
+    dm = DataModule(batch_size=exp.train.batch_size,
+                    spec_dir_path=exp.data.spec_dir_path,
+                    data_root=args.data_root)
+    dm.setup()
+    task = GPTTask(exp, device)
+
+    run_dir = os.path.join("lightning_logs",
+                           f"{args.experiment}-{args.dataset}")
+    log = TBLogger(run_dir)
+    ckpt = CheckpointManager(os.path.join(
+        run_dir, "checkpoints", f"version_{log.version}"))
+
+    state = None
+    if args.train:
+        with trace(args.profile or None):
+            state = runner.fit_gpt(
+                task, dm, epochs=exp.train.epochs, log=log, ckpt=ckpt,
+                seed=args.seed, resume=args.resume,
+                limit_train_batches=args.limit_train_batches or None,
+                limit_val_batches=args.limit_val_batches or None,
+                ckpt_every=args.ckpt_every,
+                ckpt_every_steps=args.ckpt_every_steps,
+                max_steps=args.max_steps or None)
+    if args.eval == 1 or args.test == 1:
+        runner.validate_gpt(task, dm, ckpt=ckpt, resume=args.resume,
+                            limit_val_batches=args.limit_val_batches or None)
+    log.close()
+    return task, state, ckpt
+
+
+if __name__ == "__main__":
+    main(init_config())

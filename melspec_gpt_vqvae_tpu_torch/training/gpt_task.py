@@ -1,0 +1,177 @@
+"""Class-conditional GPT training system (the reference's ``Lit_minGPT``).
+
+Counterpart of melspec_gpt_vqvae_tpu/training/gpt_task.py:34-205 on one
+device: next-token cross entropy over the 265 code positions behind the
+class token, the minGPT two-group AdamW, a train step that updates the
+parameters and the optimizer in place, and sampling through the KV-cached
+``gpt_generate``.
+
+A train state is ``{"params": nested dict of leaf tensors with
+requires_grad, "optimizer": torch.optim.AdamW, "step": int}``.
+``state_tree`` and ``load_state`` turn it into and out of a plain nested
+dict of tensors and numbers -- the form checkpoints and bridge.py carry.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from melspec_gpt_vqvae_tpu.configs import ExperimentConfig, GPTConfig
+
+from ..models.gpt import (DTYPES, class_embed, count_params,
+                          cross_entropy_loss, gpt_apply, gpt_generate,
+                          init_gpt_params)
+from ..utils.profiling import StepTimer, gpt_fwd_flops, peak_flops
+from .optim import get_lr, gpt_adamw, named_leaves, with_lr
+
+TrainState = Dict[str, object]
+
+
+def tokens_from_batch(codes) -> torch.Tensor:
+    """(B, 5, 53) code grid -> (B, 265) column-major int64 tokens
+    (reference get_x: minGPT.py:387-394)."""
+    codes = torch.as_tensor(np.asarray(codes))
+    return codes.transpose(1, 2).reshape(codes.shape[0], -1).long()
+
+
+def gpt_loss_fn(params, cfg: GPTConfig, x: torch.Tensor, c: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> torch.Tensor:
+    """Conditioned next-token cross entropy (minGPT.py:260-285, 413-417).
+    x: (B, 265) tokens; c: (B,) or (B, 1) class index.  The logits from
+    the class token on predict x: the first ``cond.shape[1] - 1`` are
+    dropped."""
+    cond = class_embed(params, c)
+    logits = gpt_apply(params, cfg, x[:, :-1], cond, train=train,
+                       generator=generator)
+    return cross_entropy_loss(logits[:, cond.shape[1] - 1:], x)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+class GPTTask:
+    """Config, device and steps of the GPT-class model."""
+
+    def __init__(self, exp: ExperimentConfig, device: torch.device):
+        self.exp = exp
+        self.cfg = exp.model
+        self.device = torch.device(device)
+
+    def _optimizer(self, params) -> torch.optim.AdamW:
+        tr = self.exp.train
+        return gpt_adamw(params, tr.learning_rate, tr.weight_decay, tr.betas)
+
+    def init_state(self, seed: int = 783435) -> TrainState:
+        """Random parameters from ``seed`` (drawn on the CPU, so a seed gives
+        the same weights on every device), a fresh AdamW, step 0."""
+        params = init_gpt_params(self.cfg, torch.Generator().manual_seed(seed),
+                                 device=self.device)
+        params = _map(params, lambda t: t.detach().requires_grad_(True))
+        return {"params": params, "optimizer": self._optimizer(params),
+                "step": 0}
+
+    # ------------------------------------------------------------------
+    def state_tree(self, state: TrainState) -> Dict:
+        """The state as a nested dict: params, the AdamW moments ``mu`` and
+        ``nu`` (zeros before the first step), their step ``count``, the
+        live ``lr`` and the train ``step``.  Tensors are the live ones,
+        detached, not copies."""
+        opt = state["optimizer"]
+        mu, nu, count = {}, {}, 0
+        for name, t in named_leaves(state["params"]):
+            st = opt.state.get(t, {})
+            mu[name] = st.get("exp_avg", torch.zeros_like(t)).detach()
+            nu[name] = st.get("exp_avg_sq", torch.zeros_like(t)).detach()
+            if "step" in st:
+                count = int(st["step"])
+        return {"params": _map(state["params"], lambda t: t.detach()),
+                "mu": _unflatten(state["params"], mu),
+                "nu": _unflatten(state["params"], nu), "count": count,
+                "lr": get_lr(opt), "step": int(state["step"])}
+
+    def load_state(self, tree: Dict) -> TrainState:
+        """A train state on this task's device from a ``state_tree``-shaped
+        dict (a checkpoint's, or bridge.train_state_from_jax's): parameters
+        and moments are copied exactly, in the model dtype."""
+        dtype = DTYPES[self.cfg.dtype]
+        params = _map(tree["params"], lambda t: torch.as_tensor(t).to(
+            self.device, dtype, copy=True).requires_grad_(True))
+        opt = with_lr(self._optimizer(params), tree["lr"])
+        count = int(tree["count"])
+        if count:
+            mu = dict(named_leaves(tree["mu"]))
+            nu = dict(named_leaves(tree["nu"]))
+            for name, t in named_leaves(params):
+                opt.state[t] = {
+                    "step": torch.tensor(float(count)),
+                    "exp_avg": torch.as_tensor(mu[name]).to(
+                        self.device, dtype, copy=True),
+                    "exp_avg_sq": torch.as_tensor(nu[name]).to(
+                        self.device, dtype, copy=True)}
+        return {"params": params, "optimizer": opt, "step": int(tree["step"])}
+
+    # ------------------------------------------------------------------
+    def batch_tensors(self, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = tokens_from_batch(batch["codes"]).to(self.device)
+        c = torch.as_tensor(np.asarray(batch["target"])).reshape(-1)
+        return x, c.long().to(self.device)
+
+    def train_step(self, state: TrainState, batch: Dict,
+                   generator: torch.Generator
+                   ) -> Tuple[TrainState, torch.Tensor]:
+        """One AdamW step on ``batch`` with dropout masks from
+        ``generator`` (on this task's device).  Updates the state in place
+        and returns it with the loss, a 0-d tensor on the device (reading
+        it waits for the step)."""
+        x, c = self.batch_tensors(batch)
+        opt = state["optimizer"]
+        opt.zero_grad(set_to_none=True)
+        loss = gpt_loss_fn(state["params"], self.cfg, x, c,
+                           generator=generator, train=True)
+        loss.backward()
+        opt.step()
+        state["step"] += 1
+        return state, loss.detach()
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch: Dict) -> torch.Tensor:
+        x, c = self.batch_tensors(batch)
+        return gpt_loss_fn(state["params"], self.cfg, x, c)
+
+    @torch.no_grad()
+    def sample(self, params, generator: Optional[torch.Generator], c,
+               steps: int, given: Optional[torch.Tensor] = None,
+               temperature: float = 1.0, top_k: Optional[int] = None,
+               sample: bool = True) -> torch.Tensor:
+        """KV-cached sampling (minGPT.py:293-360) -> (B, T0 + steps)."""
+        cond = class_embed(params, torch.as_tensor(c).reshape(-1).to(
+            self.device))
+        return gpt_generate(params, self.cfg, generator, cond, given,
+                            steps=steps, temperature=temperature,
+                            top_k=top_k, sample=sample)
+
+    def perf_timer(self, params, window: int = 50) -> StepTimer:
+        """StepTimer with tokens/s and, on a card with a known peak, MFU
+        of this task's train step on ``params``."""
+        cfg = self.cfg
+        n = count_params(params)
+        b, t = self.exp.train.batch_size, cfg.block_size - 1
+        fwd = gpt_fwd_flops(n, b, t, cfg.n_layer, cfg.n_embd)
+        return StepTimer(window, tokens_per_example=t,
+                         flops_per_step=3.0 * fwd,
+                         peak=peak_flops(self.device, DTYPES[cfg.dtype]))
+
+
+def _unflatten(like, flat: Dict[str, torch.Tensor], prefix: str = ""):
+    """The nested layout of ``like`` filled from ``{"a/b/c": tensor}``."""
+    return {k: (_unflatten(v, flat, f"{prefix}/{k}" if prefix else k)
+                if isinstance(v, dict)
+                else flat[f"{prefix}/{k}" if prefix else k])
+            for k, v in like.items()}

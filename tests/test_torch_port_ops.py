@@ -36,6 +36,7 @@ PORT_MODULES = [
     "melspec_gpt_vqvae_tpu_torch.bridge",
     "melspec_gpt_vqvae_tpu_torch.ops.attention",
     "melspec_gpt_vqvae_tpu_torch.ops.decode_attention",
+    "melspec_gpt_vqvae_tpu_torch.ops.flash_attention",
     "melspec_gpt_vqvae_tpu_torch.ops.mel",
     "melspec_gpt_vqvae_tpu_torch.ops.mel_kernel",
     "melspec_gpt_vqvae_tpu_torch.ops.sampling",
@@ -47,16 +48,26 @@ PORT_MODULES = [
     "melspec_gpt_vqvae_tpu_torch.models.vqvae",
     "melspec_gpt_vqvae_tpu_torch.pipeline",
     "melspec_gpt_vqvae_tpu_torch.serving",
+    "melspec_gpt_vqvae_tpu_torch.train_gpt",
+    "melspec_gpt_vqvae_tpu_torch.training",
+    "melspec_gpt_vqvae_tpu_torch.training.checkpoint",
+    "melspec_gpt_vqvae_tpu_torch.training.gpt_task",
+    "melspec_gpt_vqvae_tpu_torch.training.logging",
+    "melspec_gpt_vqvae_tpu_torch.training.optim",
+    "melspec_gpt_vqvae_tpu_torch.training.runner",
+    "melspec_gpt_vqvae_tpu_torch.utils",
+    "melspec_gpt_vqvae_tpu_torch.utils.profiling",
 ]
 
 
 def test_port_never_imports_jax():
     """The card's machine has no JAX: importing every module of the port
-    (in a fresh interpreter) must load neither jax nor flax."""
+    (in a fresh interpreter) must load none of jax, flax, optax or
+    orbax."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
