@@ -7,17 +7,26 @@
    sm_90a) and holds each against its plain PyTorch version on the card,
    at the shapes the generation round trip gives it, with TF32 off:
    A attention, B MelGAN resblock stack, C VQ nearest index, D mel, E
-   decode attention over the int8 / int4 cache; and the int8 block product
-   (``_int8_mm``, cuBLASLt) bit for bit against the CPU.
+   decode attention over the int8 / int4 cache (at batch 1 the rows of one
+   (b, h) are split over up to 4 CTAs); and the int8 block product
+   (``_int8_mm``, cuBLASLt) bit for bit against the CPU.  Each kernel is
+   timed at the main path's shape: ``ms`` with its wrapper (CUDA events),
+   ``device_ms`` the kernel alone (``torch.profiler``), ``plain_ms`` its
+   plain version, ``library_ms`` the one PyTorch call that computes the
+   same function where there is one (timed here, used nowhere in the
+   port), and ``bound_ms``, the least the card could take, from the
+   shapes; no bound may exceed a time measured for the same function.
 2. Drives the round trip at the full VAS width (24-layer GPT, VQ-VAE,
    MelGAN) with seeded random weights, through ``build_pipeline`` and a
    ``GenerationService``, on each serving path, with the kernels' launch
    counts zeroed before each path and read after it:
    - the card's default, as in the JAX package: bf16 model, int8 KV cache,
      int8 streamed weights -- tokenize 48 clips of the parity battery,
-     then three batch-8 requests; every kernel A-E must launch;
+     then two batch-8 requests (sampled top-k, greedy); every kernel A-E
+     must launch; then a profiled window of decode steps (launches per
+     token, device time);
    - the bf16 KV cache with bf16 weights (one batch-8 request);
-   - the int4 KV cache (one batch-8 request);
+   - the int4 KV cache (one batch-8 request, sampled top-p);
    - speculative decoding with a random 4-layer draft, gamma 4, at
      batch 1 and batch 8 (kernel E runs in the draft's steps and in the
      target's verification).
@@ -38,7 +47,8 @@
 Exits non-zero, printing no result, when there is no CUDA card or any check
 fails.  The last three lines of stdout are: a JSON object of the kernels,
 the card's ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``; the line before them gives the seconds
+of each phase.
 """
 
 import copy
@@ -47,11 +57,28 @@ import json
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+
+
+T_START = time.perf_counter()
+PHASES = []   # (short name, seconds since the script began at its start)
+
+
+def phase(name, title):
+    """Print a phase's title with the seconds since the script began."""
+    PHASES.append((name, time.perf_counter() - T_START))
+    print(f"[{PHASES[-1][1]:6.1f} s] {title}")
+
+
+def phase_seconds():
+    """Seconds each phase took, the last one up to now."""
+    ends = [t for _, t in PHASES[1:]] + [time.perf_counter() - T_START]
+    return {name: round(end - t, 1) for (name, t), end in zip(PHASES, ends)}
 
 
 def check(cond, msg):
@@ -72,6 +99,59 @@ def cuda_ms(fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, names, reps=20):
+    """Mean milliseconds that the port's kernels named in ``names``
+    (substrings of the ``__global__`` functions in csrc/*.cu) spend on the
+    card in one call of ``fn``: their device time in a ``torch.profiler``
+    window of ``reps`` calls, free of the wrapper's host work and of any
+    PyTorch operator beside them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, calls = 0.0, 0
+    for ev in prof.key_averages():
+        if any(n in ev.key for n in names) and "at::" not in ev.key:
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = ev.cuda_time_total
+            total_us += us
+            calls += ev.count
+    # the trace may lose a launch at the window's edge: average over the
+    # launches it holds, times the kernels one call launches
+    per_call = round(calls / reps)
+    check(per_call >= 1 and calls >= (reps - 1) * per_call and total_us > 0,
+          f"torch.profiler saw {calls} launches of {names} in {reps} calls")
+    return total_us / 1e3 / calls * per_call
+
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
+
+
+def bound(n_bytes, n_ops, kind):
+    """The least milliseconds the card could take: the larger of the bytes
+    the function must move (each input read once, each output written
+    once) over the memory rate and its operations over the peak rate of
+    their type (``kind``: "f32" outside the tensor cores, "bf16" on
+    them)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": int(n_bytes), "bound_operations": int(n_ops),
+            "bound_operation_type": kind}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def wall(fn):
@@ -123,17 +203,35 @@ def check_attention(dev):
                       f"(tol {tol:.3g})")
                 check(err <= tol, f"attention {dtype} T={t} nu={nu}")
                 errs[dtype] = max(errs.get(dtype, 0.0), err)
-    # the slice's prefill: class prompt only, T = 1, batch 8, bf16
-    q = torch.randn(8, 16, 1, 64, generator=g, device=dev).bfloat16()
-    ms = cuda_ms(lambda: attend(q, q, q, 0), reps=200)
-    plain = cuda_ms(lambda: attend_xla(q, q, q, 0), reps=200)
-    q = torch.randn(8, 16, 266, 64, generator=g, device=dev).bfloat16()
-    ms266 = cuda_ms(lambda: attend(q, q, q, 0))
-    plain266 = cuda_ms(lambda: attend_xla(q, q, q, 0))
-    print(f"  A timing bf16 (8,16,T,64): T=1 kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms; T=266 kernel {ms266:.4f} ms, plain "
-          f"{plain266:.4f} ms")
-    return {"max_abs_err": errs[torch.bfloat16], "ms": ms, "plain_ms": plain}
+    # the slice's prefill: class prompt only, T = 1, batch 8, bf16; and the
+    # longest window, T = 266.  The library call: one
+    # scaled_dot_product_attention with the same window mask (causal at
+    # n_unmasked = 0); timed here only, the port never calls it.
+    import torch.nn.functional as F
+    res = {}
+    for t in (1, 266):
+        q = torch.randn(8, 16, t, 64, generator=g, device=dev).bfloat16()
+        reps = 200 if t == 1 else 20
+        r = {"ms": cuda_ms(lambda: attend(q, q, q, 0), reps=reps),
+             "device_ms": device_ms(lambda: attend(q, q, q, 0),
+                                    ["attention_kernel"]),
+             "plain_ms": cuda_ms(lambda: attend_xla(q, q, q, 0), reps=reps),
+             "library_ms": cuda_ms(
+                 lambda: F.scaled_dot_product_attention(q, q, q,
+                                                        is_causal=True),
+                 reps=reps),
+             # q, k, v in, o out; QK^T and PV over the causal half
+             **bound(4 * nbytes(q), 4 * 8 * 16 * (t * (t + 1) // 2) * 64,
+                     "bf16")}
+        print(f"  A timing bf16 (8,16,{t},64): kernel {r['ms']:.4f} ms "
+              f"(device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} "
+              f"ms, scaled_dot_product_attention {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+        res[t] = r
+    return {"max_abs_err": errs[torch.bfloat16], **res[1],
+            "library_call": "F.scaled_dot_product_attention(q, k, v, "
+                            "is_causal=True), bf16",
+            "t266": res[266]}
 
 
 SPEC_FRAMES = 848   # vocoder input frames of one clip
@@ -162,7 +260,7 @@ def check_vocoder_stack(dev, melgan):
             blocks = model.stage_blocks(i)
             x = torch.randn(2, c, t, generator=g, device=dev).to(dtype)
             with torch.no_grad():
-                out = fused_resblock_stack(x, blocks)
+                out = fused_resblock_stack(x, blocks, model.packed_stage(i))
                 ref = resblock_stack(x, blocks)
             err = max_err(out, ref)
             edge = max(max_err(out[..., :13], ref[..., :13]),
@@ -174,20 +272,45 @@ def check_vocoder_stack(dev, melgan):
                   f"(tol {tol:.3g})")
             check(err <= tol and edge <= tol, f"resblock stack {dtype} C={c}")
             errs[dtype] = max(errs.get(dtype, 0.0), err)
-    # the slice's shapes: one batch-8 request, bf16, all four stages
+    # the slice's shapes: one batch-8 request, bf16, all four stages, the
+    # weights packed once by the generator that owns them
     model = copy.deepcopy(melgan).to(device=dev, dtype=torch.bfloat16)
     xs = [torch.randn(8, c, t, generator=g, device=dev).bfloat16()
           for c, t in vocoder_stages(melgan)]
-    ms, plain = 0.0, 0.0
+    ms = dev_ms = plain = 0.0
+    n_bytes = n_ops = 0
+    stages = []
+    packs = model.packs
     with torch.no_grad():
         for i, x in enumerate(xs):
             blocks = model.stage_blocks(i)
-            k_ms = cuda_ms(lambda: fused_resblock_stack(x, blocks), reps=5)
+
+            def run():
+                return fused_resblock_stack(x, blocks, model.packed_stage(i))
+            k_ms = cuda_ms(run, reps=5)
+            d_ms = device_ms(run, ["resblock_stack"], reps=5)
             p_ms = cuda_ms(lambda: resblock_stack(x, blocks), reps=5)
-            print(f"  B timing bf16 B=8 C={x.shape[1]}: kernel "
-                  f"{k_ms:.3f} ms, plain {p_ms:.3f} ms")
-            ms, plain = ms + k_ms, plain + p_ms
-    return {"max_abs_err": errs[torch.bfloat16], "ms": ms, "plain_ms": plain}
+            check(model.packs == packs + i + 1,
+                  "resblock stack: weights were packed again per launch")
+            c, t = x.shape[1], x.shape[2]
+            # x in, out out, the convs' weights; 15 C^2 MACs per sample
+            sb = 2 * nbytes(x) + sum(nbytes(p) for b in blocks
+                                     for p in b.parameters())
+            so = 2 * 15 * c * c * x.shape[0] * t
+            print(f"  B timing bf16 B=8 C={c} T={t}: kernel {k_ms:.3f} ms "
+                  f"(device {d_ms:.3f}), plain (cuDNN chain) {p_ms:.3f} ms, "
+                  f"bound {bound(sb, so, 'bf16')['bound_ms']:.4f} ms")
+            stages.append({"C": c, "T": t, "ms": k_ms, "device_ms": d_ms,
+                           "plain_ms": p_ms,
+                           "bound_ms": bound(sb, so, "bf16")["bound_ms"]})
+            ms, dev_ms, plain = ms + k_ms, dev_ms + d_ms, plain + p_ms
+            n_bytes, n_ops = n_bytes + sb, n_ops + so
+    print(f"  B timing bf16 B=8, four stages: kernel {ms:.3f} ms (device "
+          f"{dev_ms:.3f}), plain (cuDNN chain) {plain:.3f} ms")
+    return {"max_abs_err": errs[torch.bfloat16], "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain,
+            **bound(n_bytes, n_ops, "bf16"), "library_ms": None,
+            "library_call": None, "stages": stages}
 
 
 def check_vq(dev):
@@ -221,15 +344,23 @@ def check_vq(dev):
     # the slice's shape: tokenize of 48 clips, K = 128
     x = torch.randn(48 * 265, 256, generator=g, device=dev)
     cb = torch.randn(128, 256, generator=g, device=dev)
+    out = vq_nearest_index(x, cb)
     ms = cuda_ms(lambda: vq_nearest_index(x, cb))
+    dms = device_ms(lambda: vq_nearest_index(x, cb), ["vq_nearest_kernel"])
     plain = cuda_ms(lambda: vq_nearest_index_xla(x, cb))
-    print(f"  C timing N=12720 K=128: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain}
+    # x and the codebook in, one index per row out; the N x K x D product
+    bd = bound(nbytes(x, cb, out), 2 * x.shape[0] * 128 * 256, "f32")
+    print(f"  C timing N=12720 K=128: kernel {ms:.4f} ms (device "
+          f"{dms:.4f}), plain {plain:.4f} ms, bound {bd['bound_ms']:.5f} "
+          f"ms ({bd['bound_by']})")
+    return {"max_abs_err": worst, "ms": ms, "device_ms": dms,
+            "plain_ms": plain, **bd, "library_ms": None,
+            "library_call": None}
 
 
 def check_mel(dev, wav, mel_cfg):
-    from melspec_gpt_vqvae_tpu_torch.ops.mel import waveform_to_mel
+    from melspec_gpt_vqvae_tpu_torch.ops.mel import (mel_filterbank,
+                                                    waveform_to_mel)
     from melspec_gpt_vqvae_tpu_torch.ops.mel_kernel import \
         waveform_to_mel_fused
     out = waveform_to_mel_fused(wav, mel_cfg)
@@ -240,9 +371,27 @@ def check_mel(dev, wav, mel_cfg):
           "(tol 2e-3)")
     check(out.shape == (48, 80, 860) and err <= 2e-3, "mel kernel")
     ms = cuda_ms(lambda: waveform_to_mel_fused(wav, mel_cfg), reps=10)
+    dms = device_ms(lambda: waveform_to_mel_fused(wav, mel_cfg),
+                    ["mel_kernel"], reps=10)
     plain = cuda_ms(lambda: waveform_to_mel(wav, mel_cfg), reps=10)
-    print(f"  D timing B=48: kernel {ms:.3f} ms, plain {plain:.3f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain}
+    # waveform in, mel out.  What the function needs, not what the kernel
+    # does (it takes the DFT as a dense product): per kept frame the window
+    # (n_fft), a real FFT (2.5 n_fft log2 n_fft), the magnitudes (3 a bin)
+    # and a multiply-add per non-zero of the triangular filterbank
+    n_fft, bins = mel_cfg.n_fft, mel_cfg.n_fft // 2 + 1
+    nonzero = int(np.count_nonzero(mel_filterbank(
+        mel_cfg.sample_rate, n_fft, mel_cfg.n_mels, mel_cfg.fmin,
+        mel_cfg.fmax)))
+    per_frame = n_fft + 2.5 * n_fft * float(np.log2(n_fft)) + 3 * bins \
+        + 2 * nonzero
+    bd = bound(nbytes(wav, out), out.shape[0] * out.shape[2] * per_frame,
+               "f32")
+    print(f"  D timing B=48: kernel {ms:.3f} ms (device {dms:.3f}), plain "
+          f"{plain:.3f} ms, bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dms,
+            "plain_ms": plain, **bd, "library_ms": None,
+            "library_call": None}
 
 
 # the position-axis capacities of a VAS decode in 8 segments (class prompt
@@ -250,34 +399,41 @@ def check_mel(dev, wav, mel_cfg):
 VAS_CAPS = (34, 67, 100, 133, 167, 200, 233, 266)
 
 
-def check_decode_attention(dev):
+def quantised_cache(g, dev, b, t, bits):
+    """A 2-layer stacked cache (16 heads of 64) of quantised unit-normal
+    latents, as the decode step writes it: [k, k_scale, v, v_scale], the
+    scales bfloat16."""
     from melspec_gpt_vqvae_tpu_torch.models.gpt import (_quantize_kv,
                                                         _quantize_kv4)
-    from melspec_gpt_vqvae_tpu_torch.ops.decode_attention import (
-        decode_attend_int8, decode_attend_int8_xla)
+    quant = _quantize_kv if bits == "int8" else _quantize_kv4
+    out = []
+    for _ in range(2):
+        q, s = quant(torch.randn(2, b, 16, t, 64, generator=g, device=dev))
+        out += [q, s.to(torch.bfloat16)]
+    return out
+
+
+def check_decode_attention(dev):
+    from melspec_gpt_vqvae_tpu_torch.ops import decode_attention as DA
+    decode_attend_int8 = DA.decode_attend_int8
+    decode_attend_int8_xla = DA.decode_attend_int8_xla
     g = torch.Generator(device=dev).manual_seed(3)
 
     def cache(b, t, bits):
-        """A 2-layer stacked cache of quantised unit-normal latents, as the
-        decode step writes it: (values, bf16 scales) for k and v."""
-        quant = _quantize_kv if bits == "int8" else _quantize_kv4
-        out = []
-        for _ in range(2):
-            q, s = quant(torch.randn(2, b, 16, t, 64, generator=g,
-                                     device=dev))
-            out += [q, s.to(torch.bfloat16)]
-        return out
+        return quantised_cache(g, dev, b, t, bits)
 
-    # the JAX package's bound for this kernel (tests/test_gpt.py:363-364)
-    worst, n = 0.0, 0
+    # the JAX package's bound for this kernel (tests/test_gpt.py:363-364);
+    # at batch 1 the wrapper splits the rows of a (b, h) over 1 to 4 CTAs
+    # as pos grows, and every size must come up among the cases
+    worst, n, split_sizes = 0.0, 0, set()
     for bits in ("int8", "int4"):
         for b in (1, 8):
             for t in VAS_CAPS:
                 k, ks, v, vs = cache(b, t, bits)
                 for qdt in (torch.float32, torch.bfloat16):
-                    q = torch.randn(b, 16, 64, generator=g,
-                                    device=dev).to(qdt)
                     for pos in sorted({0, 1, t // 2, t - 1}):
+                        q = torch.randn(b, 16, 64, generator=g,
+                                        device=dev).to(qdt)
                         out = decode_attend_int8(q, k, v, ks, vs, 1, pos)
                         ref = decode_attend_int8_xla(q, k, v, ks, vs, 1, pos)
                         err = (out - ref).abs()
@@ -287,23 +443,57 @@ def check_decode_attention(dev):
                               f"{err.max().item():.3g}")
                         worst = max(worst, err.max().item())
                         n += 1
+                        split_sizes.add(DA.choose_splits(b * 16, pos + 1))
+    check(split_sizes == set(range(1, DA.MAX_SPLITS + 1)),
+          f"decode attention: the cases split the rows over {split_sizes}")
     print(f"  E decode attention, {n} cases (int8/int4, B 1/8, T {VAS_CAPS}, "
-          f"pos 0/1/T/2/T-1, q f32/bf16): max|err| {worst:.3g} "
-          "(atol = rtol = 1e-4)")
-    # the slice's shape: batch 8, the full cache, the last position, bf16 q
-    times = {}
+          f"pos 0/1/T/2/T-1, q f32/bf16; rows split over "
+          f"{sorted(split_sizes)} CTAs): max|err| {worst:.3g} "
+          f"(atol = rtol = 1e-4)")
+    # the slice's shape: batch 8, the full cache, the last position, bf16 q;
+    # and batch 1 (speculative decoding), every cache length
+    names = ["decode_attention_kernel"]
+    res = {}
     for bits in ("int8", "int4"):
         k, ks, v, vs = cache(8, 266, bits)
         q = torch.randn(8, 16, 64, generator=g, device=dev).bfloat16()
-        times[bits] = (
-            cuda_ms(lambda: decode_attend_int8(q, k, v, ks, vs, 1, 265),
-                    reps=200),
-            cuda_ms(lambda: decode_attend_int8_xla(q, k, v, ks, vs, 1, 265),
-                    reps=200))
+        o = decode_attend_int8(q, k, v, ks, vs, 1, 265)
+        r = {"ms": cuda_ms(lambda: decode_attend_int8(q, k, v, ks, vs, 1,
+                                                      265), reps=200),
+             "device_ms": device_ms(lambda: decode_attend_int8(
+                 q, k, v, ks, vs, 1, 265), names, reps=100),
+             "plain_ms": cuda_ms(lambda: decode_attend_int8_xla(
+                 q, k, v, ks, vs, 1, 265), reps=200),
+             # layer 1's 266 rows of K and V and their scales, q in, o out;
+             # one multiply-add per cached value for the scores, one for PV
+             **bound(nbytes(k[1], v[1], ks[1], vs[1], q, o),
+                     4 * 8 * 16 * 266 * 64, "f32")}
         print(f"  E timing {bits} B=8 H=16 T=266 pos=265: kernel "
-              f"{times[bits][0]:.4f} ms, plain {times[bits][1]:.4f} ms")
-    return {"max_abs_err": worst, "ms": times["int8"][0],
-            "plain_ms": times["int8"][1]}
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']})")
+        res[bits] = r
+    # batch 1 (speculative decoding), the shortest and the longest cache
+    sweep = {}
+    for t in (VAS_CAPS[0], VAS_CAPS[-1]):
+        k, ks, v, vs = cache(1, t, "int8")
+        q = torch.randn(1, 16, 64, generator=g, device=dev).bfloat16()
+        sweep[f"B=1,T={t}"] = round(device_ms(
+            lambda: decode_attend_int8(q, k, v, ks, vs, 1, t - 1),
+            names, reps=50), 5)
+    # the same launch with the split switched off: what the cluster buys
+    choose = DA.choose_splits
+    DA.choose_splits = lambda bh, n: 1
+    try:
+        sweep["B=1,T=266, one CTA a (b, h)"] = round(device_ms(
+            lambda: decode_attend_int8(q, k, v, ks, vs, 1, 265), names,
+            reps=50), 5)
+    finally:
+        DA.choose_splits = choose
+    print(f"  E device ms, int8, bf16 q, pos = T - 1: {json.dumps(sweep)}")
+    return {"max_abs_err": worst, **res["int8"], "library_ms": None,
+            "library_call": None, "int4": res["int4"],
+            "device_ms_by_shape": sweep}
 
 
 def check_int8_mm(dev):
@@ -376,17 +566,44 @@ def check_flash(dev):
                    for _ in range(4))
     keep = make_dropout_mask(g, (8, 16, 265, 265), 0.5)
     o, lse = flash_attention_fwd(q, k, v, keep, 0, 0.5)
+    grads = flash_attention_bwd(q, k, v, keep, o, lse, do, 0, 0.5)
     fwd = (cuda_ms(lambda: flash_attention_fwd(q, k, v, keep, 0, 0.5)),
-           cuda_ms(lambda: flash_attention_ref_fwd(q, k, v, keep, 0, 0.5)))
+           cuda_ms(lambda: flash_attention_ref_fwd(q, k, v, keep, 0, 0.5)),
+           device_ms(lambda: flash_attention_fwd(q, k, v, keep, 0, 0.5),
+                     ["flash_fwd_kernel"]))
     bwd = (cuda_ms(lambda: flash_attention_bwd(q, k, v, keep, o, lse, do,
                                                0, 0.5)),
            cuda_ms(lambda: flash_attention_ref_bwd(q, k, v, keep, lse, do,
-                                                   0, 0.5)))
+                                                   0, 0.5)),
+           device_ms(lambda: flash_attention_bwd(q, k, v, keep, o, lse, do,
+                                                 0, 0.5), ["flash_bwd_"]))
+    # The library call exists only without a keep-mask (keep 1): one
+    # float32 scaled_dot_product_attention, causal; with the preset's
+    # dropout mask no single call computes the function.  Timed beside the
+    # kernel at keep 1; the port never calls it.
+    import torch.nn.functional as F
+    fwd1 = cuda_ms(lambda: flash_attention_fwd(q, k, v, None, 0, 1.0))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=True))
+    # products over the causal half: 2 forward (QK^T, PV), 5 backward
+    # (scores again, dP, dV, dQ, dK), 2 T (T + 1) / 2 hd flops each
+    half = 8 * 16 * (265 * 266 // 2) * 64 * 2
+    bf = bound(nbytes(q, k, v, keep, o, lse), 2 * half, "f32")
+    bb = bound(nbytes(q, k, v, keep, o, lse, do, *grads), 5 * half, "f32")
     print(f"  F timing f32 (8,16,265,64) keep 0.5: forward kernel "
-          f"{fwd[0]:.4f} ms, plain {fwd[1]:.4f} ms; backward kernel "
-          f"{bwd[0]:.4f} ms, plain {bwd[1]:.4f} ms")
-    return ({"max_abs_err": worst_o, "ms": fwd[0], "plain_ms": fwd[1]},
-            {"max_abs_err": worst_g, "ms": bwd[0], "plain_ms": bwd[1]})
+          f"{fwd[0]:.4f} ms (device {fwd[2]:.4f}), plain {fwd[1]:.4f} ms, "
+          f"bound {bf['bound_ms']:.4f} ms; backward kernel {bwd[0]:.4f} ms "
+          f"(device {bwd[2]:.4f}), plain {bwd[1]:.4f} ms, bound "
+          f"{bb['bound_ms']:.4f} ms; keep 1: forward kernel {fwd1:.4f} ms, "
+          f"scaled_dot_product_attention f32 {lib:.4f} ms")
+    return ({"max_abs_err": worst_o, "ms": fwd[0], "device_ms": fwd[2],
+             "plain_ms": fwd[1], **bf, "library_ms": lib,
+             "library_call": "F.scaled_dot_product_attention(q, k, v, "
+                             "is_causal=True), float32, keep 1 (no single "
+                             "call takes a keep-mask)", "ms_keep1": fwd1},
+            {"max_abs_err": worst_g, "ms": bwd[0], "device_ms": bwd[2],
+             "plain_ms": bwd[1], **bb, "library_ms": None,
+             "library_call": None})
 
 
 # ---------------------------------------------------------------------------
@@ -548,8 +765,9 @@ def cache_flips(rec_cpu, rec_gpu, bits):
 
 
 def quantised_reference_check(dev, exp, seed):
-    """float32, 2 GPT layers at the VAS widths, teacher-forced on the card
-    against the CPU, for the int8 and the int4 cache: with float32 weights
+    """float32, 2 GPT layers at the VAS widths, teacher-forced (133 tokens)
+    on the card against the CPU, for the int8 and the int4 cache: with
+    float32 weights
     the cached values may differ only at rounding boundaries; with int8
     weights (the serving configurations) the logits must stay within the
     configuration's own quantisation error, and greedy speculative decoding
@@ -576,8 +794,10 @@ def quantised_reference_check(dev, exp, seed):
     cond, cond_d = G.class_embed(params, cls), G.class_embed(params_d,
                                                              cls.to(dev))
     dcond_d = G.class_embed(draft_d, cls.to(dev))
+    # teacher-forced over the first half of a greedy clip: the CPU's
+    # int8-weight steps are the slow part of this check
     with torch.inference_mode():
-        toks = G.gpt_generate(params, base, None, cond, steps=265,
+        toks = G.gpt_generate(params, base, None, cond, steps=133,
                               sample=False)
     logits_f32, _ = teacher_forced(params, base, cond, toks)
     for bits in ("int8", "int4"):
@@ -633,6 +853,61 @@ def quantised_reference_check(dev, exp, seed):
                   "vs CPU")
 
 
+def profile_decode_step(pipe, cfg, dev, given=132, warm=4, steps=8):
+    """Launches and device time of one decode step at batch 8, from a
+    ``torch.profiler`` window of ``steps`` steps in the middle of a clip
+    (a prefill of the class prompt and ``given`` tokens, ``warm`` steps,
+    full-length cache): device launches per token, device busy ms per
+    step, and kernel E's share of it."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from melspec_gpt_vqvae_tpu_torch.models import gpt as G
+    params = pipe.gpt_params
+    with torch.inference_mode():
+        cond = G.class_embed(params, torch.arange(8, device=dev))
+        cache = G.init_kv_cache(cfg, 8, max_len=266, device=dev)
+        toks = torch.arange(8 * given, device=dev).reshape(8, given) \
+            % cfg.vocab_size
+        logits, cache = G.gpt_prefill(params, cfg, cache, toks, cond)
+        wq = (G.quantize_block_weights(params["blocks"])
+              if cfg.decode_weight_dtype == "int8" else None)
+
+        def step():
+            nonlocal logits, cache
+            logits, cache = G.gpt_decode_step(params, cfg, cache,
+                                              logits.argmax(-1), wq)
+        for _ in range(warm):
+            step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = busy_us = e_us = 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        launches += ev.count
+        busy_us += us
+        if "decode_attention_kernel" in ev.key:
+            e_us += us
+    res = {"launches_per_token": launches / steps,
+           "device_busy_ms_per_step": busy_us / 1e3 / steps,
+           "kernel_E_ms_per_step": e_us / 1e3 / steps,
+           "wall_ms_per_step_profiled": wall_ms,
+           "positions": [given + warm + 1, given + warm + steps]}
+    print(f"  decode step, batch 8, {cfg.cache_dtype} cache, "
+          f"{cfg.decode_weight_dtype} weights (torch.profiler, {steps} "
+          f"steps): {json.dumps(res)}")
+    check(launches > 0 and busy_us > 0, "profiler saw no device activity")
+    return res
+
+
 def serve_path(exp, pipe, dev, requests):
     """Answer ``requests`` ((batch, kwargs, classes) each) through a
     GenerationService, printing each request's seconds and the seconds of
@@ -647,18 +922,25 @@ def serve_path(exp, pipe, dev, requests):
             return res
         setattr(pipe, attr, timed)
     calls = rounds = 0
-    for batch, kw, cls in requests:
-        svc = GenerationService(exp, pipe, batch=batch, seed=1)
-        out, dt = wall(lambda: svc.generate(cls, **kw))
-        check_request(out, len(cls))
-        calls += -(-len(cls) // batch)
-        rounds += out.get("spec_stats", {}).get("rounds", 0)
-        extra = (f", spec_stats {json.dumps(out['spec_stats'])}"
-                 if "spec_stats" in out else "")
-        print(f"  request batch {batch} {kw or 'sampled top_k=100'}: "
-              f"{dt:.2f} s, stage seconds "
-              f"{json.dumps({k: round(v, 4) for k, v in stage.items()})}"
-              f"{extra}")
+    try:
+        for batch, kw, cls in requests:
+            svc = GenerationService(exp, pipe, batch=batch, seed=1)
+            out, dt = wall(lambda: svc.generate(cls, **kw))
+            check_request(out, len(cls))
+            calls += -(-len(cls) // batch)
+            rounds += out.get("spec_stats", {}).get("rounds", 0)
+            extra = (f", spec_stats {json.dumps(out['spec_stats'])}"
+                     if "spec_stats" in out else "")
+            print(f"  request batch {batch} {kw or 'sampled top_k=100'}: "
+                  f"{dt:.2f} s, stage seconds "
+                  f"{json.dumps({k: round(v, 4) for k, v in stage.items()})}"
+                  f"{extra}")
+    finally:
+        # the timing wrappers hold the pipeline they hang on: with them in
+        # place ``del pipe`` frees nothing until a cycle collection, and a
+        # whole pipeline's weights stay on the card meanwhile
+        for attr in ("generate_tokens", "decode_specs", "vocode"):
+            delattr(pipe, attr)
     return calls, rounds
 
 
@@ -742,6 +1024,10 @@ def train_check(dev, mels, codes):
         flash_attention_bwd, flash_attention_fwd)
     from melspec_gpt_vqvae_tpu_torch.training.gpt_task import GPTTask
     write_vas_tree(TRAIN_ROOT, mels, codes)
+    torch.cuda.empty_cache()
+    print(f"  device memory before training: allocated "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB")
     flash_attention_fwd.launches = flash_attention_bwd.launches = 0
     (task, state, ckpt), dt = wall(lambda: run_train_cli(TRAIN_ROOT, True))
     launches = (flash_attention_fwd.launches, flash_attention_bwd.launches)
@@ -783,13 +1069,13 @@ def train_check(dev, mels, codes):
 
 
 def load_vas_exp(**override):
-    from melspec_gpt_vqvae_tpu.configs import load_preset
+    from melspec_gpt_vqvae_tpu_torch.configs import load_preset
     return load_preset("GPT", "vas", **override)
 
 
 def first_train_batch():
     """The first batch of the synthetic tree's shuffled train split."""
-    from melspec_gpt_vqvae_tpu.data import DataModule
+    from melspec_gpt_vqvae_tpu_torch.data import DataModule
     dm = DataModule(batch_size=8, spec_dir_path=str(
         TRAIN_ROOT / "data" / "vas" / "features" / "*" /
         "melspec_10s_22050hz"), data_root=str(TRAIN_ROOT / "data"))
@@ -836,6 +1122,23 @@ def train_reference_check(dev, batch):
     check(p_bad == 0, "updated parameters vs CPU")
 
 
+def check_bounds(kernels):
+    """No row's bound may exceed a time measured for the same function: the
+    kernel's, its plain version's or the library call's.  A bound above one
+    of them counts operations or bytes the function does not need."""
+    for row in kernels:
+        for label, r in [("", row)] + [(f" {k}", v) for k, v in row.items()
+                                        if isinstance(v, dict)
+                                        and "bound_ms" in v] \
+                + [(f" stage {i}", st)
+                   for i, st in enumerate(row.get("stages", []))]:
+            for key in ("ms", "device_ms", "plain_ms", "library_ms"):
+                t = r.get(key)
+                check(t is None or r["bound_ms"] <= t,
+                      f"{row['name']}{label}: bound_ms {r['bound_ms']:.5f} "
+                      f"above the measured {key} {t}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs "
@@ -843,9 +1146,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    t_start = time.perf_counter()
 
-    from parity_check import make_battery
+    from melspec_gpt_vqvae_tpu_torch.utils.battery import make_battery
 
     from melspec_gpt_vqvae_tpu_torch import _build
     from melspec_gpt_vqvae_tpu_torch.ops.attention import attend
@@ -861,9 +1163,16 @@ def main():
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
+    # nvcc runs beside the first pipeline's weight set-up on the host; a
+    # failed build raises from the second load()
+    nvcc_thread = threading.Thread(target=_build.load)
+    nvcc_thread.start()
+    exp, pipe = build_pipeline("vas", init_random=True, seed=783435,
+                               device=dev)
+    nvcc_thread.join()
     _build.load()
-    print(f"build: {time.perf_counter() - t0:.1f} s, nvcc "
+    print(f"build, beside the first build_pipeline: done at "
+          f"{time.perf_counter() - T_START:.1f} s, nvcc "
           f"{_build.build_seconds} s (None: library reused)")
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
@@ -877,8 +1186,6 @@ def main():
     print(f"card: {smi_line}")
 
     # the card's default configuration, as the JAX package's on its chip
-    exp, pipe = build_pipeline("vas", init_random=True, seed=783435,
-                               device=dev)
     m = exp.model
     check((m.dtype, m.cache_dtype, m.decode_weight_dtype)
           == ("bfloat16", "int8", "int8"),
@@ -886,7 +1193,7 @@ def main():
     wav = torch.from_numpy(make_battery(exp.mel.clip_samples)).to(dev)
     check(wav.shape[0] == 48, "battery size")
 
-    print("kernels vs plain PyTorch on the card:")
+    phase("kernels", "kernels vs plain PyTorch on the card:")
     results = {"attention": check_attention(dev),
                "vocoder_stack": check_vocoder_stack(dev, pipe.melgan),
                "vq_nearest": check_vq(dev),
@@ -910,7 +1217,8 @@ def main():
         print(f"  launches ({title}): {json.dumps(c)}")
         return c
 
-    print("main path (VAS width, bf16, int8 KV cache, int8 weights, "
+    phase("main_path",
+          "main path (VAS width, bf16, int8 KV cache, int8 weights, "
           "random weights):")
     tokenize(pipe.vq, wav, exp.mel)        # first call: cuDNN set-up
     zero()
@@ -919,16 +1227,20 @@ def main():
     check(codes.shape == (48, 265) and int(codes.min()) >= 0
           and int(codes.max()) < 128, f"tokenize codes {codes.shape}")
     calls, _ = serve_path(exp, pipe, dev, [
-        (8, {}, list(range(8))), (8, {"sample": False}, [3] * 8),
-        (8, {"seed": 1234, "top_p": 0.9}, [0, 1, 2, 3, 4, 5, 6, 7])])
+        (8, {}, list(range(8))), (8, {"sample": False}, [3] * 8)])
     launches = counts("main path")
+    check(pipe.melgan.packs == len(exp.vocoder.ratios),
+          f"the vocoder packed its stages' weights {pipe.melgan.packs} "
+          "times: once a stage is all the main path needs")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched by the main path")
     check(launches["decode_attention"] == calls * steps * n_layer,
           "kernel E: one launch per layer and decode step")
+    profile_decode_step(pipe, m, dev)
     del pipe
 
-    print("bf16 KV cache and bf16 weights (PR 1's path):")
+    phase("bf16_cache",
+          "bf16 KV cache and bf16 weights (the first serving path):")
     exp_b, pipe = build_pipeline("vas", init_random=True, seed=783435,
                                  device=dev, kv_cache="auto", int8_weights=0)
     zero()
@@ -938,18 +1250,20 @@ def main():
           and c["decode_attention"] == 0, "bf16 path kernels")
     del pipe
 
-    print("int4 KV cache, int8 weights:")
+    phase("int4_cache", "int4 KV cache, int8 weights:")
     exp_4, pipe = build_pipeline("vas", init_random=True, seed=783435,
                                  device=dev, kv_cache="int4")
     zero()
-    calls, _ = serve_path(exp_4, pipe, dev, [(8, {}, list(range(8)))])
+    calls, _ = serve_path(exp_4, pipe, dev, [
+        (8, {"seed": 1234, "top_p": 0.9}, list(range(8)))])
     c = counts("int4 cache")
     check(c["attention"] > 0 and c["vocoder_stack"] > 0
           and c["decode_attention"] == calls * steps * n_layer,
           "int4 path kernels")
     del pipe
 
-    print("speculative decoding, random 4-layer draft, gamma 4 (int8 cache "
+    phase("speculative",
+          "speculative decoding, random 4-layer draft, gamma 4 (int8 cache "
           "and weights):")
     exp_s, pipe = build_pipeline("vas", init_random=True, seed=783435,
                                  device=dev, draft_random="n_layer=4",
@@ -965,11 +1279,13 @@ def main():
     del pipe
     torch.cuda.empty_cache()
 
-    print("float32 reference on the CPU:")
+    phase("f32_vs_cpu", "float32 reference on the CPU:")
     reference_check(dev, exp, wav, seed=7)
+    phase("quantised_vs_cpu", "quantised paths, float32, card vs CPU:")
     quantised_reference_check(dev, exp, seed=7)
 
-    print("training (VAS GPT preset, full width, float32, random weights):")
+    phase("training",
+          "training (VAS GPT preset, full width, float32, random weights):")
     with torch.inference_mode():
         mels = waveform_to_mel_fused(wav, exp.mel)
     f_launches, batch = train_check(dev, mels, codes)
@@ -993,7 +1309,10 @@ def main():
                 "replaces": "melspec_gpt_vqvae_tpu/ops/" + rep,
                 "launches": launches[name],
                 **results[name]} for name, (src, rep) in meta.items()]
-    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    check_bounds(kernels)
+    print(f"total: {time.perf_counter() - T_START:.1f} s; phase seconds "
+          f"(build and first pipeline before them): "
+          f"{json.dumps(phase_seconds())}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

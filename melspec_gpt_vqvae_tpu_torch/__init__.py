@@ -9,11 +9,17 @@ out like it so each module's counterpart has the same name:
   - ``models/``  GPT (functional, KV-cached decode), VQ-VAE and MelGAN
                  ``nn.Module``s;
   - ``pipeline.py``, ``serving.py``  the generation round trip;
+  - ``training/``, ``train_gpt.py``  GPT-class training and its CLI;
+  - ``configs.py``, ``data/``, ``utils/battery.py``  the port's own copies
+                 of the JAX package's framework-free modules;
   - ``bridge.py``  JAX parameter trees -> the port, and random inits;
   - ``_build.py``  nvcc build of ``csrc/*.cu`` and the ctypes binding.
 
 Every kernel wrapper takes its plain PyTorch version for CPU tensors and
 launches its kernel (or raises) for CUDA tensors, and counts its launches
-in a ``launches`` attribute.  The package imports torch and never JAX; the
-framework-free ``melspec_gpt_vqvae_tpu.configs`` is shared by import.
+in a ``launches`` attribute.  The package imports torch, never JAX and
+nothing of the JAX package: what it needs of that package's framework-free
+modules it keeps as its own copy, and ``bridge.config_from_jax`` turns a
+config of one package into the other's class.  Entry points run on the card
+unless the caller asks for the CPU.
 """

@@ -27,14 +27,15 @@ optax ``inject_hyperparams`` state's ``inner_state[0]``
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from melspec_gpt_vqvae_tpu.configs import VocoderConfig, VQVAEConfig
-
+from . import configs
+from .configs import VocoderConfig, VQVAEConfig
 from .models.vocoder import MelGANGenerator
 from .models.vqvae import VectorQuantizer, VQModel
 
@@ -54,6 +55,38 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
 
 def _tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(np.array(leaf, dtype=np.float32))
+
+
+def config_from_jax(cfg, cls=None):
+    """A config of the JAX package -- any dataclass of its ``configs``
+    module, or the ``dataclasses.asdict`` of one together with ``cls`` --
+    as the port's class of the same name, field by field.  The two
+    packages' classes are distinct, so a test builds one config and hands
+    each package its own.  Nested configs (``ExperimentConfig``'s) convert
+    by the port field's declared class; a field the port does not know, or
+    a class it has no counterpart of, raises."""
+    if cls is None:
+        cls = getattr(configs, type(cfg).__name__, None)
+        if not (dataclasses.is_dataclass(cfg) and dataclasses.is_dataclass(cls)):
+            raise TypeError(f"no port config class for {type(cfg).__name__}; "
+                            "pass cls= with a dict of fields")
+        cfg = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    elif not dataclasses.is_dataclass(cls):
+        raise TypeError(f"{cls!r} is not a config dataclass of the port")
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    unknown = sorted(set(cfg) - set(fields))
+    if unknown:
+        raise ValueError(f"{cls.__name__}: the port does not know "
+                         f"field(s) {unknown}")
+    out = {}
+    for name, value in cfg.items():
+        sub = getattr(configs, str(fields[name].type), None)
+        if dataclasses.is_dataclass(sub) and (
+                isinstance(value, Mapping) or dataclasses.is_dataclass(value)):
+            value = config_from_jax(value, None if dataclasses.is_dataclass(
+                value) else sub)
+        out[name] = value
+    return cls(**out)
 
 
 def gpt_params_from_jax(params: Mapping) -> Dict:

@@ -51,6 +51,29 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// 16-byte asynchronous copy global -> shared (both 16-byte aligned), and
+// the group fences: commit what was started, wait until at most N groups of
+// this thread are still in flight.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Allow a kernel more than the default 48 KB of dynamic shared memory.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

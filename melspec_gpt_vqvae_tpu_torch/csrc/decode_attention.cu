@@ -19,168 +19,314 @@
 // What bounds it on the card: one decode step reads the (b, h) rows of the
 // cache once, pos + 1 rows of hd bytes (hd / 2 for int4) for K and for V,
 // and does ~4 flops per byte, so it is bound by memory and, at decode's
-// small batches, by launch latency.  The design: one CTA of 128 threads per
-// (b, h); only t <= pos is scored, so no -1e30 fill is needed; each thread
-// scores whole cache rows read as 32-bit words; block max and sum
-// reductions; then each thread accumulates its own head-dim lane of P.V
-// over a strided share of the rows, the shares summed in a fixed order.
+// small batches (a few MB, 16 to 128 (b, h) pairs), by the latency of its
+// dependent steps, not by arithmetic.  The design pays the memory latency
+// once and keeps every later step in shared memory and registers:
+//
+//   * a CTA of 128 threads owns one (b, h) and a contiguous share of the
+//     rows t <= pos.  It requests its whole K and V slice (at most
+//     266 x 64 B x 2 = 34 KB) as 16-byte cp.async copies up front, and the
+//     scales and q as plain loads that fly beside them;
+//   * scores: a row is hd bytes = kLPR lanes of 16 bytes; each lane keeps
+//     its 16 (int8) or 32 (int4) dims of q in registers, reads its 16 bytes
+//     of the row with one shared load and the lanes of a row add up with
+//     warp shuffles; one pass covers 128 / kLPR rows;
+//   * softmax: warp shuffles, then one merge of the four warps through
+//     shared memory for the max and one for the sum;
+//   * P.V: each lane owns the same 16 consecutive bytes (16 or 32 head
+//     dims) of its rows, accumulates them in registers from 16-byte shared
+//     loads, and the partial sums merge in a fixed order (shuffles over the
+//     rows of a warp, then the four warps), so the result is deterministic;
+//   * when B * H is well under the 132 SMs (batch 1: 16 pairs) the rows are
+//     split over the CTAs of a thread block cluster along grid y.  Each CTA
+//     leaves (max, sum, unnormalised o) in its shared memory, and rank 0
+//     reads them through distributed shared memory and merges
+//     o = sum_i o_i e^(m_i - M) / sum_i s_i e^(m_i - M): one launch, no
+//     scratch in device memory.  ops/decode_attention.py::merge_partials is
+//     the plain version of that merge.
+#include <cooperative_groups.h>
+
 #include <cstdint>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
-// q[0..3] . four int8 values in w (little-endian: byte i is dim i), or
-// q[0..7] . eight int4 values (nibble i is dim i), accumulated into s.
+// The 16 bytes a lane holds of a cache row, dequantised: 16 int8 values, or
+// 32 int4 values (byte j holds dims 2j in the low and 2j + 1 in the high
+// nibble).
 template <bool kInt4>
-__device__ __forceinline__ float dot_word(uint32_t w, const float* q,
-                                          float s) {
-  if (kInt4) {
+__device__ __forceinline__ void unpack16(const uint4& w,
+                                         float (&x)[kInt4 ? 32 : 16]) {
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int nib = (w >> (4 * i)) & 0xF;
-      s = fmaf(q[i], static_cast<float>(nib - 16 * (nib > 7)), s);
+  for (int j = 0; j < 4; ++j) {
+    if (kInt4) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int nib = (words[j] >> (4 * i)) & 0xF;
+        x[8 * j + i] = static_cast<float>(nib - 16 * (nib > 7));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        x[4 * j + i] =
+            static_cast<float>(static_cast<int8_t>(words[j] >> (8 * i)));
     }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      s = fmaf(q[i], static_cast<float>(static_cast<int8_t>(w >> (8 * i))),
-               s);
   }
-  return s;
 }
 
-// value of head dim d in one cache row
-template <bool kInt4>
-__device__ __forceinline__ float cache_val(const uint8_t* row, int d) {
-  if (kInt4) {
-    const int byte = row[d >> 1];
-    const int nib = (d & 1) ? (byte >> 4) : (byte & 0xF);
-    return static_cast<float>(nib - 16 * (nib > 7));
-  }
-  return static_cast<float>(reinterpret_cast<const int8_t*>(row)[d]);
-}
-
-template <bool kMax>
-__device__ __forceinline__ float block_reduce(float v, float* red) {
-  const int warp = threadIdx.x / 32;
-  v = kMax ? msgv::warp_max(v) : msgv::warp_sum(v);
-  if (threadIdx.x % 32 == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int i = 1; i < kWarps; ++i) r = kMax ? fmaxf(r, red[i]) : r + red[i];
-  __syncthreads();  // red is reused by the next reduction
-  return r;
-}
-
-template <typename Q, bool kInt4>
+// kLPR lanes of 16 bytes make one cache row: hd = kLPR * (16 or 32).
+template <typename Q, bool kInt4, int kLPR>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const Q* __restrict__ q,
                             const uint8_t* __restrict__ k,
                             const uint8_t* __restrict__ v,
                             const __nv_bfloat16* __restrict__ k_scale,
                             const __nv_bfloat16* __restrict__ v_scale,
-                            float* __restrict__ o, int bh, int t_cap, int hd,
-                            int layer, int pos, float scale) {
-  extern __shared__ float smem[];
-  const int n = pos + 1;                 // rows attended: t <= pos
-  float* qs = smem;                      // [hd]
-  float* ps = qs + hd;                   // [n] scores, then p * v_scale
-  float* part = ps + n;                  // [kThreads] P.V partial sums
-  float* red = part + kThreads;          // [kWarps]
+                            float* __restrict__ o, int bh, int t_cap,
+                            int layer, int pos, int per, float scale) {
+  constexpr int kDPL = kInt4 ? 32 : 16;    // head dims per lane
+  constexpr int kHd = kLPR * kDPL;
+  constexpr int kRowBytes = kLPR * 16;
+  constexpr int kGroups = kThreads / kLPR;  // rows per pass
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint8_t* sk = smem;                                  // [per][kRowBytes]
+  uint8_t* sv = sk + static_cast<size_t>(per) * kRowBytes;
+  float* ps = reinterpret_cast<float*>(sv + static_cast<size_t>(per) *
+                                                kRowBytes);  // [per]
+  float* sks = ps + per;                               // [per] k scales
+  float* svs = sks + per;                              // [per] v scales
+  float* qs = svs + per;                               // [kHd]
+  float* part = qs + kHd;                              // [kWarps][kHd]
+  float* red = part + kWarps * kHd;                    // [2][kWarps]
+  float* mine = red + 2 * kWarps;                      // [kHd + 2]
 
-  const int row = blockIdx.x;            // b * H + h
-  const int hdp = kInt4 ? hd / 2 : hd;   // bytes per cache row
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int row = blockIdx.x;                          // b * H + h
+  const int n = pos + 1;                               // rows t <= pos
+  const int t0 = blockIdx.y * per;                     // this CTA's share
+  const int rows = max(0, min(n - t0, per));
   const size_t lrow = static_cast<size_t>(layer) * bh + row;
-  const uint8_t* kr = k + lrow * t_cap * hdp;
-  const uint8_t* vr = v + lrow * t_cap * hdp;
-  const __nv_bfloat16* ks = k_scale + lrow * t_cap;
-  const __nv_bfloat16* vs = v_scale + lrow * t_cap;
+  const size_t first = lrow * t_cap + t0;
 
-  for (int d = threadIdx.x; d < hd; d += kThreads)
-    qs[d] = msgv::to_f(q[static_cast<size_t>(row) * hd + d]);
+  {  // the whole slice, 16 bytes a copy, all in flight at once
+    const uint8_t* kg = k + first * kRowBytes;
+    const uint8_t* vg = v + first * kRowBytes;
+    for (int c = tid; c < rows * kLPR; c += kThreads) {
+      msgv::cp_async16(sk + 16 * c, kg + 16 * c);
+      msgv::cp_async16(sv + 16 * c, vg + 16 * c);
+    }
+    msgv::cp_async_commit();
+  }
+  for (int t = tid; t < rows; t += kThreads) {
+    sks[t] = __bfloat162float(k_scale[first + t]);
+    svs[t] = __bfloat162float(v_scale[first + t]);
+  }
+  for (int d = tid; d < kHd; d += kThreads)
+    qs[d] = msgv::to_f(q[static_cast<size_t>(row) * kHd + d]);
+  msgv::cp_async_wait<0>();
   __syncthreads();
 
-  constexpr int kPerWord = kInt4 ? 8 : 4;
+  const int li = tid % kLPR;   // which 16 bytes of a row
+  const int g = tid / kLPR;    // which row of a pass
   float mx = -CUDART_INF_F;
-  for (int t = threadIdx.x; t < n; t += kThreads) {
-    const uint32_t* w =
-        reinterpret_cast<const uint32_t*>(kr + static_cast<size_t>(t) * hdp);
-    float s = 0.f;
-    for (int j = 0; j < hdp / 4; ++j) s = dot_word<kInt4>(w[j], qs + j * kPerWord, s);
-    s = s * __bfloat162float(ks[t]) * scale;
-    ps[t] = s;
-    mx = fmaxf(mx, s);
+  {
+    float qr[kDPL];
+#pragma unroll
+    for (int i = 0; i < kDPL; ++i) qr[i] = qs[li * kDPL + i];
+    // every lane runs every pass (the shuffles need the whole warp)
+    for (int tb = 0; tb < rows; tb += kGroups) {
+      const int t = tb + g;
+      float s = 0.f;
+      if (t < rows) {
+        float x[kDPL];
+        unpack16<kInt4>(
+            *reinterpret_cast<const uint4*>(sk + t * kRowBytes + 16 * li), x);
+        float s4[4] = {0.f, 0.f, 0.f, 0.f};   // four chains, fixed order
+#pragma unroll
+        for (int i = 0; i < kDPL; ++i)
+          s4[i % 4] = fmaf(qr[i], x[i], s4[i % 4]);
+        s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
+      }
+#pragma unroll
+      for (int off = kLPR / 2; off > 0; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (t < rows) {
+        s = s * sks[t] * scale;
+        if (li == 0) ps[t] = s;
+        mx = fmaxf(mx, s);
+      }
+    }
   }
-  mx = block_reduce<true>(mx, red);
+  mx = msgv::warp_max(mx);
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();   // also publishes ps
+  mx = red[0];
+#pragma unroll
+  for (int i = 1; i < kWarps; ++i) mx = fmaxf(mx, red[i]);
+
   float sum = 0.f;
-  for (int t = threadIdx.x; t < n; t += kThreads) {
+  for (int t = tid; t < rows; t += kThreads) {
     const float e = expf(ps[t] - mx);
-    ps[t] = e;
+    ps[t] = e * svs[t];
     sum += e;
   }
-  sum = block_reduce<false>(sum, red);
-  for (int t = threadIdx.x; t < n; t += kThreads)
-    ps[t] = ps[t] / sum * __bfloat162float(vs[t]);
-  __syncthreads();
+  sum = msgv::warp_sum(sum);
+  if (lane == 0) red[kWarps + warp] = sum;
+  __syncthreads();   // also publishes ps = e * v_scale
+  sum = red[kWarps];
+#pragma unroll
+  for (int i = 1; i < kWarps; ++i) sum += red[kWarps + i];
 
-  // thread (g, d) sums rows t = g, g + groups, ... of head dim d
-  const int groups = kThreads / hd;
-  const int d = threadIdx.x % hd;
-  const int g = threadIdx.x / hd;
-  float acc = 0.f;
-  if (g < groups)
-    for (int t = g; t < n; t += groups)
-      acc = fmaf(ps[t], cache_val<kInt4>(vr + static_cast<size_t>(t) * hdp, d),
-                 acc);
-  part[threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.x < hd) {
-    float r = 0.f;
-    for (int i = 0; i < groups; ++i) r += part[i * hd + threadIdx.x];
-    o[static_cast<size_t>(row) * hd + threadIdx.x] = r;
+  {
+    float acc[kDPL];
+#pragma unroll
+    for (int i = 0; i < kDPL; ++i) acc[i] = 0.f;
+    for (int t = g; t < rows; t += kGroups) {
+      float x[kDPL];
+      unpack16<kInt4>(
+          *reinterpret_cast<const uint4*>(sv + t * kRowBytes + 16 * li), x);
+      const float p = ps[t];
+#pragma unroll
+      for (int i = 0; i < kDPL; ++i) acc[i] = fmaf(p, x[i], acc[i]);
+    }
+    // the rows of one warp, then the warps, always in this order
+#pragma unroll
+    for (int off = kLPR; off < 32; off <<= 1) {
+#pragma unroll
+      for (int i = 0; i < kDPL; ++i)
+        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+    }
+    if (lane < kLPR) {
+#pragma unroll
+      for (int i = 0; i < kDPL; ++i)
+        part[warp * kHd + lane * kDPL + i] = acc[i];
+    }
   }
+  __syncthreads();
+  float r = 0.f;
+  if (tid < kHd) {
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) r += part[i * kHd + tid];
+  }
+  if (gridDim.y == 1) {
+    if (tid < kHd) o[static_cast<size_t>(row) * kHd + tid] = r / sum;
+    return;
+  }
+
+  // split rows: merge the cluster's partial results in rank 0
+  cg::cluster_group cluster = cg::this_cluster();
+  if (tid < kHd) mine[tid] = r;
+  if (tid == 0) {
+    mine[kHd] = mx;     // -inf for an empty share
+    mine[kHd + 1] = sum;
+  }
+  cluster.sync();
+  if (cluster.block_rank() == 0 && tid < kHd) {
+    const int ranks = static_cast<int>(cluster.num_blocks());
+    float big = -CUDART_INF_F;
+    for (int i = 0; i < ranks; ++i)
+      big = fmaxf(big, cluster.map_shared_rank(mine, i)[kHd]);
+    float num = 0.f, den = 0.f;
+    for (int i = 0; i < ranks; ++i) {
+      const float* theirs = cluster.map_shared_rank(mine, i);
+      const float w = expf(theirs[kHd] - big);   // rank 0 is never empty
+      num = fmaf(theirs[tid], w, num);
+      den = fmaf(theirs[kHd + 1], w, den);
+    }
+    o[static_cast<size_t>(row) * kHd + tid] = num / den;
+  }
+  cluster.sync();   // nobody leaves while rank 0 reads its shared memory
 }
 
-template <typename Q, bool kInt4>
+template <typename Q, bool kInt4, int kLPR>
 int launch(const void* q, const void* k, const void* v, const void* k_scale,
-           const void* v_scale, void* o, int bh, int t_cap, int hd, int layer,
-           int pos, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(hd) + pos + 1 + kThreads + kWarps);
-  cudaError_t err = msgv::allow_smem(decode_attention_kernel<Q, kInt4>, smem);
+           const void* v_scale, void* o, int bh, int t_cap, int layer,
+           int pos, int splits, cudaStream_t stream) {
+  constexpr int kHd = kLPR * (kInt4 ? 32 : 16);
+  auto kernel = decode_attention_kernel<Q, kInt4, kLPR>;
+  const int per = (pos + splits) / splits;   // ceil((pos + 1) / splits)
+  const size_t smem = static_cast<size_t>(per) * (2 * kLPR * 16 + 12) +
+                      sizeof(float) * (kHd + kWarps * kHd + 2 * kWarps +
+                                       kHd + 2);
+  cudaError_t err = msgv::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  decode_attention_kernel<Q, kInt4><<<bh, kThreads, smem, stream>>>(
-      static_cast<const Q*>(q), static_cast<const uint8_t*>(k),
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bh, splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const Q*>(q), static_cast<const uint8_t*>(k),
       static_cast<const uint8_t*>(v),
       static_cast<const __nv_bfloat16*>(k_scale),
       static_cast<const __nv_bfloat16*>(v_scale), static_cast<float*>(o), bh,
-      t_cap, hd, layer, pos, 1.0f / sqrtf(static_cast<float>(hd)));
-  return cudaGetLastError();
+      t_cap, layer, pos, per, 1.0f / sqrtf(static_cast<float>(kHd)));
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename Q, bool kInt4>
+int launch_hd(int lanes, const void* q, const void* k, const void* v,
+              const void* k_scale, const void* v_scale, void* o, int bh,
+              int t_cap, int layer, int pos, int splits, cudaStream_t s) {
+  switch (lanes) {
+    case 1:
+      return launch<Q, kInt4, 1>(q, k, v, k_scale, v_scale, o, bh, t_cap,
+                                 layer, pos, splits, s);
+    case 2:
+      return launch<Q, kInt4, 2>(q, k, v, k_scale, v_scale, o, bh, t_cap,
+                                 layer, pos, splits, s);
+    case 4:
+      return launch<Q, kInt4, 4>(q, k, v, k_scale, v_scale, o, bh, t_cap,
+                                 layer, pos, splits, s);
+    case 8:
+      return launch<Q, kInt4, 8>(q, k, v, k_scale, v_scale, o, bh, t_cap,
+                                 layer, pos, splits, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q: contiguous (bh, hd), float32 (q_bf16 == 0) or bfloat16.  k, v:
-// contiguous (L, bh, t_cap, hd) int8, or (L, bh, t_cap, hd / 2) packed int4
-// (int4 != 0).  k_scale, v_scale: contiguous (L, bh, t_cap) bfloat16.
-// o: (bh, hd) float32.  Needs hd % 8 == 0, hd <= 128, 0 <= pos < t_cap.
+// contiguous, 16-byte aligned (L, bh, t_cap, hd) int8, or
+// (L, bh, t_cap, hd / 2) packed int4 (int4 != 0).  k_scale, v_scale:
+// contiguous (L, bh, t_cap) bfloat16.  o: (bh, hd) float32.  A cache row
+// must be 16, 32, 64 or 128 bytes; 0 <= pos < t_cap; the rows t <= pos are
+// split over ``splits`` CTAs (1..4, a thread block cluster when > 1).
 MSGV_API int msgv_decode_attention(const void* q, const void* k,
                                    const void* v, const void* k_scale,
                                    const void* v_scale, void* o, int bh,
                                    int t_cap, int hd, int layer, int pos,
-                                   int q_bf16, int int4, void* stream) {
+                                   int q_bf16, int int4, int splits,
+                                   void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  const int row_bytes = int4 ? hd / 2 : hd;
+  if (row_bytes % 16 || splits < 1 || splits > 4 || pos < 0 || pos >= t_cap)
+    return cudaErrorInvalidValue;
+  const int lanes = row_bytes / 16;
   if (q_bf16)
-    return int4 ? launch<__nv_bfloat16, true>(q, k, v, k_scale, v_scale, o,
-                                              bh, t_cap, hd, layer, pos, s)
-                : launch<__nv_bfloat16, false>(q, k, v, k_scale, v_scale, o,
-                                               bh, t_cap, hd, layer, pos, s);
-  return int4 ? launch<float, true>(q, k, v, k_scale, v_scale, o, bh, t_cap,
-                                    hd, layer, pos, s)
-              : launch<float, false>(q, k, v, k_scale, v_scale, o, bh, t_cap,
-                                     hd, layer, pos, s);
+    return int4 ? launch_hd<__nv_bfloat16, true>(lanes, q, k, v, k_scale,
+                                                 v_scale, o, bh, t_cap, layer,
+                                                 pos, splits, s)
+                : launch_hd<__nv_bfloat16, false>(lanes, q, k, v, k_scale,
+                                                  v_scale, o, bh, t_cap,
+                                                  layer, pos, splits, s);
+  return int4 ? launch_hd<float, true>(lanes, q, k, v, k_scale, v_scale, o,
+                                       bh, t_cap, layer, pos, splits, s)
+              : launch_hd<float, false>(lanes, q, k, v, k_scale, v_scale, o,
+                                        bh, t_cap, layer, pos, splits, s);
 }

@@ -35,7 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from melspec_gpt_vqvae_tpu.configs import GPTConfig
+from ..configs import GPTConfig
 
 from ..ops.attention import attend, attend_xla, bernoulli_u8
 from ..ops.decode_attention import decode_attend_int8

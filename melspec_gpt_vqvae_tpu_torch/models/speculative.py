@@ -27,7 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from melspec_gpt_vqvae_tpu.configs import GPTConfig
+from ..configs import GPTConfig
 
 from ..ops.decode_attention import decode_attend_int8
 from ..ops.sampling import categorical, filtered_log_probs, sample_logits

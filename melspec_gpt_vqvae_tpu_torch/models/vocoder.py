@@ -10,9 +10,10 @@ Internally (B, C, T).  ``torch.nn.ConvTranspose1d(k=2r, stride=r,
 padding=r//2 + r%2, output_padding=r%2)`` is exactly the JAX module's VALID
 transpose followed by its crop (vocoder.py:63-72).  Each stage's resblock
 stack runs through ops/vocoder_stack.py::fused_resblock_stack (kernel B on
-the card).  Submodule names follow the flax parameter tree (``conv_in``,
-``up_{i}``, ``res_{i}_{j}``, ``conv_out``), so bridge.py maps weights by
-name.
+the card), with the stage's weights packed once for the kernel and kept
+here, beside the weights they were made from (``packed_stage``).
+Submodule names follow the flax parameter tree (``conv_in``, ``up_{i}``,
+``res_{i}_{j}``, ``conv_out``), so bridge.py maps weights by name.
 """
 
 from __future__ import annotations
@@ -21,9 +22,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from melspec_gpt_vqvae_tpu.configs import VocoderConfig
+from ..configs import VocoderConfig
 
-from ..ops.vocoder_stack import fused_resblock_stack
+from ..ops.vocoder_stack import fused_resblock_stack, pack
 
 
 class MelGANResnetBlock(nn.Module):
@@ -61,16 +62,44 @@ class MelGANGenerator(nn.Module):
                 self.add_module(f"res_{i}_{j}", MelGANResnetBlock(ch, 3 ** j))
             mult //= 2
         self.conv_out = nn.Conv1d(cfg.ngf, 1, 7)
+        self._packed = {}   # stage -> (parameters, their marks, packed)
+        self.packs = 0      # times a stage's weights were packed
 
     def stage_blocks(self, i: int):
         return [getattr(self, f"res_{i}_{j}")
                 for j in range(self.cfg.n_residual_layers)]
+
+    def packed_stage(self, i: int):
+        """Stage ``i``'s weights as kernel B reads them
+        (ops/vocoder_stack.py::pack), for the weights' own device and dtype.
+        Packed on first use and again after a parameter was replaced, moved,
+        cast or changed in place (its ``_version``).  The old parameters are
+        held until then, so identity cannot be confused by a reused address.
+        A write through ``.data`` moves no version: call ``drop_packed``
+        after one."""
+        blocks = self.stage_blocks(i)
+        params = [p for blk in blocks for p in blk.parameters()]
+        marks = [(p._version, p.dtype, p.device) for p in params]
+        hit = self._packed.get(i)
+        if hit is None or hit[1] != marks \
+                or any(a is not b for a, b in zip(hit[0], params)):
+            hit = (params, marks, pack(blocks, params[0].device,
+                                       params[0].dtype))
+            self._packed[i] = hit
+            self.packs += 1
+        return hit[2]
+
+    def drop_packed(self):
+        """Forget the packed weights; the next forward packs them anew."""
+        self._packed.clear()
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         x = F.pad(mel.transpose(1, 2), (3, 3), mode="reflect")
         x = self.conv_in(x)
         for i in range(len(self.cfg.ratios)):
             x = getattr(self, f"up_{i}")(F.leaky_relu(x, 0.2))
-            x = fused_resblock_stack(x, self.stage_blocks(i))
+            x = fused_resblock_stack(
+                x, self.stage_blocks(i),
+                None if x.device.type == "cpu" else self.packed_stage(i))
         x = F.pad(F.leaky_relu(x, 0.2), (3, 3), mode="reflect")
         return torch.tanh(self.conv_out(x))[:, 0]

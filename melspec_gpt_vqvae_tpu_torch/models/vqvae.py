@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from melspec_gpt_vqvae_tpu.configs import VQVAEConfig
+from ..configs import VQVAEConfig
 
 from ..ops.vq import vq_lookup, vq_nearest_index
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from melspec_gpt_vqvae_tpu.configs import MelConfig
+from ..configs import MelConfig
 
 # ---------------------------------------------------------------------------
 # Mel filterbank (Slaney scale + Slaney norm, librosa.filters.mel-compatible)

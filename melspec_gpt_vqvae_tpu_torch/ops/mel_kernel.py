@@ -16,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from melspec_gpt_vqvae_tpu.configs import MelConfig
+from ..configs import MelConfig
 
 from .. import _build
 from .mel import _hann, mel_filterbank, pad_or_trim, waveform_to_mel

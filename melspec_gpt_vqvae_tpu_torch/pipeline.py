@@ -19,7 +19,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from melspec_gpt_vqvae_tpu.configs import ExperimentConfig, MelConfig
+from .configs import ExperimentConfig, MelConfig
 
 from .models.gpt import class_embed, gpt_generate
 from .models.speculative import gpt_speculative_generate

@@ -3,8 +3,9 @@
 Counterpart of melspec_gpt_vqvae_tpu/serving.py without its HTTP server:
 ``build_pipeline`` makes the pipeline from random weights (seeded) or from
 JAX parameter trees carried across by bridge.py, with the JAX package's
-defaults: on the card the bfloat16 model dtype, an int8 KV cache and int8
-streamed block weights (serving.py:95-102), on the CPU float32 and neither;
+defaults: on the card (the default device) the bfloat16 model dtype, an
+int8 KV cache and int8 streamed block weights (serving.py:95-102); on the
+CPU, which is used only when the caller names it, float32 and neither;
 optionally with a speculative draft.  ``GenerationService`` pads requests
 to a fixed batch, serialises generation with a lock, sheds load past a
 bounded queue, seeds each request's ``torch.Generator`` and sums the
@@ -25,10 +26,8 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from melspec_gpt_vqvae_tpu.configs import (ExperimentConfig, load_preset,
-                                           parse_overrides)
-
 from . import bridge
+from .configs import ExperimentConfig, load_preset, parse_overrides
 from .models.gpt import DTYPES, init_gpt_params, tree_to
 from .models.vocoder import MelGANGenerator
 from .models.vqvae import VQModel
@@ -55,8 +54,9 @@ def build_pipeline(dataset: str = "vas", *, init_random: bool = False,
                    draft_override: str = "", gamma: int = 4,
                    draft_experiment: Optional[str] = None,
                    int8_decode: bool = False):
-    """Construct the GenerationPipeline on ``device`` (default: CUDA when
-    present).  Weights are random (``init_random``, from ``seed``) or
+    """Construct the GenerationPipeline on ``device``: None means the
+    card, and without one this raises -- the CPU is taken only when asked
+    for with ``device="cpu"``.  Weights are random (``init_random``, from ``seed``) or
     ``params = {"gpt": ..., "vqvae": ..., "vocoder": ...}``, the JAX
     package's parameter trees with numpy leaves.  ``kv_cache`` is "auto",
     "int8" or "int4" (None: "int8" on the card, "auto" on the CPU);
@@ -73,8 +73,11 @@ def build_pipeline(dataset: str = "vas", *, init_random: bool = False,
                                   "not ported yet (ROADMAP)")
     if init_random == (params is not None):
         raise ValueError("pass exactly one of init_random=True or params")
-    device = torch.device(device or ("cuda" if torch.cuda.is_available()
-                                     else "cpu"))
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('build_pipeline: no CUDA card is visible; the '
+                           'port serves on the card unless the caller asks '
+                           'for the CPU with device="cpu"')
     on_card = device.type == "cuda"
     kv = kv_cache or ("int8" if on_card else "auto")
     if kv not in ("auto", "int8", "int4"):

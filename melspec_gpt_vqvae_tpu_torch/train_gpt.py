@@ -76,8 +76,8 @@ def main(args):
     import numpy as np
     import torch
 
-    from melspec_gpt_vqvae_tpu.configs import load_preset, parse_overrides
-    from melspec_gpt_vqvae_tpu.data import DataModule
+    from .configs import load_preset, parse_overrides
+    from .data import DataModule
 
     from .training import runner
     from .training.checkpoint import CheckpointManager

@@ -19,7 +19,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from melspec_gpt_vqvae_tpu.configs import ExperimentConfig, GPTConfig
+from ..configs import ExperimentConfig, GPTConfig
 
 from ..models.gpt import (DTYPES, class_embed, count_params,
                           cross_entropy_loss, gpt_apply, gpt_generate,

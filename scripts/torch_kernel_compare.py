@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Device time of the PyTorch port's kernels E and B in two checkouts, on
+one card, in one run.
+
+    python3 scripts/torch_kernel_compare.py --parent DIR [--out FILE]
+
+``DIR`` holds another commit of this repository (for instance
+``git archive <commit> | tar -x -C build/parent``).  The script measures
+parent, this tree, this tree, parent -- each in a process of its own that
+imports the port from that checkout and builds its kernels there -- and
+prints one JSON object with the four readings and the card's name and
+power limit.  Per reading: kernel E (``decode_attend_int8``, int8 and int4
+cache, bfloat16 q, pos = T - 1) at batch 8 and 1 for every cache length of
+a VAS decode in 8 segments, and kernel B (``fused_resblock_stack``,
+bfloat16) on the four MelGAN stages of a batch-8 request.  A time is the
+kernel's own device time in milliseconds per call, taken by this checkout's
+``chip_smoke.device_ms`` (a ``torch.profiler`` window; the wrapper's host
+work is not in it) at chip_smoke.py's shapes.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def measure(root):
+    """One reading: the port imported from the checkout at ``root``, timed
+    with this checkout's chip_smoke.py (its ``device_ms``, cache lengths,
+    cache maker and stage shapes), so both trees are read one way."""
+    import importlib.util
+    sys.path.insert(0, str(root))
+    import torch
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from melspec_gpt_vqvae_tpu_torch import bridge
+    from melspec_gpt_vqvae_tpu_torch.models.vocoder import MelGANGenerator
+    from melspec_gpt_vqvae_tpu_torch.ops.decode_attention import \
+        decode_attend_int8
+    from melspec_gpt_vqvae_tpu_torch.ops.vocoder_stack import \
+        fused_resblock_stack
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {"E": {}, "B": {}}
+    for bits in ("int8", "int4"):
+        for b in (8, 1):
+            for t in smoke.VAS_CAPS:
+                k, ks, v, vs = smoke.quantised_cache(g, dev, b, t, bits)
+                q = torch.randn(b, 16, 64, generator=g,
+                                device=dev).bfloat16()
+                out["E"][f"{bits},B={b},T={t}"] = smoke.device_ms(
+                    lambda: decode_attend_int8(q, k, v, ks, vs, 1, t - 1),
+                    ["decode_attention_kernel"], 50)
+    melgan = bridge.init_conv_net_(
+        MelGANGenerator(), torch.Generator().manual_seed(1)).to(
+        device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for i, (c, t) in enumerate(smoke.vocoder_stages(melgan)):
+            blocks = melgan.stage_blocks(i)
+            x = torch.randn(8, c, t, generator=g, device=dev).bfloat16()
+            out["B"][f"C={c},T={t}"] = smoke.device_ms(
+                lambda: fused_resblock_stack(x, blocks),
+                ["resblock_stack"], 5)
+    out["B"]["sum"] = sum(out["B"].values())
+    print(json.dumps(out))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="checkout of the commit to compare with")
+    ap.add_argument("--out", help="also write the JSON object here")
+    ap.add_argument("--measure", metavar="ROOT", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.measure:
+        return measure(Path(args.measure).resolve())
+    if not args.parent:
+        ap.error("--parent is required")
+    parent = Path(args.parent).resolve()
+    readings = []
+    for name, root in (("parent", parent), ("change", HERE),
+                       ("change", HERE), ("parent", parent)):
+        run = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--measure",
+             str(root)], cwd=root, capture_output=True, text=True,
+            env={**os.environ, "PYTHONPATH": str(root)})
+        if run.returncode:
+            raise SystemExit(f"{name} ({root}) failed:\n{run.stdout}"
+                             f"{run.stderr}")
+        readings.append({"tree": name,
+                         **json.loads(run.stdout.strip().splitlines()[-1])})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    res = json.dumps({"card": smi, "unit": "device ms per call",
+                      "readings": readings})
+    print(res)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(res + "\n")
+
+
+if __name__ == "__main__":
+    main()

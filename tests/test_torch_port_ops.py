@@ -9,6 +9,7 @@ against the plain versions on the card by chip_smoke.py.
 
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -56,20 +57,33 @@ PORT_MODULES = [
     "melspec_gpt_vqvae_tpu_torch.training.optim",
     "melspec_gpt_vqvae_tpu_torch.training.runner",
     "melspec_gpt_vqvae_tpu_torch.utils",
+    "melspec_gpt_vqvae_tpu_torch.utils.battery",
     "melspec_gpt_vqvae_tpu_torch.utils.profiling",
+    "melspec_gpt_vqvae_tpu_torch.configs",
+    "melspec_gpt_vqvae_tpu_torch.data",
+    "melspec_gpt_vqvae_tpu_torch.data.datasets",
+    "melspec_gpt_vqvae_tpu_torch.data.loader",
+    "melspec_gpt_vqvae_tpu_torch.data.native",
+    "melspec_gpt_vqvae_tpu_torch.data.transforms",
+    "melspec_gpt_vqvae_tpu_torch.data.vocab",
 ]
 
 
 def test_port_never_imports_jax():
     """The card's machine has no JAX: importing every module of the port
-    (in a fresh interpreter) must load none of jax, flax, optax or
-    orbax."""
+    and ``chip_smoke`` (import only) in a fresh interpreter must load none
+    of jax, flax, optax or orbax, and nothing of the JAX package -- not even
+    its framework-free modules -- nor the repository's ``parity_check``."""
     code = ("import importlib, sys\n"
-            f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+            f"for m in {PORT_MODULES + ['chip_smoke']!r}:\n"
+            "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
+            "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+            "              'melspec_gpt_vqvae_tpu', 'parity_check'))\n"
             "assert not bad, bad\n")
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+    root = str(Path(__file__).resolve().parent.parent)
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=root)
 
 
 # ---------------------------- attention -------------------------------------

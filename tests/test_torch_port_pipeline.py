@@ -77,10 +77,12 @@ def tiny_pipelines():
     vp = flax_params(JVQModel(exp.vqvae), jnp.zeros((1, 4, 8, 1)), 1)
     op = flax_params(JMelGAN(exp.vocoder), jnp.zeros((1, 8, 4)), 2)
     jpipe = JPipeline(exp, gp, vp, op, segments=2, chunk=3, bf16=False)
+    texp = bridge.config_from_jax(exp)   # each package gets its own classes
     tpipe = TP.GenerationPipeline(
-        exp, bridge.gpt_params_from_jax(gp),
-        bridge.load_vqvae(vp, exp.vqvae),
-        bridge.load_melgan(op, exp.vocoder), segments=2, chunk=3, bf16=False)
+        texp, bridge.gpt_params_from_jax(gp),
+        bridge.load_vqvae(vp, texp.vqvae),
+        bridge.load_melgan(op, texp.vocoder), segments=2, chunk=3,
+        bf16=False)
     return exp, jpipe, tpipe
 
 
@@ -163,9 +165,15 @@ def test_service_sheds_load_past_the_queue_bound(pipes):
                                 {"draft_experiment": "my_draft"}])
 def test_build_pipeline_refuses_what_is_not_ported(kw):
     with pytest.raises(NotImplementedError):
-        TSV.build_pipeline("vas", init_random=True, **kw)
+        build_on_cpu("vas", init_random=True, **kw)
     with pytest.raises(NotImplementedError):
         TSV.serve()
+
+
+def build_on_cpu(*args, **kw):
+    """``build_pipeline`` asked for the CPU: with no device it means the
+    card and raises here."""
+    return TSV.build_pipeline(*args, device="cpu", **kw)
 
 
 # a one-layer, 32-wide GPT in front of the VAS VQ-VAE and MelGAN
@@ -183,8 +191,8 @@ def test_build_pipeline_serves_each_cache_and_weight_dtype(kw, cache,
     """build_pipeline on the CPU takes the JAX package's defaults there
     (float32, no quantisation) and builds every quantised variant; greedy
     decoding through it equals gpt_generate on its weights and config."""
-    exp, pipe = TSV.build_pipeline("vas", init_random=True, override=SMALL,
-                                   seed=3, **kw)
+    exp, pipe = build_on_cpu("vas", init_random=True, override=SMALL,
+                             seed=3, **kw)
     m = exp.model
     assert (m.dtype, m.cache_dtype, m.decode_weight_dtype) == (
         "float32", cache, weights)
@@ -204,27 +212,27 @@ def test_build_pipeline_with_a_random_draft():
     """draft_random builds a draft from the target's overrides plus its
     own, seeded from seed + 1; greedy speculative tokens equal the plain
     pipeline's on the same target weights."""
-    exp, spec = TSV.build_pipeline("vas", init_random=True, override=SMALL,
-                                   seed=3, kv_cache="int8",
-                                   draft_random="n_layer=1,n_embd=16",
-                                   gamma=3)
+    exp, spec = build_on_cpu("vas", init_random=True, override=SMALL,
+                             seed=3, kv_cache="int8",
+                             draft_random="n_layer=1,n_embd=16",
+                             gamma=3)
     dcfg = spec.draft_cfg
     assert (dcfg.n_layer, dcfg.n_embd, dcfg.n_head) == (1, 16, 2)
     assert (dcfg.cache_dtype, dcfg.dtype) == ("int8", "float32")
     assert spec.gamma == 3 and spec.draft_params["tok_emb"].shape == (128, 16)
-    _, plain = TSV.build_pipeline("vas", init_random=True, override=SMALL,
-                                  seed=3, kv_cache="int8")
+    _, plain = build_on_cpu("vas", init_random=True, override=SMALL,
+                            seed=3, kv_cache="int8")
     toks, stats = spec.generate_tokens([1, 2], None, sample=False)
     ref, _ = plain.generate_tokens([1, 2], None, sample=False)
     torch.testing.assert_close(toks, ref, rtol=0, atol=0)
     assert stats["rounds"] >= 1 and stats["drafted"] == 3 * stats["rounds"]
     with pytest.raises(ValueError, match="vocab_size"):
-        TSV.build_pipeline("vas", init_random=True, override=SMALL,
-                           draft_random="n_layer=1",
-                           draft_override="vocab_size=64")
+        build_on_cpu("vas", init_random=True, override=SMALL,
+                     draft_random="n_layer=1",
+                     draft_override="vocab_size=64")
     with pytest.raises(ValueError, match="draft_override"):
-        TSV.build_pipeline("vas", init_random=True, override=SMALL,
-                           draft_override="n_layer=1")
+        build_on_cpu("vas", init_random=True, override=SMALL,
+                     draft_override="n_layer=1")
 
 
 def test_build_pipeline_carries_jax_weights_and_draft():
@@ -240,10 +248,10 @@ def test_build_pipeline_carries_jax_weights_and_draft():
                                    jnp.zeros((1, 80, 848, 1)), 1),
               "vocoder": flax_params(JMelGAN(exp.vocoder),
                                      jnp.zeros((1, 848, 80)), 2)}
-    _, plain = TSV.build_pipeline("vas", params=params, override=SMALL)
-    _, spec = TSV.build_pipeline("vas", params={**params, "draft": draft},
-                                 override=SMALL,
-                                 draft_override="n_layer=1,n_embd=16")
+    _, plain = build_on_cpu("vas", params=params, override=SMALL)
+    _, spec = build_on_cpu("vas", params={**params, "draft": draft},
+                           override=SMALL,
+                           draft_override="n_layer=1,n_embd=16")
     np.testing.assert_array_equal(spec.draft_params["head"]["w"].numpy(),
                                   draft["head"]["w"])
     np.testing.assert_array_equal(plain.gpt_params["tok_emb"].numpy(),

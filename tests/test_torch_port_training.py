@@ -230,7 +230,7 @@ def test_train_state_from_jax_continues_like_jax():
     assert tree["count"] == 2 and tree["step"] == 2
     assert tree["lr"] == pytest.approx(3e-4)
 
-    task = TT.GPTTask(exp, torch.device("cpu"))
+    task = TT.GPTTask(bridge.config_from_jax(exp), torch.device("cpu"))
     tstate = task.load_state(tree)
     for bt in batches[2:]:
         state, jl = jtask.train_step(state, bt, jax.random.PRNGKey(0))
@@ -249,7 +249,8 @@ def test_train_state_from_jax_continues_like_jax():
 # ------------------------------ checkpoints ---------------------------------
 
 def _tiny_task():
-    return TT.GPTTask(_exp(TINY.replace(n_layer=1)), torch.device("cpu"))
+    return TT.GPTTask(bridge.config_from_jax(_exp(TINY.replace(n_layer=1))),
+                      torch.device("cpu"))
 
 
 def _trained_state(task):
@@ -375,7 +376,7 @@ def test_midepoch_resume_is_exact(vas_tree, tmp_path):
     exp = _exp(cfg, lr=1e-3, batch_size=4, epochs=2)
 
     def fit(name, **kw):
-        task = TT.GPTTask(exp, torch.device("cpu"))
+        task = TT.GPTTask(bridge.config_from_jax(exp), torch.device("cpu"))
         d = tmp_path / name
         state = runner.fit_gpt(task, _dm(vas_tree), epochs=2,
                                log=TBLogger(str(d / "logs")),
