@@ -27,22 +27,24 @@
      token, device time);
    - the bf16 KV cache with bf16 weights (one batch-8 request);
    - the int4 KV cache (one batch-8 request, sampled top-p);
-   - speculative decoding with a random 4-layer draft, gamma 4, at
-     batch 1 and batch 8 (kernel E runs in the draft's steps and in the
-     target's verification).
+   - speculative decoding with a 12-layer target and a random 2-layer
+     draft, gamma 4, at batch 1 and batch 8 (kernel E runs in the draft's
+     steps and in the target's verification).
 3. Holds float32 copies (2 GPT layers, same widths) on the card against
    the CPU: the round trip (PR 1's check), and for the int8 and int4
    configurations the quantised cache values, the teacher-forced logits
    and greedy speculative against greedy plain decoding.
 4. Trains: kernel F (training attention, forward and backward) against
-   its plain version at (8, 16, 265, 64) and T = 37; then the VAS GPT
+   its plain version at (8, 16, T, 64) for T = 265, 266, 37 and 1, its
+   backward launched twice for bit-equal gradients; then the VAS GPT
    preset at full width with ``use_flash_train=True`` through
    ``train_gpt.main`` on a synthetic VAS tree of the 48 battery clips and
    their codes (a few steps, a validation pass, a checkpoint save), with
    F's launches counted; the checkpoint restored bit for bit; steps timed
-   against the plain-attention step; the loss on one repeated batch
-   falling; and one float32 train step of a 2-layer copy on the card
-   against the CPU.
+   against the plain-attention step, each with a profiled window of
+   three steps (device ms by kernel class, busy against wall); the loss
+   on one repeated batch falling; and one float32 train step of a 2-layer
+   copy on the card against the CPU.
 
 Exits non-zero, printing no result, when there is no CUDA card or any check
 fails.  The last three lines of stdout are: a JSON object of the kernels,
@@ -133,15 +135,15 @@ def device_ms(fn, names, reps=20):
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
+PEAK_OPS_PER_S = {"f32": 67e12, "tf32": 494e12, "bf16": 989e12}
 
 
 def bound(n_bytes, n_ops, kind):
     """The least milliseconds the card could take: the larger of the bytes
     the function must move (each input read once, each output written
     once) over the memory rate and its operations over the peak rate of
-    their type (``kind``: "f32" outside the tensor cores, "bf16" on
-    them)."""
+    their type (``kind``: "f32" outside the tensor cores, "tf32" or
+    "bf16" on them)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -235,6 +237,9 @@ def check_attention(dev):
 
 
 SPEC_FRAMES = 848   # vocoder input frames of one clip
+# depth of the speculative path's target and of its random draft (the main,
+# bf16 and int4 paths serve the full 24 layers)
+SPEC_LAYERS, DRAFT_LAYERS = 12, 2
 
 
 def vocoder_stages(melgan):
@@ -529,15 +534,18 @@ def check_int8_mm(dev):
 
 def check_flash(dev):
     """Kernel F forward (O, lse) and backward (dQ, dK, dV) against the
-    plain versions, at the training shape and a small odd T, with and
-    without a keep-mask, n_unmasked 0 and T.  Bounds: the JAX package's
-    (tests/test_flash_attention.py:26,44): 3e-5 outputs, 5e-5 gradients."""
+    plain versions, at the training shape, T = 266 (one more than four
+    row tiles and a column step), a small odd T and T = 1, with and
+    without a keep-mask, n_unmasked 0 and T; two backward launches on the
+    same inputs must agree bit for bit (no atomics).  Bounds: the JAX
+    package's (tests/test_flash_attention.py:26,44): 3e-5 outputs, 5e-5
+    gradients."""
     from melspec_gpt_vqvae_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_fwd, flash_attention_ref_bwd,
         flash_attention_ref_fwd, make_dropout_mask)
     g = torch.Generator(device=dev).manual_seed(5)
     worst_o = worst_g = 0.0
-    for t in (265, 37):
+    for t in (265, 266, 37, 1):
         for nu in (0, t):
             for rate in (0.0, 0.5):
                 q, k, v, do = (torch.randn(8, 16, t, 64, generator=g,
@@ -560,7 +568,13 @@ def check_flash(dev):
                 check(e_o <= 3e-5, f"flash forward T={t} nu={nu} rate={rate}")
                 check(e_g <= 5e-5, f"flash backward T={t} nu={nu} "
                                    f"rate={rate}")
+                again = flash_attention_bwd(q, k, v, keep, o, lse, do, *args)
+                check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                      f"flash backward T={t} nu={nu} rate={rate}: two "
+                      "launches on the same inputs differ")
                 worst_o, worst_g = max(worst_o, e_o), max(worst_g, e_g)
+    print("  F backward: two launches on the same inputs are bit-equal at "
+          "every case")
     # the slice's shape: batch 8, 16 heads, T = 265, the preset's keep 0.5
     q, k, v, do = (torch.randn(8, 16, 265, 64, generator=g, device=dev)
                    for _ in range(4))
@@ -583,24 +597,31 @@ def check_flash(dev):
     # kernel at keep 1; the port never calls it.
     import torch.nn.functional as F
     fwd1 = cuda_ms(lambda: flash_attention_fwd(q, k, v, None, 0, 1.0))
+    fwd1_dev = device_ms(lambda: flash_attention_fwd(q, k, v, None, 0, 1.0),
+                         ["flash_fwd_kernel"])
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
                                                          is_causal=True))
-    # products over the causal half: 2 forward (QK^T, PV), 5 backward
-    # (scores again, dP, dV, dQ, dK), 2 T (T + 1) / 2 hd flops each
+    # The function's products over the causal half, each counted once
+    # whatever terms an implementation splits it into: 2 forward (QK^T,
+    # PV), 5 backward (scores again, dP, dV, dQ, dK), 2 T (T + 1) / 2 hd
+    # flops each, at the tensor cores' TF32 rate (the fastest unit that
+    # takes float32 operands); against the bytes, which bind.
     half = 8 * 16 * (265 * 266 // 2) * 64 * 2
-    bf = bound(nbytes(q, k, v, keep, o, lse), 2 * half, "f32")
-    bb = bound(nbytes(q, k, v, keep, o, lse, do, *grads), 5 * half, "f32")
+    bf = bound(nbytes(q, k, v, keep, o, lse), 2 * half, "tf32")
+    bb = bound(nbytes(q, k, v, keep, o, lse, do, *grads), 5 * half, "tf32")
     print(f"  F timing f32 (8,16,265,64) keep 0.5: forward kernel "
           f"{fwd[0]:.4f} ms (device {fwd[2]:.4f}), plain {fwd[1]:.4f} ms, "
           f"bound {bf['bound_ms']:.4f} ms; backward kernel {bwd[0]:.4f} ms "
           f"(device {bwd[2]:.4f}), plain {bwd[1]:.4f} ms, bound "
-          f"{bb['bound_ms']:.4f} ms; keep 1: forward kernel {fwd1:.4f} ms, "
-          f"scaled_dot_product_attention f32 {lib:.4f} ms")
+          f"{bb['bound_ms']:.4f} ms; keep 1: forward kernel {fwd1:.4f} ms "
+          f"(device {fwd1_dev:.4f}), scaled_dot_product_attention f32 "
+          f"{lib:.4f} ms")
     return ({"max_abs_err": worst_o, "ms": fwd[0], "device_ms": fwd[2],
              "plain_ms": fwd[1], **bf, "library_ms": lib,
              "library_call": "F.scaled_dot_product_attention(q, k, v, "
                              "is_causal=True), float32, keep 1 (no single "
-                             "call takes a keep-mask)", "ms_keep1": fwd1},
+                             "call takes a keep-mask)", "ms_keep1": fwd1,
+             "device_ms_keep1": fwd1_dev},
             {"max_abs_err": worst_g, "ms": bwd[0], "device_ms": bwd[2],
              "plain_ms": bwd[1], **bb, "library_ms": None,
              "library_call": None})
@@ -1015,6 +1036,66 @@ def timed_steps(task, state, batch, n, lr=None):
             torch.cuda.max_memory_allocated())
 
 
+# device kernels of a train step by class: (label, substrings of the
+# kernel's name, lower case); what matches none is "the rest"
+TRAIN_KERNEL_CLASSES = (
+    ("F forward", ("flash_fwd_kernel",)),
+    ("F dQ", ("flash_bwd_dq",)),
+    ("F dK,dV", ("flash_bwd_dkv",)),
+    ("F delta", ("flash_bwd_delta",)),
+    ("float32 GEMMs", ("gemm", "cutlass", "cublas", "gemv")),
+    ("AdamW", ("multi_tensor_apply", "adam")))
+
+
+def profile_train_step(task, state, batch, title, warm=2, steps=3):
+    """Device milliseconds of one full-width train step by kernel class,
+    from a ``torch.profiler`` window of ``steps`` steps after ``warm``
+    steps on ``batch``: kernel F's forward, dQ, dK/dV and delta kernels,
+    the float32 GEMMs, AdamW and the rest, the device's busy time against
+    the wall, and the kernels a step launches."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from melspec_gpt_vqvae_tpu_torch.training.runner import step_generator
+
+    def step(i):
+        nonlocal state
+        state, _ = task.train_step(state, batch,
+                                   step_generator(1, 0, i, task.device))
+    for i in range(warm):
+        step(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(warm + i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    ms = {label: 0.0 for label, _ in TRAIN_KERNEL_CLASSES}
+    ms["the rest"] = 0.0
+    counts = dict.fromkeys(ms, 0)
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        key = ev.key.lower()
+        label = next((lab for lab, names in TRAIN_KERNEL_CLASSES
+                      if any(n in key for n in names)), "the rest")
+        ms[label] += us / 1e3 / steps
+        counts[label] += ev.count
+    busy = sum(ms.values())
+    res = {"device_ms_per_step": {k: round(v, 3) for k, v in ms.items()},
+           "device_busy_ms_per_step": round(busy, 3),
+           "wall_ms_per_step_profiled": round(wall_ms, 3),
+           "kernels_per_step": sum(counts.values()) / steps,
+           "F_forward_launches_per_step": counts["F forward"] / steps}
+    print(f"  train step, {title} (torch.profiler, {steps} steps after "
+          f"{warm}): {json.dumps(res)}")
+    check(busy > 0, "profiler saw no device activity in the train step")
+    return res
+
+
 def train_check(dev, mels, codes):
     """The training main path, its launch counts, the checkpoint, step
     times against the plain attention, and the learning check.  Returns
@@ -1054,6 +1135,11 @@ def train_check(dev, mels, codes):
           f"{losses[0]:.4f} -> {losses[-1]:.4f} in 30 steps")
     check(all(np.isfinite(losses)), "non-finite training loss")
     check(losses[-1] < losses[0], "loss on a repeated batch did not fall")
+    prof = profile_train_step(task, state, batch, "kernel F")
+    check(prof["F_forward_launches_per_step"] >= n_layer - 1
+          and all(prof["device_ms_per_step"][c] > 0
+                  for c in ("F forward", "F dQ", "F dK,dV")),
+          "the profiled train step did not run kernel F in every layer")
     del task, state, ckpt
     torch.cuda.empty_cache()
 
@@ -1063,6 +1149,9 @@ def train_check(dev, mels, codes):
     print(f"  plain attention (attend_xla): {pms:.1f} ms per step, "
           f"{8 * 265 / (pms / 1e3):.0f} tokens/s, peak "
           f"{pmem / 2 ** 30:.2f} GiB")
+    prof = profile_train_step(plain, pstate, batch, "plain attention")
+    check(prof["F_forward_launches_per_step"] == 0,
+          "the plain-attention step launched kernel F")
     del plain, pstate
     torch.cuda.empty_cache()
     return launches, batch
@@ -1263,18 +1352,22 @@ def main():
     del pipe
 
     phase("speculative",
-          "speculative decoding, random 4-layer draft, gamma 4 (int8 cache "
-          "and weights):")
+          f"speculative decoding, {SPEC_LAYERS}-layer target, random "
+          f"{DRAFT_LAYERS}-layer draft, gamma 4 (int8 cache and weights):")
     exp_s, pipe = build_pipeline("vas", init_random=True, seed=783435,
-                                 device=dev, draft_random="n_layer=4",
+                                 device=dev, override=f"n_layer={SPEC_LAYERS}",
+                                 draft_random=f"n_layer={DRAFT_LAYERS}",
                                  gamma=4)
+    check(exp_s.model.n_layer == SPEC_LAYERS
+          and pipe.draft_cfg.n_layer == DRAFT_LAYERS,
+          "speculative path: target and draft depth")
     zero()
     _, rounds = serve_path(exp_s, pipe, dev, [(1, {}, [3]),
                                               (8, {}, list(range(8)))])
     c = counts("speculative")
     # per round: gamma + 1 draft steps and a target chunk of gamma + 1
     check(c["attention"] > 0 and c["vocoder_stack"] > 0
-          and c["decode_attention"] == rounds * 5 * (4 + n_layer),
+          and c["decode_attention"] == rounds * 5 * (DRAFT_LAYERS + SPEC_LAYERS),
           "speculative path: kernel E in the draft and the verification")
     del pipe
     torch.cuda.empty_cache()

@@ -1,5 +1,5 @@
 // Kernel F: fused training attention with a dropout keep-mask, forward and
-// backward.
+// backward, on the tensor cores at float32 accuracy.
 //
 // Replaces melspec_gpt_vqvae_tpu/ops/flash_attention.py::_fwd_kernel and
 // ::_bwd_kernel (the Pallas TPU kernels behind the jax.custom_vjp
@@ -15,140 +15,391 @@
 // keep_prob < 1, as in the TPU kernels; it may be null (all kept).
 //
 // What bounds it on the card: at the GPT training shape (B*H = 128,
-// T = 265, hd = 64, float32) a layer's attention is ~2.3 GFLOP forward and
-// ~2.5x that backward, and the only large read is the 9 MB keep-mask; it
-// is bound by float32 FMA issue and shared-memory reads, not by device
-// memory.  The design: a sequence is at most ~400 long, so one CTA stages
-// everything a tile of 32 rows (or columns) can see in shared memory --
-// K and V for the forward and dQ, Q and dO for dK/dV -- transposed with an
-// odd leading dimension, so that lanes walking columns and lanes walking
-// the head dim both read conflict-free.  Each warp holds its row's q (and
-// dO) in registers, lanes take columns, and each dot product runs four
-// independent FMA chains.  Every row's visible columns are one range
-// (rcols = r < nu ? nu : r + 1), so nothing is filled with -inf.  The
-// backward has no atomics: dQ runs over row tiles, dK/dV over column tiles
-// (each column loops over the rows that see it), and every sum is taken
-// in a fixed order, so the gradients are deterministic.
+// T = 265, hd = 64, float32) the function moves 36 MB forward and 79 MB
+// backward (0.011 / 0.024 ms at the memory rate) and its 2 / 5 products
+// over the causal half are 1.2 / 2.9 GFLOP, far below both the float32
+// FMA pipes and the tensor cores: it is bound by bytes, and what a kernel
+// loses it loses to instruction slots, shared-memory reads and latency.
+//
+// The design.
+//   * Every product runs on the tensor cores as mma.sync m16n8k8 with TF32
+//     operands and float32 accumulators.  A float32 operand x is split
+//     into big = tf32(x) and small = x - big (its first 10 mantissa bits
+//     are what the tensor core reads); a product is
+//     a_big b_big + a_big b_small + a_small b_big, which keeps ~21
+//     mantissa bits (one TF32 product keeps 10 and misses the bounds).
+//     Operands are split after the shared-memory read; probabilities and
+//     dS are split in registers.  The tensor cores truncate when they add
+//     into an accumulator, so running sums are kept outside them: the
+//     three mma of a k-block go into a fresh accumulator that is added in
+//     float32.
+//   * Tiles in the FlashAttention-2 shape.  Forward and dQ: a CTA of 4
+//     warps takes 64 query rows, a warp 16 of them, and loops over
+//     32-column K/V tiles up to the tile's last visible column with an
+//     online softmax (running max and sum per row in registers).  dK/dV: a
+//     CTA owns 64 columns, a warp 16 of them, and loops over 32-row Q/dO
+//     tiles from the first row that sees them; it forms S^T = K Q^T and
+//     dP^T = V dO^T directly, so P^T and dS^T arrive in the accumulator
+//     layout.  No float atomics: every sum has a fixed order, so the
+//     gradients are deterministic.
+//   * Accumulator -> next product's A operand without shared memory: an
+//     m16n8 accumulator holds columns 2t, 2t+1 of rows g, g+8 where the
+//     m16k8 A fragment wants contraction indices t, t+4.  The contraction
+//     index is permuted (k = t <-> column 2t, k = t+4 <-> column 2t+1) and
+//     the B operand's rows are read in the same order.
+//   * Shared-memory tiles are [row][68 floats]: rows stay 16-byte aligned
+//     for cp.async and both B-operand read patterns (row g, float t; row
+//     2t, float g) touch 32 distinct banks.  Rows past T are zero-filled.
+//   * Keep-mask rows are T bytes apart and so not even 4-byte aligned: a
+//     tile's rows are staged with 4-byte cp.async from the aligned word
+//     that holds the row's first byte, and read at that byte's offset.
+//   * Staging overlaps the products: in the forward the next K tile loads
+//     behind softmax and P V, the next V tile behind Q K^T; 37-55 KB of
+//     shared memory a CTA and 128-168 registers a thread let 3-4 CTAs
+//     share an SM.
+//   * A warp skips the 8-column blocks none of its rows can see, and
+//     warps whose rows lie past T only help staging.
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kHd = 64;      // head dim the kernels are written for
-constexpr int kWarps = 8;
-constexpr int kTile = 32;    // rows (forward, dQ) or columns (dK/dV) a CTA
-constexpr int kKeepLd = kTile + 1;  // bytes per staged keep-mask row
+constexpr int kHd = 64;        // head dim the kernels are written for
+constexpr int kLd = 68;        // floats per staged row
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kBm = 64;        // rows (forward, dQ) or columns (dK/dV) a CTA
+constexpr int kBc = 32;        // K/V columns a step (forward, dQ)
+constexpr int kBr = 32;        // Q/dO rows a step (dK/dV)
+constexpr int kKwF = kBc / 4 + 1;  // staged keep words a row (forward, dQ)
+constexpr int kKwT = kBm / 4 + 1;  // the same for dK/dV
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Rows [0, n) of a row-major (n, kHd) matrix into smem as dst[d * ld + i].
-__device__ __forceinline__ void stage_transposed(float* dst, int ld,
-                                                 const float* __restrict__ src,
-                                                 int n) {
-  for (int i = threadIdx.x; i < n * kHd; i += blockDim.x)
-    dst[(i % kHd) * ld + i / kHd] = src[i];
+// x = big + small with big = x rounded to TF32 (nearest, ties away from
+// zero, as cvt.rna.tf32.f32 rounds) and small the exact remainder, of which
+// the tensor core reads the sign, the exponent and the first 10 mantissa
+// bits.  Integer rounding instead of two cvt: with conversions the
+// kernels took a fifth longer.
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
 }
 
-__device__ __forceinline__ void load_row(float (&dst)[kHd],
-                                         const float* __restrict__ src) {
-#pragma unroll
-  for (int d = 0; d < kHd; ++d) dst[d] = __ldg(src + d);
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// a . column i of a transposed smem matrix, in four FMA chains.
-__device__ __forceinline__ float dot_col(const float (&a)[kHd],
-                                         const float* bt, int ld, int i) {
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+// d += a b at float32 accuracy: three TF32 products, small terms first.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], float b0,
+                                     float b1) {
+  uint32_t b0b, b0s, b1b, b1s;
+  split(b0, b0b, b0s);
+  split(b1, b1b, b1s);
+  mma_tf32(d, as, b0b, b1b);
+  mma_tf32(d, ab, b0s, b1s);
+  mma_tf32(d, ab, b0b, b1b);
+}
+
+// The tensor cores add into their accumulator with truncation, and an error
+// that always points towards zero grows with the number of additions into
+// one running sum (a 265-row dK column came out 10x further from the plain
+// version than the float32 FMA kernel did).  So no running sum lives in an
+// mma accumulator: the three mma of a k-block go into a fresh one, which is
+// then added to the running sum in float32 with round-to-nearest.
+__device__ __forceinline__ void mma3_add(float (&acc)[4],
+                                         const uint32_t (&ab)[4],
+                                         const uint32_t (&as)[4], float b0,
+                                         float b1) {
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3(part, ab, as, b0, b1);
 #pragma unroll
-  for (int d = 0; d < kHd; d += 4) {
-    s0 = fmaf(a[d], bt[d * ld + i], s0);
-    s1 = fmaf(a[d + 1], bt[(d + 1) * ld + i], s1);
-    s2 = fmaf(a[d + 2], bt[(d + 2) * ld + i], s2);
-    s3 = fmaf(a[d + 3], bt[(d + 3) * ld + i], s3);
+  for (int e = 0; e < 4; ++e) acc[e] += part[e];
+}
+
+// acc[nb] += A B^T for the 8-column blocks nb in [lo, hi): A is the warp's
+// 16 rows of a staged tile (a points at its first row), B a staged tile
+// whose row n is output column n; both (rows, kHd).
+template <int NB>
+__device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const float* a,
+                                        const float* b, int lo, int hi,
+                                        int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kb = 0; kb < kHd / 8; ++kb) {
+    uint32_t ab[4], as[4];
+    const float* ar = a + g * kLd + 8 * kb + t;
+    split(ar[0], ab[0], as[0]);
+    split(ar[8 * kLd], ab[1], as[1]);
+    split(ar[4], ab[2], as[2]);
+    split(ar[8 * kLd + 4], ab[3], as[3]);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      if (nb >= lo && nb < hi) {
+        const float* br = b + (8 * nb + g) * kLd + 8 * kb + t;
+        mma3_add(acc[nb], ab, as, br[0], br[4]);
+      }
+    }
   }
-  return (s0 + s1) + (s2 + s3);
 }
 
-// Columns a query row sees: c < rcols.
-__device__ __forceinline__ int visible_cols(int r, int nu) {
-  return r < nu ? nu : r + 1;
+// acc (16 x kHd) += P B for P's 8-column blocks kb in [lo, hi): P is held
+// as accumulator fragments p[kb], B is a staged tile whose row k belongs to
+// P's column k.  The contraction index is permuted to fit the fragments:
+// k = t is column 2t, k = t + 4 is column 2t + 1.
+template <int KB>
+__device__ __forceinline__ void mma_pb(float (&acc)[kHd / 8][4],
+                                       const float (&p)[KB][4], const float* b,
+                                       int lo, int hi, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+    if (kb >= lo && kb < hi) {
+      uint32_t ab[4], as[4];
+      split(p[kb][0], ab[0], as[0]);
+      split(p[kb][2], ab[1], as[1]);
+      split(p[kb][1], ab[2], as[2]);
+      split(p[kb][3], ab[3], as[3]);
+      const float* br = b + (8 * kb + 2 * t) * kLd + g;
+#pragma unroll
+      for (int nb = 0; nb < kHd / 8; ++nb)
+        mma3_add(acc[nb], ab, as, br[8 * nb], br[kLd + 8 * nb]);
+    }
+  }
+}
+
+// Rows [r0, r0 + n) of a row-major (t_len, kHd) matrix into dst[n][kLd];
+// rows past t_len become zeros.
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
+                                           int r0, int n, int t_len) {
+  for (int i = threadIdx.x; i < n * (kHd / 4); i += kThreads) {
+    const int r = i / (kHd / 4), c = (i % (kHd / 4)) * 4;
+    const bool ok = r0 + r < t_len;
+    msgv::cp_async16_zfill(dst + r * kLd + c,
+                           src + static_cast<size_t>(ok ? r0 + r : 0) * kHd + c,
+                           ok);
+  }
+}
+
+// Keep bytes of rows [r0, r0 + n) x columns [c0, c0 + ncols) of one
+// (t_len, t_len) mask into dst[n][W words]: each row is copied from the
+// aligned word that holds its first byte, so column c0 + j of row r lies
+// at byte keep_off(row) + j of the staged row.
+template <int W>
+__device__ __forceinline__ void stage_keep(uint8_t* dst,
+                                           const uint8_t* __restrict__ keep,
+                                           int r0, int n, int c0, int ncols,
+                                           int t_len) {
+  const int cend = min(c0 + ncols, t_len);
+  for (int i = threadIdx.x; i < n * W; i += kThreads) {
+    const int r = i / W, w = i % W;
+    if (r0 + r >= t_len) continue;
+    const uint8_t* row = keep + static_cast<size_t>(r0 + r) * t_len;
+    const uintptr_t a =
+        (reinterpret_cast<uintptr_t>(row + c0) & ~uintptr_t(3)) + 4 * w;
+    if (a < reinterpret_cast<uintptr_t>(row + cend))
+      msgv::cp_async4(dst + (r * W + w) * 4, reinterpret_cast<const void*>(a));
+  }
+}
+
+__device__ __forceinline__ int keep_off(const uint8_t* keep, int row, int c0,
+                                        int t_len) {
+  return static_cast<int>(
+      reinterpret_cast<uintptr_t>(keep + static_cast<size_t>(row) * t_len +
+                                  c0) & 3);
+}
+
+// The minGPT mask.
+__device__ __forceinline__ bool visible(int r, int c, int nu) {
+  return c <= r || (r < nu && c < nu);
+}
+
+// Columns that some row of [r_lo, r_hi] sees: c < the returned count.
+__device__ __forceinline__ int visible_cols(int r_lo, int r_hi, int nu) {
+  return r_lo < nu ? max(nu, r_hi + 1) : r_hi + 1;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return min(max(v, lo), hi);
+}
+
+// What a CTA of the forward and of dQ works on: row tile `tile` (heaviest
+// first) of (b, h) `bh`.
+struct RowTile {
+  int bh, row0, n_steps;   // column steps of kBc up to the last visible one
+  int ra, rb;              // this thread's two rows (g and g + 8 of the warp)
+  int warp_cols;           // columns some row of the warp sees; 0: no rows
+};
+
+__device__ __forceinline__ RowTile row_tile(int bh_count, int t_len, int nu) {
+  RowTile rt;
+  const int tiles = gridDim.x / bh_count;
+  rt.bh = blockIdx.x % bh_count;
+  rt.row0 = (tiles - 1 - blockIdx.x / bh_count) * kBm;
+  const int row_end = min(rt.row0 + kBm, t_len);
+  rt.n_steps = (visible_cols(rt.row0, row_end - 1, nu) + kBc - 1) / kBc;
+  const int rw0 = rt.row0 + 16 * (threadIdx.x / 32);
+  rt.ra = rw0 + (threadIdx.x % 32) / 4;
+  rt.rb = rt.ra + 8;
+  rt.warp_cols =
+      rw0 < t_len ? visible_cols(rw0, min(rw0 + 15, t_len - 1), nu) : 0;
+  return rt;
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (row tiles, B*H)
+// forward: grid (row tiles * B*H)
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const uint8_t* __restrict__ keep, float* __restrict__ o,
-                     float* __restrict__ lse, int t_len, int nu, float scale,
-                     float keep_prob) {
-  extern __shared__ float smem[];
-  const int ldmax = t_len | 1;
-  const int row0 = blockIdx.x * kTile;
-  const int row_end = min(row0 + kTile, t_len);
-  const int ncols = row0 < nu ? max(row_end, nu) : row_end;
-  const int ld = ncols | 1;
-  float* kt = smem;                 // [kHd][ld]
-  float* vs = kt + kHd * ldmax;     // [ncols][kHd]
-  float* ps = vs + t_len * kHd;     // [kWarps][t_len]
+                     float* __restrict__ lse, int bh_count, int t_len, int nu,
+                     float scale, float keep_prob) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);   // [kBm][kLd]
+  float* ks = qs + kBm * kLd;                   // [kBc][kLd]
+  float* vs = ks + kBc * kLd;                   // [kBc][kLd]
+  uint8_t* keep_s = reinterpret_cast<uint8_t*>(vs + kBc * kLd);
+                                                // [kBm][kKwF] words
+  constexpr int NB = kBc / 8;
+  const RowTile rt = row_tile(bh_count, t_len, nu);
+  const size_t base = static_cast<size_t>(rt.bh) * t_len * kHd;
+  const bool masked = keep != nullptr && keep_prob < 1.f;
+  const uint8_t* keep_bh =
+      masked ? keep + static_cast<size_t>(rt.bh) * t_len * t_len : nullptr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
 
-  const size_t bh = blockIdx.y;
-  const size_t base = bh * t_len * kHd;
-  stage_transposed(kt, ld, k + base, ncols);
-  for (int i = threadIdx.x; i < ncols * kHd; i += blockDim.x)
-    vs[i] = v[base + i];
-  __syncthreads();
+  stage_rows(qs, q + base, rt.row0, kBm, t_len);
+  stage_rows(ks, k + base, 0, kBc, t_len);
+  msgv::cp_async_commit();
+  stage_rows(vs, v + base, 0, kBc, t_len);
+  if (masked) stage_keep<kKwF>(keep_s, keep_bh, rt.row0, kBm, 0, kBc, t_len);
+  msgv::cp_async_commit();
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* p = ps + warp * t_len;
-  for (int r = row0 + warp; r < row_end; r += kWarps) {
-    float qr[kHd];
-    load_row(qr, q + base + static_cast<size_t>(r) * kHd);
-    const int rcols = visible_cols(r, nu);
-    float mx = -CUDART_INF_F;
-    for (int c = lane; c < rcols; c += 32) {
-      const float s = dot_col(qr, kt, ld, c) * scale;
-      p[c] = s;
-      mx = fmaxf(mx, s);
+  const float c = scale * kLog2e;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};      // this thread's share of the row sums
+  float acc[kHd / 8][4] = {};
+
+  for (int j = 0; j < rt.n_steps; ++j) {
+    const int c0 = j * kBc;
+    const int hi = clampi((rt.warp_cols - c0 + 7) / 8, 0, NB);
+    msgv::cp_async_wait<1>();   // K of this step (and Q)
+    __syncthreads();
+    float s[NB][4] = {};
+    if (hi > 0) mma_abt<NB>(s, qs + 16 * warp * kLd, ks, 0, hi, lane);
+    __syncthreads();            // every warp is done with K
+    if (j + 1 < rt.n_steps) stage_rows(ks, k + base, c0 + kBc, kBc, t_len);
+    msgv::cp_async_commit();
+
+    if (hi > 0) {
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        if (nb < hi) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + 8 * nb + 2 * t + (e & 1);
+            const int row = e < 2 ? rt.ra : rt.rb;
+            if (!(col < t_len && visible(row, col, nu)))
+              s[nb][e] = -CUDART_INF_F;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
+          }
+        }
+      }
+      float base_m[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m[h], quad_max(mx[h]));
+        base_m[h] = m_new == -CUDART_INF_F ? 0.f : m_new;
+        const float alpha = exp2f((m[h] - base_m[h]) * c);
+        m[h] = m_new;
+        l[h] *= alpha;
+#pragma unroll
+        for (int nb = 0; nb < kHd / 8; ++nb) {
+          acc[nb][2 * h] *= alpha;
+          acc[nb][2 * h + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        if (nb < hi) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = exp2f((s[nb][e] - base_m[e >> 1]) * c);
+            sum[e >> 1] += p;
+            s[nb][e] = p;
+          }
+        }
+      }
+      l[0] += sum[0];
+      l[1] += sum[1];
     }
-    mx = msgv::warp_max(mx);
-    float sum = 0.f;
-    for (int c = lane; c < rcols; c += 32) {
-      const float e = expf(p[c] - mx);
-      p[c] = e;
-      sum += e;
+
+    msgv::cp_async_wait<1>();   // V and the keep bytes of this step
+    __syncthreads();
+    if (hi > 0) {
+      if (masked) {
+        const uint8_t* ka = keep_s + (16 * warp + g) * (kKwF * 4) +
+                            keep_off(keep_bh, min(rt.ra, t_len - 1), c0, t_len);
+        const uint8_t* kb = keep_s + (16 * warp + g + 8) * (kKwF * 4) +
+                            keep_off(keep_bh, min(rt.rb, t_len - 1), c0, t_len);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          if (nb < hi) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const uint8_t* kr = e < 2 ? ka : kb;
+              if (kr[8 * nb + 2 * t + (e & 1)] == 0) s[nb][e] = 0.f;
+            }
+          }
+        }
+      }
+      mma_pb<NB>(acc, s, vs, 0, hi, lane);
     }
-    sum = msgv::warp_sum(sum);
-    if (lane == 0) lse[bh * t_len + r] = mx + logf(sum);
-    const uint8_t* keep_r =
-        keep ? keep + (bh * t_len + r) * static_cast<size_t>(t_len) : nullptr;
-    for (int c = lane; c < rcols; c += 32) {
-      float pc = p[c] / sum;
-      if (keep_prob < 1.f)
-        pc = pc * (keep_r ? static_cast<float>(keep_r[c]) : 1.f) / keep_prob;
-      p[c] = pc;
+    __syncthreads();            // every warp is done with V and keep
+    if (j + 1 < rt.n_steps) {
+      stage_rows(vs, v + base, c0 + kBc, kBc, t_len);
+      if (masked)
+        stage_keep<kKwF>(keep_s, keep_bh, rt.row0, kBm, c0 + kBc, kBc, t_len);
     }
-    __syncwarp();
-    // O row: lane owns head dims lane and lane + 32, two chains each
-    float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
-    int c = 0;
-    for (; c + 1 < rcols; c += 2) {
-      const float p0 = p[c], p1 = p[c + 1];
-      a0 = fmaf(p0, vs[c * kHd + lane], a0);
-      b0 = fmaf(p0, vs[c * kHd + lane + 32], b0);
-      a1 = fmaf(p1, vs[(c + 1) * kHd + lane], a1);
-      b1 = fmaf(p1, vs[(c + 1) * kHd + lane + 32], b1);
-    }
-    if (c < rcols) {
-      a0 = fmaf(p[c], vs[c * kHd + lane], a0);
-      b0 = fmaf(p[c], vs[c * kHd + lane + 32], b0);
-    }
-    float* orow = o + base + static_cast<size_t>(r) * kHd;
-    orow[lane] = a0 + a1;
-    orow[lane + 32] = b0 + b1;
-    __syncwarp();
+    msgv::cp_async_commit();
+  }
+
+  const float inv_kp = keep_prob < 1.f ? 1.f / keep_prob : 1.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h == 0 ? rt.ra : rt.rb;
+    const float sum = quad_sum(l[h]);
+    if (row >= t_len) continue;
+    const float inv = inv_kp / sum;
+    float* orow = o + base + static_cast<size_t>(row) * kHd + 2 * t;
+#pragma unroll
+    for (int nb = 0; nb < kHd / 8; ++nb)
+      *reinterpret_cast<float2*>(orow + 8 * nb) =
+          make_float2(acc[nb][2 * h] * inv, acc[nb][2 * h + 1] * inv);
+    if (t == 0)
+      lse[static_cast<size_t>(rt.bh) * t_len + row] =
+          m[h] * scale + logf(sum);
   }
 }
 
@@ -156,12 +407,14 @@ __global__ void __launch_bounds__(kWarps * 32)
 // backward
 // ---------------------------------------------------------------------------
 
+constexpr int kDeltaWarps = 8;
+
 // delta[i] = dO_i . O_i, one warp per row.
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kDeltaWarps * 32)
     flash_bwd_delta_kernel(const float* __restrict__ o,
                            const float* __restrict__ dout,
                            float* __restrict__ delta, int rows) {
-  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int row = blockIdx.x * kDeltaWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const size_t b = static_cast<size_t>(row) * kHd;
@@ -171,8 +424,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (lane == 0) delta[row] = s;
 }
 
-// dQ over row tiles: grid (row tiles, B*H).
-__global__ void __launch_bounds__(kWarps * 32)
+// dQ over row tiles: grid (row tiles * B*H).
+__global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
@@ -180,67 +433,109 @@ __global__ void __launch_bounds__(kWarps * 32)
                         const float* __restrict__ lse,
                         const float* __restrict__ dout,
                         const float* __restrict__ delta,
-                        float* __restrict__ dq, int t_len, int nu,
-                        float scale, float keep_prob) {
-  extern __shared__ float smem[];
-  const int ldmax = t_len | 1;
-  const int row0 = blockIdx.x * kTile;
-  const int row_end = min(row0 + kTile, t_len);
-  const int ncols = row0 < nu ? max(row_end, nu) : row_end;
-  const int ld = ncols | 1;
-  float* kt = smem;                 // [kHd][ld]
-  float* vt = kt + kHd * ldmax;     // [kHd][ld]
-  float* dss = vt + kHd * ldmax;    // [kWarps][t_len]
+                        float* __restrict__ dq, int bh_count, int t_len,
+                        int nu, float scale, float keep_prob) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);   // [kBm][kLd]
+  float* dos = qs + kBm * kLd;                  // [kBm][kLd]
+  float* ks = dos + kBm * kLd;                  // [kBc][kLd]
+  float* vs = ks + kBc * kLd;                   // [kBc][kLd]
+  uint8_t* keep_s = reinterpret_cast<uint8_t*>(vs + kBc * kLd);
+  constexpr int NB = kBc / 8;
+  const RowTile rt = row_tile(bh_count, t_len, nu);
+  const size_t base = static_cast<size_t>(rt.bh) * t_len * kHd;
+  const bool masked = keep != nullptr && keep_prob < 1.f;
+  const uint8_t* keep_bh =
+      masked ? keep + static_cast<size_t>(rt.bh) * t_len * t_len : nullptr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
 
-  const size_t bh = blockIdx.y;
-  const size_t base = bh * t_len * kHd;
-  stage_transposed(kt, ld, k + base, ncols);
-  stage_transposed(vt, ld, v + base, ncols);
-  __syncthreads();
+  stage_rows(qs, q + base, rt.row0, kBm, t_len);
+  stage_rows(dos, dout + base, rt.row0, kBm, t_len);
+  stage_rows(ks, k + base, 0, kBc, t_len);
+  msgv::cp_async_commit();
+  stage_rows(vs, v + base, 0, kBc, t_len);
+  if (masked) stage_keep<kKwF>(keep_s, keep_bh, rt.row0, kBm, 0, kBc, t_len);
+  msgv::cp_async_commit();
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* ds = dss + warp * t_len;
-  for (int r = row0 + warp; r < row_end; r += kWarps) {
-    float qr[kHd], dor[kHd];
-    load_row(qr, q + base + static_cast<size_t>(r) * kHd);
-    load_row(dor, dout + base + static_cast<size_t>(r) * kHd);
-    const float lse_r = lse[bh * t_len + r];
-    const float d_r = delta[bh * t_len + r];
-    const uint8_t* keep_r =
-        keep ? keep + (bh * t_len + r) * static_cast<size_t>(t_len) : nullptr;
-    const int rcols = visible_cols(r, nu);
-    for (int c = lane; c < rcols; c += 32) {
-      const float p = expf(dot_col(qr, kt, ld, c) * scale - lse_r);
-      float dp = dot_col(dor, vt, ld, c);
-      if (keep_prob < 1.f)
-        dp = dp * (keep_r ? static_cast<float>(keep_r[c]) : 1.f) / keep_prob;
-      ds[c] = p * (dp - d_r);
+  const float c = scale * kLog2e;
+  const float inv_kp = keep_prob < 1.f ? 1.f / keep_prob : 1.f;
+  float lse2[2], dl[2];   // lse in log2 units and delta of rows ra, rb
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h == 0 ? rt.ra : rt.rb;
+    const size_t i = static_cast<size_t>(rt.bh) * t_len + min(row, t_len - 1);
+    lse2[h] = lse[i] * kLog2e;
+    dl[h] = delta[i];
+  }
+  float acc[kHd / 8][4] = {};
+
+  for (int j = 0; j < rt.n_steps; ++j) {
+    const int c0 = j * kBc;
+    const int hi = clampi((rt.warp_cols - c0 + 7) / 8, 0, NB);
+    msgv::cp_async_wait<0>();   // K, V and keep of this step (and Q, dO)
+    __syncthreads();
+    float s[NB][4] = {}, dp[NB][4] = {};
+    if (hi > 0) {
+      mma_abt<NB>(s, qs + 16 * warp * kLd, ks, 0, hi, lane);
+      mma_abt<NB>(dp, dos + 16 * warp * kLd, vs, 0, hi, lane);
     }
-    __syncwarp();
-    float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
-    int c = 0;
-    for (; c + 1 < rcols; c += 2) {
-      const float s0 = ds[c], s1 = ds[c + 1];
-      a0 = fmaf(s0, kt[lane * ld + c], a0);
-      b0 = fmaf(s0, kt[(lane + 32) * ld + c], b0);
-      a1 = fmaf(s1, kt[lane * ld + c + 1], a1);
-      b1 = fmaf(s1, kt[(lane + 32) * ld + c + 1], b1);
+    __syncthreads();            // every warp is done with V
+    if (j + 1 < rt.n_steps) stage_rows(vs, v + base, c0 + kBc, kBc, t_len);
+    msgv::cp_async_commit();
+    if (hi > 0) {
+      const uint8_t* ka = nullptr;
+      const uint8_t* kb = nullptr;
+      if (masked) {
+        ka = keep_s + (16 * warp + g) * (kKwF * 4) +
+             keep_off(keep_bh, min(rt.ra, t_len - 1), c0, t_len);
+        kb = keep_s + (16 * warp + g + 8) * (kKwF * 4) +
+             keep_off(keep_bh, min(rt.rb, t_len - 1), c0, t_len);
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        if (nb < hi) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int cc = 8 * nb + 2 * t + (e & 1);
+            const int row = e < 2 ? rt.ra : rt.rb;
+            float ds = 0.f;
+            if (c0 + cc < t_len && visible(row, c0 + cc, nu)) {
+              const float p = exp2f(fmaf(s[nb][e], c, -lse2[e >> 1]));
+              float d = dp[nb][e] * inv_kp;
+              if (masked && (e < 2 ? ka : kb)[cc] == 0) d = 0.f;
+              ds = p * (d - dl[e >> 1]);
+            }
+            s[nb][e] = ds;
+          }
+        }
+      }
+      mma_pb<NB>(acc, s, ks, 0, hi, lane);
     }
-    if (c < rcols) {
-      a0 = fmaf(ds[c], kt[lane * ld + c], a0);
-      b0 = fmaf(ds[c], kt[(lane + 32) * ld + c], b0);
+    __syncthreads();            // every warp is done with K and keep
+    if (j + 1 < rt.n_steps) {
+      stage_rows(ks, k + base, c0 + kBc, kBc, t_len);
+      if (masked)
+        stage_keep<kKwF>(keep_s, keep_bh, rt.row0, kBm, c0 + kBc, kBc, t_len);
     }
-    float* dqrow = dq + base + static_cast<size_t>(r) * kHd;
-    dqrow[lane] = (a0 + a1) * scale;
-    dqrow[lane + 32] = (b0 + b1) * scale;
-    __syncwarp();
+    msgv::cp_async_commit();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h == 0 ? rt.ra : rt.rb;
+    if (row >= t_len) continue;
+    float* drow = dq + base + static_cast<size_t>(row) * kHd + 2 * t;
+#pragma unroll
+    for (int nb = 0; nb < kHd / 8; ++nb)
+      *reinterpret_cast<float2*>(drow + 8 * nb) =
+          make_float2(acc[nb][2 * h] * scale, acc[nb][2 * h + 1] * scale);
   }
 }
 
-// dK and dV over column tiles: grid (column tiles, B*H).  Column c is seen
+// dK and dV over column tiles: grid (column tiles * B*H).  Column c is seen
 // by rows [c < nu ? 0 : c, t_len).
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads, 3)
     flash_bwd_dkv_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -249,121 +544,141 @@ __global__ void __launch_bounds__(kWarps * 32)
                          const float* __restrict__ dout,
                          const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv,
-                         int t_len, int nu, float scale, float keep_prob) {
-  extern __shared__ float smem[];
-  const int ldmax = t_len | 1;
-  const int c0 = blockIdx.x * kTile;
-  const int c_end = min(c0 + kTile, t_len);
-  const int r0 = c0 < nu ? 0 : c0;  // first row that sees the tile
-  const int nrows = t_len - r0;
-  const int ld = nrows | 1;
-  float* qt = smem;                     // [kHd][ld], rows r0..
-  float* dout_t = qt + kHd * ldmax;     // [kHd][ld]
-  float* lse_s = dout_t + kHd * ldmax;     // [nrows]
-  float* d_s = lse_s + t_len;           // [nrows]
-  float* bufs = d_s + t_len;            // [kWarps][2][t_len]
-  uint8_t* keep_s = reinterpret_cast<uint8_t*>(bufs + 2 * kWarps * t_len);
-                                        // [nrows][kKeepLd]
+                         int bh_count, int t_len, int nu, float scale,
+                         float keep_prob) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem);   // [kBm][kLd]
+  float* vs = ks + kBm * kLd;                   // [kBm][kLd]
+  float* qs = vs + kBm * kLd;                   // [kBr][kLd]
+  float* dos = qs + kBr * kLd;                  // [kBr][kLd]
+  float* lse_s = dos + kBr * kLd;               // [kBr], log2 units
+  float* dl_s = lse_s + kBr;                    // [kBr]
+  uint8_t* keep_s = reinterpret_cast<uint8_t*>(dl_s + kBr);
+                                                // [kBr][kKwT] words
+  constexpr int NB = kBr / 8;
+  const int bh = blockIdx.x % bh_count;
+  const int c0 = (blockIdx.x / bh_count) * kBm;   // low tiles see most rows
+  const int r_first = c0 < nu ? 0 : c0;
+  const size_t base = static_cast<size_t>(bh) * t_len * kHd;
+  const bool masked = keep != nullptr && keep_prob < 1.f;
+  const uint8_t* keep_bh =
+      masked ? keep + static_cast<size_t>(bh) * t_len * t_len : nullptr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int cw0 = c0 + 16 * warp;       // the warp's first column
+  const int ca = cw0 + g, cb = ca + 8;  // this thread's two columns
 
-  const size_t bh = blockIdx.y;
-  const size_t base = bh * t_len * kHd;
-  const size_t rbase = base + static_cast<size_t>(r0) * kHd;
-  stage_transposed(qt, ld, q + rbase, nrows);
-  stage_transposed(dout_t, ld, dout + rbase, nrows);
-  for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
-    lse_s[i] = lse[bh * t_len + r0 + i];
-    d_s[i] = delta[bh * t_len + r0 + i];
-  }
-  if (keep_prob < 1.f) {
-    for (int i = threadIdx.x; i < nrows * kTile; i += blockDim.x) {
-      const int r = i / kTile, cc = i % kTile;
-      keep_s[r * kKeepLd + cc] =
-          (keep && c0 + cc < t_len)
-              ? keep[(bh * t_len + r0 + r) * static_cast<size_t>(t_len) + c0 +
-                     cc]
-              : 1;
+  stage_rows(ks, k + base, c0, kBm, t_len);
+  stage_rows(vs, v + base, c0, kBm, t_len);
+
+  const float c = scale * kLog2e;
+  const float inv_kp = keep_prob < 1.f ? 1.f / keep_prob : 1.f;
+  float acc_k[kHd / 8][4] = {}, acc_v[kHd / 8][4] = {};
+
+  for (int r0 = r_first; r0 < t_len; r0 += kBr) {
+    stage_rows(qs, q + base, r0, kBr, t_len);
+    stage_rows(dos, dout + base, r0, kBr, t_len);
+    if (masked) stage_keep<kKwT>(keep_s, keep_bh, r0, kBr, c0, kBm, t_len);
+    msgv::cp_async_commit();
+    if (threadIdx.x < kBr) {
+      const int r = r0 + threadIdx.x;
+      const size_t i = static_cast<size_t>(bh) * t_len + min(r, t_len - 1);
+      lse_s[threadIdx.x] = lse[i] * kLog2e;
+      dl_s[threadIdx.x] = delta[i];
     }
-  }
-  __syncthreads();
+    msgv::cp_async_wait<0>();
+    __syncthreads();
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* bpd = bufs + 2 * warp * t_len;
-  float* bds = bpd + t_len;
-  for (int c = c0 + warp; c < c_end; c += kWarps) {
-    float kc[kHd], vc[kHd];
-    load_row(kc, k + base + static_cast<size_t>(c) * kHd);
-    load_row(vc, v + base + static_cast<size_t>(c) * kHd);
-    const int i0 = (c < nu ? 0 : c) - r0;  // first staged row that sees c
-    for (int i = i0 + lane; i < nrows; i += 32) {
-      const float p = expf(dot_col(kc, qt, ld, i) * scale - lse_s[i]);
-      float dp = dot_col(vc, dout_t, ld, i);
-      float pd = p;
-      if (keep_prob < 1.f) {
-        const float kf = static_cast<float>(keep_s[i * kKeepLd + c - c0]);
-        pd = p * kf / keep_prob;
-        dp = dp * kf / keep_prob;
+    // the 8-row blocks of this step that see some column of the warp
+    const int lo = cw0 < nu ? 0 : clampi((cw0 - r0) / 8, 0, NB);
+    const int hi = cw0 < t_len ? clampi((t_len - r0 + 7) / 8, 0, NB) : 0;
+    if (lo < hi) {
+      float st[NB][4] = {}, dpt[NB][4] = {};
+      mma_abt<NB>(st, ks + 16 * warp * kLd, qs, lo, hi, lane);
+      mma_abt<NB>(dpt, vs + 16 * warp * kLd, dos, lo, hi, lane);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        if (nb >= lo && nb < hi) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int rr = 8 * nb + 2 * t + (e & 1);
+            const int col = e < 2 ? ca : cb;
+            float pd = 0.f, ds = 0.f;
+            if (r0 + rr < t_len && col < t_len &&
+                visible(r0 + rr, col, nu)) {
+              const float p = exp2f(fmaf(st[nb][e], c, -lse_s[rr]));
+              pd = p * inv_kp;
+              float d = dpt[nb][e] * inv_kp;
+              if (masked &&
+                  keep_s[rr * (kKwT * 4) +
+                         keep_off(keep_bh, r0 + rr, c0, t_len) + col - c0] ==
+                      0) {
+                pd = 0.f;
+                d = 0.f;
+              }
+              ds = p * (d - dl_s[rr]);
+            }
+            st[nb][e] = pd;
+            dpt[nb][e] = ds;
+          }
+        }
       }
-      bpd[i] = pd;
-      bds[i] = p * (dp - d_s[i]);
+      mma_pb<NB>(acc_v, st, dos, lo, hi, lane);
+      mma_pb<NB>(acc_k, dpt, qs, lo, hi, lane);
     }
-    __syncwarp();
-    float v0 = 0.f, v1 = 0.f, k0 = 0.f, k1 = 0.f;
-    for (int i = i0; i < nrows; ++i) {
-      const float pd = bpd[i], s = bds[i];
-      v0 = fmaf(pd, dout_t[lane * ld + i], v0);
-      v1 = fmaf(pd, dout_t[(lane + 32) * ld + i], v1);
-      k0 = fmaf(s, qt[lane * ld + i], k0);
-      k1 = fmaf(s, qt[(lane + 32) * ld + i], k1);
+    __syncthreads();   // every warp is done with this step's tiles
+  }
+  msgv::cp_async_wait<0>();   // a tile with no step still staged K and V
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int col = h == 0 ? ca : cb;
+    if (col >= t_len) continue;
+    const size_t out = base + static_cast<size_t>(col) * kHd + 2 * t;
+#pragma unroll
+    for (int nb = 0; nb < kHd / 8; ++nb) {
+      *reinterpret_cast<float2*>(dv + out + 8 * nb) =
+          make_float2(acc_v[nb][2 * h], acc_v[nb][2 * h + 1]);
+      *reinterpret_cast<float2*>(dk + out + 8 * nb) = make_float2(
+          acc_k[nb][2 * h] * scale, acc_k[nb][2 * h + 1] * scale);
     }
-    const size_t out = base + static_cast<size_t>(c) * kHd;
-    dv[out + lane] = v0;
-    dv[out + lane + 32] = v1;
-    dk[out + lane] = k0 * scale;
-    dk[out + lane + 32] = k1 * scale;
-    __syncwarp();
   }
 }
 
-size_t fwd_smem(int t_len) {
-  return sizeof(float) * (static_cast<size_t>(kHd) * (t_len | 1) +
-                          static_cast<size_t>(t_len) * kHd +
-                          static_cast<size_t>(kWarps) * t_len);
-}
+constexpr size_t kFwdSmem =
+    sizeof(float) * (kBm + 2 * kBc) * kLd + kBm * kKwF * 4;
+constexpr size_t kDqSmem =
+    sizeof(float) * (2 * kBm + 2 * kBc) * kLd + kBm * kKwF * 4;
+constexpr size_t kDkvSmem =
+    sizeof(float) * ((2 * kBm + 2 * kBr) * kLd + 2 * kBr) + kBr * kKwT * 4;
 
-size_t dq_smem(int t_len) {
-  return sizeof(float) * (2 * static_cast<size_t>(kHd) * (t_len | 1) +
-                          static_cast<size_t>(kWarps) * t_len);
-}
+int tiles(int t_len) { return (t_len + kBm - 1) / kBm; }
 
-size_t dkv_smem(int t_len) {
-  return sizeof(float) * (2 * static_cast<size_t>(kHd) * (t_len | 1) +
-                          2 * static_cast<size_t>(t_len) +
-                          2 * static_cast<size_t>(kWarps) * t_len) +
-         static_cast<size_t>(t_len) * kKeepLd;
+bool bad_shape(int bh, int t_len, int hd) {
+  // one grid dimension holds tiles * bh CTAs
+  return hd != kHd || t_len < 1 || bh < 1 ||
+         static_cast<long long>(tiles(t_len)) * bh > 0x7fffffffLL;
 }
-
-int tiles(int t_len) { return (t_len + kTile - 1) / kTile; }
 
 }  // namespace
 
-// q, k, v, o: contiguous float32 (bh, t_len, hd); keep: (bh, t_len, t_len)
-// bytes or null; lse: float32 (bh, t_len).  hd must be 64.
+// q, k, v, o: contiguous float32 (bh, t_len, hd), 16-byte aligned; keep:
+// (bh, t_len, t_len) bytes (any alignment) or null; lse: float32
+// (bh, t_len).  hd must be 64.
 MSGV_API int msgv_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, const void* keep, void* o,
                                       void* lse, int bh, int t_len, int hd,
                                       int n_unmasked, float keep_prob,
                                       void* stream) {
-  if (hd != kHd || t_len < 1 || bh < 1) return cudaErrorInvalidValue;
-  const size_t smem = fwd_smem(t_len);
-  cudaError_t err = msgv::allow_smem(flash_fwd_kernel, smem);
+  if (bad_shape(bh, t_len, hd)) return cudaErrorInvalidValue;
+  cudaError_t err = msgv::allow_smem(flash_fwd_kernel, kFwdSmem);
   if (err != cudaSuccess) return err;
   const int nu = max(0, min(n_unmasked, t_len));
-  flash_fwd_kernel<<<dim3(tiles(t_len), bh), kWarps * 32, smem,
+  flash_fwd_kernel<<<tiles(t_len) * bh, kThreads, kFwdSmem,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const uint8_t*>(keep),
-      static_cast<float*>(o), static_cast<float*>(lse), t_len, nu,
+      static_cast<float*>(o), static_cast<float*>(lse), bh, t_len, nu,
       1.0f / sqrtf(static_cast<float>(hd)), keep_prob);
   return cudaGetLastError();
 }
@@ -377,7 +692,7 @@ MSGV_API int msgv_flash_attention_bwd(const void* q, const void* k,
                                       void* dv, void* delta, int bh,
                                       int t_len, int hd, int n_unmasked,
                                       float keep_prob, void* stream) {
-  if (hd != kHd || t_len < 1 || bh < 1) return cudaErrorInvalidValue;
+  if (bad_shape(bh, t_len, hd)) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const int nu = max(0, min(n_unmasked, t_len));
   const float scale = 1.0f / sqrtf(static_cast<float>(hd));
@@ -389,26 +704,26 @@ MSGV_API int msgv_flash_attention_bwd(const void* q, const void* k,
   const auto* dof = static_cast<const float*>(dout);
   auto* deltaf = static_cast<float*>(delta);
 
-  const int rows = bh * t_len;
-  flash_bwd_delta_kernel<<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, s>>>(
-      static_cast<const float*>(o), dof, deltaf, rows);
+  const long long rows = static_cast<long long>(bh) * t_len;
+  flash_bwd_delta_kernel<<<static_cast<unsigned>(
+                               (rows + kDeltaWarps - 1) / kDeltaWarps),
+                           kDeltaWarps * 32, 0, s>>>(
+      static_cast<const float*>(o), dof, deltaf, static_cast<int>(rows));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  size_t smem = dq_smem(t_len);
-  err = msgv::allow_smem(flash_bwd_dq_kernel, smem);
+  err = msgv::allow_smem(flash_bwd_dq_kernel, kDqSmem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<<<dim3(tiles(t_len), bh), kWarps * 32, smem, s>>>(
-      qf, kf, vf, keep8, lsef, dof, deltaf, static_cast<float*>(dq), t_len, nu,
-      scale, keep_prob);
+  flash_bwd_dq_kernel<<<tiles(t_len) * bh, kThreads, kDqSmem, s>>>(
+      qf, kf, vf, keep8, lsef, dof, deltaf, static_cast<float*>(dq), bh, t_len,
+      nu, scale, keep_prob);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  smem = dkv_smem(t_len);
-  err = msgv::allow_smem(flash_bwd_dkv_kernel, smem);
+  err = msgv::allow_smem(flash_bwd_dkv_kernel, kDkvSmem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<<<dim3(tiles(t_len), bh), kWarps * 32, smem, s>>>(
+  flash_bwd_dkv_kernel<<<tiles(t_len) * bh, kThreads, kDkvSmem, s>>>(
       qf, kf, vf, keep8, lsef, dof, deltaf, static_cast<float*>(dk),
-      static_cast<float*>(dv), t_len, nu, scale, keep_prob);
+      static_cast<float*>(dv), bh, t_len, nu, scale, keep_prob);
   return cudaGetLastError();
 }

@@ -13,6 +13,12 @@ here it is a ``torch.autograd.Function`` of the same shape:
   * ``flash_attention_fwd`` / ``flash_attention_bwd`` -- kernel F
     (csrc/flash_attention.cu) for CUDA tensors, the plain versions for CPU
     tensors; each counts its kernel launches in ``.launches``;
+  * ``tf32_round`` / ``tf32_truncate`` / ``split3_matmul`` and
+    ``flash_attention_ref_fwd_tiled`` / ``flash_attention_ref_bwd_tiled``
+    -- kernel F's arithmetic and tile loops in plain PyTorch (the three-term TF32 product, row and column
+    tiles, the online softmax, the loop bounds of ``visible_cols`` and
+    ``first_row``), for the CPU tests only: nothing on the card's path
+    calls them;
   * ``flash_attention`` -- the differentiable op the GPT block calls.
 
 The keep-mask is (B, H, T, T) of {0, 1} as uint8 or bool, or None (all
@@ -32,7 +38,11 @@ from .. import _build
 from .attention import NEG_INF, bernoulli_u8, window_mask
 
 HEAD_DIM = 64                # the head dim kernel F is written for
-_SMEM_LIMIT = 227 * 1024     # shared memory one CTA may use on Hopper
+# kernel F's tiles (csrc/flash_attention.cu: kBm, kBc, kBr): rows of a
+# forward / dQ CTA and columns of a dK/dV CTA, K/V columns a forward / dQ
+# step, Q/dO rows a dK/dV step
+TILE_M, TILE_C, TILE_R = 64, 32, 32
+_LOG2E = 1.4426950408889634
 
 
 def _scale(hd: int) -> float:
@@ -89,6 +99,158 @@ def flash_attention_ref_bwd(q, k, v, keep, lse, do, n_unmasked: int = 0,
     return dq, dk, dv
 
 
+# ---------------------------------------------------------------------------
+# kernel F's arithmetic and tile loops in plain PyTorch (CPU tests only)
+# ---------------------------------------------------------------------------
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits, nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` and the kernel's integer rounding)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1fff).view(torch.float32)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """float32 cut to TF32: what a tensor core reads of a float32 operand
+    (sign, exponent, the first 10 mantissa bits)."""
+    return (x.contiguous().view(torch.int32) & ~0x1fff).view(torch.float32)
+
+
+def split3_matmul(a: torch.Tensor, b: torch.Tensor,
+                  terms: int = 3) -> torch.Tensor:
+    """``a @ b`` as the kernel's tensor-core product: each float32 operand
+    is ``big = tf32_round(x)`` plus ``small = tf32_truncate(x - big)`` and
+    the product is ``a_small b_big + a_big b_small + a_big b_big`` summed
+    in float32.  ``terms=1`` keeps ``a_big b_big`` alone, a single TF32
+    product."""
+    ab, bb = tf32_round(a), tf32_round(b)
+    if terms == 1:
+        return torch.matmul(ab, bb)
+    a_s, b_s = tf32_truncate(a - ab), tf32_truncate(b - bb)
+    return torch.matmul(a_s, bb) + torch.matmul(ab, b_s) \
+        + torch.matmul(ab, bb)
+
+
+def visible_cols(r_lo: int, r_hi: int, n_unmasked: int) -> int:
+    """Columns that some row of [r_lo, r_hi] sees under the minGPT mask:
+    c < the returned count (a row tile loops over column steps below it)."""
+    return max(n_unmasked, r_hi + 1) if r_lo < n_unmasked else r_hi + 1
+
+
+def first_row(c_lo: int, n_unmasked: int) -> int:
+    """First row that sees some column >= c_lo (a column tile starting at
+    c_lo loops over row steps from it)."""
+    return 0 if c_lo < n_unmasked else c_lo
+
+
+def _tile_mask(t, nu, rows, cols, device):
+    m = window_mask(t, nu)[rows.start:rows.stop, cols.start:cols.stop]
+    return torch.as_tensor(m, device=device)
+
+
+def _keep_tile(keep, rows, cols, dtype):
+    return keep[:, :, rows, cols].to(dtype)
+
+
+def flash_attention_ref_fwd_tiled(q, k, v, keep, n_unmasked: int = 0,
+                                  keep_prob: float = 1.0,
+                                  matmul=torch.matmul, tile_m: int = TILE_M,
+                                  tile_c: int = TILE_C):
+    """The forward as kernel F loops it: row tiles of ``tile_m``, column
+    steps of ``tile_c`` below ``visible_cols``, online softmax in base 2
+    with the scale folded into the exponent, the keep-mask after the row
+    sum, one reciprocal per row.  Returns (O, lse)."""
+    b, h, t, hd = q.shape
+    nu = max(0, min(int(n_unmasked), t))
+    scale = _scale(hd)
+    c = scale * _LOG2E
+    masked = keep is not None and keep_prob < 1.0
+    inv_kp = 1.0 / keep_prob if keep_prob < 1.0 else 1.0
+    o = torch.empty_like(q)
+    lse = q.new_empty((b, h, t))
+    for row0 in range(0, t, tile_m):
+        rows = slice(row0, min(row0 + tile_m, t))
+        n = rows.stop - row0
+        m = q.new_full((b, h, n), -float("inf"))
+        l = q.new_zeros((b, h, n))
+        acc = q.new_zeros((b, h, n, hd))
+        for c0 in range(0, visible_cols(row0, rows.stop - 1, nu), tile_c):
+            cols = slice(c0, min(c0 + tile_c, t))
+            s = matmul(q[:, :, rows], k[:, :, cols].transpose(-1, -2))
+            s = s.masked_fill(~_tile_mask(t, nu, rows, cols, q.device),
+                              -float("inf"))
+            m_new = torch.maximum(m, s.amax(-1))
+            base = m_new.masked_fill(m_new == -float("inf"), 0.0)
+            alpha = torch.exp2((m - base) * c)
+            p = torch.exp2((s - base[..., None]) * c)
+            l = l * alpha + p.sum(-1)
+            if masked:
+                p = p * _keep_tile(keep, rows, cols, p.dtype)
+            acc = acc * alpha[..., None] + matmul(p, v[:, :, cols])
+            m = m_new
+        o[:, :, rows] = acc * (inv_kp / l)[..., None]
+        lse[:, :, rows] = m * scale + torch.log(l)
+    return o, lse
+
+
+def flash_attention_ref_bwd_tiled(q, k, v, keep, o, lse, do,
+                                  n_unmasked: int = 0, keep_prob: float = 1.0,
+                                  matmul=torch.matmul, tile_m: int = TILE_M,
+                                  tile_c: int = TILE_C, tile_r: int = TILE_R):
+    """The backward as kernel F loops it: D = rowsum(dO * O); dQ over row
+    tiles and column steps as the forward; dK and dV over column tiles of
+    ``tile_m`` and row steps of ``tile_r`` from ``first_row``, with S^T and
+    dP^T formed directly.  Returns (dQ, dK, dV)."""
+    b, h, t, hd = q.shape
+    nu = max(0, min(int(n_unmasked), t))
+    scale = _scale(hd)
+    c = scale * _LOG2E
+    masked = keep is not None and keep_prob < 1.0
+    inv_kp = 1.0 / keep_prob if keep_prob < 1.0 else 1.0
+    delta = (do * o).sum(-1)
+    lse2 = lse * _LOG2E
+
+    def p_and_ds(s, dp, rows, cols):
+        """(P * keep / keep_prob, dS) of a (rows, cols) tile."""
+        vis = _tile_mask(t, nu, rows, cols, q.device)
+        p = torch.exp2(s * c - lse2[:, :, rows, None]).masked_fill(~vis, 0.0)
+        pd, dp = p * inv_kp, dp * inv_kp
+        if masked:
+            kt = _keep_tile(keep, rows, cols, p.dtype)
+            pd, dp = pd * kt, dp * kt
+        return pd, p * (dp - delta[:, :, rows, None])
+
+    dq = torch.empty_like(q)
+    for row0 in range(0, t, tile_m):
+        rows = slice(row0, min(row0 + tile_m, t))
+        acc = q.new_zeros((b, h, rows.stop - row0, hd))
+        for c0 in range(0, visible_cols(row0, rows.stop - 1, nu), tile_c):
+            cols = slice(c0, min(c0 + tile_c, t))
+            s = matmul(q[:, :, rows], k[:, :, cols].transpose(-1, -2))
+            dp = matmul(do[:, :, rows], v[:, :, cols].transpose(-1, -2))
+            _, ds = p_and_ds(s, dp, rows, cols)
+            acc = acc + matmul(ds, k[:, :, cols])
+        dq[:, :, rows] = acc * scale
+
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    for c0 in range(0, t, tile_m):
+        cols = slice(c0, min(c0 + tile_m, t))
+        acc_k = q.new_zeros((b, h, cols.stop - c0, hd))
+        acc_v = q.new_zeros((b, h, cols.stop - c0, hd))
+        for r0 in range(first_row(c0, nu), t, tile_r):
+            rows = slice(r0, min(r0 + tile_r, t))
+            st = matmul(k[:, :, cols], q[:, :, rows].transpose(-1, -2))
+            dpt = matmul(v[:, :, cols], do[:, :, rows].transpose(-1, -2))
+            pd, ds = p_and_ds(st.transpose(-1, -2), dpt.transpose(-1, -2),
+                              rows, cols)
+            acc_v = acc_v + matmul(pd.transpose(-1, -2), do[:, :, rows])
+            acc_k = acc_k + matmul(ds.transpose(-1, -2), q[:, :, rows])
+        dv[:, :, cols] = acc_v
+        dk[:, :, cols] = acc_k * scale
+    return dq, dk, dv
+
+
 def _check(q, k, v, keep):
     """Shape, dtype and size checks of a kernel F launch; returns the keep
     bytes (or None) as a contiguous uint8 (B*H, T, T) tensor."""
@@ -102,13 +264,9 @@ def _check(q, k, v, keep):
     if hd != HEAD_DIM:
         raise ValueError(f"flash attention kernel is written for head dim "
                          f"{HEAD_DIM}, got {hd}")
-    tp = t | 1
-    smem = max(4 * (hd * tp + t * hd + 8 * t),
-               4 * (2 * hd * tp + 8 * t),
-               4 * (2 * hd * tp + 2 * t + 16 * t) + 33 * t)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"flash attention kernel: T={t} needs {smem} bytes "
-                         "of shared memory (at most 227 KB)")
+    if b * h * -(-t // TILE_M) >= 2 ** 31:
+        raise ValueError(f"flash attention kernel: B*H={b * h} x T={t} is "
+                         "more row tiles than one grid dimension holds")
     if keep is None:
         return None
     if keep.shape != (b, h, t, t) or keep.dtype not in (torch.uint8,
@@ -123,6 +281,16 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
+def _rows16(*tensors):
+    """Contiguous tensors whose rows the kernel may copy 16 bytes at a
+    time (a contiguous view at an odd storage offset is copied)."""
+    out = []
+    for x in tensors:
+        x = x.contiguous()
+        out.append(x.clone() if x.data_ptr() % 16 else x)
+    return out
+
+
 def flash_attention_fwd(q, k, v, keep, n_unmasked: int = 0,
                         keep_prob: float = 1.0):
     """Kernel F forward on CUDA tensors, ``flash_attention_ref_fwd`` on CPU
@@ -131,7 +299,7 @@ def flash_attention_fwd(q, k, v, keep, n_unmasked: int = 0,
         return flash_attention_ref_fwd(q, k, v, keep, n_unmasked, keep_prob)
     keep8 = _check(q, k, v, keep)
     b, h, t, hd = q.shape
-    q, k, v = (a.contiguous() for a in (q, k, v))
+    q, k, v = _rows16(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     _build.launch("msgv_flash_attention_fwd", q.device, q.data_ptr(),
@@ -157,8 +325,8 @@ def flash_attention_bwd(q, k, v, keep, o, lse, do, n_unmasked: int = 0,
         raise ValueError(f"flash attention backward: o {tuple(o.shape)}, "
                          f"dO {tuple(do.shape)}, lse {tuple(lse.shape)} do "
                          f"not fit q {tuple(q.shape)}")
-    q, k, v, o, lse = (a.contiguous() for a in (q, k, v, o, lse))
-    do = do.contiguous().float()
+    q, k, v, o, do = _rows16(q, k, v, o, do.float())
+    lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     _build.launch("msgv_flash_attention_bwd", q.device, q.data_ptr(),

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Device time of the PyTorch port's kernels E and B in two checkouts, on
-one card, in one run.
+"""Device time of the PyTorch port's kernels E, B and F in two checkouts,
+on one card, in one run.
 
     python3 scripts/torch_kernel_compare.py --parent DIR [--out FILE]
+                                            [--kernels E,B,F]
 
 ``DIR`` holds another commit of this repository (for instance
 ``git archive <commit> | tar -x -C build/parent``).  The script measures
@@ -12,7 +13,10 @@ prints one JSON object with the four readings and the card's name and
 power limit.  Per reading: kernel E (``decode_attend_int8``, int8 and int4
 cache, bfloat16 q, pos = T - 1) at batch 8 and 1 for every cache length of
 a VAS decode in 8 segments, and kernel B (``fused_resblock_stack``,
-bfloat16) on the four MelGAN stages of a batch-8 request.  A time is the
+bfloat16) on the four MelGAN stages of a batch-8 request, and kernel F
+(``flash_attention_fwd`` / ``flash_attention_bwd``, float32, (8, 16, T, 64))
+forward and backward (delta, dQ and dK/dV kernels together) at T = 265
+with keep 0.5 and keep 1, n_unmasked 0 and T, and at T = 266.  A time is the
 kernel's own device time in milliseconds per call, taken by this checkout's
 ``chip_smoke.device_ms`` (a ``torch.profiler`` window; the wrapper's host
 work is not in it) at chip_smoke.py's shapes.
@@ -28,7 +32,11 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 
 
-def measure(root):
+F_CASES = ((265, 0.5, 0), (265, 1.0, 0), (265, 0.5, 265), (265, 1.0, 265),
+           (266, 0.5, 0))   # (T, keep_prob, n_unmasked)
+
+
+def measure(root, kernels):
     """One reading: the port imported from the checkout at ``root``, timed
     with this checkout's chip_smoke.py (its ``device_ms``, cache lengths,
     cache maker and stage shapes), so both trees are read one way."""
@@ -40,24 +48,37 @@ def measure(root):
                                                   HERE / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    from melspec_gpt_vqvae_tpu_torch import bridge
-    from melspec_gpt_vqvae_tpu_torch.models.vocoder import MelGANGenerator
-    from melspec_gpt_vqvae_tpu_torch.ops.decode_attention import \
-        decode_attend_int8
-    from melspec_gpt_vqvae_tpu_torch.ops.vocoder_stack import \
-        fused_resblock_stack
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
-    out = {"E": {}, "B": {}}
+    readers = {"E": measure_e, "B": measure_b, "F": measure_f}
+    print(json.dumps({name: readers[name](smoke, dev, g)
+                      for name in ("E", "B", "F") if name in kernels}))
+
+
+def measure_e(smoke, dev, g):
+    import torch
+    from melspec_gpt_vqvae_tpu_torch.ops.decode_attention import \
+        decode_attend_int8
+    out = {}
     for bits in ("int8", "int4"):
         for b in (8, 1):
             for t in smoke.VAS_CAPS:
                 k, ks, v, vs = smoke.quantised_cache(g, dev, b, t, bits)
                 q = torch.randn(b, 16, 64, generator=g,
                                 device=dev).bfloat16()
-                out["E"][f"{bits},B={b},T={t}"] = smoke.device_ms(
+                out[f"{bits},B={b},T={t}"] = smoke.device_ms(
                     lambda: decode_attend_int8(q, k, v, ks, vs, 1, t - 1),
                     ["decode_attention_kernel"], 50)
+    return out
+
+
+def measure_b(smoke, dev, g):
+    import torch
+    from melspec_gpt_vqvae_tpu_torch import bridge
+    from melspec_gpt_vqvae_tpu_torch.models.vocoder import MelGANGenerator
+    from melspec_gpt_vqvae_tpu_torch.ops.vocoder_stack import \
+        fused_resblock_stack
+    out = {}
     melgan = bridge.init_conv_net_(
         MelGANGenerator(), torch.Generator().manual_seed(1)).to(
         device=dev, dtype=torch.bfloat16)
@@ -65,21 +86,46 @@ def measure(root):
         for i, (c, t) in enumerate(smoke.vocoder_stages(melgan)):
             blocks = melgan.stage_blocks(i)
             x = torch.randn(8, c, t, generator=g, device=dev).bfloat16()
-            out["B"][f"C={c},T={t}"] = smoke.device_ms(
+            out[f"C={c},T={t}"] = smoke.device_ms(
                 lambda: fused_resblock_stack(x, blocks),
                 ["resblock_stack"], 5)
-    out["B"]["sum"] = sum(out["B"].values())
-    print(json.dumps(out))
+    out["sum"] = sum(out.values())
+    return out
+
+
+def measure_f(smoke, dev, g):
+    import torch
+    from melspec_gpt_vqvae_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd, make_dropout_mask)
+    out = {}
+    for t, keep_prob, nu in F_CASES:
+        q, k, v, do = (torch.randn(8, 16, t, 64, generator=g, device=dev)
+                       for _ in range(4))
+        keep = make_dropout_mask(g, (8, 16, t, t), 1.0 - keep_prob)
+        o, lse = flash_attention_fwd(q, k, v, keep, nu, keep_prob)
+        name = f"T={t},keep={keep_prob},n_unmasked={nu}"
+        out[f"fwd,{name}"] = smoke.device_ms(
+            lambda: flash_attention_fwd(q, k, v, keep, nu, keep_prob),
+            ["flash_fwd_kernel"])
+        out[f"bwd,{name}"] = smoke.device_ms(
+            lambda: flash_attention_bwd(q, k, v, keep, o, lse, do, nu,
+                                        keep_prob), ["flash_bwd_"])
+    return out
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="checkout of the commit to compare with")
     ap.add_argument("--out", help="also write the JSON object here")
+    ap.add_argument("--kernels", default="E,B,F",
+                    help="which kernels to time (default: E,B,F)")
     ap.add_argument("--measure", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    kernels = set(args.kernels.split(","))
+    if not kernels <= {"E", "B", "F"}:
+        ap.error(f"--kernels takes E, B and F, got {args.kernels}")
     if args.measure:
-        return measure(Path(args.measure).resolve())
+        return measure(Path(args.measure).resolve(), kernels)
     if not args.parent:
         ap.error("--parent is required")
     parent = Path(args.parent).resolve()
@@ -88,7 +134,7 @@ def main():
                        ("change", HERE), ("parent", parent)):
         run = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--measure",
-             str(root)], cwd=root, capture_output=True, text=True,
+             str(root), "--kernels", args.kernels], cwd=root, capture_output=True, text=True,
             env={**os.environ, "PYTHONPATH": str(root)})
         if run.returncode:
             raise SystemExit(f"{name} ({root}) failed:\n{run.stdout}"
