@@ -5,8 +5,10 @@
 
 1. Builds the port's kernels from melspec_gpt_vqvae_tpu_torch/csrc (nvcc,
    sm_90a) and holds each against its plain PyTorch version on the card,
-   at the shapes the generation round trip gives it, with TF32 off:
-   A attention, B MelGAN resblock stack, C VQ nearest index, D mel, E
+   at the shapes the generation round trip and the evaluation forward
+   give it, with TF32 off:
+   A attention (48 cases: T = 1 to 266, three windows, float32 and
+   bfloat16), B MelGAN resblock stack, C VQ nearest index, D mel, E
    decode attention over the int8 / int4 cache (at batch 1 the rows of one
    (b, h) are split over up to 4 CTAs); and the int8 block product
    (``_int8_mm``, cuBLASLt) bit for bit against the CPU.  Each kernel is
@@ -40,7 +42,11 @@
    preset at full width with ``use_flash_train=True`` through
    ``train_gpt.main`` on a synthetic VAS tree of the 48 battery clips and
    their codes (a few steps, a validation pass, a checkpoint save), with
-   F's launches counted; the checkpoint restored bit for bit; steps timed
+   F's launches counted; the checkpoint restored bit for bit; that
+   checkpoint evaluated through ``train_gpt.main --train 0 --eval 1
+   --resume last`` with ``use_flash_train`` off, so that kernel A runs the
+   24 layers at (8, 16, 265, 64) float32, its validation loss held to the
+   flash run's; steps timed
    against the plain-attention step, each with a profiled window of
    three steps (device ms by kernel class, busy against wall); the loss
    on one repeated batch falling; and one float32 train step of a 2-layer
@@ -103,34 +109,79 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+_PROFILER_WARM = False
+
+
+def profiled(run, complete, activities=None, tries=3):
+    """``run()`` inside a ``torch.profiler`` window; (the window's
+    ``key_averages()``, whether ``complete(averages)`` held).  A trace can
+    come back without some of its launches (the first window of a process
+    while the tracer is still starting, or a buffer dropped under a busy
+    host), so the first window of the process is a throwaway one and a
+    window that is not ``complete`` is taken again, ``tries`` times in all.
+    ``run`` must leave the card idle (synchronise) before it returns."""
+    global _PROFILER_WARM
+    from torch.profiler import ProfilerActivity, profile
+    acts = activities or [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if not _PROFILER_WARM:
+        with profile(activities=acts):
+            run()
+        _PROFILER_WARM = True
+    for _ in range(tries):
+        with profile(activities=acts) as prof:
+            run()
+        avgs = prof.key_averages()
+        if complete(avgs):
+            return avgs, True
+    return avgs, False
+
+
 def device_ms(fn, names, reps=20):
     """Mean milliseconds that the port's kernels named in ``names``
     (substrings of the ``__global__`` functions in csrc/*.cu) spend on the
     card in one call of ``fn``: their device time in a ``torch.profiler``
     window of ``reps`` calls, free of the wrapper's host work and of any
-    PyTorch operator beside them."""
-    from torch.profiler import ProfilerActivity, profile
+    PyTorch operator beside them.  Where three windows in a row come back
+    without the launches, the time is taken with CUDA events around the
+    calls instead (the wrapper's host work then counts) and the line says
+    so."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us, calls = 0.0, 0
-    for ev in prof.key_averages():
-        if any(n in ev.key for n in names) and "at::" not in ev.key:
-            us = getattr(ev, "device_time_total", None)
-            if us is None:
-                us = ev.cuda_time_total
-            total_us += us
-            calls += ev.count
-    # the trace may lose a launch at the window's edge: average over the
-    # launches it holds, times the kernels one call launches
-    per_call = round(calls / reps)
-    check(per_call >= 1 and calls >= (reps - 1) * per_call and total_us > 0,
-          f"torch.profiler saw {calls} launches of {names} in {reps} calls")
-    return total_us / 1e3 / calls * per_call
+
+    def tally(avgs):
+        total_us, calls = 0.0, 0
+        for ev in avgs:
+            if any(n in ev.key for n in names) and "at::" not in ev.key:
+                us = getattr(ev, "device_time_total", None)
+                if us is None:
+                    us = ev.cuda_time_total
+                total_us += us
+                calls += ev.count
+        return total_us, calls
+
+    def complete(avgs):
+        # the trace may lose a launch at the window's edge
+        total_us, calls = tally(avgs)
+        per_call = round(calls / reps)
+        return (per_call >= 1 and calls >= (reps - 1) * per_call
+                and total_us > 0)
+
+    avgs, ok = profiled(run, complete)
+    total_us, calls = tally(avgs)
+    if not ok:
+        ms = cuda_ms(fn, reps=reps)
+        print(f"  torch.profiler held {calls} launches of {names} in {reps} "
+              f"calls, three windows in a row: device time taken with CUDA "
+              f"events instead, {ms:.4f} ms a call")
+        return ms
+    # average over the launches the trace holds, times the kernels one call
+    # launches
+    return total_us / 1e3 / calls * round(calls / reps)
 
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W)
@@ -185,15 +236,22 @@ def trees_equal(a, b):
 # ---------------------------------------------------------------------------
 
 
+# the __global__ functions of kernel A: a warp a row up to T = 16, tensor-core
+# tiles beyond
+A_KERNELS = ["attention_kernel", "attention_tile_kernel"]
+
+
 def check_attention(dev):
     from melspec_gpt_vqvae_tpu_torch.ops.attention import attend, attend_xla
     g = torch.Generator(device=dev).manual_seed(0)
     # f32: the JAX package's own bound (tests/test_ops.py); bf16: outputs
-    # are rounded to bf16 (2^-8 relative), so 1e-2 of max |out|
-    errs = {}
+    # are rounded to bf16 (2^-8 relative), so 1e-2 of max |out|.  T = 16 /
+    # 17 is where the warp-a-row kernel hands over to the tile kernel, 64 /
+    # 65 one row tile and one row more, 265 / 266 the longest sequences.
+    errs, n = {}, 0
     for dtype in (torch.float32, torch.bfloat16):
-        for t in (1, 265, 266):
-            for nu in (0, 266):
+        for t in (1, 16, 17, 37, 64, 65, 265, 266):
+            for nu in (0, 11, t):
                 q, k, v = (torch.randn(8, 16, t, 64, generator=g, device=dev)
                            .to(dtype) for _ in range(3))
                 ref = attend_xla(q, k, v, nu)
@@ -205,35 +263,44 @@ def check_attention(dev):
                       f"(tol {tol:.3g})")
                 check(err <= tol, f"attention {dtype} T={t} nu={nu}")
                 errs[dtype] = max(errs.get(dtype, 0.0), err)
-    # the slice's prefill: class prompt only, T = 1, batch 8, bf16; and the
-    # longest window, T = 266.  The library call: one
+                n += 1
+    print(f"  A attention: {n} cases; max|err| float32 "
+          f"{errs[torch.float32]:.3g}, bfloat16 {errs[torch.bfloat16]:.3g}")
+    # the serving prefill: class prompt only, T = 1, batch 8, bf16; the
+    # longest window, T = 266, bf16 (the GPT-VAE encoder's length); and the
+    # evaluation forward, T = 265, float32.  The library call: one
     # scaled_dot_product_attention with the same window mask (causal at
-    # n_unmasked = 0); timed here only, the port never calls it.
+    # n_unmasked = 0) in the same dtype; timed here only, the port never
+    # calls it.
     import torch.nn.functional as F
     res = {}
-    for t in (1, 266):
-        q = torch.randn(8, 16, t, 64, generator=g, device=dev).bfloat16()
+    for name, t, dtype, kind in (("t1", 1, torch.bfloat16, "bf16"),
+                                 ("t266", 266, torch.bfloat16, "bf16"),
+                                 ("t265_f32", 265, torch.float32, "tf32")):
+        q = torch.randn(8, 16, t, 64, generator=g, device=dev).to(dtype)
         reps = 200 if t == 1 else 20
         r = {"ms": cuda_ms(lambda: attend(q, q, q, 0), reps=reps),
-             "device_ms": device_ms(lambda: attend(q, q, q, 0),
-                                    ["attention_kernel"]),
+             "device_ms": device_ms(lambda: attend(q, q, q, 0), A_KERNELS),
              "plain_ms": cuda_ms(lambda: attend_xla(q, q, q, 0), reps=reps),
              "library_ms": cuda_ms(
                  lambda: F.scaled_dot_product_attention(q, q, q,
                                                         is_causal=True),
                  reps=reps),
-             # q, k, v in, o out; QK^T and PV over the causal half
+             # q, k, v in, o out; QK^T and PV over the causal half, on the
+             # tensor cores at the rate of the inputs' type
              **bound(4 * nbytes(q), 4 * 8 * 16 * (t * (t + 1) // 2) * 64,
-                     "bf16")}
-        print(f"  A timing bf16 (8,16,{t},64): kernel {r['ms']:.4f} ms "
-              f"(device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} "
-              f"ms, scaled_dot_product_attention {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
-        res[t] = r
-    return {"max_abs_err": errs[torch.bfloat16], **res[1],
+                     kind)}
+        print(f"  A timing {str(dtype)[6:]} (8,16,{t},64): kernel "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']})")
+        res[name] = r
+    return {"max_abs_err": errs[torch.bfloat16],
+            "max_abs_err_f32": errs[torch.float32], **res["t1"],
             "library_call": "F.scaled_dot_product_attention(q, k, v, "
-                            "is_causal=True), bf16",
-            "t266": res[266]}
+                            "is_causal=True), same dtype",
+            "t266": res["t266"], "t265_f32": res["t265_f32"]}
 
 
 SPEC_FRAMES = 848   # vocoder input frames of one clip
@@ -379,10 +446,9 @@ def check_mel(dev, wav, mel_cfg):
     dms = device_ms(lambda: waveform_to_mel_fused(wav, mel_cfg),
                     ["mel_kernel"], reps=10)
     plain = cuda_ms(lambda: waveform_to_mel(wav, mel_cfg), reps=10)
-    # waveform in, mel out.  What the function needs, not what the kernel
-    # does (it takes the DFT as a dense product): per kept frame the window
-    # (n_fft), a real FFT (2.5 n_fft log2 n_fft), the magnitudes (3 a bin)
-    # and a multiply-add per non-zero of the triangular filterbank
+    # waveform in, mel out.  What the function needs: per kept frame the
+    # window (n_fft), a real FFT (2.5 n_fft log2 n_fft), the magnitudes (3 a
+    # bin) and a multiply-add per non-zero of the triangular filterbank
     n_fft, bins = mel_cfg.n_fft, mel_cfg.n_fft // 2 + 1
     nonzero = int(np.count_nonzero(mel_filterbank(
         mel_cfg.sample_rate, n_fft, mel_cfg.n_mels, mel_cfg.fmin,
@@ -672,45 +738,66 @@ def reference_check(dev, exp, wav, seed):
     wavs_gpu = gpu.vocode(specs.to(dev))
     codes = tokenize(cpu.vq, wav[:4].cpu(), exp.mel)
     codes_gpu = tokenize(gpu.vq, wav[:4], exp.mel).cpu()
+    # all 48 clips on the card: codes through kernel D's mel against codes
+    # through the plain (rFFT) mel, the same float32 VQ-VAE
+    from melspec_gpt_vqvae_tpu_torch.ops.mel import waveform_to_mel
+    from melspec_gpt_vqvae_tpu_torch.ops.mel_kernel import \
+        waveform_to_mel_fused
+    k_codes, k_lat = mel_codes(gpu.vq, waveform_to_mel_fused(wav, exp.mel))
+    p_codes, p_lat = mel_codes(gpu.vq, waveform_to_mel(wav, exp.mel))
+    lat4 = [mel_codes(vq, waveform_to_mel_fused(w, exp.mel))
+            for vq, w in ((cpu.vq, wav[:4].cpu()), (gpu.vq, wav[:4]))]
+    check(torch.equal(lat4[1][0], codes_gpu),
+          "mel_codes does not reproduce tokenize")
     res = {"logits": max_err(l_gpu.cpu(), l_cpu),
            "specs": max_err(specs_gpu.cpu(), specs),
            "wavs": max_err(wavs_gpu.cpu(), wavs),
            "greedy_token_agreement": (toks_gpu == toks).float().mean().item(),
            "code_agreement": (codes_gpu == codes).float().mean().item(),
-           "codes_unexplained": unexplained_flips(codes, codes_gpu, cpu.vq,
-                                                  gpu.vq, wav[:4], exp.mel)}
+           "codes_unexplained": unexplained_flips(
+               codes, codes_gpu, lat4[0][1], lat4[1][1], cpu.vq),
+           "kernel_vs_plain_mel_codes_differing":
+               int((k_codes != p_codes).sum()),
+           "kernel_vs_plain_mel_codes_unexplained": unexplained_flips(
+               p_codes, k_codes, p_lat, k_lat, cpu.vq)}
     print(f"  reference (f32, 2-layer GPT, full-width VQ-VAE + MelGAN) card "
           f"vs CPU: {json.dumps(res)}")
     check(res["logits"] <= 1e-3, "teacher-forced logits vs CPU")
     check(res["specs"] <= 1e-3 and res["wavs"] <= 1e-3, "decode vs CPU")
     check(res["codes_unexplained"] == 0, "tokenize codes vs CPU")
+    check(res["kernel_vs_plain_mel_codes_unexplained"] == 0,
+          "codes of the 48 clips through kernel D vs the plain mel")
 
 
-def unexplained_flips(codes, codes_gpu, vq_cpu, vq_gpu, wav, mel_cfg):
-    """Codes where the card picked b and the CPU a (GPT order, as tokenize
-    returns them) although the difference of their latents cannot explain
-    it.  With latents z (CPU) and z' (card), b can win on the card only if
-    the float64 gap d_z(b) - d_z(a) <= 2 |z' - z| |e_a - e_b| (plus float32
-    rounding of the terms); any other differing code is a fault."""
-    from melspec_gpt_vqvae_tpu_torch.ops.mel_kernel import \
-        waveform_to_mel_fused
-    lat = []
+def mel_codes(vq, mel):
+    """(codes (B, 265) in GPT order on the CPU, latent rows (B * 265, D) in
+    the same order, float64 on the CPU) of a (B, 80, 860) mel, as
+    ``tokenize`` takes it from there."""
     with torch.inference_mode():
-        for vq, w in ((vq_cpu, wav.cpu()), (vq_gpu, wav)):
-            mel = waveform_to_mel_fused(w, mel_cfg)[:, :, 6:854]
-            z = vq.quant_conv(vq.encoder((2.0 * mel - 1.0)[:, None]))
-            # (B, D, h, w) -> rows in tokenize's time-major order
-            lat.append(z.permute(0, 3, 2, 1).reshape(-1, z.shape[1])
-                       .double().cpu())
-    z, z_gpu = lat
-    a, b = codes.reshape(-1).long(), codes_gpu.reshape(-1).long()
+        lo = (mel.shape[-1] - vq.cfg.resolution) // 2
+        x = (2.0 * mel[:, :, lo:lo + vq.cfg.resolution] - 1.0)[:, None]
+        z = vq.quant_conv(vq.encoder(x.to(vq.quant_conv.weight.dtype)))
+        grid = vq.quantize.nearest_index(z)
+    codes = grid.transpose(1, 2).reshape(grid.shape[0], -1).cpu()
+    # (B, D, h, w) -> rows in tokenize's time-major order
+    return codes, z.permute(0, 3, 2, 1).reshape(-1, z.shape[1]).double().cpu()
+
+
+def unexplained_flips(codes, codes_b, z, z_b, vq):
+    """Codes where one run picked a and the other b (GPT order, as tokenize
+    returns them) although the difference of their latents cannot explain
+    it.  With latents z and z' (rows in the codes' order), b can win in
+    the second run only if the float64 gap d_z(b) - d_z(a) <=
+    2 |z' - z| |e_a - e_b| (plus float32 rounding of the terms); any other
+    differing code is a fault."""
+    a, b = codes.reshape(-1).long(), codes_b.reshape(-1).long()
     rows = (a != b).nonzero()[:, 0]
-    cb = vq_cpu.quantize.embedding.detach().double()
+    cb = vq.quantize.embedding.detach().double().cpu()
     e2 = (cb * cb).sum(1)
     zr = z[rows]
     gap = (e2[b[rows]] - 2 * (zr * cb[b[rows]]).sum(1)) \
         - (e2[a[rows]] - 2 * (zr * cb[a[rows]]).sum(1))
-    allowed = 2 * (z_gpu[rows] - zr).norm(dim=1) * (
+    allowed = 2 * (z_b[rows] - zr).norm(dim=1) * (
         cb[a[rows]] - cb[b[rows]]).norm(dim=1) \
         + 2.0 ** -18 * ((zr ** 2).sum(1) + e2.max())
     return int((gap > allowed).sum())
@@ -880,7 +967,7 @@ def profile_decode_step(pipe, cfg, dev, given=132, warm=4, steps=8):
     (a prefill of the class prompt and ``given`` tokens, ``warm`` steps,
     full-length cache): device launches per token, device busy ms per
     step, and kernel E's share of it."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from torch.profiler import DeviceType, ProfilerActivity
 
     from melspec_gpt_vqvae_tpu_torch.models import gpt as G
     params = pipe.gpt_params
@@ -900,28 +987,43 @@ def profile_decode_step(pipe, cfg, dev, given=132, warm=4, steps=8):
         for _ in range(warm):
             step()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        done, wall_ms = warm, 0.0
+
+        def run():
+            nonlocal done, wall_ms
             t0 = time.perf_counter()
             for _ in range(steps):
                 step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    launches = busy_us = e_us = 0
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        launches += ev.count
-        busy_us += us
-        if "decode_attention_kernel" in ev.key:
-            e_us += us
+            done += steps
+
+        def tally(avgs):
+            launches = busy_us = e_us = e_calls = 0
+            for ev in avgs:
+                if ev.device_type != DeviceType.CUDA:
+                    continue
+                us = getattr(ev, "self_device_time_total", None)
+                if us is None:
+                    us = ev.self_cuda_time_total
+                launches += ev.count
+                busy_us += us
+                if "decode_attention_kernel" in ev.key:
+                    e_us += us
+                    e_calls += ev.count
+            return launches, busy_us, e_us, e_calls
+
+        # a whole trace holds kernel E once a layer a step
+        avgs, whole = profiled(
+            run, lambda a: tally(a)[3] >= cfg.n_layer * steps - 1,
+            [ProfilerActivity.CUDA])
+    launches, busy_us, e_us, _ = tally(avgs)
     res = {"launches_per_token": launches / steps,
            "device_busy_ms_per_step": busy_us / 1e3 / steps,
            "kernel_E_ms_per_step": e_us / 1e3 / steps,
            "wall_ms_per_step_profiled": wall_ms,
-           "positions": [given + warm + 1, given + warm + steps]}
+           "positions": [given + done - steps + 1, given + done],
+           "trace_whole": whole}
     print(f"  decode step, batch 8, {cfg.cache_dtype} cache, "
           f"{cfg.decode_weight_dtype} weights (torch.profiler, {steps} "
           f"steps): {json.dumps(res)}")
@@ -995,21 +1097,41 @@ def write_vas_tree(root, mels, codes):
     (root / "data" / "vas_valid.txt").write_text("\n".join(valid) + "\n")
 
 
-def run_train_cli(root, flash):
-    """``train_gpt.main`` from ``root``: the VAS preset (full width, batch
-    8, dropout 0.5) for TRAIN_STEPS steps, VAL_BATCHES validation batches
-    and the final checkpoint."""
+def run_train_cli(root, flash, train=True):
+    """``train_gpt.main`` from ``root`` with the VAS preset (full width,
+    batch 8, dropout 0.5).  ``train``: TRAIN_STEPS steps, VAL_BATCHES
+    validation batches and the final checkpoint.  Otherwise the evaluation
+    entry point, ``--train 0 --eval 1 --resume last``: that checkpoint
+    restored and validated on VAL_BATCHES batches.  Returns (main's result,
+    the validation losses the call computed, the (B, H, T, hd) shapes and
+    dtypes the GPT blocks handed kernel A's wrapper)."""
     from melspec_gpt_vqvae_tpu_torch import train_gpt
-    argv = ["--dataset", "vas", "--experiment", "smoke", "--train", "1",
-            "--device", "cuda", "--epochs_override", "1",
-            "--limit_train_batches", str(TRAIN_STEPS),
-            "--limit_val_batches", str(VAL_BATCHES), "--ckpt_every", "0",
+    from melspec_gpt_vqvae_tpu_torch.models import gpt as G
+    from melspec_gpt_vqvae_tpu_torch.training import runner
+    argv = ["--dataset", "vas", "--experiment", "smoke", "--device", "cuda",
+            "--limit_val_batches", str(VAL_BATCHES),
             "--override", f"use_flash_train={flash}"]
+    argv += (["--train", "1", "--epochs_override", "1", "--ckpt_every", "0",
+              "--limit_train_batches", str(TRAIN_STEPS)] if train
+             else ["--train", "0", "--eval", "1", "--resume", "last"])
+    val_losses, a_calls = [], []
+    val_loss, attend = runner._val_loss, G.attend
+
+    def recording_val_loss(*a, **kw):
+        val_losses.append(val_loss(*a, **kw))
+        return val_losses[-1]
+
+    def recording_attend(q, k, v, n_unmasked=0):
+        a_calls.append((tuple(q.shape), q.dtype))
+        return attend(q, k, v, n_unmasked)
     cwd = os.getcwd()
     os.chdir(root)
+    runner._val_loss, G.attend = recording_val_loss, recording_attend
     try:
-        return train_gpt.main(train_gpt.init_config(argv))
+        return (train_gpt.main(train_gpt.init_config(argv)), val_losses,
+                a_calls)
     finally:
+        runner._val_loss, G.attend = val_loss, attend
         os.chdir(cwd)
 
 
@@ -1053,7 +1175,7 @@ def profile_train_step(task, state, batch, title, warm=2, steps=3):
     steps on ``batch``: kernel F's forward, dQ, dK/dV and delta kernels,
     the float32 GEMMs, AdamW and the rest, the device's busy time against
     the wall, and the kernels a step launches."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from torch.profiler import DeviceType, ProfilerActivity
 
     from melspec_gpt_vqvae_tpu_torch.training.runner import step_generator
 
@@ -1064,32 +1186,51 @@ def profile_train_step(task, state, batch, title, warm=2, steps=3):
     for i in range(warm):
         step(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    done, wall_ms = warm, 0.0
+
+    def run():
+        nonlocal done, wall_ms
         t0 = time.perf_counter()
         for i in range(steps):
-            step(warm + i)
+            step(done + i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    ms = {label: 0.0 for label, _ in TRAIN_KERNEL_CLASSES}
-    ms["the rest"] = 0.0
-    counts = dict.fromkeys(ms, 0)
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        key = ev.key.lower()
-        label = next((lab for lab, names in TRAIN_KERNEL_CLASSES
-                      if any(n in key for n in names)), "the rest")
-        ms[label] += us / 1e3 / steps
-        counts[label] += ev.count
+        done += steps
+
+    def tally(avgs):
+        ms = {label: 0.0 for label, _ in TRAIN_KERNEL_CLASSES}
+        ms["the rest"] = 0.0
+        counts = dict.fromkeys(ms, 0)
+        for ev in avgs:
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            key = ev.key.lower()
+            label = next((lab for lab, names in TRAIN_KERNEL_CLASSES
+                          if any(n in key for n in names)), "the rest")
+            ms[label] += us / 1e3 / steps
+            counts[label] += ev.count
+        return ms, counts
+
+    def whole_trace(avgs):
+        # AdamW runs once a step whatever the attention; with kernel F the
+        # trace also holds its forward once a layer a step
+        _, counts = tally(avgs)
+        return counts["AdamW"] >= steps and (
+            not task.cfg.use_flash_train
+            or counts["F forward"] >= task.cfg.n_layer * steps - 1)
+
+    avgs, whole = profiled(run, whole_trace, [ProfilerActivity.CUDA])
+    ms, counts = tally(avgs)
     busy = sum(ms.values())
     res = {"device_ms_per_step": {k: round(v, 3) for k, v in ms.items()},
            "device_busy_ms_per_step": round(busy, 3),
            "wall_ms_per_step_profiled": round(wall_ms, 3),
            "kernels_per_step": sum(counts.values()) / steps,
-           "F_forward_launches_per_step": counts["F forward"] / steps}
+           "F_forward_launches_per_step": counts["F forward"] / steps,
+           "trace_whole": whole}
     print(f"  train step, {title} (torch.profiler, {steps} steps after "
           f"{warm}): {json.dumps(res)}")
     check(busy > 0, "profiler saw no device activity in the train step")
@@ -1097,10 +1238,12 @@ def profile_train_step(task, state, batch, title, warm=2, steps=3):
 
 
 def train_check(dev, mels, codes):
-    """The training main path, its launch counts, the checkpoint, step
-    times against the plain attention, and the learning check.  Returns
-    F's launches (forward, backward) on the main path and the batch the
-    steps were timed on."""
+    """The training main path, its launch counts, the checkpoint, the
+    evaluation of that checkpoint through kernel A, step times against the
+    plain attention, and the learning check.  Returns F's launches
+    (forward, backward) on the training path, A's on the evaluation path
+    and the batch the steps were timed on."""
+    from melspec_gpt_vqvae_tpu_torch.ops.attention import attend
     from melspec_gpt_vqvae_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_fwd)
     from melspec_gpt_vqvae_tpu_torch.training.gpt_task import GPTTask
@@ -1110,7 +1253,8 @@ def train_check(dev, mels, codes):
           f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, reserved "
           f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB")
     flash_attention_fwd.launches = flash_attention_bwd.launches = 0
-    (task, state, ckpt), dt = wall(lambda: run_train_cli(TRAIN_ROOT, True))
+    ((task, state, ckpt), flash_val, _), dt = wall(
+        lambda: run_train_cli(TRAIN_ROOT, True))
     launches = (flash_attention_fwd.launches, flash_attention_bwd.launches)
     n_layer = task.cfg.n_layer
     print(f"  train_gpt.main (VAS preset, use_flash_train, {TRAIN_STEPS} "
@@ -1127,6 +1271,35 @@ def train_check(dev, mels, codes):
           f"state bit for bit: {same}")
     check(same, "checkpoint round trip")
 
+    # the evaluation entry point on that checkpoint, use_flash_train off:
+    # every layer's attention is kernel A at (8, 16, 265, 64) float32
+    attend.launches = flash_attention_fwd.launches = 0
+    (_, a_val, a_calls), dt = wall(
+        lambda: run_train_cli(TRAIN_ROOT, False, train=False))
+    a_launches = attend.launches
+    # A's float32 tile kernel and F's forward without a keep-mask run the
+    # same tiles, split and order of sums on the same weights and batch, so
+    # the two losses differ by rounding at most; 1e-4 is the bound asked of
+    # two kernels for one function
+    diff = abs(a_val[0] - flash_val[0]) if a_val and flash_val else None
+    print(f"  train_gpt.main --train 0 --eval 1 --resume last "
+          f"(use_flash_train off, {VAL_BATCHES} val batch): {dt:.1f} s; A "
+          f"launches {a_launches}, F forward launches "
+          f"{flash_attention_fwd.launches}; val/loss {a_val} against the "
+          f"flash run's {flash_val}: |diff| {diff}")
+    check(len(a_val) == 1 and len(flash_val) == 1,
+          f"validation passes: evaluation {len(a_val)}, training "
+          f"{len(flash_val)}")
+    check(a_launches == n_layer * VAL_BATCHES == len(a_calls),
+          "kernel A: n_layer launches per validation batch")
+    check(set(a_calls) == {((8, 16, 265, 64), torch.float32)},
+          f"kernel A on the evaluation path ran at {set(a_calls)}")
+    check(flash_attention_fwd.launches == 0,
+          "the evaluation path launched kernel F")
+    check(np.isfinite(a_val[0]) and diff <= 1e-4,
+          f"validation loss through kernel A {a_val[0]} against kernel F "
+          f"{flash_val[0]}")
+
     batch = first_train_batch()
     losses, ms, mem = timed_steps(task, state, batch, 30, lr=3e-4)
     tokens = 8 * 265 / (ms / 1e3)
@@ -1136,9 +1309,12 @@ def train_check(dev, mels, codes):
     check(all(np.isfinite(losses)), "non-finite training loss")
     check(losses[-1] < losses[0], "loss on a repeated batch did not fall")
     prof = profile_train_step(task, state, batch, "kernel F")
-    check(prof["F_forward_launches_per_step"] >= n_layer - 1
-          and all(prof["device_ms_per_step"][c] > 0
-                  for c in ("F forward", "F dQ", "F dK,dV")),
+    # a trace that came back short three times over is a fault of the
+    # tracer, not of the step: the launch counters above hold F exactly
+    check(not prof["trace_whole"]
+          or (prof["F_forward_launches_per_step"] >= n_layer - 1
+              and all(prof["device_ms_per_step"][c] > 0
+                      for c in ("F forward", "F dQ", "F dK,dV"))),
           "the profiled train step did not run kernel F in every layer")
     del task, state, ckpt
     torch.cuda.empty_cache()
@@ -1154,7 +1330,7 @@ def train_check(dev, mels, codes):
           "the plain-attention step launched kernel F")
     del plain, pstate
     torch.cuda.empty_cache()
-    return launches, batch
+    return launches, a_launches, batch
 
 
 def load_vas_exp(**override):
@@ -1381,9 +1557,15 @@ def main():
           "training (VAS GPT preset, full width, float32, random weights):")
     with torch.inference_mode():
         mels = waveform_to_mel_fused(wav, exp.mel)
-    f_launches, batch = train_check(dev, mels, codes)
+    f_launches, a_eval_launches, batch = train_check(dev, mels, codes)
     launches["flash_attention_fwd"], launches["flash_attention_bwd"] = \
         f_launches
+    # kernel A is on two driven paths: the serving prefill (T = 1) and the
+    # evaluation forward (T = 265), each counted from 0
+    results["attention"]["launches_by_path"] = {
+        "serving_prefill_t1": launches["attention"],
+        "evaluation_t265_f32": a_eval_launches}
+    launches["attention"] += a_eval_launches
     train_reference_check(dev, batch)
     shutil.rmtree(TRAIN_ROOT)
 

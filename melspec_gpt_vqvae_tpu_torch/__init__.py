@@ -4,8 +4,10 @@ A second package beside the JAX reference ``melspec_gpt_vqvae_tpu``, laid
 out like it so each module's counterpart has the same name:
 
   - ``ops/``     plain PyTorch functions and the wrappers of the hand-written
-                 Hopper kernels in ``csrc/`` (attention, VQ nearest index,
-                 mel frontend, MelGAN resblock stack);
+                 Hopper kernels in ``csrc/``, six in all (whole-sequence
+                 attention, MelGAN resblock stack, VQ nearest index, mel
+                 frontend, decode attention over the quantised cache,
+                 training attention forward and backward);
   - ``models/``  GPT (functional, KV-cached decode), VQ-VAE and MelGAN
                  ``nn.Module``s;
   - ``pipeline.py``, ``serving.py``  the generation round trip;

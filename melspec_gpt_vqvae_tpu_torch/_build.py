@@ -43,8 +43,7 @@ SIGNATURES = {
     "msgv_resblock_stack": [_P] * 3 + [_I] * 8 + [_P],
     "msgv_resblock_stack_bf16": [_P] * 4 + [_I] * 8 + [_P],
     "msgv_vq_nearest": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "msgv_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                 _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "msgv_mel": [_P] * 7 + [_I] * 7 + [_F] * 8 + [_P],
 }
 
 _lock = threading.Lock()

@@ -59,134 +59,15 @@
 //     share an SM.
 //   * A warp skips the 8-column blocks none of its rows can see, and
 //     warps whose rows lie past T only help staging.
-#include <cstdint>
-
-#include "common.cuh"
+#include "attn_tiles.cuh"
 
 namespace {
 
-constexpr int kHd = 64;        // head dim the kernels are written for
-constexpr int kLd = 68;        // floats per staged row
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kBm = 64;        // rows (forward, dQ) or columns (dK/dV) a CTA
-constexpr int kBc = 32;        // K/V columns a step (forward, dQ)
+using namespace msgv::tiles;
+
 constexpr int kBr = 32;        // Q/dO rows a step (dK/dV)
 constexpr int kKwF = kBc / 4 + 1;  // staged keep words a row (forward, dQ)
 constexpr int kKwT = kBm / 4 + 1;  // the same for dK/dV
-constexpr float kLog2e = 1.4426950408889634f;
-
-// x = big + small with big = x rounded to TF32 (nearest, ties away from
-// zero, as cvt.rna.tf32.f32 rounds) and small the exact remainder, of which
-// the tensor core reads the sign, the exponent and the first 10 mantissa
-// bits.  Integer rounding instead of two cvt: with conversions the
-// kernels took a fifth longer.
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b at float32 accuracy: three TF32 products, small terms first.
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4], float b0,
-                                     float b1) {
-  uint32_t b0b, b0s, b1b, b1s;
-  split(b0, b0b, b0s);
-  split(b1, b1b, b1s);
-  mma_tf32(d, as, b0b, b1b);
-  mma_tf32(d, ab, b0s, b1s);
-  mma_tf32(d, ab, b0b, b1b);
-}
-
-// The tensor cores add into their accumulator with truncation, and an error
-// that always points towards zero grows with the number of additions into
-// one running sum (a 265-row dK column came out 10x further from the plain
-// version than the float32 FMA kernel did).  So no running sum lives in an
-// mma accumulator: the three mma of a k-block go into a fresh one, which is
-// then added to the running sum in float32 with round-to-nearest.
-__device__ __forceinline__ void mma3_add(float (&acc)[4],
-                                         const uint32_t (&ab)[4],
-                                         const uint32_t (&as)[4], float b0,
-                                         float b1) {
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-  mma3(part, ab, as, b0, b1);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += part[e];
-}
-
-// acc[nb] += A B^T for the 8-column blocks nb in [lo, hi): A is the warp's
-// 16 rows of a staged tile (a points at its first row), B a staged tile
-// whose row n is output column n; both (rows, kHd).
-template <int NB>
-__device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const float* a,
-                                        const float* b, int lo, int hi,
-                                        int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kb = 0; kb < kHd / 8; ++kb) {
-    uint32_t ab[4], as[4];
-    const float* ar = a + g * kLd + 8 * kb + t;
-    split(ar[0], ab[0], as[0]);
-    split(ar[8 * kLd], ab[1], as[1]);
-    split(ar[4], ab[2], as[2]);
-    split(ar[8 * kLd + 4], ab[3], as[3]);
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      if (nb >= lo && nb < hi) {
-        const float* br = b + (8 * nb + g) * kLd + 8 * kb + t;
-        mma3_add(acc[nb], ab, as, br[0], br[4]);
-      }
-    }
-  }
-}
-
-// acc (16 x kHd) += P B for P's 8-column blocks kb in [lo, hi): P is held
-// as accumulator fragments p[kb], B is a staged tile whose row k belongs to
-// P's column k.  The contraction index is permuted to fit the fragments:
-// k = t is column 2t, k = t + 4 is column 2t + 1.
-template <int KB>
-__device__ __forceinline__ void mma_pb(float (&acc)[kHd / 8][4],
-                                       const float (&p)[KB][4], const float* b,
-                                       int lo, int hi, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kb = 0; kb < KB; ++kb) {
-    if (kb >= lo && kb < hi) {
-      uint32_t ab[4], as[4];
-      split(p[kb][0], ab[0], as[0]);
-      split(p[kb][2], ab[1], as[1]);
-      split(p[kb][1], ab[2], as[2]);
-      split(p[kb][3], ab[3], as[3]);
-      const float* br = b + (8 * kb + 2 * t) * kLd + g;
-#pragma unroll
-      for (int nb = 0; nb < kHd / 8; ++nb)
-        mma3_add(acc[nb], ab, as, br[8 * nb], br[kLd + 8 * nb]);
-    }
-  }
-}
-
-// Rows [r0, r0 + n) of a row-major (t_len, kHd) matrix into dst[n][kLd];
-// rows past t_len become zeros.
-__device__ __forceinline__ void stage_rows(float* dst,
-                                           const float* __restrict__ src,
-                                           int r0, int n, int t_len) {
-  for (int i = threadIdx.x; i < n * (kHd / 4); i += kThreads) {
-    const int r = i / (kHd / 4), c = (i % (kHd / 4)) * 4;
-    const bool ok = r0 + r < t_len;
-    msgv::cp_async16_zfill(dst + r * kLd + c,
-                           src + static_cast<size_t>(ok ? r0 + r : 0) * kHd + c,
-                           ok);
-  }
-}
 
 // Keep bytes of rows [r0, r0 + n) x columns [c0, c0 + ncols) of one
 // (t_len, t_len) mask into dst[n][W words]: each row is copied from the
@@ -216,52 +97,6 @@ __device__ __forceinline__ int keep_off(const uint8_t* keep, int row, int c0,
                                   c0) & 3);
 }
 
-// The minGPT mask.
-__device__ __forceinline__ bool visible(int r, int c, int nu) {
-  return c <= r || (r < nu && c < nu);
-}
-
-// Columns that some row of [r_lo, r_hi] sees: c < the returned count.
-__device__ __forceinline__ int visible_cols(int r_lo, int r_hi, int nu) {
-  return r_lo < nu ? max(nu, r_hi + 1) : r_hi + 1;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return min(max(v, lo), hi);
-}
-
-// What a CTA of the forward and of dQ works on: row tile `tile` (heaviest
-// first) of (b, h) `bh`.
-struct RowTile {
-  int bh, row0, n_steps;   // column steps of kBc up to the last visible one
-  int ra, rb;              // this thread's two rows (g and g + 8 of the warp)
-  int warp_cols;           // columns some row of the warp sees; 0: no rows
-};
-
-__device__ __forceinline__ RowTile row_tile(int bh_count, int t_len, int nu) {
-  RowTile rt;
-  const int tiles = gridDim.x / bh_count;
-  rt.bh = blockIdx.x % bh_count;
-  rt.row0 = (tiles - 1 - blockIdx.x / bh_count) * kBm;
-  const int row_end = min(rt.row0 + kBm, t_len);
-  rt.n_steps = (visible_cols(rt.row0, row_end - 1, nu) + kBc - 1) / kBc;
-  const int rw0 = rt.row0 + 16 * (threadIdx.x / 32);
-  rt.ra = rw0 + (threadIdx.x % 32) / 4;
-  rt.rb = rt.ra + 8;
-  rt.warp_cols =
-      rw0 < t_len ? visible_cols(rw0, min(rw0 + 15, t_len - 1), nu) : 0;
-  return rt;
-}
 
 // ---------------------------------------------------------------------------
 // forward: grid (row tiles * B*H)

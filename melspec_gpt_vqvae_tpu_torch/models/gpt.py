@@ -223,7 +223,7 @@ def gpt_apply(params: Params, cfg: GPTConfig, idx: Optional[torch.Tensor],
     JAX function's second result, the attention maps, is not ported."""
     if cfg.mixed_precision:
         raise NotImplementedError("mixed-precision training forward is not "
-                                  "ported (ROADMAP A8)")
+                                  "ported (ROADMAP A7)")
     x = _embed(params, cfg, idx, cond_emb)
     train = bool(train) and generator is not None
     x = _dropout(x, cfg.embd_pdrop, generator, train)

@@ -35,14 +35,14 @@ import numpy as np
 import torch
 
 from .. import _build
-from .attention import NEG_INF, bernoulli_u8, window_mask
+from .attention import (HEAD_DIM, LOG2E as _LOG2E, NEG_INF, TILE_C, TILE_M,
+                        bernoulli_u8, rows16 as _rows16, visible_cols,
+                        window_mask)
 
-HEAD_DIM = 64                # the head dim kernel F is written for
-# kernel F's tiles (csrc/flash_attention.cu: kBm, kBc, kBr): rows of a
-# forward / dQ CTA and columns of a dK/dV CTA, K/V columns a forward / dQ
-# step, Q/dO rows a dK/dV step
-TILE_M, TILE_C, TILE_R = 64, 32, 32
-_LOG2E = 1.4426950408889634
+# kernel F's tiles (csrc/attn_tiles.cuh: kBm, kBc; csrc/flash_attention.cu:
+# kBr): rows of a forward / dQ CTA and columns of a dK/dV CTA (TILE_M), K/V
+# columns a forward / dQ step (TILE_C), Q/dO rows a dK/dV step
+TILE_R = 32
 
 
 def _scale(hd: int) -> float:
@@ -130,12 +130,6 @@ def split3_matmul(a: torch.Tensor, b: torch.Tensor,
     a_s, b_s = tf32_truncate(a - ab), tf32_truncate(b - bb)
     return torch.matmul(a_s, bb) + torch.matmul(ab, b_s) \
         + torch.matmul(ab, bb)
-
-
-def visible_cols(r_lo: int, r_hi: int, n_unmasked: int) -> int:
-    """Columns that some row of [r_lo, r_hi] sees under the minGPT mask:
-    c < the returned count (a row tile loops over column steps below it)."""
-    return max(n_unmasked, r_hi + 1) if r_lo < n_unmasked else r_hi + 1
 
 
 def first_row(c_lo: int, n_unmasked: int) -> int:
@@ -279,16 +273,6 @@ def _check(q, k, v, keep):
 
 def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
-
-
-def _rows16(*tensors):
-    """Contiguous tensors whose rows the kernel may copy 16 bytes at a
-    time (a contiguous view at an odd storage offset is copied)."""
-    out = []
-    for x in tensors:
-        x = x.contiguous()
-        out.append(x.clone() if x.data_ptr() % 16 else x)
-    return out
 
 
 def flash_attention_fwd(q, k, v, keep, n_unmasked: int = 0,

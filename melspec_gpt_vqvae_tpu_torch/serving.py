@@ -12,8 +12,8 @@ bounded queue, seeds each request's ``torch.Generator`` and sums the
 speculative stats of a request.
 
 Not ported yet, and refused with NotImplementedError (ROADMAP queue A):
-mesh serving, the int8 decode stage, draft weights from a run checkpoint
-(``draft_experiment``) and the HTTP server.
+mesh serving (A12), the int8 decode stage (A6), draft weights from a run
+checkpoint (``draft_experiment``, A3) and the HTTP server (A4).
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ def build_pipeline(dataset: str = "vas", *, init_random: bool = False,
     if mesh_spec or int8_decode or draft_experiment:
         raise NotImplementedError("mesh serving, the int8 decode stage and "
                                   "draft weights from a run checkpoint are "
-                                  "not ported yet (ROADMAP)")
+                                  "not ported yet (ROADMAP A12, A6, A3)")
     if init_random == (params is not None):
         raise ValueError("pass exactly one of init_random=True or params")
     device = torch.device("cuda" if device is None else device)
@@ -126,7 +126,7 @@ def build_pipeline(dataset: str = "vas", *, init_random: bool = False,
 
 def serve(*args, **kwargs):
     raise NotImplementedError("HTTP serving of the port is not ported yet "
-                              "(ROADMAP); use GenerationService directly")
+                              "(ROADMAP A4); use GenerationService directly")
 
 
 class ServiceOverloaded(RuntimeError):

@@ -10,8 +10,10 @@ scalars in ``TensorBoardLoggs/version_N``, checkpoints in
 ``checkpoints/version_N``), minus the JAX-only ``--mesh``, ``--pp_micro``,
 ``--prng`` and ``--platform`` and plus ``--device``.  The data are the
 same split files and ``_mel.npy`` / ``_mel_code.npy`` trees, read by the
-JAX package's framework-free ``data`` module.  The media callbacks are not
-ported: ``--reconstruct_spec`` and ``--vocoder`` are refused.
+port's own ``data`` module.  The media callbacks are not ported:
+``--reconstruct_spec`` and ``--vocoder`` are refused.  ``--eval 1`` and
+``--test 1`` each validate once (both: twice), as GPT_train.py does; a
+forward without ``use_flash_train`` runs kernel A in every layer.
 """
 
 from __future__ import annotations
@@ -87,7 +89,7 @@ def main(args):
 
     if args.reconstruct_spec or args.vocoder:
         raise NotImplementedError("media logging (--reconstruct_spec, "
-                                  "--vocoder) is not ported (ROADMAP A7)")
+                                  "--vocoder) is not ported (ROADMAP A8)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device")
@@ -125,9 +127,11 @@ def main(args):
                 ckpt_every=args.ckpt_every,
                 ckpt_every_steps=args.ckpt_every_steps,
                 max_steps=args.max_steps or None)
-    if args.eval == 1 or args.test == 1:
-        runner.validate_gpt(task, dm, ckpt=ckpt, resume=args.resume,
-                            limit_val_batches=args.limit_val_batches or None)
+    for wanted in (args.eval, args.test):   # GPT_train.py:157-162
+        if wanted == 1:
+            runner.validate_gpt(
+                task, dm, ckpt=ckpt, resume=args.resume,
+                limit_val_batches=args.limit_val_batches or None)
     log.close()
     return task, state, ckpt
 

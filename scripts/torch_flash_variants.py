@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Time source variants of kernel F (csrc/flash_attention.cu) on one card,
-in one run.
+"""Time source variants of kernel F (csrc/flash_attention.cu and the tile
+header csrc/attn_tiles.cuh) on one card, in one run.
 
     python3 scripts/torch_flash_variants.py VARIANTS.json
 
 ``VARIANTS.json`` maps a variant's name to a list of ``[old, new]`` string
-replacements applied to a copy of ``flash_attention.cu`` (an empty list is
-the source as it stands), for instance::
+replacements applied to a copy of ``flash_attention.cu`` or, where the text
+is found there, ``attn_tiles.cuh`` (an empty list is the source as it
+stands), for instance::
 
     {"base": [],
      "dkv_4_ctas": [["__launch_bounds__(kThreads, 3)\\n    flash_bwd_dkv",
@@ -53,13 +54,17 @@ def compile_variants(variants):
         d.mkdir(parents=True)
         for f in _build.CSRC.glob("*.cu*"):
             shutil.copy(f, d / f.name)
-        src = (d / "flash_attention.cu").read_text()
+        # the kernel's own file and the tile header it shares with kernel A
+        srcs = {f: (d / f).read_text()
+                for f in ("flash_attention.cu", "attn_tiles.cuh")}
         for old, new in edits:
-            if old not in src:
+            hit = [f for f, text in srcs.items() if old in text]
+            if not hit:
                 raise SystemExit(f"variant {name}: {old!r} is not in the "
                                  "source")
-            src = src.replace(old, new)
-        (d / "flash_attention.cu").write_text(src)
+            srcs[hit[0]] = srcs[hit[0]].replace(old, new)
+        for f, text in srcs.items():
+            (d / f).write_text(text)
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
              str(d / "f.so"), str(d / "flash_attention.cu"),

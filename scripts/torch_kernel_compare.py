@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Device time of the PyTorch port's kernels E, B and F in two checkouts,
-on one card, in one run.
+"""Device time of the PyTorch port's kernels A, D, E, B and F in two
+checkouts, on one card, in one run.
 
     python3 scripts/torch_kernel_compare.py --parent DIR [--out FILE]
-                                            [--kernels E,B,F]
+                                            [--kernels A,D,E,B,F]
 
 ``DIR`` holds another commit of this repository (for instance
 ``git archive <commit> | tar -x -C build/parent``).  The script measures
 parent, this tree, this tree, parent -- each in a process of its own that
 imports the port from that checkout and builds its kernels there -- and
 prints one JSON object with the four readings and the card's name and
-power limit.  Per reading: kernel E (``decode_attend_int8``, int8 and int4
+power limit.  Per reading: kernel A (``attend``, (8, 16, T, 64)) at
+T = 1 and 266 in bfloat16 and T = 265 in float32, causal and with the full
+window; kernel D (``waveform_to_mel_fused``) on the 48 battery clips;
+kernel E (``decode_attend_int8``, int8 and int4
 cache, bfloat16 q, pos = T - 1) at batch 8 and 1 for every cache length of
 a VAS decode in 8 segments, and kernel B (``fused_resblock_stack``,
 bfloat16) on the four MelGAN stages of a batch-8 request, and kernel F
@@ -50,9 +53,35 @@ def measure(root, kernels):
     spec.loader.exec_module(smoke)
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
-    readers = {"E": measure_e, "B": measure_b, "F": measure_f}
-    print(json.dumps({name: readers[name](smoke, dev, g)
-                      for name in ("E", "B", "F") if name in kernels}))
+    print(json.dumps({name: READERS[name](smoke, dev, g)
+                      for name in READERS if name in kernels}))
+
+
+def measure_a(smoke, dev, g):
+    import torch
+    from melspec_gpt_vqvae_tpu_torch.ops.attention import attend
+    out = {}
+    for t, dtype in ((1, torch.bfloat16), (266, torch.bfloat16),
+                     (265, torch.float32)):
+        q, k, v = (torch.randn(8, 16, t, 64, generator=g, device=dev)
+                   .to(dtype) for _ in range(3))
+        for nu in (0, t):
+            out[f"{str(dtype)[6:]},T={t},n_unmasked={nu}"] = smoke.device_ms(
+                lambda: attend(q, k, v, nu), smoke.A_KERNELS,
+                200 if t == 1 else 20)
+    return out
+
+
+def measure_d(smoke, dev, g):
+    import torch
+    from melspec_gpt_vqvae_tpu_torch.configs import MelConfig
+    from melspec_gpt_vqvae_tpu_torch.ops.mel_kernel import \
+        waveform_to_mel_fused
+    from melspec_gpt_vqvae_tpu_torch.utils.battery import make_battery
+    cfg = MelConfig()
+    wav = torch.from_numpy(make_battery(cfg.clip_samples)).to(dev)
+    return {"48 clips": smoke.device_ms(
+        lambda: waveform_to_mel_fused(wav, cfg), ["mel_kernel"], 10)}
 
 
 def measure_e(smoke, dev, g):
@@ -113,17 +142,21 @@ def measure_f(smoke, dev, g):
     return out
 
 
+READERS = {"A": measure_a, "D": measure_d, "E": measure_e, "B": measure_b,
+           "F": measure_f}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="checkout of the commit to compare with")
     ap.add_argument("--out", help="also write the JSON object here")
-    ap.add_argument("--kernels", default="E,B,F",
-                    help="which kernels to time (default: E,B,F)")
+    ap.add_argument("--kernels", default="A,D,E,B,F",
+                    help="which kernels to time (default: all five)")
     ap.add_argument("--measure", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
     kernels = set(args.kernels.split(","))
-    if not kernels <= {"E", "B", "F"}:
-        ap.error(f"--kernels takes E, B and F, got {args.kernels}")
+    if not kernels <= set(READERS):
+        ap.error(f"--kernels takes {', '.join(READERS)}, got {args.kernels}")
     if args.measure:
         return measure(Path(args.measure).resolve(), kernels)
     if not args.parent:
@@ -134,8 +167,8 @@ def main():
                        ("change", HERE), ("parent", parent)):
         run = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--measure",
-             str(root), "--kernels", args.kernels], cwd=root, capture_output=True, text=True,
-            env={**os.environ, "PYTHONPATH": str(root)})
+             str(root), "--kernels", args.kernels], cwd=root,
+            capture_output=True, text=True, env={**os.environ, "PYTHONPATH": str(root)})
         if run.returncode:
             raise SystemExit(f"{name} ({root}) failed:\n{run.stdout}"
                              f"{run.stderr}")

@@ -421,3 +421,38 @@ def test_train_gpt_cli_on_cpu(vas_tree, tmp_path, monkeypatch):
     assert out[1] is None
     with pytest.raises(NotImplementedError):
         train_gpt.main(train_gpt.init_config(argv + ["--vocoder", "x"]))
+
+
+@pytest.mark.parametrize("flags,passes", [
+    (["--eval", "1"], 1), (["--test", "1"], 1),
+    (["--eval", "1", "--test", "1"], 2), ([], 0)],
+    ids=["eval", "test", "eval+test", "neither"])
+def test_train_gpt_cli_validates_once_per_flag(vas_tree, tmp_path,
+                                               monkeypatch, capsys, flags,
+                                               passes):
+    """``--eval 1`` and ``--test 1`` each run one validation pass, so both
+    together run two, as GPT_train.py:157-162 does; every pass prints its
+    ``val/loss`` and goes through the eval forward (kernel A's wrapper when
+    ``use_flash_train`` is off)."""
+    monkeypatch.chdir(tmp_path)
+    calls = []
+    orig = runner.validate_gpt
+
+    def counting(*a, **kw):
+        calls.append(orig(*a, **kw))
+        return calls[-1]
+    monkeypatch.setattr(runner, "validate_gpt", counting)
+    spec = vas_tree / "features" / "*" / "melspec_10s_22050hz"
+    override = ("n_layer=1,n_embd=16,n_head=2,block_size=21,vocab_size=16,"
+                f"batch_size=4,use_flash_train=False,spec_dir_path={spec}")
+    out = train_gpt.main(train_gpt.init_config(
+        ["--dataset", "vas", "--experiment", "evals", "--train", "0",
+         "--device", "cpu", "--limit_val_batches", "1",
+         "--data_root", str(vas_tree / "data"), "--override", override]
+        + flags))
+    assert out[1] is None and len(calls) == passes
+    printed = [ln for ln in capsys.readouterr().out.splitlines()
+               if ln.startswith("val/loss ")]
+    assert len(printed) == passes
+    assert all(np.isfinite(v) for v in calls)
+    assert len(set(calls)) <= 1     # the same fresh state both times
