@@ -9,9 +9,12 @@
    give it, with TF32 off:
    A attention (48 cases: T = 1 to 266, three windows, float32 and
    bfloat16), B MelGAN resblock stack, C VQ nearest index, D mel, E
-   decode attention over the int8 / int4 cache (at batch 1 the rows of one
-   (b, h) are split over up to 4 CTAs); and the int8 block product
-   (``_int8_mm``, cuBLASLt) bit for bit against the CPU.  Each kernel is
+   decode attention over the int8 / int4 cache (the position read from
+   device memory, with and without the new slot's quantise-and-write; at
+   batch 1 the rows of one (b, h) are split over up to 4 CTAs); and the
+   int8 block product bit for bit against the CPU: the plain chain
+   (``_int8_mm``, cuBLASLt) and the two kernels around the same product
+   (``quantize_rows``, ``rescale_bias``).  Each kernel is
    timed at the main path's shape: ``ms`` with its wrapper (CUDA events),
    ``device_ms`` the kernel alone (``torch.profiler``), ``plain_ms`` its
    plain version, ``library_ms`` the one PyTorch call that computes the
@@ -21,15 +24,24 @@
 2. Drives the round trip at the full VAS width (24-layer GPT, VQ-VAE,
    MelGAN) with seeded random weights, through ``build_pipeline`` and a
    ``GenerationService``, on each serving path, with the kernels' launch
-   counts zeroed before each path and read after it:
+   counts zeroed before each path and read after it.  Every path decodes
+   through the captured program (models/decode_graph.py: a token's
+   sampling and decode step are one CUDA graph); the first request of a
+   shape pays for the capture, printed apart, and a repeated request shows
+   the path without it:
    - the card's default, as in the JAX package: bf16 model, int8 KV cache,
      int8 streamed weights -- tokenize 48 clips of the parity battery,
-     then two batch-8 requests (sampled top-k, greedy); every kernel A-E
-     must launch; then a profiled window of decode steps (launches per
-     token, device time);
-   - the bf16 KV cache with bf16 weights (one batch-8 request);
-   - the int4 KV cache (one batch-8 request, sampled top-p);
-   - speculative decoding with a 12-layer target and a random 2-layer
+     then three batch-8 requests (sampled top-k, greedy, sampled again);
+     every kernel A-E and the int8 product's two must launch, E exactly
+     once a layer and decode step; then a profiled window of decode steps,
+     replayed and eager (launches per token, device busy ms, busy share);
+   - the captured programs against the eager loop (``graph=False``): equal
+     greedy tokens and cache bytes on the int8 (full depth), int4 and bf16
+     caches, equal sampled tokens for one seed, equal tokens and stats
+     under speculative decoding at batch 1 and 8 (6- and 4-layer copies);
+   - the bf16 KV cache with bf16 weights (batch-8 requests);
+   - the int4 KV cache (batch-8 requests, sampled top-p);
+   - speculative decoding with the 24-layer target and a random 4-layer
      draft, gamma 4, at batch 1 and batch 8 (kernel E runs in the draft's
      steps and in the target's verification).
 3. Holds float32 copies (2 GPT layers, same widths) on the card against
@@ -46,7 +58,7 @@
    checkpoint evaluated through ``train_gpt.main --train 0 --eval 1
    --resume last`` with ``use_flash_train`` off, so that kernel A runs the
    24 layers at (8, 16, 265, 64) float32, its validation loss held to the
-   flash run's; steps timed
+   flash run's and its peak device memory to one train state; steps timed
    against the plain-attention step, each with a profiled window of
    three steps (device ms by kernel class, busy against wall); the loss
    on one repeated batch falling; and one float32 train step of a 2-layer
@@ -304,9 +316,8 @@ def check_attention(dev):
 
 
 SPEC_FRAMES = 848   # vocoder input frames of one clip
-# depth of the speculative path's target and of its random draft (the main,
-# bf16 and int4 paths serve the full 24 layers)
-SPEC_LAYERS, DRAFT_LAYERS = 12, 2
+# depth of the speculative path's target and of its random draft
+SPEC_LAYERS, DRAFT_LAYERS = 24, 4
 
 
 def vocoder_stages(melgan):
@@ -413,21 +424,32 @@ def check_vq(dev):
         check(len(bad) == 0, f"vq K={k}: {len(bad)} rows differ beyond "
                              "rounding")
         worst = max(worst, float(gap.max()))
-    # the slice's shape: tokenize of 48 clips, K = 128
-    x = torch.randn(48 * 265, 256, generator=g, device=dev)
-    cb = torch.randn(128, 256, generator=g, device=dev)
-    out = vq_nearest_index(x, cb)
-    ms = cuda_ms(lambda: vq_nearest_index(x, cb))
-    dms = device_ms(lambda: vq_nearest_index(x, cb), ["vq_nearest_kernel"])
-    plain = cuda_ms(lambda: vq_nearest_index_xla(x, cb))
-    # x and the codebook in, one index per row out; the N x K x D product
-    bd = bound(nbytes(x, cb, out), 2 * x.shape[0] * 128 * 256, "f32")
-    print(f"  C timing N=12720 K=128: kernel {ms:.4f} ms (device "
-          f"{dms:.4f}), plain {plain:.4f} ms, bound {bd['bound_ms']:.5f} "
-          f"ms ({bd['bound_by']})")
-    return {"max_abs_err": worst, "ms": ms, "device_ms": dms,
-            "plain_ms": plain, **bd, "library_ms": None,
-            "library_call": None}
+    # the slice's shape: tokenize of 48 clips, K = 128; and the widest
+    # codebook (K = 1024) at N = 64 x 265.  The library call: the plain
+    # version's own form, one float32 matmul x @ cb.T (cuBLAS) with the
+    # norms added and an argmin, which is vq_nearest_index_xla itself;
+    # timed here only, the port calls it on CPU tensors alone.
+    res = {}
+    for name, n, k in (("main", 48 * 265, 128), ("k1024", 64 * 265, 1024)):
+        x = torch.randn(n, 256, generator=g, device=dev)
+        cb = torch.randn(k, 256, generator=g, device=dev)
+        out = vq_nearest_index(x, cb)
+        ms = cuda_ms(lambda: vq_nearest_index(x, cb))
+        dms = device_ms(lambda: vq_nearest_index(x, cb),
+                        ["vq_nearest_kernel"])
+        plain = cuda_ms(lambda: vq_nearest_index_xla(x, cb))
+        # x and the codebook in, one index per row out; the N x K x D product
+        bd = bound(nbytes(x, cb, out), 2 * n * k * 256, "f32")
+        print(f"  C timing N={n} K={k}: kernel {ms:.4f} ms (device "
+              f"{dms:.4f}), plain = library form (x @ cb.T, argmin) "
+              f"{plain:.4f} ms, bound {bd['bound_ms']:.5f} ms "
+              f"({bd['bound_by']})")
+        res[name] = {"ms": ms, "device_ms": dms, "plain_ms": plain, **bd,
+                     "library_ms": plain}
+    return {"max_abs_err": worst, **res["main"],
+            "library_call": "vq_nearest_index_xla: x @ cb.T in float32 "
+                            "(cuBLAS), + |e|^2, argmin",
+            "k1024": res["k1024"]}
 
 
 def check_mel(dev, wav, mel_cfg):
@@ -493,9 +515,18 @@ def check_decode_attention(dev):
     def cache(b, t, bits):
         return quantised_cache(g, dev, b, t, bits)
 
+    def at(pos):
+        return torch.tensor([pos], dtype=torch.int64, device=dev)
+
     # the JAX package's bound for this kernel (tests/test_gpt.py:363-364);
-    # at batch 1 the wrapper splits the rows of a (b, h) over 1 to 4 CTAs
-    # as pos grows, and every size must come up among the cases
+    # at batch 1 the kernel splits the rows of a (b, h) over 1 to 4 CTAs
+    # as pos grows, and every size must come up among the cases.  Every
+    # case reads its position from device memory, and runs twice: over the
+    # cache as it is, and with this step's key and value rows, which the
+    # launch quantises into position pos before it attends (cache bytes and
+    # bfloat16 scales bit-equal to the plain write, every other position
+    # untouched).  The host-position entry (the eager loop's) must give the
+    # device-position one's output bit for bit.
     worst, n, split_sizes = 0.0, 0, set()
     for bits in ("int8", "int4"):
         for b in (1, 8):
@@ -503,45 +534,93 @@ def check_decode_attention(dev):
                 k, ks, v, vs = cache(b, t, bits)
                 for qdt in (torch.float32, torch.bfloat16):
                     for pos in sorted({0, 1, t // 2, t - 1}):
-                        q = torch.randn(b, 16, 64, generator=g,
-                                        device=dev).to(qdt)
-                        out = decode_attend_int8(q, k, v, ks, vs, 1, pos)
+                        case = (f"decode attention {bits} B={b} T={t} "
+                                f"pos={pos} q {qdt}")
+                        q, k_new, v_new = (
+                            torch.randn(b, 16, 64, generator=g,
+                                        device=dev).to(qdt) for _ in range(3))
+                        out = decode_attend_int8(q, k, v, ks, vs, 1, at(pos))
                         ref = decode_attend_int8_xla(q, k, v, ks, vs, 1, pos)
                         err = (out - ref).abs()
                         check(bool((err <= 1e-4 + 1e-4 * ref.abs()).all()),
-                              f"decode attention {bits} B={b} T={t} "
-                              f"pos={pos} q {qdt}: max|err| "
-                              f"{err.max().item():.3g}")
-                        worst = max(worst, err.max().item())
+                              f"{case}: max|err| {err.max().item():.3g}")
+                        check(torch.equal(out, decode_attend_int8(
+                            q, k, v, ks, vs, 1, pos)),
+                            f"{case}: host and device position differ")
+                        mine = [a.clone() for a in (k, v, ks, vs)]
+                        plain = [a.clone() for a in (k, v, ks, vs)]
+                        DA.write_kv_rows(*plain, 1, pos, k_new, v_new)
+                        out_w = decode_attend_int8(q, *mine, 1, at(pos),
+                                                   k_new=k_new, v_new=v_new)
+                        ref_w = decode_attend_int8_xla(q, *plain, 1, pos)
+                        err_w = (out_w - ref_w).abs()
+                        check(all(torch.equal(a, c)
+                                  for a, c in zip(mine, plain)),
+                              f"{case}: the written slot differs from the "
+                              "plain write")
+                        check(bool((err_w <= 1e-4 + 1e-4 * ref_w.abs()).all()),
+                              f"{case}, with the write: max|err| "
+                              f"{err_w.max().item():.3g}")
+                        check(torch.equal(out_w, decode_attend_int8(
+                            q, *plain, 1, pos)),
+                            f"{case}: attending the row just quantised "
+                            "differs from reading it back")
+                        worst = max(worst, err.max().item(),
+                                    err_w.max().item())
                         n += 1
                         split_sizes.add(DA.choose_splits(b * 16, pos + 1))
     check(split_sizes == set(range(1, DA.MAX_SPLITS + 1)),
           f"decode attention: the cases split the rows over {split_sizes}")
+    # a position past the cache: NaN out, the cache untouched
+    k, ks, v, vs = cache(1, 34, "int8")
+    mine = [a.clone() for a in (k, v, ks, vs)]
+    q = torch.randn(1, 16, 64, generator=g, device=dev)
+    out = decode_attend_int8(q, *mine, 1, at(34), k_new=q, v_new=q)
+    check(bool(out.isnan().all()) and all(
+        torch.equal(a, c) for a, c in zip(mine, (k, v, ks, vs))),
+        "decode attention: a position outside the cache")
     print(f"  E decode attention, {n} cases (int8/int4, B 1/8, T {VAS_CAPS}, "
-          f"pos 0/1/T/2/T-1, q f32/bf16; rows split over "
-          f"{sorted(split_sizes)} CTAs): max|err| {worst:.3g} "
-          f"(atol = rtol = 1e-4)")
-    # the slice's shape: batch 8, the full cache, the last position, bf16 q;
-    # and batch 1 (speculative decoding), every cache length
+          f"pos 0/1/T/2/T-1 read from device memory, q f32/bf16; rows split "
+          f"over {sorted(split_sizes)} CTAs), each without and with the new "
+          f"slot's write (written bytes and scales bit-equal to the plain "
+          f"write): max|err| {worst:.3g} (atol = rtol = 1e-4)")
+    # the slice's shape: batch 8, the full cache, the last position, bf16
+    # q, k, v; the launch writes the slot, as the captured step's does
     names = ["decode_attention_kernel"]
     res = {}
     for bits in ("int8", "int4"):
         k, ks, v, vs = cache(8, 266, bits)
-        q = torch.randn(8, 16, 64, generator=g, device=dev).bfloat16()
-        o = decode_attend_int8(q, k, v, ks, vs, 1, 265)
-        r = {"ms": cuda_ms(lambda: decode_attend_int8(q, k, v, ks, vs, 1,
-                                                      265), reps=200),
-             "device_ms": device_ms(lambda: decode_attend_int8(
-                 q, k, v, ks, vs, 1, 265), names, reps=100),
-             "plain_ms": cuda_ms(lambda: decode_attend_int8_xla(
-                 q, k, v, ks, vs, 1, 265), reps=200),
-             # layer 1's 266 rows of K and V and their scales, q in, o out;
-             # one multiply-add per cached value for the scores, one for PV
-             **bound(nbytes(k[1], v[1], ks[1], vs[1], q, o),
+        q, k_new, v_new = (torch.randn(8, 16, 64, generator=g,
+                                       device=dev).bfloat16()
+                           for _ in range(3))
+        p265 = at(265)
+
+        def kernel():
+            return decode_attend_int8(q, k, v, ks, vs, 1, p265, k_new=k_new,
+                                      v_new=v_new)
+
+        def plain():
+            DA.write_kv_rows(k, v, ks, vs, 1, p265, k_new, v_new)
+            return decode_attend_int8_xla(q, k, v, ks, vs, 1, 265)
+        o = kernel()
+        r = {"ms": cuda_ms(kernel, reps=200),
+             "device_ms": device_ms(kernel, names, reps=100),
+             "device_ms_without_write": device_ms(
+                 lambda: decode_attend_int8(q, k, v, ks, vs, 1, p265), names,
+                 reps=100),
+             "plain_ms": cuda_ms(plain, reps=200),
+             "plain_write_ms": cuda_ms(lambda: DA.write_kv_rows(
+                 k, v, ks, vs, 1, p265, k_new, v_new), reps=200),
+             # layer 1's 266 rows of K and V and their scales, q and the new
+             # rows in, o out; one multiply-add per cached value for the
+             # scores, one for PV
+             **bound(nbytes(k[1], v[1], ks[1], vs[1], q, k_new, v_new, o),
                      4 * 8 * 16 * 266 * 64, "f32")}
-        print(f"  E timing {bits} B=8 H=16 T=266 pos=265: kernel "
-              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+        print(f"  E timing {bits} B=8 H=16 T=266 pos=265, slot written: "
+              f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}, "
+              f"without the write {r['device_ms_without_write']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms (its write alone "
+              f"{r['plain_write_ms']:.4f}), bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']})")
         res[bits] = r
     # batch 1 (speculative decoding), the shortest and the longest cache
@@ -549,30 +628,37 @@ def check_decode_attention(dev):
     for t in (VAS_CAPS[0], VAS_CAPS[-1]):
         k, ks, v, vs = cache(1, t, "int8")
         q = torch.randn(1, 16, 64, generator=g, device=dev).bfloat16()
+        last = at(t - 1)
         sweep[f"B=1,T={t}"] = round(device_ms(
-            lambda: decode_attend_int8(q, k, v, ks, vs, 1, t - 1),
-            names, reps=50), 5)
+            lambda: decode_attend_int8(q, k, v, ks, vs, 1, last, k_new=q,
+                                       v_new=q), names, reps=50), 5)
     # the same launch with the split switched off: what the cluster buys
     choose = DA.choose_splits
     DA.choose_splits = lambda bh, n: 1
     try:
         sweep["B=1,T=266, one CTA a (b, h)"] = round(device_ms(
-            lambda: decode_attend_int8(q, k, v, ks, vs, 1, 265), names,
-            reps=50), 5)
+            lambda: decode_attend_int8(q, k, v, ks, vs, 1, last, k_new=q,
+                                       v_new=q), names, reps=50), 5)
     finally:
         DA.choose_splits = choose
-    print(f"  E device ms, int8, bf16 q, pos = T - 1: {json.dumps(sweep)}")
+    print(f"  E device ms, int8, bf16 q, pos = T - 1, slot written: "
+          f"{json.dumps(sweep)}")
     return {"max_abs_err": worst, **res["int8"], "library_ms": None,
             "library_call": None, "int4": res["int4"],
             "device_ms_by_shape": sweep}
 
 
-def check_int8_mm(dev):
-    """The int8 block product on the card (cuBLASLt ``_int_mm``, rows
-    padded) against the CPU's int32 product: the int32 sums are exact and
-    the quantisers round alike, so the results must agree bit for bit."""
+def check_int8_linear(dev):
+    """The int8 block product on the card against the CPU's, bit for bit:
+    the plain chain (``_int8_mm``: cuBLASLt ``_int_mm``, rows padded) and
+    the two kernels around the same product (``quantize_rows``,
+    ``rescale_bias``: ops/int8_linear.py).  The int32 sums are exact and
+    the quantisers round alike, so nothing may differ.  Returns the two
+    kernels' rows, timed at the decode step's widest product (batch 8,
+    1024 -> 4096)."""
     from melspec_gpt_vqvae_tpu_torch.models.gpt import (_int8_mm,
                                                         quantize_block_weights)
+    from melspec_gpt_vqvae_tpu_torch.ops import int8_linear as IL
     g = torch.Generator().manual_seed(4)
     shapes = {"attn_qkv": (1024, 3072), "attn_proj": (1024, 1024),
               "mlp_up": (1024, 4096), "mlp_down": (4096, 1024)}
@@ -581,21 +667,63 @@ def check_int8_mm(dev):
     w_cpu = quantize_block_weights(blocks)
     w_dev = quantize_block_weights({n: {"w": b["w"].to(dev)}
                                     for n, b in blocks.items()})
-    for name, (kk, _) in shapes.items():
+    for name, (kk, nn) in shapes.items():
         for f in ("q", "s"):
             check(torch.equal(w_dev[name][f].cpu(), w_cpu[name][f]),
                   f"quantize_block_weights {name}.{f}: card != CPU")
         for m in (1, 8, 40):
-            x = torch.randn(m, kk, generator=g).bfloat16()
-            out = _int8_mm(x.to(dev), w_dev[name]["q"][0], w_dev[name]["s"][0])
-            ref = _int8_mm(x, w_cpu[name]["q"][0], w_cpu[name]["s"][0])
-            check(torch.equal(out.cpu(), ref),
-                  f"_int8_mm {name} M={m}: card != CPU")
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(m, kk, generator=g).to(dtype)
+                bias = torch.randn(nn, generator=g).to(dtype)
+                wq_d, ws_d = w_dev[name]["q"][0], w_dev[name]["s"][0]
+                ref = _int8_mm(x, w_cpu[name]["q"][0], w_cpu[name]["s"][0])
+                out = _int8_mm(x.to(dev), wq_d, ws_d)
+                check(torch.equal(out.cpu(), ref),
+                      f"_int8_mm {name} M={m} {dtype}: card != CPU")
+                xq, xs = IL.quantize_rows(x.to(dev))
+                xq_ref, xs_ref = IL.quantize_rows_xla(x)
+                check(xq.shape[0] == IL.pad_rows(m)
+                      and torch.equal(xq[:m].cpu(), xq_ref)
+                      and not bool(xq[m:].any())
+                      and torch.equal(xs.cpu(), xs_ref),
+                      f"quantize_rows {name} M={m} {dtype}: card != CPU")
+                lin = IL.int8_linear(x.to(dev), wq_d, ws_d, bias.to(dev))
+                check(torch.equal(lin.cpu(), ref.to(dtype) + bias),
+                      f"int8_linear {name} M={m} {dtype}: card != CPU")
+    print("  int8 block product: 4 block shapes x M in (1, 8, 40) x "
+          "(bf16, f32): _int8_mm, quantize_rows and int8_linear on the card "
+          "bitwise equal to the CPU")
     x = torch.randn(8, 1024, generator=g).bfloat16().to(dev)
-    ms = cuda_ms(lambda: _int8_mm(x, w_dev["attn_qkv"]["q"][0],
-                                  w_dev["attn_qkv"]["s"][0]), reps=200)
-    print(f"  _int8_mm (cuBLASLt int8): 4 block shapes x M in (1, 8, 40) "
-          f"bitwise equal to the CPU; M=8 (1024, 3072) {ms:.4f} ms")
+    wq_d, ws_d = w_dev["mlp_up"]["q"][0], w_dev["mlp_up"]["s"][0]
+    bias = torch.randn(4096, generator=g).bfloat16().to(dev)
+    xq, xs = IL.quantize_rows(x)
+    acc = torch._int_mm(xq, wq_d)
+    out = IL.rescale_bias(acc, xs, ws_d, bias)
+    chain = cuda_ms(lambda: _int8_mm(x, wq_d, ws_d).to(x.dtype) + bias,
+                    reps=200)
+    fused = cuda_ms(lambda: IL.int8_linear(x, wq_d, ws_d, bias), reps=200)
+    print(f"  int8 product M=8 (1024 -> 4096) with bias: plain chain "
+          f"{chain:.4f} ms, quantize_rows + _int_mm + rescale_bias "
+          f"{fused:.4f} ms")
+    rows = {}
+    for name, kern, fn, plain, io, ops in (
+            ("quantize_rows", "quantize_rows_kernel",
+             lambda: IL.quantize_rows(x), lambda: IL.quantize_rows_xla(x),
+             (x, xq, xs), 4 * x.numel()),
+            ("rescale_bias", "rescale_bias_kernel",
+             lambda: IL.rescale_bias(acc, xs, ws_d, bias),
+             lambda: IL.rescale_bias_xla(acc, xs, ws_d, bias),
+             (acc[:8], xs, ws_d, bias, out), 3 * out.numel())):
+        r = {"max_abs_err": 0.0, "ms": cuda_ms(fn, reps=200),
+             "device_ms": device_ms(fn, [kern], reps=100),
+             "plain_ms": cuda_ms(plain, reps=200),
+             **bound(nbytes(*io), ops, "f32"), "library_ms": None,
+             "library_call": None}
+        print(f"  {name} timing M=8: kernel {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+        rows[name] = r
+    return rows
 
 
 def check_flash(dev):
@@ -961,42 +1089,73 @@ def quantised_reference_check(dev, exp, seed):
                   "vs CPU")
 
 
-def profile_decode_step(pipe, cfg, dev, given=132, warm=4, steps=8):
-    """Launches and device time of one decode step at batch 8, from a
-    ``torch.profiler`` window of ``steps`` steps in the middle of a clip
-    (a prefill of the class prompt and ``given`` tokens, ``warm`` steps,
-    full-length cache): device launches per token, device busy ms per
-    step, and kernel E's share of it."""
+def profile_decode_step(pipe, cfg, dev, given=132, warm=4, steps=8,
+                        graph=True):
+    """Launches and device time of one decode step at batch 8 in the
+    middle of a clip (positions 137-144 of a full-length cache), from a
+    ``torch.profiler`` window of ``steps`` steps after ``warm`` steps:
+    device launches per token, device busy ms per step, kernel E's part
+    of it, and the busy share of an unprofiled step (host clock around 50
+    synchronised steps).  ``graph``: the steps are replays of the captured
+    program (sampling included, greedy), as the pipeline runs them; else
+    eager ``gpt_decode_step`` calls at host positions."""
     from torch.profiler import DeviceType, ProfilerActivity
 
+    from melspec_gpt_vqvae_tpu_torch.models import decode_graph
     from melspec_gpt_vqvae_tpu_torch.models import gpt as G
     params = pipe.gpt_params
     with torch.inference_mode():
         cond = G.class_embed(params, torch.arange(8, device=dev))
-        cache = G.init_kv_cache(cfg, 8, max_len=266, device=dev)
         toks = torch.arange(8 * given, device=dev).reshape(8, given) \
             % cfg.vocab_size
-        logits, cache = G.gpt_prefill(params, cfg, cache, toks, cond)
-        wq = (G.quantize_block_weights(params["blocks"])
+        wq = (pipe.block_weights.get(params["blocks"])
               if cfg.decode_weight_dtype == "int8" else None)
+        if graph:
+            # a session of the clip's second half: prompt of 1 + given,
+            # 266 - 1 - given steps, one capacity
+            holder = decode_graph.DecodeGraphs()
+            n_steps = 265 - given
+            G.gpt_generate(params, cfg, None, cond, toks, steps=n_steps,
+                           sample=False, wq=wq, graph=holder)
+            sess = holder.last
+            check(n_steps >= 50 + warm, "profile_decode_step: given")
 
-        def step():
-            nonlocal logits, cache
-            logits, cache = G.gpt_decode_step(params, cfg, cache,
-                                              logits.argmax(-1), wq)
+            def rewind():
+                sess.pos.fill_(1 + given)
+                sess.step.zero_()
+
+            def step():
+                sess.replay(266)
+        else:
+            cache = G.init_kv_cache(cfg, 8, max_len=266, device=dev)
+            logits, cache = G.gpt_prefill(params, cfg, cache, toks, cond)
+            first = (logits, cache["len"])
+
+            def rewind():
+                nonlocal logits
+                logits, cache["len"] = first
+
+            def step():
+                nonlocal logits, cache
+                logits, cache = G.gpt_decode_step(params, cfg, cache,
+                                                  logits.argmax(-1), wq)
+        rewind()
         for _ in range(warm):
             step()
         torch.cuda.synchronize()
-        done, wall_ms = warm, 0.0
+        wall_ms = 0.0
 
         def run():
-            nonlocal done, wall_ms
+            nonlocal wall_ms
+            rewind()
+            for _ in range(warm):
+                step()
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(steps):
                 step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-            done += steps
 
         def tally(avgs):
             launches = busy_us = e_us = e_calls = 0
@@ -1013,22 +1172,120 @@ def profile_decode_step(pipe, cfg, dev, given=132, warm=4, steps=8):
                     e_calls += ev.count
             return launches, busy_us, e_us, e_calls
 
-        # a whole trace holds kernel E once a layer a step
+        # a whole trace holds kernel E once a layer a step (warm-up steps
+        # of the window included), where the cache is quantised
+        quantised = cfg.cache_dtype in ("int8", "int4")
         avgs, whole = profiled(
-            run, lambda a: tally(a)[3] >= cfg.n_layer * steps - 1,
+            run, lambda a: not quantised
+            or tally(a)[3] >= cfg.n_layer * (steps + warm) - 1,
             [ProfilerActivity.CUDA])
-    launches, busy_us, e_us, _ = tally(avgs)
-    res = {"launches_per_token": launches / steps,
-           "device_busy_ms_per_step": busy_us / 1e3 / steps,
-           "kernel_E_ms_per_step": e_us / 1e3 / steps,
+        launches, busy_us, e_us, _ = tally(avgs)
+        # the window holds warm + steps steps; an unprofiled step's wall
+        rewind()
+        _, dt = wall(lambda: [step() for _ in range(50)])
+    n = steps + warm
+    res = {"launches_per_token": launches / n,
+           "device_busy_ms_per_step": busy_us / 1e3 / n,
+           "kernel_E_ms_per_step": e_us / 1e3 / n,
            "wall_ms_per_step_profiled": wall_ms,
-           "positions": [given + done - steps + 1, given + done],
+           "wall_ms_per_step": dt * 1e3 / 50,
+           "device_busy_share": busy_us / 1e3 / n / (dt * 1e3 / 50),
+           "positions": [given + warm + 1, given + warm + steps],
            "trace_whole": whole}
     print(f"  decode step, batch 8, {cfg.cache_dtype} cache, "
-          f"{cfg.decode_weight_dtype} weights (torch.profiler, {steps} "
-          f"steps): {json.dumps(res)}")
+          f"{cfg.decode_weight_dtype} weights, "
+          f"{'captured program' if graph else 'eager loop'} "
+          f"(torch.profiler, {n} steps; wall from 50 unprofiled steps): "
+          f"{json.dumps(res)}")
     check(launches > 0 and busy_us > 0, "profiler saw no device activity")
     return res
+
+
+def captured_vs_eager(dev, pipe, seed):
+    """The captured decode programs against the eager loop on the card,
+    265 steps at batch 8 and the full VAS width: tokens must be equal, and
+    after a plain decode the two caches byte for byte.  The card's default
+    (int8 cache and weights) runs at its full depth through ``pipe``; the
+    int4 and bf16 caches, a sampled request and speculative decoding at
+    batch 1 and 8 run on 6-layer (speculative: 4-layer target, 1-layer
+    draft) copies, since the eager loop is what costs the seconds here."""
+    from melspec_gpt_vqvae_tpu_torch.models import decode_graph
+    from melspec_gpt_vqvae_tpu_torch.models import gpt as G
+    from melspec_gpt_vqvae_tpu_torch.models.speculative import \
+        gpt_speculative_generate
+
+    def plain(name, params, cfg, wq, batch, sample, **skw):
+        cond = G.class_embed(params, torch.arange(batch, device=dev) % 8)
+        skw = {"temperature": 1.0, "top_k": None, "top_p": None, **skw}
+        holder = decode_graph.DecodeGraphs()
+        with torch.inference_mode():
+            toks, t_c = wall(lambda: G.gpt_generate(
+                params, cfg, torch.Generator(device=dev).manual_seed(seed),
+                cond, steps=265, segments=8, sample=sample, wq=wq,
+                graph=holder, **skw))
+            (ref, cache), t_e = wall(lambda: G.gpt_generate_eager(
+                params, cfg, torch.Generator(device=dev).manual_seed(seed),
+                cond, None, 265, 8, sample, skw, wq))
+        mine = holder.last.cache
+        same = {k: bool(torch.equal(cache[k], mine[k]))
+                for k in cache if k != "len"}
+        res = {"tokens_equal": bool(torch.equal(toks, ref)),
+               "cache_bytes_equal": same,
+               "captured_s_with_capture": round(t_c, 3),
+               "capture_s": round(holder.capture_seconds, 3),
+               "eager_s": round(t_e, 3)}
+        print(f"  {name}: {json.dumps(res)}")
+        check(res["tokens_equal"], f"{name}: captured tokens != eager")
+        check(all(same.values()), f"{name}: cache bytes differ")
+
+    def cfg_of(layers, cache, weights):
+        return pipe.gcfg.replace(n_layer=layers, cache_dtype=cache,
+                                 decode_weight_dtype=weights)
+
+    def weights(cfg, offset):
+        params = G.init_gpt_params(
+            cfg, torch.Generator().manual_seed(seed + offset), device=dev)
+        wq = (G.quantize_block_weights(params["blocks"])
+              if cfg.decode_weight_dtype == "int8" else None)
+        return params, wq
+
+    m = pipe.gcfg
+    plain(f"greedy, {m.n_layer} layers, {m.cache_dtype} cache, "
+          f"{m.decode_weight_dtype} weights", pipe.gpt_params, m,
+          pipe.block_weights.get(pipe.gpt_params["blocks"]), 8, False)
+    for cache, w, sample, skw in (("int4", "int8", False, {}),
+                                  ("auto", "auto", False, {}),
+                                  ("int8", "int8", True, {"top_k": 100})):
+        cfg = cfg_of(6, cache, w)
+        params, wq = weights(cfg, 1)
+        plain(f"{'sampled top_k=100' if sample else 'greedy'}, 6 layers, "
+              f"{cache} cache, {w} weights", params, cfg, wq, 8, sample,
+              **skw)
+    cfg, dcfg = cfg_of(4, "int8", "int8"), cfg_of(1, "int8", "int8")
+    (params, wq), (draft, dwq) = weights(cfg, 2), weights(dcfg, 3)
+    # a random draft is rejected almost always; the target as its own
+    # draft is accepted always (the bonus token, the full rewind)
+    for title, batch, (dp, dc, dq) in (
+            ("random 1-layer draft", 1, (draft, dcfg, dwq)),
+            ("random 1-layer draft", 8, (draft, dcfg, dwq)),
+            ("the target as its own draft", 8, (params, cfg, wq))):
+        cls = torch.arange(batch, device=dev) % 8
+        out = []
+        for graph in (decode_graph.DecodeGraphs(), False):
+            with torch.inference_mode():
+                out.append(wall(lambda: gpt_speculative_generate(
+                    params, cfg, dp, dc, None, G.class_embed(params, cls),
+                    G.class_embed(dp, cls), steps=265, gamma=4, sample=False,
+                    wq=wq, draft_wq=dq, graph=graph)))
+        ((toks, stats), t_c), ((ref, ref_stats), t_e) = out
+        res = {"tokens_equal": bool(torch.equal(toks, ref)),
+               "stats_equal": stats == ref_stats, "stats": stats,
+               "captured_s_with_capture": round(t_c, 3),
+               "eager_s": round(t_e, 3)}
+        print(f"  greedy speculative, 4-layer target, {title}, gamma 4, "
+              f"batch {batch}: {json.dumps(res)}")
+        check(res["tokens_equal"] and res["stats_equal"],
+              f"speculative batch {batch}, {title}: captured != eager")
 
 
 def serve_path(exp, pipe, dev, requests):
@@ -1048,14 +1305,19 @@ def serve_path(exp, pipe, dev, requests):
     try:
         for batch, kw, cls in requests:
             svc = GenerationService(exp, pipe, batch=batch, seed=1)
+            cap0 = pipe.graphs.capture_seconds
             out, dt = wall(lambda: svc.generate(cls, **kw))
+            cap = pipe.graphs.capture_seconds - cap0
             check_request(out, len(cls))
             calls += -(-len(cls) // batch)
             rounds += out.get("spec_stats", {}).get("rounds", 0)
             extra = (f", spec_stats {json.dumps(out['spec_stats'])}"
                      if "spec_stats" in out else "")
             print(f"  request batch {batch} {kw or 'sampled top_k=100'}: "
-                  f"{dt:.2f} s, stage seconds "
+                  f"{dt:.2f} s"
+                  + (f" ({cap:.2f} s of it the capture of a new shape's "
+                     f"decode program, inside gpt_decode)" if cap else "")
+                  + f", stage seconds "
                   f"{json.dumps({k: round(v, 4) for k, v in stage.items()})}"
                   f"{extra}")
     finally:
@@ -1247,6 +1509,7 @@ def train_check(dev, mels, codes):
     from melspec_gpt_vqvae_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_fwd)
     from melspec_gpt_vqvae_tpu_torch.training.gpt_task import GPTTask
+    from melspec_gpt_vqvae_tpu_torch.training.optim import named_leaves
     write_vas_tree(TRAIN_ROOT, mels, codes)
     torch.cuda.empty_cache()
     print(f"  device memory before training: allocated "
@@ -1272,11 +1535,25 @@ def train_check(dev, mels, codes):
     check(same, "checkpoint round trip")
 
     # the evaluation entry point on that checkpoint, use_flash_train off:
-    # every layer's attention is kernel A at (8, 16, 265, 64) float32
+    # every layer's attention is kernel A at (8, 16, 265, 64) float32.  The
+    # resume restores into shapes, so its peak is one train state (params
+    # and the two AdamW moments) plus the forward, not two states
+    state_bytes = sum(t.numel() * t.element_size()
+                      for part in ("params", "mu", "nu")
+                      for _, t in named_leaves(task.state_tree(state)[part]))
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()   # the training run's live state
+    torch.cuda.reset_peak_memory_stats()
     attend.launches = flash_attention_fwd.launches = 0
     (_, a_val, a_calls), dt = wall(
         lambda: run_train_cli(TRAIN_ROOT, False, train=False))
     a_launches = attend.launches
+    peak = torch.cuda.max_memory_allocated() - held
+    print(f"  evaluation with --resume last: peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB above what was held before it; one "
+          f"train state is {state_bytes / 2 ** 30:.3f} GiB")
+    check(peak < 1.5 * state_bytes,
+          "the resume held more than one train state on the card")
     # A's float32 tile kernel and F's forward without a keep-mask run the
     # same tiles, split and order of sums on the same weights and batch, so
     # the two losses differ by rounding at most; 1e-4 is the bound asked of
@@ -1418,6 +1695,8 @@ def main():
     from melspec_gpt_vqvae_tpu_torch.ops.attention import attend
     from melspec_gpt_vqvae_tpu_torch.ops.decode_attention import \
         decode_attend_int8
+    from melspec_gpt_vqvae_tpu_torch.ops.int8_linear import (quantize_rows,
+                                                            rescale_bias)
     from melspec_gpt_vqvae_tpu_torch.ops.mel_kernel import \
         waveform_to_mel_fused
     from melspec_gpt_vqvae_tpu_torch.ops.vocoder_stack import \
@@ -1466,11 +1745,12 @@ def main():
                "decode_attention": check_decode_attention(dev)}
     results["flash_attention_fwd"], results["flash_attention_bwd"] = \
         check_flash(dev)
-    check_int8_mm(dev)
+    results.update(check_int8_linear(dev))
 
     wrappers = {"attention": attend, "vocoder_stack": fused_resblock_stack,
                 "vq_nearest": vq_nearest_index, "mel": waveform_to_mel_fused,
-                "decode_attention": decode_attend_int8}
+                "decode_attention": decode_attend_int8,
+                "quantize_rows": quantize_rows, "rescale_bias": rescale_bias}
     steps, n_layer = 265, m.n_layer
 
     def zero():
@@ -1482,26 +1762,59 @@ def main():
         print(f"  launches ({title}): {json.dumps(c)}")
         return c
 
+    def decode_launches(pipe, title, e_launches, products=None):
+        """Check the decode kernels' counts of a path in their exact form:
+        ``e_launches`` of kernel E and ``products`` int8 block products
+        (None: four for each launch of E, as in a plain decode step; each
+        is one launch of either product kernel; none where the weights are
+        not int8), plus what the warm-up runs before each capture
+        launched, which the holder reports.  Returns the counts."""
+        c = counts(title)
+        warm = pipe.graphs.warmup_launches
+        print(f"  of these the warm-up runs before {pipe.graphs.captures} "
+              f"captures ({pipe.graphs.capture_seconds:.2f} s): "
+              f"{json.dumps(warm)}")
+        if products is None:
+            products = 4 * e_launches
+        if pipe.gcfg.decode_weight_dtype != "int8":
+            products = 0
+        for name, each in (("decode_attention", e_launches),
+                           ("quantize_rows", products),
+                           ("rescale_bias", products)):
+            check(c[name] == each + warm.get(name, 0),
+                  f"{title}: {name} launched {c[name]} times, expected "
+                  f"{each} + {warm.get(name, 0)} in warm-up runs")
+        return c
+
     phase("main_path",
           "main path (VAS width, bf16, int8 KV cache, int8 weights, "
-          "random weights):")
+          "random weights, captured decode program):")
     tokenize(pipe.vq, wav, exp.mel)        # first call: cuDNN set-up
     zero()
     codes, t_tok = wall(lambda: tokenize(pipe.vq, wav, exp.mel))
     print(f"  tokenize 48 clips: {t_tok:.4f} s")
     check(codes.shape == (48, 265) and int(codes.min()) >= 0
           and int(codes.max()) < 128, f"tokenize codes {codes.shape}")
+    # the third request has the first's shape: no capture in its seconds
     calls, _ = serve_path(exp, pipe, dev, [
-        (8, {}, list(range(8))), (8, {"sample": False}, [3] * 8)])
-    launches = counts("main path")
+        (8, {}, list(range(8))), (8, {"sample": False}, [3] * 8),
+        (8, {}, list(range(8)))])
+    launches = decode_launches(pipe, "main path", calls * steps * n_layer)
     check(pipe.melgan.packs == len(exp.vocoder.ratios),
           f"the vocoder packed its stages' weights {pipe.melgan.packs} "
           "times: once a stage is all the main path needs")
+    check(pipe.block_weights.passes == 1 and pipe.graphs.captures == 2,
+          f"the main path quantised the block weights "
+          f"{pipe.block_weights.passes} times and captured "
+          f"{pipe.graphs.captures} shapes: once, and two")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched by the main path")
-    check(launches["decode_attention"] == calls * steps * n_layer,
-          "kernel E: one launch per layer and decode step")
-    profile_decode_step(pipe, m, dev)
+    prof = {"captured": profile_decode_step(pipe, m, dev),
+            "eager": profile_decode_step(pipe, m, dev, graph=False)}
+
+    phase("captured_vs_eager",
+          "captured decode programs against the eager loop on the card:")
+    captured_vs_eager(dev, pipe, seed=11)
     del pipe
 
     phase("bf16_cache",
@@ -1509,10 +1822,10 @@ def main():
     exp_b, pipe = build_pipeline("vas", init_random=True, seed=783435,
                                  device=dev, kv_cache="auto", int8_weights=0)
     zero()
-    serve_path(exp_b, pipe, dev, [(8, {}, list(range(8)))])
-    c = counts("bf16 cache")
-    check(c["attention"] > 0 and c["vocoder_stack"] > 0
-          and c["decode_attention"] == 0, "bf16 path kernels")
+    serve_path(exp_b, pipe, dev, [(8, {}, list(range(8)))] * 2)
+    c = decode_launches(pipe, "bf16 cache", 0)
+    check(c["attention"] > 0 and c["vocoder_stack"] > 0, "bf16 path kernels")
+    prof["bf16"] = profile_decode_step(pipe, exp_b.model, dev)
     del pipe
 
     phase("int4_cache", "int4 KV cache, int8 weights:")
@@ -1520,11 +1833,9 @@ def main():
                                  device=dev, kv_cache="int4")
     zero()
     calls, _ = serve_path(exp_4, pipe, dev, [
-        (8, {"seed": 1234, "top_p": 0.9}, list(range(8)))])
-    c = counts("int4 cache")
-    check(c["attention"] > 0 and c["vocoder_stack"] > 0
-          and c["decode_attention"] == calls * steps * n_layer,
-          "int4 path kernels")
+        (8, {"seed": 1234, "top_p": 0.9}, list(range(8)))] * 2)
+    c = decode_launches(pipe, "int4 cache", calls * steps * n_layer)
+    check(c["attention"] > 0 and c["vocoder_stack"] > 0, "int4 path kernels")
     del pipe
 
     phase("speculative",
@@ -1538,13 +1849,16 @@ def main():
           and pipe.draft_cfg.n_layer == DRAFT_LAYERS,
           "speculative path: target and draft depth")
     zero()
-    _, rounds = serve_path(exp_s, pipe, dev, [(1, {}, [3]),
-                                              (8, {}, list(range(8)))])
-    c = counts("speculative")
+    _, rounds = serve_path(exp_s, pipe, dev, [
+        (1, {}, [3]), (8, {}, list(range(8)))] * 2)
     # per round: gamma + 1 draft steps and a target chunk of gamma + 1
-    check(c["attention"] > 0 and c["vocoder_stack"] > 0
-          and c["decode_attention"] == rounds * 5 * (DRAFT_LAYERS + SPEC_LAYERS),
-          "speculative path: kernel E in the draft and the verification")
+    # positions; E runs once a layer and position, the chunk's int8
+    # products once a layer for all its positions
+    c = decode_launches(pipe, "speculative",
+                        rounds * 5 * (DRAFT_LAYERS + SPEC_LAYERS),
+                        rounds * 4 * (5 * DRAFT_LAYERS + SPEC_LAYERS))
+    check(c["attention"] > 0 and c["vocoder_stack"] > 0,
+          "speculative path kernels")
     del pipe
     torch.cuda.empty_cache()
 
@@ -1578,10 +1892,16 @@ def main():
             "flash_attention_fwd": ("flash_attention.cu",
                                     "flash_attention.py:51"),
             "flash_attention_bwd": ("flash_attention.cu",
-                                    "flash_attention.py:70")}
+                                    "flash_attention.py:70"),
+            # no TPU kernel: the lines XLA fuses around the JAX package's
+            # int8 dot
+            "quantize_rows": ("int8_linear.cu", "../models/gpt.py:444"),
+            "rescale_bias": ("int8_linear.cu", "../models/gpt.py:450")}
+    results["decode_attention"]["decode_step_profiles"] = prof
     kernels = [{"name": name, "route": "cuda",
                 "source": "melspec_gpt_vqvae_tpu_torch/csrc/" + src,
-                "replaces": "melspec_gpt_vqvae_tpu/ops/" + rep,
+                "replaces": os.path.normpath(
+                    "melspec_gpt_vqvae_tpu/ops/" + rep),
                 "launches": launches[name],
                 **results[name]} for name, (src, rep) in meta.items()]
     check_bounds(kernels)

@@ -4,11 +4,15 @@ A second package beside the JAX reference ``melspec_gpt_vqvae_tpu``, laid
 out like it so each module's counterpart has the same name:
 
   - ``ops/``     plain PyTorch functions and the wrappers of the hand-written
-                 Hopper kernels in ``csrc/``, six in all (whole-sequence
-                 attention, MelGAN resblock stack, VQ nearest index, mel
-                 frontend, decode attention over the quantised cache,
-                 training attention forward and backward);
-  - ``models/``  GPT (functional, KV-cached decode), VQ-VAE and MelGAN
+                 Hopper kernels in ``csrc/``: the six of the JAX package's
+                 Pallas kernels (whole-sequence attention, MelGAN resblock
+                 stack, VQ nearest index, mel frontend, decode attention
+                 over the quantised cache, training attention forward and
+                 backward) and the int8 product's prologue and epilogue,
+                 which XLA fuses there;
+  - ``models/``  GPT (functional, KV-cached decode; on the card the decode
+                 loop's body is a captured CUDA graph,
+                 ``models/decode_graph.py``), VQ-VAE and MelGAN
                  ``nn.Module``s;
   - ``pipeline.py``, ``serving.py``  the generation round trip;
   - ``training/``, ``train_gpt.py``  GPT-class training and its CLI;

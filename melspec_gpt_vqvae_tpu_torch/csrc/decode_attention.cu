@@ -43,7 +43,21 @@
 //     reads them through distributed shared memory and merges
 //     o = sum_i o_i e^(m_i - M) / sum_i s_i e^(m_i - M): one launch, no
 //     scratch in device memory.  ops/decode_attention.py::merge_partials is
-//     the plain version of that merge.
+//     the plain version of that merge;
+//   * the position comes from device memory (or from the host, when no
+//     pointer is given), so that one captured launch serves every step of a
+//     decode: the cluster is launched at the most CTAs the cache's capacity
+//     can need and shared memory at its largest share, and the kernel works
+//     out from pos how many ranks take rows (the rule of
+//     ops/decode_attention.py::choose_splits) and which; the ranks beyond
+//     have an empty share, which the merge passes over exactly;
+//   * with k_new / v_new the launch first quantises this step's key and value
+//     row (absmax over hd, true division, round half to even, the scale
+//     stored as bfloat16 but the values taken from the float32 scale, as
+//     models/gpt.py::_quantize_kv / _quantize_kv4), writes it to position
+//     pos of the layer, and attends over t <= pos including it: rank 0
+//     writes device memory, the CTA whose share ends at pos puts the row
+//     straight into its shared-memory slice.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -81,55 +95,144 @@ __device__ __forceinline__ void unpack16(const uint4& w,
   }
 }
 
+// The split rule of ops/decode_attention.py::choose_splits.
+constexpr int kSms = 132;
+constexpr int kMaxSplits = 4;
+constexpr int kMinShare = 64;
+
+// One warp quantises a row of kHd floats as the cache stores it: scale =
+// max(absmax / lim, 1e-8) (true division), values = clip(rint(x / scale)),
+// int4 two to a byte with the even head dim in the low nibble; the scale is
+// kept as bfloat16, the values come from the float32 scale.  Writes the
+// bytes and the scale to shared memory (as the float the cached bfloat16
+// reads back as) and / or to device memory; a null pointer skips one.
+template <bool kInt4, int kHd>
+__device__ __forceinline__ void quantise_row(const float* x, int lane,
+                                             uint8_t* s_row, float* s_scale,
+                                             uint8_t* g_row,
+                                             __nv_bfloat16* g_scale) {
+  constexpr float kLim = kInt4 ? 7.f : 127.f;
+  float amax = 0.f;
+  for (int d = lane; d < kHd; d += 32) amax = fmaxf(amax, fabsf(x[d]));
+  amax = msgv::warp_max(amax);
+  const float scale = fmaxf(__fdiv_rn(amax, kLim), 1e-8f);
+  for (int j = lane; j < kHd / 2; j += 32) {   // head dims 2j and 2j + 1
+    const int a = static_cast<int>(
+        fminf(fmaxf(rintf(__fdiv_rn(x[2 * j], scale)), -kLim), kLim));
+    const int b = static_cast<int>(
+        fminf(fmaxf(rintf(__fdiv_rn(x[2 * j + 1], scale)), -kLim), kLim));
+    if (kInt4) {
+      const uint8_t byte = static_cast<uint8_t>((a & 0xF) | ((b & 0xF) << 4));
+      if (s_row) s_row[j] = byte;
+      if (g_row) g_row[j] = byte;
+    } else {
+      const uint8_t lo = static_cast<uint8_t>(static_cast<int8_t>(a));
+      const uint8_t hi = static_cast<uint8_t>(static_cast<int8_t>(b));
+      if (s_row) {
+        s_row[2 * j] = lo;
+        s_row[2 * j + 1] = hi;
+      }
+      if (g_row) {
+        g_row[2 * j] = lo;
+        g_row[2 * j + 1] = hi;
+      }
+    }
+  }
+  if (lane == 0) {
+    const __nv_bfloat16 stored = __float2bfloat16(scale);
+    if (s_scale) *s_scale = __bfloat162float(stored);
+    if (g_scale) *g_scale = stored;
+  }
+}
+
 // kLPR lanes of 16 bytes make one cache row: hd = kLPR * (16 or 32).
 template <typename Q, bool kInt4, int kLPR>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const Q* __restrict__ q,
-                            const uint8_t* __restrict__ k,
-                            const uint8_t* __restrict__ v,
-                            const __nv_bfloat16* __restrict__ k_scale,
-                            const __nv_bfloat16* __restrict__ v_scale,
-                            float* __restrict__ o, int bh, int t_cap,
-                            int layer, int pos, int per, float scale) {
+                            const Q* __restrict__ k_new,
+                            const Q* __restrict__ v_new, uint8_t* k,
+                            uint8_t* v, __nv_bfloat16* k_scale,
+                            __nv_bfloat16* v_scale, float* __restrict__ o,
+                            const long long* __restrict__ pos_ptr, int bh,
+                            int heads, int t_cap, int layer, int pos_off,
+                            int row_stride, int per_cap, float scale) {
   constexpr int kDPL = kInt4 ? 32 : 16;    // head dims per lane
   constexpr int kHd = kLPR * kDPL;
   constexpr int kRowBytes = kLPR * 16;
   constexpr int kGroups = kThreads / kLPR;  // rows per pass
   extern __shared__ __align__(16) unsigned char smem[];
-  uint8_t* sk = smem;                                  // [per][kRowBytes]
-  uint8_t* sv = sk + static_cast<size_t>(per) * kRowBytes;
-  float* ps = reinterpret_cast<float*>(sv + static_cast<size_t>(per) *
-                                                kRowBytes);  // [per]
-  float* sks = ps + per;                               // [per] k scales
-  float* svs = sks + per;                              // [per] v scales
-  float* qs = svs + per;                               // [kHd]
+  // laid out for the largest share the capacity can give a CTA (per_cap)
+  uint8_t* sk = smem;                                  // [per_cap][kRowBytes]
+  uint8_t* sv = sk + static_cast<size_t>(per_cap) * kRowBytes;
+  float* ps = reinterpret_cast<float*>(sv + static_cast<size_t>(per_cap) *
+                                                kRowBytes);  // [per_cap]
+  float* sks = ps + per_cap;                           // [per_cap] k scales
+  float* svs = sks + per_cap;                          // [per_cap] v scales
+  float* qs = svs + per_cap;                           // [kHd]
   float* part = qs + kHd;                              // [kWarps][kHd]
   float* red = part + kWarps * kHd;                    // [2][kWarps]
   float* mine = red + 2 * kWarps;                      // [kHd + 2]
+  float* fresh = mine + kHd + 2;                       // [2][kHd] new k, v
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int row = blockIdx.x;                          // b * H + h
+  const int pos = (pos_ptr ? static_cast<int>(*pos_ptr) : 0) + pos_off;
   const int n = pos + 1;                               // rows t <= pos
+  // how many ranks of the cluster take rows: choose_splits(bh, n)
+  int active = 1;
+  if (2 * bh < kSms) active = max(1, min(min(kMaxSplits, kSms / bh),
+                                         n / kMinShare));
+  active = min(active, static_cast<int>(gridDim.y));
+  const int per = (max(n, 1) + active - 1) / active;
+  // a position outside the cache, or a share the launch left no room for
+  // (the same for the whole cluster): NaN out, nothing else touched
+  if (pos < 0 || pos >= t_cap || per > per_cap) {
+    if (blockIdx.y == 0 && tid < kHd)
+      o[static_cast<size_t>(row) * kHd + tid] = CUDART_NAN_F;
+    return;
+  }
   const int t0 = blockIdx.y * per;                     // this CTA's share
   const int rows = max(0, min(n - t0, per));
   const size_t lrow = static_cast<size_t>(layer) * bh + row;
   const size_t first = lrow * t_cap + t0;
+  const bool write = k_new != nullptr;
+  // the share that ends at pos takes the new row from this launch's
+  // quantiser, not from device memory
+  const bool owns_new = write && rows > 0 && t0 + rows == n;
+  const int staged = rows - (owns_new ? 1 : 0);
 
   {  // the whole slice, 16 bytes a copy, all in flight at once
     const uint8_t* kg = k + first * kRowBytes;
     const uint8_t* vg = v + first * kRowBytes;
-    for (int c = tid; c < rows * kLPR; c += kThreads) {
+    for (int c = tid; c < staged * kLPR; c += kThreads) {
       msgv::cp_async16(sk + 16 * c, kg + 16 * c);
       msgv::cp_async16(sv + 16 * c, vg + 16 * c);
     }
     msgv::cp_async_commit();
   }
-  for (int t = tid; t < rows; t += kThreads) {
+  for (int t = tid; t < staged; t += kThreads) {
     sks[t] = __bfloat162float(k_scale[first + t]);
     svs[t] = __bfloat162float(v_scale[first + t]);
   }
-  for (int d = tid; d < kHd; d += kThreads)
-    qs[d] = msgv::to_f(q[static_cast<size_t>(row) * kHd + d]);
+  const size_t qoff = static_cast<size_t>(row / heads) * row_stride +
+                      static_cast<size_t>(row % heads) * kHd;
+  for (int d = tid; d < kHd; d += kThreads) qs[d] = msgv::to_f(q[qoff + d]);
+  if (write && (owns_new || blockIdx.y == 0)) {
+    for (int d = tid; d < kHd; d += kThreads) {
+      fresh[d] = msgv::to_f(k_new[qoff + d]);
+      fresh[kHd + d] = msgv::to_f(v_new[qoff + d]);
+    }
+    __syncthreads();
+    if (warp < 2) {   // warp 0 the key row, warp 1 the value row
+      const size_t at = lrow * t_cap + pos;
+      quantise_row<kInt4, kHd>(
+          fresh + warp * kHd, lane,
+          owns_new ? (warp ? sv : sk) + (rows - 1) * kRowBytes : nullptr,
+          owns_new ? (warp ? svs : sks) + rows - 1 : nullptr,
+          blockIdx.y == 0 ? (warp ? v : k) + at * kRowBytes : nullptr,
+          blockIdx.y == 0 ? (warp ? v_scale : k_scale) + at : nullptr);
+    }
+  }
   msgv::cp_async_wait<0>();
   __syncthreads();
 
@@ -245,88 +348,103 @@ __global__ void __launch_bounds__(kThreads)
   cluster.sync();   // nobody leaves while rank 0 reads its shared memory
 }
 
+struct Args {
+  const void *q, *k_new, *v_new;
+  void *k, *v, *k_scale, *v_scale, *o;
+  const void* pos_ptr;
+  int bh, heads, t_cap, layer, pos_off, row_stride, splits, per_cap;
+  cudaStream_t stream;
+};
+
 template <typename Q, bool kInt4, int kLPR>
-int launch(const void* q, const void* k, const void* v, const void* k_scale,
-           const void* v_scale, void* o, int bh, int t_cap, int layer,
-           int pos, int splits, cudaStream_t stream) {
+int launch(const Args& a) {
   constexpr int kHd = kLPR * (kInt4 ? 32 : 16);
   auto kernel = decode_attention_kernel<Q, kInt4, kLPR>;
-  const int per = (pos + splits) / splits;   // ceil((pos + 1) / splits)
-  const size_t smem = static_cast<size_t>(per) * (2 * kLPR * 16 + 12) +
+  const size_t smem = static_cast<size_t>(a.per_cap) * (2 * kLPR * 16 + 12) +
                       sizeof(float) * (kHd + kWarps * kHd + 2 * kWarps +
-                                       kHd + 2);
-  cudaError_t err = msgv::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
+                                       kHd + 2 + 2 * kHd);
+  // cudaFuncSetAttribute only when this launch needs more than any before
+  // it: a captured launch was warmed up at the same capacity, so none is
+  // made during a stream capture
+  static size_t granted = 48 * 1024;
+  if (smem > granted) {
+    cudaError_t err = msgv::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    granted = smem;
+  }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(bh, splits);
+  cfg.gridDim = dim3(a.bh, a.splits);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
+  cfg.stream = a.stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.y = a.splits;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = splits > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const Q*>(q), static_cast<const uint8_t*>(k),
-      static_cast<const uint8_t*>(v),
-      static_cast<const __nv_bfloat16*>(k_scale),
-      static_cast<const __nv_bfloat16*>(v_scale), static_cast<float*>(o), bh,
-      t_cap, layer, pos, per, 1.0f / sqrtf(static_cast<float>(kHd)));
+  cfg.numAttrs = a.splits > 1 ? 1 : 0;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const Q*>(a.q),
+      static_cast<const Q*>(a.k_new), static_cast<const Q*>(a.v_new),
+      static_cast<uint8_t*>(a.k), static_cast<uint8_t*>(a.v),
+      static_cast<__nv_bfloat16*>(a.k_scale),
+      static_cast<__nv_bfloat16*>(a.v_scale), static_cast<float*>(a.o),
+      static_cast<const long long*>(a.pos_ptr), a.bh, a.heads, a.t_cap,
+      a.layer, a.pos_off, a.row_stride, a.per_cap,
+      1.0f / sqrtf(static_cast<float>(kHd)));
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename Q, bool kInt4>
-int launch_hd(int lanes, const void* q, const void* k, const void* v,
-              const void* k_scale, const void* v_scale, void* o, int bh,
-              int t_cap, int layer, int pos, int splits, cudaStream_t s) {
+int launch_hd(int lanes, const Args& a) {
   switch (lanes) {
     case 1:
-      return launch<Q, kInt4, 1>(q, k, v, k_scale, v_scale, o, bh, t_cap,
-                                 layer, pos, splits, s);
+      return launch<Q, kInt4, 1>(a);
     case 2:
-      return launch<Q, kInt4, 2>(q, k, v, k_scale, v_scale, o, bh, t_cap,
-                                 layer, pos, splits, s);
+      return launch<Q, kInt4, 2>(a);
     case 4:
-      return launch<Q, kInt4, 4>(q, k, v, k_scale, v_scale, o, bh, t_cap,
-                                 layer, pos, splits, s);
+      return launch<Q, kInt4, 4>(a);
     case 8:
-      return launch<Q, kInt4, 8>(q, k, v, k_scale, v_scale, o, bh, t_cap,
-                                 layer, pos, splits, s);
+      return launch<Q, kInt4, 8>(a);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q: contiguous (bh, hd), float32 (q_bf16 == 0) or bfloat16.  k, v:
-// contiguous, 16-byte aligned (L, bh, t_cap, hd) int8, or
-// (L, bh, t_cap, hd / 2) packed int4 (int4 != 0).  k_scale, v_scale:
-// contiguous (L, bh, t_cap) bfloat16.  o: (bh, hd) float32.  A cache row
-// must be 16, 32, 64 or 128 bytes; 0 <= pos < t_cap; the rows t <= pos are
-// split over ``splits`` CTAs (1..4, a thread block cluster when > 1).
-MSGV_API int msgv_decode_attention(const void* q, const void* k,
-                                   const void* v, const void* k_scale,
-                                   const void* v_scale, void* o, int bh,
-                                   int t_cap, int hd, int layer, int pos,
-                                   int q_bf16, int int4, int splits,
-                                   void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
+// q, k_new, v_new: this step's query, key and value rows, float32
+// (q_bf16 == 0) or bfloat16, element (b, h, d) at b * row_stride + h * hd +
+// d of each pointer (the three may be slices of one projection buffer);
+// k_new and v_new null: nothing is written.  k, v: contiguous, 16-byte
+// aligned (L, bh, t_cap, hd) int8, or (L, bh, t_cap, hd / 2) packed int4
+// (int4 != 0).  k_scale, v_scale: contiguous (L, bh, t_cap) bfloat16.
+// o: (bh, hd) float32.  The position is *pos_ptr + pos_off (an int64 in
+// device memory), or pos_off alone when pos_ptr is null; outside
+// [0, t_cap) the launch writes NaN and touches no cache.  A cache row must
+// be 16, 32, 64 or 128 bytes.  ``splits`` (1..4) is the cluster's size, the
+// most CTAs a (b, h) can need at this capacity, and ``per_cap`` the largest
+// share of rows one of them can get.
+MSGV_API int msgv_decode_attention(const void* q, const void* k_new,
+                                   const void* v_new, void* k, void* v,
+                                   void* k_scale, void* v_scale, void* o,
+                                   const void* pos_ptr, int bh, int heads,
+                                   int t_cap, int hd, int layer, int pos_off,
+                                   int row_stride, int q_bf16, int int4,
+                                   int splits, int per_cap, void* stream) {
   const int row_bytes = int4 ? hd / 2 : hd;
-  if (row_bytes % 16 || splits < 1 || splits > 4 || pos < 0 || pos >= t_cap)
+  if (row_bytes % 16 || splits < 1 || splits > 4 || per_cap < 1 ||
+      per_cap > t_cap || heads < 1 || bh % heads ||
+      (k_new == nullptr) != (v_new == nullptr) ||
+      (pos_ptr == nullptr && (pos_off < 0 || pos_off >= t_cap)))
     return cudaErrorInvalidValue;
+  const Args a = {q, k_new, v_new, k, v, k_scale, v_scale, o, pos_ptr,
+                  bh, heads, t_cap, layer, pos_off, row_stride, splits,
+                  per_cap, static_cast<cudaStream_t>(stream)};
   const int lanes = row_bytes / 16;
   if (q_bf16)
-    return int4 ? launch_hd<__nv_bfloat16, true>(lanes, q, k, v, k_scale,
-                                                 v_scale, o, bh, t_cap, layer,
-                                                 pos, splits, s)
-                : launch_hd<__nv_bfloat16, false>(lanes, q, k, v, k_scale,
-                                                  v_scale, o, bh, t_cap,
-                                                  layer, pos, splits, s);
-  return int4 ? launch_hd<float, true>(lanes, q, k, v, k_scale, v_scale, o,
-                                       bh, t_cap, layer, pos, splits, s)
-              : launch_hd<float, false>(lanes, q, k, v, k_scale, v_scale, o,
-                                        bh, t_cap, layer, pos, splits, s);
+    return int4 ? launch_hd<__nv_bfloat16, true>(lanes, a)
+                : launch_hd<__nv_bfloat16, false>(lanes, a);
+  return int4 ? launch_hd<float, true>(lanes, a)
+              : launch_hd<float, false>(lanes, a);
 }

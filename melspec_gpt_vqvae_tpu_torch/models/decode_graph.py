@@ -1,0 +1,183 @@
+"""A decode loop's body as one captured program.
+
+The JAX package's decode loop is a ``lax.scan`` inside one jitted program
+(melspec_gpt_vqvae_tpu/models/gpt.py:593-596, 638-660), so its host sends
+one program a request; there is no JAX file to set beside this one.  Eager
+PyTorch makes some thousand small launches a token and the card waits for
+the host between them.  Here the body of the loop -- the sampling of a
+token and the decode step that follows it -- is recorded once in a
+``torch.cuda.CUDAGraph`` and replayed once a token:
+
+  * everything the body reads and writes lives in static buffers (the KV
+    cache at its full length, the position and the step counter as
+    one-element int64 tensors that the body advances on the device, the
+    logits, the uniforms, the tokens), so the recorded addresses hold for
+    every replay; the host keeps its own count for loop control only;
+  * ``Program`` captures a callable by the documented recipe: a few eager
+    runs on a side stream first (cuBLASLt's workspaces, cuDNN's plans and
+    the kernels' ``cudaFuncSetAttribute`` calls happen there), then
+    ``torch.cuda.graph``.  A failed capture raises: nothing falls back to
+    the eager loop;
+  * under replay no wrapper runs, so ``Program`` notes how many launches of
+    each counted kernel one run of the body holds and adds them to the
+    wrappers' ``launches`` on every replay.  The warm-up runs launch for
+    real and count as such (``DecodeGraphs.warmup_launches`` says how many);
+  * ``DecodeGraphs`` keeps the captured sessions (buffers + programs) of a
+    few request shapes across requests, the oldest evicted first.  A
+    session's buffers are shared by its replays, so it is not re-entrant:
+    whoever owns a holder serialises the calls that use it
+    (pipeline.py::GenerationPipeline does).
+
+On CPU tensors a ``Program`` only keeps the callable and ``replay`` calls
+it: the same device-position arithmetic run eagerly, which is how the CPU
+tests hold it against the JAX package.  models/gpt.py and
+models/speculative.py build the sessions; this module knows nothing of the
+model.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import OrderedDict
+from typing import Callable, Dict, Hashable, Optional
+
+import torch
+
+from ..ops import decode_attention as _da
+from ..ops import int8_linear as _il
+
+WARMUP_RUNS = 3
+MAX_SESSIONS = 4
+
+
+def counted_wrappers() -> Dict[str, Callable]:
+    """The kernel wrappers a decode body can launch, by name, looked up
+    now (each keeps its count in ``.launches``)."""
+    return {"decode_attention": _da.decode_attend_int8,
+            "quantize_rows": _il.quantize_rows,
+            "rescale_bias": _il.rescale_bias}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: w.launches for name, w in counted_wrappers().items()}
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Add ``delta`` (name -> launches) to the wrappers' counts."""
+    wrappers = counted_wrappers()
+    for name, n in delta.items():
+        wrappers[name].launches += n
+
+
+class Program:
+    """``fn`` (no arguments, no result; reads and writes static buffers)
+    captured in a CUDA graph on ``device``, or kept as it is on the CPU.
+
+    ``reset`` runs before each warm-up run and before the capture, on the
+    stream of that run: it puts the buffers into a state the body can run
+    from (a position inside the cache).  ``launches`` is what one replay
+    adds to the wrappers' counts; ``warmup_launches`` what the warm-up
+    runs launched."""
+
+    def __init__(self, fn: Callable[[], None], device: torch.device,
+                 reset: Optional[Callable[[], None]] = None, pool=None):
+        self.fn = fn
+        self.graph = None
+        self.launches: Dict[str, int] = {}
+        self.warmup_launches: Dict[str, int] = {}
+        if device.type == "cuda":
+            self._capture(device, reset or (lambda: None), pool)
+
+    def _capture(self, device, reset, pool) -> None:
+        before = launch_counts()
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_RUNS):
+                    reset()
+                    self.fn()
+                reset()
+            torch.cuda.current_stream().wait_stream(side)
+            warm = launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                self.fn()
+        held = launch_counts()
+        self.warmup_launches = {n: warm[n] - before[n] for n in warm}
+        self.launches = {n: held[n] - warm[n] for n in held
+                         if held[n] != warm[n]}
+        # the capture recorded those launches, it did not make them
+        add_launches({n: -c for n, c in self.launches.items()})
+        self.graph = graph
+
+    def replay(self) -> None:
+        if self.graph is None:
+            self.fn()
+            return
+        self.graph.replay()
+        add_launches(self.launches)
+
+
+class DecodeGraphs:
+    """The captured sessions of at most ``max_sessions`` request shapes,
+    kept across requests; the one used longest ago goes first.  A session
+    is whatever ``build`` returns (models/gpt.py and models/speculative.py
+    define theirs): static buffers and the ``Program``s over them, keyed
+    by everything that fixes the recorded programs.  Not re-entrant."""
+
+    def __init__(self, max_sessions: int = MAX_SESSIONS):
+        self.max_sessions = max(1, int(max_sessions))
+        self._sessions: "OrderedDict[Hashable, object]" = OrderedDict()
+        self.captures = 0            # sessions built
+        self.capture_seconds = 0.0   # host seconds spent building them
+        self.warmup_launches: Dict[str, int] = {}
+
+    def __len__(self) -> int:
+        return len(self._sessions)
+
+    def session(self, key: Hashable, build: Callable[[], object]):
+        """The session under ``key``, built (warmed up and captured) on
+        first use.  ``build`` returns an object whose ``programs`` are the
+        ``Program``s it captured."""
+        sess = self._sessions.get(key)
+        if sess is not None:
+            self._sessions.move_to_end(key)
+            return sess
+        t0 = time.perf_counter()
+        sess = build()
+        if sess.device.type == "cuda":
+            torch.cuda.synchronize(sess.device)
+        self.capture_seconds += time.perf_counter() - t0
+        self.captures += 1
+        for prog in sess.programs:
+            for name, n in prog.warmup_launches.items():
+                self.warmup_launches[name] = \
+                    self.warmup_launches.get(name, 0) + n
+        self._sessions[key] = sess
+        while len(self._sessions) > self.max_sessions:
+            self._sessions.popitem(last=False)
+        return sess
+
+    @property
+    def last(self):
+        """The session used most recently (None before the first)."""
+        return next(reversed(self._sessions.values()), None)
+
+
+def tensors_token(*trees) -> tuple:
+    """What a captured program bakes in of nested dicts of tensors: every
+    leaf's address, shape and dtype (None for a missing tree)."""
+    out = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        elif isinstance(t, torch.Tensor):
+            out.append((t.data_ptr(), tuple(t.shape), t.dtype))
+        else:
+            out.append(t)
+    for tree in trees:
+        walk(tree)
+    return tuple(out)

@@ -17,7 +17,12 @@ kernel A (ops/attention.py), as the JAX package's XLA and Pallas paths.
 Decode keeps a preallocated KV cache of layout (L, B, H, T, hd) and
 updates it in place: the JAX functions return a new cache, these write the
 new slots into the given one and return it.  ``cache["len"]`` is a Python
-int, so the decode loop makes no host-device round trip.  The cache holds
+int in the eager loop (no host-device round trip), and a one-element int64
+tensor on the cache's device in the captured loop: there one decode step
+and the sampling before it are one CUDA graph, replayed once a token
+(models/decode_graph.py), as the JAX package's decode loop is one
+``lax.scan``; the step then reads its position from device memory and
+advances it there.  The cache holds
 the model dtype (``cache_dtype="auto"``), or absmax-quantised int8 values
 or int4 nibble pairs with bfloat16 scales per (layer, batch, head,
 position) (``"int8"``, ``"int4"``), as in the JAX package.  Prefill
@@ -25,7 +30,8 @@ attention is kernel A on the card (ops/attention.py).  The decode step's
 attention is kernel E over a quantised cache (ops/decode_attention.py) and
 plain torch over a model-dtype cache, as the JAX step's is XLA einsums
 (gpt.py:545-551).  ``decode_weight_dtype="int8"`` streams per-channel int8
-block weights through an int8 x int8 -> int32 product (``_int8_mm``).
+block weights through an int8 x int8 -> int32 product (``_int8_mm``; on
+the card ops/int8_linear.py's kernels around cuBLASLt's product).
 """
 
 from __future__ import annotations
@@ -37,36 +43,26 @@ import torch.nn.functional as F
 
 from ..configs import GPTConfig
 
+from ..ops import decode_attention as _da
+from ..ops import int8_linear as _il
 from ..ops.attention import attend, attend_xla, bernoulli_u8
-from ..ops.decode_attention import decode_attend_int8
+from ..ops.decode_attention import quantize_kv as _quantize_kv
+from ..ops.decode_attention import quantize_kv4 as _quantize_kv4
+from ..ops.decode_attention import true_div as _div
 from ..ops.decode_attention import unpack4 as _unpack4  # noqa: F401
 from ..ops.flash_attention import flash_attention, make_dropout_mask
 from ..ops.sampling import sample_logits
+from . import decode_graph
 
 Params = Dict[str, object]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def init_gpt_params(cfg: GPTConfig, generator: torch.Generator,
-                    device=None) -> Params:
-    """Random parameters as the reference initialises them
-    (minGPT.py:159-166): weights ~ N(0, 0.02), biases zero, LayerNorm
-    (1, 0), a zero position embedding.  Drawn in float32 from ``generator``
-    (on its own device) and then moved to ``device`` in ``cfg.dtype``, so a
-    seed gives the same weights on every device."""
+def _param_tree(cfg: GPTConfig, norm, zeros, ones) -> Params:
+    """The GPT's nested parameter dict, its leaves made by ``norm`` (the
+    weights), ``zeros`` and ``ones``, each called with a shape."""
     d, l4, L = cfg.n_embd, 4 * cfg.n_embd, cfg.n_layer
-    gdev = generator.device
-
-    def norm(*shape):
-        return 0.02 * torch.randn(shape, generator=generator, device=gdev)
-
-    def zeros(*shape):
-        return torch.zeros(shape, device=gdev)
-
-    def ones(*shape):
-        return torch.ones(shape, device=gdev)
-
     params = {
         "tok_emb": norm(cfg.vocab_size, d),
         "pos_emb": zeros(cfg.block_size, d),
@@ -83,7 +79,31 @@ def init_gpt_params(cfg: GPTConfig, generator: torch.Generator,
     }
     if cfg.class_size is not None:
         params["class_emb"] = norm(cfg.class_size, d)
+    return params
+
+
+def init_gpt_params(cfg: GPTConfig, generator: torch.Generator,
+                    device=None) -> Params:
+    """Random parameters as the reference initialises them
+    (minGPT.py:159-166): weights ~ N(0, 0.02), biases zero, LayerNorm
+    (1, 0), a zero position embedding.  Drawn in float32 from ``generator``
+    (on its own device) and then moved to ``device`` in ``cfg.dtype``, so a
+    seed gives the same weights on every device."""
+    gdev = generator.device
+    params = _param_tree(
+        cfg,
+        lambda *s: 0.02 * torch.randn(s, generator=generator, device=gdev),
+        lambda *s: torch.zeros(s, device=gdev),
+        lambda *s: torch.ones(s, device=gdev))
     return tree_to(params, device=device, dtype=DTYPES[cfg.dtype])
+
+
+def gpt_param_template(cfg: GPTConfig) -> Params:
+    """The parameter dict as shapes and dtypes only: ``meta`` tensors that
+    hold no memory (the template a checkpoint is restored against)."""
+    def leaf(*shape):
+        return torch.empty(shape, dtype=DTYPES[cfg.dtype], device="meta")
+    return _param_tree(cfg, leaf, leaf, leaf)
 
 
 def tree_to(tree, **kw):
@@ -277,49 +297,31 @@ def init_kv_cache(cfg: GPTConfig, batch: int, max_len: Optional[int] = None,
             "len": 0}
 
 
-def _div(x: torch.Tensor, c: float) -> torch.Tensor:
-    """``x / c`` as a true division also on the card, where PyTorch turns
-    division by a Python number into a multiply by its reciprocal (which
-    may differ by one bit, and the quantisers must round as JAX does)."""
-    return x / torch.full((), c, dtype=x.dtype, device=x.device)
-
-
-def _quantize_kv(x: torch.Tensor):
-    """(..., hd) -> (int8 values, float32 absmax scale over hd)
-    (gpt.py:328-334).  Rounds half to even, as jnp.round does."""
-    x = x.float()
-    scale = torch.clamp_min(_div(x.abs().amax(-1), 127.0), 1e-8)
-    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
-    return q.to(torch.int8), scale
-
-
-def _quantize_kv4(x: torch.Tensor):
-    """(..., hd) -> (uint8 nibble-packed int4 values (..., hd/2), float32
-    absmax scale over hd) (gpt.py:337-347): values clip to [-7, 7], even
-    head dims go to the low nibble, odd ones to the high nibble."""
-    x = x.float()
-    scale = torch.clamp_min(_div(x.abs().amax(-1), 7.0), 1e-8)
-    q = torch.clamp(torch.round(x / scale[..., None]), -7, 7).to(torch.int32)
-    packed = (q[..., 0::2] & 0xF) | ((q[..., 1::2] & 0xF) << 4)
-    return packed.to(torch.uint8), scale
-
-
-def _write_kv(cache: Dict, cfg: GPTConfig, l: int, pos: int,
+def _write_kv(cache: Dict, cfg: GPTConfig, l: int, pos,
               k: torch.Tensor, v: torch.Tensor) -> None:
     """Write (B, H, c, hd) keys and values into layer ``l`` of the cache
     at positions pos .. pos + c - 1, quantising them for an int8 / int4
     cache: the values from the float32 scale, the scale stored in
-    bfloat16 (gpt.py:401-414, 501-516)."""
-    sl = slice(pos, pos + k.shape[2])
-    if cfg.cache_dtype in ("int8", "int4"):
+    bfloat16 (gpt.py:401-414, 501-516).  ``pos`` is a Python int (a slice
+    assignment) or a one-element int64 tensor on the cache's device (an
+    ``index_copy_`` along the position axis, which a captured program can
+    replay at any position)."""
+    quantised = cfg.cache_dtype in ("int8", "int4")
+    if quantised:
         quant = _quantize_kv4 if cfg.cache_dtype == "int4" else _quantize_kv
-        for name, x in (("k", k), ("v", v)):
-            q, scale = quant(x)
-            cache[name][l, :, :, sl] = q
-            cache[name + "_scale"][l, :, :, sl] = scale.to(torch.bfloat16)
+        (qk, sk), (qv, sv) = quant(k), quant(v)
+        rows = {"k": qk, "v": qv, "k_scale": sk.to(torch.bfloat16),
+                "v_scale": sv.to(torch.bfloat16)}
     else:
-        cache["k"][l, :, :, sl] = k
-        cache["v"][l, :, :, sl] = v
+        rows = {"k": k, "v": v}
+    if isinstance(pos, torch.Tensor):
+        idx = pos + torch.arange(k.shape[2], device=pos.device)
+        for name, x in rows.items():
+            cache[name][l].index_copy_(2, idx, x)
+    else:
+        sl = slice(pos, pos + k.shape[2])
+        for name, x in rows.items():
+            cache[name][l, :, :, sl] = x
 
 
 def gpt_prefill(params: Params, cfg: GPTConfig, cache: Dict,
@@ -380,12 +382,19 @@ def _int8_mm(x: torch.Tensor, wq: torch.Tensor,
 
 
 def _mm(a: torch.Tensor, p: Params, pw: Optional[Dict],
-        name: str) -> torch.Tensor:
+        name: str, fused: bool = False) -> torch.Tensor:
     """One block matrix product with bias: in the model dtype, or through
-    the int8 weights ``pw`` of this layer (gpt.py:484-494)."""
+    the int8 weights ``pw`` of this layer (gpt.py:484-494).  ``fused``
+    takes the int8 product through ops/int8_linear.py (on the card two
+    kernels around the cuBLASLt product, no row padding outside them;
+    on the CPU the lines below, bit for bit)."""
     if pw is None:
         return a @ p[name]["w"] + p[name]["b"]
-    out = _int8_mm(a.reshape(-1, a.shape[-1]), pw[name]["q"], pw[name]["s"])
+    a2 = a.reshape(-1, a.shape[-1])
+    if fused:
+        out = _il.int8_linear(a2, pw[name]["q"], pw[name]["s"], p[name]["b"])
+        return out.reshape(*a.shape[:-1], -1)
+    out = _int8_mm(a2, pw[name]["q"], pw[name]["s"])
     return out.reshape(*a.shape[:-1], -1).to(a.dtype) + p[name]["b"]
 
 
@@ -395,12 +404,27 @@ def gpt_decode_step(params: Params, cfg: GPTConfig, cache: Dict,
     """One cached decode step.  token (B,) -> (logits (B, out), cache).
     Attention covers the positions up to the current one, as the JAX step
     masks the rest; ``wq`` are the int8 block weights of
-    ``quantize_block_weights`` (None: the model-dtype weights)."""
+    ``quantize_block_weights`` (None: the model-dtype weights).
+
+    ``cache["len"]`` a Python int is the eager step: the new slot is
+    written by ``_write_kv`` at a host position, kernel E only attends.
+    ``cache["len"]`` a one-element int64 tensor is the step a captured
+    program replays: nothing in it depends on a host value.  The position
+    embedding is an ``index_select``, a model-dtype cache takes the new
+    slot by ``index_copy_``, over a quantised cache kernel E quantises and
+    writes the slot itself before it attends, the int8 products go
+    through ops/int8_linear.py, and the position is advanced in place.
+    Both give the same logits and cache bit for bit."""
     pos = cache["len"]
+    on_device = isinstance(pos, torch.Tensor)
     # the position embedding index clamps as the JAX step's
     # dynamic_index_in_dim does (speculative drafts run past the block)
-    x = params["tok_emb"][token.long()] \
-        + params["pos_emb"][min(pos, cfg.block_size - 1)]       # (B, D)
+    if on_device:
+        pe = params["pos_emb"].index_select(
+            0, pos.clamp(max=cfg.block_size - 1))[0]
+    else:
+        pe = params["pos_emb"][min(pos, cfg.block_size - 1)]
+    x = params["tok_emb"][token.long()] + pe                     # (B, D)
     b = x.shape[0]
     max_len = cache["k"].shape[3]
     quantised = cfg.cache_dtype in ("int8", "int4")
@@ -412,21 +436,32 @@ def gpt_decode_step(params: Params, cfg: GPTConfig, cache: Dict,
         pw = None if wq is None else _layer(wq, l)
         h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
         q, k, v = (a.reshape(b, cfg.n_head, 1, cfg.head_dim)
-                   for a in _mm(h, p, pw, "attn_qkv").chunk(3, -1))
-        _write_kv(cache, cfg, l, pos, k, v)
-        if quantised:
-            o = decode_attend_int8(q[:, :, 0], cache["k"], cache["v"],
-                                   cache["k_scale"], cache["v_scale"], l, pos)
+                   for a in _mm(h, p, pw, "attn_qkv", on_device).chunk(3, -1))
+        if quantised and on_device:
+            o = _da.decode_attend_int8(
+                q[:, :, 0], cache["k"], cache["v"], cache["k_scale"],
+                cache["v_scale"], l, pos, k_new=k[:, :, 0], v_new=v[:, :, 0])
+        elif quantised:
+            _write_kv(cache, cfg, l, pos, k, v)
+            o = _da.decode_attend_int8(q[:, :, 0], cache["k"], cache["v"],
+                                       cache["k_scale"], cache["v_scale"], l,
+                                       pos)
         else:
+            _write_kv(cache, cfg, l, pos, k, v)
             k_l, v_l = cache["k"][l], cache["v"][l]
             scores = (q.float() @ k_l.float().transpose(-1, -2))[:, :, 0] \
                 * scale
             probs = torch.softmax(torch.where(valid, scores, -1e30), dim=-1)
             o = (probs.to(v_l.dtype).float()[:, :, None] @ v_l.float())
-        x = x + _mm(o.reshape(b, cfg.n_embd).to(x.dtype), p, pw, "attn_proj")
+        x = x + _mm(o.reshape(b, cfg.n_embd).to(x.dtype), p, pw, "attn_proj",
+                    on_device)
         h2 = _layer_norm(x, p["ln2_s"], p["ln2_b"])
-        x = x + _mm(F.gelu(_mm(h2, p, pw, "mlp_up")), p, pw, "mlp_down")
-    cache["len"] = pos + 1
+        x = x + _mm(F.gelu(_mm(h2, p, pw, "mlp_up", on_device)), p, pw,
+                    "mlp_down", on_device)
+    if on_device:
+        pos.add_(1)
+    else:
+        cache["len"] = pos + 1
     x = _layer_norm(x, params["ln_f_s"], params["ln_f_b"])
     return x @ params["head"]["w"], cache
 
@@ -446,13 +481,184 @@ def _grow_cache(cache: Dict, new_len: int) -> Dict:
     return out
 
 
+class BlockWeightCache:
+    """``quantize_block_weights`` kept beside the weights it came from: the
+    pass over the block matrices is made on first use and again only after
+    a matrix was replaced, moved, cast or changed in place (its
+    ``_version``).  The matrices are held until then, so identity cannot be
+    confused by a reused address.  A write through ``.data`` moves no
+    version: call ``drop`` after one."""
+
+    NAMES = ("attn_qkv", "attn_proj", "mlp_up", "mlp_down")
+
+    def __init__(self):
+        self._held = None   # (matrices, their marks, quantised)
+        self.passes = 0     # times the weights were quantised
+
+    def get(self, blocks: Params) -> Dict:
+        mats = [blocks[n]["w"] for n in self.NAMES]
+        marks = [(m._version, m.dtype, m.device) for m in mats]
+        hit = self._held
+        if hit is None or hit[1] != marks \
+                or any(a is not b for a, b in zip(hit[0], mats)):
+            hit = (mats, marks, quantize_block_weights(blocks))
+            self._held = hit
+            self.passes += 1
+        return hit[2]
+
+    def drop(self) -> None:
+        self._held = None
+
+
+def _segment_plan(start: int, steps: int, segments: int):
+    """[(capacity, steps decoded at it)] of a decode of ``steps`` tokens
+    after ``start`` prompt positions: the JAX formula's capacities
+    (gpt.py:624-660) and how far each one carries the loop."""
+    total_len = start + steps
+    segments = max(1, min(segments, steps))
+    caps = sorted({min(total_len, max(
+        start + 1, -(-total_len * (i + 1) // segments)))
+        for i in range(segments)})
+    plan, done = [], 0
+    for i, cap in enumerate(caps):
+        seg = min(steps - done, cap - start - done)
+        if i == len(caps) - 1:
+            seg = steps - done
+        plan.append((cap, max(seg, 0)))
+        done += max(seg, 0)
+    return plan
+
+
+class _GenerateSession:
+    """The static buffers of one ``gpt_generate`` shape and the programs
+    over them (models/decode_graph.py): the KV cache at its full length,
+    the position, the step counter, the logits the next token is sampled
+    from, the uniforms of every step and the tokens.  One program serves a
+    quantised cache (kernel E reads ``t <= pos`` whatever the capacity);
+    a model-dtype cache has one a capacity, over a view of the first
+    ``cap`` positions, because its attention reads the whole capacity and
+    must sum as the eager segmented loop does."""
+
+    def __init__(self, params, cfg, wq, batch, total_len, caps, steps,
+                 sample, skw, device):
+        self.device = device
+        self.cache = init_kv_cache(cfg, batch, max_len=total_len,
+                                   device=device)
+        self.pos = torch.zeros(1, dtype=torch.int64, device=device)
+        self.cache["len"] = self.pos
+        self.step = torch.zeros(1, dtype=torch.int64, device=device)
+        head = params["head"]["w"]
+        self.logits = torch.zeros((batch, head.shape[1]), dtype=head.dtype,
+                                  device=device)
+        self.tokens = torch.zeros((batch, steps), dtype=torch.int64,
+                                  device=device)
+        self.u = (torch.full((steps,) + self.logits.shape, 0.5,
+                             device=device) if sample else None)
+        self.held = (params, wq)   # the addresses the programs bake in
+        quantised = cfg.cache_dtype in ("int8", "int4")
+        pool = (torch.cuda.graph_pool_handle() if device.type == "cuda"
+                else None)
+
+        def body(cache):
+            def run():
+                u = (None if self.u is None
+                     else self.u.index_select(0, self.step)[0])
+                tok = sample_logits(None, self.logits, sample=sample, u=u,
+                                    **skw)
+                self.tokens.index_copy_(1, self.step, tok[:, None])
+                logits, _ = gpt_decode_step(params, cfg, cache, tok, wq)
+                self.logits.copy_(logits)
+                self.step.add_(1)
+            return run
+
+        def reset():
+            self.pos.zero_()
+            self.step.zero_()
+
+        self._by_cap = {}
+        for cap in ([total_len] if quantised else caps):
+            view = dict(self.cache)
+            if cap < total_len:
+                view["k"] = self.cache["k"][:, :, :, :cap]
+                view["v"] = self.cache["v"][:, :, :, :cap]
+            self._by_cap[cap] = decode_graph.Program(body(view), device,
+                                                     reset, pool)
+        self._any = None if not quantised else self._by_cap[total_len]
+        self.programs = list(self._by_cap.values())
+
+    def begin(self, logits, u, start):
+        """Load a request: the prefill's logits, the uniforms, the prompt
+        length (the prefill has written ``self.cache``)."""
+        self.logits.copy_(logits)
+        if self.u is not None:
+            self.u.copy_(u)
+        self.pos.fill_(start)
+        self.step.zero_()
+
+    def replay(self, cap):
+        (self._any or self._by_cap[cap]).replay()
+
+
+def _generate_on_device(params, cfg, generator, cond_emb, given, steps,
+                        segments, sample, skw, wq, holder):
+    """``gpt_generate`` through a session of ``holder``: one eager prefill
+    into the session's cache, then one replay a token."""
+    b, p = cond_emb.shape[0], cond_emb.shape[1]
+    start = p + (0 if given is None else given.shape[1])
+    plan = _segment_plan(start, steps, segments)
+    caps = tuple(c for c, _ in plan)
+    dev = cond_emb.device
+    key = ("generate", decode_graph.tensors_token(params, wq), cfg, b,
+           start + steps, caps, steps, sample, tuple(sorted(skw.items())),
+           str(dev))
+    sess = holder.session(key, lambda: _GenerateSession(
+        params, cfg, wq, b, start + steps, caps, steps, sample, skw, dev))
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if name in sess.cache:
+            sess.cache[name].zero_()
+    # the prefill writes at host positions and sets a host length: hand it
+    # the session's tensors under a dict of its own
+    logits, _ = gpt_prefill(params, cfg, dict(sess.cache), given, cond_emb)
+    u = (torch.rand((steps,) + logits.shape, generator=generator,
+                    device=dev) if sample else None)
+    sess.begin(logits, u, start)
+    for cap, seg in plan:
+        for _ in range(seg):
+            sess.replay(cap)
+    return sess.tokens.clone()
+
+
+def gpt_generate_eager(params, cfg, generator, cond_emb, given, steps,
+                       segments, sample, skw, wq):
+    """``gpt_generate``'s eager loop: a Python loop of ``gpt_decode_step``
+    at host positions over a cache that grows by segments.  Returns (the
+    new tokens (B, steps), the cache as the last step left it)."""
+    b, p = cond_emb.shape[0], cond_emb.shape[1]
+    t0 = 0 if given is None else given.shape[1]
+    plan = _segment_plan(p + t0, steps, segments)
+    cache = init_kv_cache(cfg, b, max_len=plan[0][0], device=cond_emb.device)
+    logits, cache = gpt_prefill(params, cfg, cache, given, cond_emb)
+    u = (torch.rand((steps,) + logits.shape, generator=generator,
+                    device=logits.device) if sample else None)
+    toks = []
+    for cap, seg in plan:
+        cache = _grow_cache(cache, cap)
+        for _ in range(seg):
+            tok = sample_logits(None, logits, sample=sample,
+                                u=None if u is None else u[len(toks)], **skw)
+            logits, cache = gpt_decode_step(params, cfg, cache, tok, wq)
+            toks.append(tok)
+    return torch.stack(toks, dim=1), cache
+
+
 def gpt_generate(params: Params, cfg: GPTConfig,
                  generator: Optional[torch.Generator],
                  cond_emb: torch.Tensor,
                  given: Optional[torch.Tensor] = None, *, steps: int,
                  temperature: float = 1.0, top_k: Optional[int] = None,
                  top_p: Optional[float] = None, sample: bool = True,
-                 segments: int = 1) -> torch.Tensor:
+                 segments: int = 1, wq: Optional[Dict] = None,
+                 graph=None) -> torch.Tensor:
     """KV-cached autoregressive generation: one prefill, then ``steps``
     cached single-token steps (the reference re-runs the full forward per
     token, minGPT.py:331-358).
@@ -461,38 +667,41 @@ def gpt_generate(params: Params, cfg: GPTConfig,
     with the valid prefix; the capacities follow the JAX formula exactly
     (gpt.py:624-660), so one segment and several give the same tokens.
     With ``decode_weight_dtype="int8"`` the block weights are quantised
-    once per call (gpt.py:633-636).  The sampling uniforms of all
-    positions are drawn from ``generator`` up front, one (steps, B, V)
-    tensor, so that speculative decoding can reuse them position for
-    position.  Returns (B, T0 + steps) int64 tokens.
+    once per call (gpt.py:633-636) unless the caller passes them as ``wq``
+    (``BlockWeightCache`` keeps them across calls).  The sampling uniforms
+    of all positions are drawn from ``generator`` up front, one
+    (steps, B, V) tensor, so that speculative decoding can reuse them
+    position for position.  Returns (B, T0 + steps) int64 tokens.
+
+    ``graph`` chooses the loop.  None: on CUDA tensors the captured
+    program (models/decode_graph.py: the sampling and the decode step of a
+    token are one CUDA graph, replayed once a token, as the JAX loop is
+    one ``lax.scan``), on CPU tensors the eager loop.  False: the eager
+    loop, a Python loop of ``gpt_decode_step`` at host positions, on
+    either device.  True: the device-position step on either device --
+    captured on the card, run eagerly on the CPU (the same arithmetic,
+    which the CPU tests hold against the JAX package).  A
+    ``decode_graph.DecodeGraphs``: as True, its captures kept for the next
+    call of the same shape (without one every call captures anew).  The
+    loops give the same tokens; a failed capture raises.
     """
     b, p = cond_emb.shape[0], cond_emb.shape[1]
     t0 = 0 if given is None else given.shape[1]
-    total_len = p + t0 + steps
-    segments = max(1, min(segments, steps))
-    caps = sorted({min(total_len, max(
-        p + t0 + 1, -(-total_len * (i + 1) // segments)))
-        for i in range(segments)})
-
-    cache = init_kv_cache(cfg, b, max_len=caps[0], device=cond_emb.device)
-    logits, cache = gpt_prefill(params, cfg, cache, given, cond_emb)
-    wq = (quantize_block_weights(params["blocks"])
-          if cfg.decode_weight_dtype == "int8" else None)
-    u = (torch.rand((steps,) + logits.shape, generator=generator,
-                    device=logits.device) if sample else None)
-    toks = []
-    for i, cap in enumerate(caps):
-        cache = _grow_cache(cache, cap)
-        seg = min(steps - len(toks), cap - (p + t0) - len(toks))
-        if i == len(caps) - 1:
-            seg = steps - len(toks)
-        for _ in range(max(seg, 0)):
-            tok = sample_logits(None, logits, temperature=temperature,
-                                top_k=top_k, top_p=top_p, sample=sample,
-                                u=None if u is None else u[len(toks)])
-            logits, cache = gpt_decode_step(params, cfg, cache, tok, wq)
-            toks.append(tok)
-    out = torch.stack(toks, dim=1)
+    skw = dict(temperature=temperature, top_k=top_k, top_p=top_p)
+    if wq is None and cfg.decode_weight_dtype == "int8":
+        wq = quantize_block_weights(params["blocks"])
+    if graph is None:
+        graph = cond_emb.is_cuda
+    if graph is not False:
+        holder = graph if isinstance(graph, decode_graph.DecodeGraphs) \
+            else decode_graph.DecodeGraphs()
+        with torch.no_grad():
+            out = _generate_on_device(params, cfg, generator, cond_emb,
+                                      given, steps, segments, sample, skw,
+                                      wq, holder)
+    else:
+        out, _ = gpt_generate_eager(params, cfg, generator, cond_emb, given,
+                                    steps, segments, sample, skw, wq)
     if t0 > 0:
         out = torch.cat([given.long(), out], dim=1)
     return out

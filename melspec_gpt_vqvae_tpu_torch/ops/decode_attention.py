@@ -11,11 +11,19 @@ Counterpart of melspec_gpt_vqvae_tpu/ops/decode_attention.py (the Pallas
   * ``decode_attend_int8_xla`` -- the plain PyTorch version, float32
     accumulation and output;
   * ``decode_attend_int8`` -- kernel E (csrc/decode_attention.cu) on CUDA
-    tensors, ``decode_attend_int8_xla`` on CPU tensors;
+    tensors, ``decode_attend_int8_xla`` on CPU tensors.  The position is a
+    Python int or a one-element int64 tensor on the cache's device (one
+    captured launch then serves every step of a decode); with ``k_new`` and
+    ``v_new`` the launch first quantises this step's key and value rows
+    into position ``pos`` of the cache (``write_kv_rows`` is the plain
+    version of that write, ``quantize_kv`` / ``quantize_kv4`` the
+    quantisers);
   * ``merge_partials`` / ``decode_attend_int8_split`` -- the plain version
     of the kernel's split over the rows: when B * H is small the kernel
     shares one (b, h)'s rows among the CTAs of a cluster and merges their
-    (max, sum, partial o); ``choose_splits`` picks how many.
+    (max, sum, partial o); ``choose_splits`` picks how many take rows at a
+    position, ``kernel_shares`` is the kernel's own arithmetic for a
+    cluster launched at the cache's capacity.
 
 Both read one layer of the port's stacked cache, layout (L, B, H, T, hd):
 int8 values, or int4 packed two to a uint8 (L, B, H, T, hd/2) with even
@@ -26,12 +34,69 @@ used here.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from .. import _build
 
 NEG_INF = -1e30
+
+
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as a true division also on the card, where PyTorch turns
+    division by a Python number into a multiply by its reciprocal (which
+    may differ by one bit, and the quantisers must round as JAX does)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def quantize_kv(x: torch.Tensor):
+    """(..., hd) -> (int8 values, float32 absmax scale over hd)
+    (gpt.py:328-334).  Rounds half to even, as jnp.round does."""
+    x = x.float()
+    scale = torch.clamp_min(true_div(x.abs().amax(-1), 127.0), 1e-8)
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def quantize_kv4(x: torch.Tensor):
+    """(..., hd) -> (uint8 nibble-packed int4 values (..., hd/2), float32
+    absmax scale over hd) (gpt.py:337-347): values clip to [-7, 7], even
+    head dims go to the low nibble, odd ones to the high nibble."""
+    x = x.float()
+    scale = torch.clamp_min(true_div(x.abs().amax(-1), 7.0), 1e-8)
+    q = torch.clamp(torch.round(x / scale[..., None]), -7, 7).to(torch.int32)
+    packed = (q[..., 0::2] & 0xF) | ((q[..., 1::2] & 0xF) << 4)
+    return packed.to(torch.uint8), scale
+
+
+def position_index(pos, device, offset: int = 0) -> torch.Tensor:
+    """``pos + offset`` as a (1,) int64 index tensor on ``device``; ``pos``
+    is a Python int or a one-element int64 tensor already there."""
+    if isinstance(pos, torch.Tensor):
+        idx = pos.reshape(1)
+        return idx + offset if offset else idx
+    return torch.full((1,), int(pos) + offset, dtype=torch.int64,
+                      device=device)
+
+
+def write_kv_rows(k: torch.Tensor, v: torch.Tensor, k_scale: torch.Tensor,
+                  v_scale: torch.Tensor, layer: int, pos,
+                  k_new: torch.Tensor, v_new: torch.Tensor,
+                  pos_offset: int = 0) -> None:
+    """Quantise this step's key and value rows (B, H, hd) and write them,
+    values and bfloat16 scales, to position ``pos + pos_offset`` of layer
+    ``layer`` of the stacked quantised cache, in place: the plain version
+    of kernel E's write (and, position for position, of
+    models/gpt.py::_write_kv)."""
+    quant = quantize_kv4 if k.dtype == torch.uint8 else quantize_kv
+    idx = position_index(pos, k.device, pos_offset)
+    for vals, scales, x in ((k, k_scale, k_new), (v, v_scale, v_new)):
+        q, scale = quant(x)
+        vals[layer].index_copy_(2, idx, q[:, :, None])
+        scales[layer].index_copy_(2, idx,
+                                  scale.to(torch.bfloat16)[:, :, None])
 
 
 def unpack4(p: torch.Tensor) -> torch.Tensor:
@@ -45,9 +110,10 @@ def unpack4(p: torch.Tensor) -> torch.Tensor:
 
 def decode_attend_int8_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            k_scale: torch.Tensor, v_scale: torch.Tensor,
-                           layer: int, pos: int) -> torch.Tensor:
+                           layer: int, pos) -> torch.Tensor:
     """q (B, H, hd); k, v (L, B, H, T, hd) int8 or (..., hd/2) uint8 int4;
-    k_scale, v_scale (L, B, H, T).  Returns (B, H, hd) float32."""
+    k_scale, v_scale (L, B, H, T); pos a Python int or a one-element
+    tensor.  Returns (B, H, hd) float32."""
     k_l, v_l = k[layer], v[layer]
     if k_l.dtype == torch.uint8:
         k_l, v_l = unpack4(k_l), unpack4(v_l)
@@ -78,11 +144,13 @@ def merge_partials(m: torch.Tensor, s: torch.Tensor,
 def decode_attend_int8_split(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, k_scale: torch.Tensor,
                              v_scale: torch.Tensor, layer: int, pos: int,
-                             splits: int) -> torch.Tensor:
+                             splits: int, cluster: int = 0) -> torch.Tensor:
     """``decode_attend_int8_xla`` computed the way kernel E computes it with
     ``splits`` CTAs a (b, h): each takes ceil((pos + 1) / splits)
     consecutive rows (the last shares may be empty), and ``merge_partials``
-    joins them."""
+    joins them.  With ``cluster > splits`` the merge also runs over
+    ``cluster - splits`` ranks that hold no row at all, as in a cluster
+    launched at the cache's capacity."""
     k_l, v_l = k[layer], v[layer]
     if k_l.dtype == torch.uint8:
         k_l, v_l = unpack4(k_l), unpack4(v_l)
@@ -90,7 +158,7 @@ def decode_attend_int8_split(q: torch.Tensor, k: torch.Tensor,
     n = pos + 1
     per = -(-n // splits)
     ms, ss, os_ = [], [], []
-    for i in range(splits):
+    for i in range(max(splits, cluster)):
         t0, t1 = min(i * per, n), min((i + 1) * per, n)
         sc = torch.einsum("bhd,bhtd->bht", q.float(), k_l[:, :, t0:t1].float())
         sc = sc * k_scale[layer][:, :, t0:t1].float() * scale
@@ -120,16 +188,62 @@ def choose_splits(bh: int, n: int) -> int:
     return max(1, min(MAX_SPLITS, N_SM // bh, n // MIN_SHARE))
 
 
+def kernel_shares(bh: int, n: int, cluster: int):
+    """[(first row, rows)] of each rank of a cluster of ``cluster`` CTAs
+    attending ``n`` rows, by the kernel's own arithmetic: the active count
+    is ``choose_splits(bh, n)`` capped at the cluster, a share is
+    ceil(n / active) rows, and the ranks beyond hold none."""
+    active = min(choose_splits(bh, n), cluster)
+    per = -(-n // active)
+    return [(r * per, max(0, min(n - r * per, per))) for r in range(cluster)]
+
+
+@functools.lru_cache(maxsize=256)
+def max_share(bh: int, t_cap: int, cluster: int) -> int:
+    """The most rows one CTA of a cluster of ``cluster`` can get at any
+    position of a cache of ``t_cap`` positions: what the launch sizes
+    shared memory for."""
+    return max(kernel_shares(bh, n, cluster)[0][1]
+               for n in range(1, t_cap + 1))
+
+
+def _rows(x: torch.Tensor, hd: int):
+    """(B, H, hd) rows as the kernel addresses them: element (b, h, d) at
+    b * stride + h * hd + d.  A view of that form (a slice of a projection
+    buffer) is taken as it stands, anything else is copied."""
+    if x.stride(2) != 1 or x.stride(1) != hd:
+        x = x.contiguous()
+    return x
+
+
 def decode_attend_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        k_scale: torch.Tensor, v_scale: torch.Tensor,
-                       layer: int, pos: int) -> torch.Tensor:
-    """Decode attention over the quantised cache: kernel E on CUDA tensors,
-    ``decode_attend_int8_xla`` on CPU tensors.  The kernel reads layer
-    ``layer`` straight out of the stacked cache, which must be contiguous
-    (it is never copied); scales are bfloat16 as the cache stores them.
-    ``choose_splits`` says how many CTAs share one (b, h)'s rows."""
-    if _build.on_cpu(q, k, v, k_scale, v_scale):
-        return decode_attend_int8_xla(q, k, v, k_scale, v_scale, layer, pos)
+                       layer: int, pos, *, k_new: torch.Tensor = None,
+                       v_new: torch.Tensor = None,
+                       pos_offset: int = 0) -> torch.Tensor:
+    """Decode attention over the quantised cache at position ``pos +
+    pos_offset``: kernel E on CUDA tensors, the plain versions on CPU
+    tensors.  ``pos`` is a Python int or a one-element int64 tensor on the
+    cache's device, which the kernel reads when it runs (a position
+    outside the cache then gives NaN and writes nothing).  With ``k_new``
+    and ``v_new`` (B, H, hd) the same launch first quantises them into
+    that position of the cache, in place (``write_kv_rows``), and attends
+    over them too.  The kernel reads and writes layer ``layer`` straight
+    in the stacked cache, which must be contiguous (it is never copied);
+    scales are bfloat16 as the cache stores them.  The cluster is launched
+    at ``choose_splits`` of the capacity; the kernel works out from the
+    position how many of its CTAs take rows."""
+    if (k_new is None) != (v_new is None):
+        raise ValueError("pass both k_new and v_new, or neither")
+    tensors = [q, k, v, k_scale, v_scale]
+    tensors += [pos] if isinstance(pos, torch.Tensor) else []
+    tensors += [k_new, v_new] if k_new is not None else []
+    if _build.on_cpu(*tensors):
+        if k_new is not None:
+            write_kv_rows(k, v, k_scale, v_scale, layer, pos, k_new, v_new,
+                          pos_offset)
+        return decode_attend_int8_xla(q, k, v, k_scale, v_scale, layer,
+                                      pos + pos_offset)
     b, h, hd = q.shape
     n_layer, t = k.shape[0], k.shape[3]
     int4 = k.dtype == torch.uint8
@@ -150,21 +264,42 @@ def decode_attend_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode attention kernel needs cache rows of 16, "
                          f"32, 64 or 128 bytes, got hd={hd} "
                          f"({k.shape[-1]} bytes)")
-    if not (0 <= layer < n_layer and 0 <= pos < t):
-        raise ValueError(f"layer {layer} / pos {pos} outside the cache "
-                         f"({n_layer} layers, {t} positions)")
+    if isinstance(pos, torch.Tensor):
+        if pos.dtype != torch.int64 or pos.numel() != 1:
+            raise TypeError("a device position is one int64 element, got "
+                            f"{pos.dtype} {tuple(pos.shape)}")
+        pos_ptr, pos_host = pos.data_ptr(), int(pos_offset)
+    else:
+        pos_ptr, pos_host = None, int(pos) + int(pos_offset)
+        if not 0 <= pos_host < t:
+            raise ValueError(f"pos {pos_host} outside the cache "
+                             f"({t} positions)")
+    if not 0 <= layer < n_layer:
+        raise ValueError(f"layer {layer} outside the cache ({n_layer} "
+                         "layers)")
     if not all(a.is_contiguous() for a in (k, v, k_scale, v_scale)) \
             or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("the stacked cache must be contiguous and 16-byte "
                          "aligned (the kernel copies rows 16 bytes at a "
                          "time)")
-    q = q.contiguous()
+    q = _rows(q, hd)
+    new_ptrs = (None, None)
+    if k_new is not None:
+        if k_new.shape != q.shape or v_new.shape != q.shape \
+                or k_new.dtype != q.dtype or v_new.dtype != q.dtype:
+            raise ValueError("k_new and v_new must have q's shape and dtype")
+        k_new, v_new = _rows(k_new, hd), _rows(v_new, hd)
+        if not (k_new.stride(0) == v_new.stride(0) == q.stride(0)):
+            q, k_new, v_new = (a.contiguous() for a in (q, k_new, v_new))
+        new_ptrs = (k_new.data_ptr(), v_new.data_ptr())
     o = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
-    _build.launch("msgv_decode_attention", q.device, q.data_ptr(),
+    cluster = choose_splits(b * h, t)
+    _build.launch("msgv_decode_attention", q.device, q.data_ptr(), *new_ptrs,
                   k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-                  v_scale.data_ptr(), o.data_ptr(), b * h, t, hd,
-                  int(layer), int(pos), int(q.dtype == torch.bfloat16),
-                  int(int4), choose_splits(b * h, pos + 1))
+                  v_scale.data_ptr(), o.data_ptr(), pos_ptr, b * h, h, t, hd,
+                  int(layer), pos_host, q.stride(0),
+                  int(q.dtype == torch.bfloat16), int(int4),
+                  cluster, max_share(b * h, t, cluster))
     decode_attend_int8.launches += 1
     return o
 

@@ -6,13 +6,17 @@ flow only inside its logging callbacks, transformer/minGPT.py:530-612 and
 callbacks/GPT_callbacks.py:93-111).  As there: KV-cached segmented decode,
 the conv stages chunked so their activations do not cap the decode batch,
 and the conv stacks in bfloat16 on the card while every codebook argmin
-stays float32 (ops/vq.py).  PyTorch runs eagerly, so there is no compiled
-program to reuse; the stages are methods a caller can time one by one.
+stays float32 (ops/vq.py).  PyTorch runs eagerly; the stages are methods a
+caller can time one by one.  The one program that is kept is the decode
+loop's body: on the card a token's sampling and decode step are one
+captured CUDA graph (models/decode_graph.py), made at the first request
+of a shape and replayed from then on.
 """
 
 from __future__ import annotations
 
 import io
+import threading
 import wave
 from typing import Dict, Optional, Tuple
 
@@ -21,7 +25,8 @@ import torch
 
 from .configs import ExperimentConfig, MelConfig
 
-from .models.gpt import class_embed, gpt_generate
+from .models.decode_graph import DecodeGraphs
+from .models.gpt import BlockWeightCache, class_embed, gpt_generate
 from .models.speculative import gpt_speculative_generate
 from .models.vocoder import MelGANGenerator
 from .models.vqvae import VQModel
@@ -44,12 +49,22 @@ class GenerationPipeline:
     decoding (models/speculative.py), ``gamma`` proposals a round, and
     ``generate`` reports its acceptance as ``spec_stats``
     (pipeline.py:128-146, 227-233 of the JAX package).
+
+    The pipeline owns what decoding keeps across requests: the int8 copies
+    of the GPT's (and the draft's) block weights, redone when the weights
+    change (``BlockWeightCache``), and the captured decode programs
+    (``self.graphs``).  The first request of a shape (batch, sampling
+    arguments) pays for its capture.  With ``graph=False`` every request
+    runs the eager loop instead (for a comparison; slow on the card).
+    The captured programs share static buffers, so ``generate_tokens`` is
+    not re-entrant: a lock serialises callers.
     """
 
     def __init__(self, exp: ExperimentConfig, gpt_params, vq: VQModel,
                  melgan: MelGANGenerator, *, segments: int = 8,
                  chunk: int = 128, bf16: Optional[bool] = None,
-                 draft_params=None, draft_cfg=None, gamma: int = 4):
+                 draft_params=None, draft_cfg=None, gamma: int = 4,
+                 graph: bool = True):
         if (draft_params is None) != (draft_cfg is None):
             raise ValueError("pass both draft_params and draft_cfg, or "
                              "neither")
@@ -69,6 +84,16 @@ class GenerationPipeline:
         self.segments = segments
         self.chunk = chunk
         self.bf16 = bf16
+        self.graph = graph
+        self.graphs = DecodeGraphs()
+        self.block_weights = BlockWeightCache()
+        self.draft_block_weights = BlockWeightCache()
+        self._decode_lock = threading.Lock()
+
+    def _wq(self, cache: BlockWeightCache, params, cfg):
+        if cfg.decode_weight_dtype != "int8":
+            return None
+        return cache.get(params["blocks"])
 
     @torch.inference_mode()
     def generate_tokens(self, classes, generator: Optional[torch.Generator],
@@ -77,20 +102,31 @@ class GenerationPipeline:
                         top_p: Optional[float] = None,
                         sample: bool = True) -> Tuple[torch.Tensor, Dict]:
         """classes (N,) -> ((N, code_h * code_w) GPT-order tokens,
-        speculative stats ({} without a draft))."""
+        speculative stats ({} without a draft)).  Not re-entrant (the
+        captured programs replay over shared buffers): concurrent callers
+        wait for each other on the pipeline's lock."""
         cls = torch.as_tensor(np.asarray(classes), dtype=torch.int64,
                               device=self.device)
         cond = class_embed(self.gpt_params, cls)
+        # captured programs on the card, the eager loop on the CPU (None)
+        graph = False if not self.graph else (
+            self.graphs if self.device.type == "cuda" else None)
         kw = dict(steps=self.vcfg.code_h * self.vcfg.code_w,
                   temperature=temperature, top_k=top_k, top_p=top_p,
-                  sample=sample)
-        if self.draft_params is None:
-            return gpt_generate(self.gpt_params, self.gcfg, generator, cond,
-                                segments=self.segments, **kw), {}
-        return gpt_speculative_generate(
-            self.gpt_params, self.gcfg, self.draft_params, self.draft_cfg,
-            generator, cond, class_embed(self.draft_params, cls),
-            gamma=self.gamma, **kw)
+                  sample=sample, graph=graph)
+        with self._decode_lock:
+            wq = self._wq(self.block_weights, self.gpt_params, self.gcfg)
+            if self.draft_params is None:
+                return gpt_generate(self.gpt_params, self.gcfg, generator,
+                                    cond, segments=self.segments, wq=wq,
+                                    **kw), {}
+            return gpt_speculative_generate(
+                self.gpt_params, self.gcfg, self.draft_params,
+                self.draft_cfg, generator, cond,
+                class_embed(self.draft_params, cls), gamma=self.gamma,
+                wq=wq, draft_wq=self._wq(self.draft_block_weights,
+                                         self.draft_params, self.draft_cfg),
+                **kw)
 
     @torch.inference_mode()
     def decode_specs(self, tokens: torch.Tensor) -> torch.Tensor:

@@ -53,7 +53,7 @@ def build_pipeline(dataset: str = "vas", *, init_random: bool = False,
                    mesh_spec: str = "", draft_random: str = "",
                    draft_override: str = "", gamma: int = 4,
                    draft_experiment: Optional[str] = None,
-                   int8_decode: bool = False):
+                   int8_decode: bool = False, graph: bool = True):
     """Construct the GenerationPipeline on ``device``: None means the
     card, and without one this raises -- the CPU is taken only when asked
     for with ``device="cpu"``.  Weights are random (``init_random``, from ``seed``) or
@@ -65,6 +65,8 @@ def build_pipeline(dataset: str = "vas", *, init_random: bool = False,
     ``draft_random`` (overrides such as "n_layer=4"), random weights from
     ``seed + 1``; its config is the target's overrides plus
     ``draft_override`` and ``draft_random`` (serving.py:115-146).
+    ``graph=False`` makes the pipeline decode with the eager loop instead
+    of the captured program (pipeline.py), for a comparison.
     Returns ``(exp, pipe)``.
     """
     if mesh_spec or int8_decode or draft_experiment:
@@ -120,7 +122,7 @@ def build_pipeline(dataset: str = "vas", *, init_random: bool = False,
         draft = tree_to(draft, device=device, dtype=DTYPES[draft_cfg.dtype])
     pipe = GenerationPipeline(exp, gpt, vq, voc, segments=segments,
                               chunk=chunk, draft_params=draft,
-                              draft_cfg=draft_cfg, gamma=gamma)
+                              draft_cfg=draft_cfg, gamma=gamma, graph=graph)
     return exp, pipe
 
 

@@ -143,9 +143,10 @@ class CheckpointManager:
     def restore(self, which: str = "last",
                 template: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """Load ``which`` ('last', 'best' or a checkpoint file) onto the
-        CPU.  With a ``template`` (e.g. ``{"state": task.state_tree(fresh),
-        "epoch": 0}``) every tensor leaf must have the template's shape,
-        else a ValueError lists the mismatches.  Sets
+        CPU.  With a ``template`` (e.g. ``{"state": task.state_template(),
+        "epoch": 0}``; only its shapes are read) every tensor leaf must
+        have the template's shape, else a ValueError lists the mismatches.
+        Sets
         ``restored_batch_idx`` from the resolved checkpoint's meta.json
         (only ``last`` can be mid-epoch)."""
         self.wait()

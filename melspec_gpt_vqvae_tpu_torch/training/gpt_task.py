@@ -23,7 +23,7 @@ from ..configs import ExperimentConfig, GPTConfig
 
 from ..models.gpt import (DTYPES, class_embed, count_params,
                           cross_entropy_loss, gpt_apply, gpt_generate,
-                          init_gpt_params)
+                          gpt_param_template, init_gpt_params)
 from ..utils.profiling import StepTimer, gpt_fwd_flops, peak_flops
 from .optim import get_lr, gpt_adamw, named_leaves, with_lr
 
@@ -76,6 +76,14 @@ class GPTTask:
         params = _map(params, lambda t: t.detach().requires_grad_(True))
         return {"params": params, "optimizer": self._optimizer(params),
                 "step": 0}
+
+    def state_template(self) -> Dict:
+        """``state_tree``'s layout as shapes and dtypes only (``meta``
+        tensors, no memory on any device): what a checkpoint of this
+        task's geometry must look like."""
+        params = gpt_param_template(self.cfg)
+        return {"params": params, "mu": params, "nu": params, "count": 0,
+                "lr": 0.0, "step": 0}
 
     # ------------------------------------------------------------------
     def state_tree(self, state: TrainState) -> Dict:

@@ -62,11 +62,13 @@ def _should_save(epoch: int, epochs: int, ckpt_every: int) -> bool:
     return ckpt_every > 0 and (epoch + 1) % ckpt_every == 0
 
 
-def _restore(task, ckpt: CheckpointManager, resume: str,
-             seed: int = 783435):
-    fresh = task.init_state(seed)
+def _restore(task, ckpt: CheckpointManager, resume: str):
+    """(train state, epoch) of checkpoint ``resume``.  The checkpoint is
+    held to the task's geometry through a template of shapes alone
+    (``state_template``), so a resume keeps one train state on the device,
+    never a fresh one beside the restored one."""
     restored = ckpt.restore(resume, template={
-        "state": task.state_tree(fresh), "epoch": 0})
+        "state": task.state_template(), "epoch": 0})
     return task.load_state(restored["state"]), int(restored["epoch"])
 
 
@@ -96,7 +98,7 @@ def fit_gpt(task, dm, *, epochs: int, log: TBLogger,
     steps, possibly mid-epoch.  A resumed partial epoch's printed train
     loss averages only its remaining batches."""
     if resume:
-        state, epoch0 = _restore(task, ckpt, resume, seed)
+        state, epoch0 = _restore(task, ckpt, resume)
         start_epoch, start_batch = _resume_position(ckpt, epoch0)
         print(f"Restored from {resume} at epoch {start_epoch}" +
               (f" batch {start_batch}" if start_batch else ""))

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Device time of the PyTorch port's kernels A, D, E, B and F in two
+"""Device time of the PyTorch port's kernels A, C, D, E, B and F in two
 checkouts, on one card, in one run.
 
     python3 scripts/torch_kernel_compare.py --parent DIR [--out FILE]
-                                            [--kernels A,D,E,B,F]
+                                            [--kernels A,C,D,E,B,F]
 
 ``DIR`` holds another commit of this repository (for instance
 ``git archive <commit> | tar -x -C build/parent``).  The script measures
@@ -12,10 +12,14 @@ imports the port from that checkout and builds its kernels there -- and
 prints one JSON object with the four readings and the card's name and
 power limit.  Per reading: kernel A (``attend``, (8, 16, T, 64)) at
 T = 1 and 266 in bfloat16 and T = 265 in float32, causal and with the full
-window; kernel D (``waveform_to_mel_fused``) on the 48 battery clips;
+window; kernel C (``vq_nearest_index``, D = 256) at the tokenize shape
+(N = 12,720, K = 128) and at the widest codebook (N = 16,960, K = 1024);
+kernel D (``waveform_to_mel_fused``) on the 48 battery clips;
 kernel E (``decode_attend_int8``, int8 and int4
 cache, bfloat16 q, pos = T - 1) at batch 8 and 1 for every cache length of
-a VAS decode in 8 segments, and kernel B (``fused_resblock_stack``,
+a VAS decode in 8 segments, at a host position without a write and, in a
+checkout whose wrapper takes them, with the position in device memory and
+the new slot's write in the launch; and kernel B (``fused_resblock_stack``,
 bfloat16) on the four MelGAN stages of a batch-8 request, and kernel F
 (``flash_attention_fwd`` / ``flash_attention_bwd``, float32, (8, 16, T, 64))
 forward and backward (delta, dQ and dK/dV kernels together) at T = 265
@@ -72,6 +76,18 @@ def measure_a(smoke, dev, g):
     return out
 
 
+def measure_c(smoke, dev, g):
+    import torch
+    from melspec_gpt_vqvae_tpu_torch.ops.vq import vq_nearest_index
+    out = {}
+    for n, k in ((48 * 265, 128), (64 * 265, 1024)):
+        x = torch.randn(n, 256, generator=g, device=dev)
+        cb = torch.randn(k, 256, generator=g, device=dev)
+        out[f"N={n},K={k}"] = smoke.device_ms(
+            lambda: vq_nearest_index(x, cb), ["vq_nearest_kernel"])
+    return out
+
+
 def measure_d(smoke, dev, g):
     import torch
     from melspec_gpt_vqvae_tpu_torch.configs import MelConfig
@@ -88,6 +104,8 @@ def measure_e(smoke, dev, g):
     import torch
     from melspec_gpt_vqvae_tpu_torch.ops.decode_attention import \
         decode_attend_int8
+    import inspect
+    writes = "k_new" in inspect.signature(decode_attend_int8).parameters
     out = {}
     for bits in ("int8", "int4"):
         for b in (8, 1):
@@ -98,6 +116,12 @@ def measure_e(smoke, dev, g):
                 out[f"{bits},B={b},T={t}"] = smoke.device_ms(
                     lambda: decode_attend_int8(q, k, v, ks, vs, 1, t - 1),
                     ["decode_attention_kernel"], 50)
+                if writes:
+                    pos = torch.tensor([t - 1], device=dev)
+                    out[f"{bits},B={b},T={t},device pos,write"] = \
+                        smoke.device_ms(lambda: decode_attend_int8(
+                            q, k, v, ks, vs, 1, pos, k_new=q, v_new=q),
+                            ["decode_attention_kernel"], 50)
     return out
 
 
@@ -142,16 +166,16 @@ def measure_f(smoke, dev, g):
     return out
 
 
-READERS = {"A": measure_a, "D": measure_d, "E": measure_e, "B": measure_b,
-           "F": measure_f}
+READERS = {"A": measure_a, "C": measure_c, "D": measure_d, "E": measure_e,
+           "B": measure_b, "F": measure_f}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="checkout of the commit to compare with")
     ap.add_argument("--out", help="also write the JSON object here")
-    ap.add_argument("--kernels", default="A,D,E,B,F",
-                    help="which kernels to time (default: all five)")
+    ap.add_argument("--kernels", default="A,C,D,E,B,F",
+                    help="which kernels to time (default: all six)")
     ap.add_argument("--measure", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
     kernels = set(args.kernels.split(","))

@@ -313,6 +313,38 @@ def test_checkpoint_version_fallback_and_geometry(tmp_path):
         fresh.restore("last", template=template)
 
 
+def test_resume_restores_into_shapes_not_a_fresh_state(tmp_path,
+                                                       monkeypatch):
+    """A resume holds the checkpoint to the task's geometry through meta
+    tensors: it never builds a fresh train state (``init_state``) beside
+    the restored one, the restored state equals the saved one bit for
+    bit, and a checkpoint of another geometry is still refused."""
+    task = _tiny_task()
+    state = _trained_state(task)
+    saved = {k: v for k, v in task.state_tree(state).items()}
+    ckpt = CheckpointManager(str(tmp_path / "checkpoints" / "version_0"))
+    ckpt.save({"state": saved, "epoch": 2}, 5, metric=1.0)
+    ckpt.wait()
+    tmpl = task.state_template()
+    leaves = [t for _, t in TO.named_leaves(tmpl["params"])]
+    assert all(t.device.type == "meta" for t in leaves)
+    assert [tuple(t.shape) for t in leaves] == [
+        tuple(t.shape) for _, t in TO.named_leaves(state["params"])]
+
+    def no_fresh_state(self, seed=0):
+        raise AssertionError("resume built a fresh train state")
+    monkeypatch.setattr(TT.GPTTask, "init_state", no_fresh_state)
+    got, epoch = runner._restore(task, ckpt, "last")
+    assert epoch == 2 and got["step"] == state["step"]
+    for (n, a), (_, b) in zip(TO.named_leaves(got["params"]),
+                              TO.named_leaves(state["params"])):
+        assert torch.equal(a, b), n
+    other = TT.GPTTask(_exp(TINY.replace(n_layer=1, n_embd=32)),
+                       torch.device("cpu"))
+    with pytest.raises(ValueError, match="geometry"):
+        runner._restore(other, ckpt, "last")
+
+
 def test_tblogger_writes_json_lines_without_tensorboardx(tmp_path,
                                                         monkeypatch):
     """Without tensorboardX (the card's machine) the logger writes the same
