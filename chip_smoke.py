@@ -63,6 +63,18 @@
    three steps (device ms by kernel class, busy against wall); the loss
    on one repeated batch falling; and one float32 train step of a 2-layer
    copy on the card against the CPU.
+5. Serves that checkpoint through the port's entry points, from the
+   training tree: ``build_pipeline(experiment="smoke", resume="last")``
+   (its bf16 params bit for bit the checkpoint's float32 ones, rounded),
+   the HTTP server on a free port (``/healthz``, a WAV, a deterministic
+   JSON batch equal to the service's own clips; kernel E exactly once a
+   layer and step), ``sample.main``, the checkpoint as its own
+   speculative draft (every proposal accepted), and a pipeline with
+   ``use_kernels=False`` on the same weights: no kernel launched, the
+   decode program still captured, its request seconds beside the kernels'
+   own; on a float32 2-layer copy with the int8 cache, the kernels against
+   their plain versions step for step (logits, cache bytes), and the
+   decode, vocoder and tokenize stages.
 
 Exits non-zero, printing no result, when there is no CUDA card or any check
 fails.  The last three lines of stdout are: a JSON object of the kernels,
@@ -71,14 +83,18 @@ the card's ``nvidia-smi`` name and power limit, and
 of each phase.
 """
 
+import base64
 import copy
 import dataclasses
+import io
 import json
 import os
 import shutil
 import subprocess
 import threading
 import time
+import urllib.request
+import wave
 from pathlib import Path
 
 import numpy as np
@@ -897,7 +913,7 @@ def reference_check(dev, exp, wav, seed):
           "codes of the 48 clips through kernel D vs the plain mel")
 
 
-def mel_codes(vq, mel):
+def mel_codes(vq, mel, use_kernels=None):
     """(codes (B, 265) in GPT order on the CPU, latent rows (B * 265, D) in
     the same order, float64 on the CPU) of a (B, 80, 860) mel, as
     ``tokenize`` takes it from there."""
@@ -905,7 +921,7 @@ def mel_codes(vq, mel):
         lo = (mel.shape[-1] - vq.cfg.resolution) // 2
         x = (2.0 * mel[:, :, lo:lo + vq.cfg.resolution] - 1.0)[:, None]
         z = vq.quant_conv(vq.encoder(x.to(vq.quant_conv.weight.dtype)))
-        grid = vq.quantize.nearest_index(z)
+        grid = vq.quantize.nearest_index(z, use_kernels)
     codes = grid.transpose(1, 2).reshape(grid.shape[0], -1).cpu()
     # (B, D, h, w) -> rows in tokenize's time-major order
     return codes, z.permute(0, 3, 2, 1).reshape(-1, z.shape[1]).double().cpu()
@@ -1330,6 +1346,301 @@ def serve_path(exp, pipe, dev, requests):
 
 
 # ---------------------------------------------------------------------------
+# 5. serving the trained checkpoint
+# ---------------------------------------------------------------------------
+
+
+def read_pcm(blob):
+    """(samples int16, rate) of a PCM16 WAV."""
+    with wave.open(io.BytesIO(blob), "rb") as w:
+        return (np.frombuffer(w.readframes(w.getnframes()), "<i2"),
+                w.getframerate())
+
+
+def http(url, body=None):
+    """The body of a GET (no ``body``) or a JSON POST; raises on an HTTP
+    error."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.read()
+
+
+def lockstep_on_off(params, cfg, cond, toks):
+    """Teacher-forced over ``toks`` (B, S): a prefill, then S - 1 device-
+    position decode steps (the captured step's arithmetic, run eagerly)
+    with the kernels and, from a copy of the same cache, without them.
+    The kernels' run goes on; returns (max |logits| difference of a step
+    from the same state, steps whose first-layer cache slot differs, the
+    kernels' logits (B, S, V) on the CPU).  The first layer's slot comes
+    from the same bits either way (the int8 product's kernels equal their
+    plain versions bit for bit, and so does E's write); every later value
+    follows an attention output that E and its plain version round
+    differently."""
+    from melspec_gpt_vqvae_tpu_torch.models import gpt as G
+    b, steps = toks.shape
+    with torch.inference_mode():
+        cache = G.init_kv_cache(cfg, b, max_len=steps + 1,
+                                device=cond.device)
+        logits, cache = G.gpt_prefill(params, cfg, cache, None, cond)
+        cache["len"] = torch.tensor([cache["len"]], device=cond.device)
+        wq = G.quantize_block_weights(params["blocks"])
+        out, worst, differ = [logits], 0.0, 0
+        for i in range(steps - 1):
+            copy_ = {k: v.clone() for k, v in cache.items()}
+            l_off, _ = G.gpt_decode_step(params, cfg, copy_, toks[:, i], wq,
+                                         use_kernels=False)
+            logits, cache = G.gpt_decode_step(params, cfg, cache, toks[:, i],
+                                              wq)
+            worst = max(worst, max_err(logits, l_off))
+            differ += any(not torch.equal(cache[k][0], copy_[k][0])
+                          for k in ("k", "v", "k_scale", "v_scale"))
+            out.append(logits)
+    return worst, differ, torch.stack(out, 1).float().cpu()
+
+
+def free_running(params, cfg, cond, toks, use_kernels):
+    """Teacher-forced logits (B, S, V) on the CPU of one device-position
+    run with its own cache (``use_kernels`` None: the kernels)."""
+    from melspec_gpt_vqvae_tpu_torch.models import gpt as G
+    b, steps = toks.shape
+    with torch.inference_mode():
+        cache = G.init_kv_cache(cfg, b, max_len=steps + 1,
+                                device=cond.device)
+        logits, cache = G.gpt_prefill(params, cfg, cache, None, cond,
+                                      use_kernels)
+        cache["len"] = torch.tensor([cache["len"]], device=cond.device)
+        wq = (G.quantize_block_weights(params["blocks"])
+              if cfg.decode_weight_dtype == "int8" else None)
+        out = [logits]
+        for i in range(steps - 1):
+            logits, cache = G.gpt_decode_step(params, cfg, cache, toks[:, i],
+                                              wq, use_kernels)
+            out.append(logits)
+    return torch.stack(out, 1).float().cpu()
+
+
+def kernels_on_off_f32(dev, exp, wav, seed):
+    """A float32 2-layer copy at the VAS widths with the int8 cache and
+    int8 weights (kernels A, B, C, D, E and the int8 product's on the
+    path), the kernels against ``use_kernels=False`` on the same weights.
+
+    With float32 weights and the int8 cache (E on the path) the
+    teacher-forced logits of the two agree within 1e-3.  With int8
+    weights every product re-quantises its activations, and kernel E's
+    float rounding moves some across a rounding boundary, so even one
+    step from the same state parts by whole quanta (PERF.md §6, as the
+    card against the CPU): there the first layer's new cache slot must be
+    equal bit for bit at every step, and the logits, step for step and
+    run free, stay within the configuration's own quantisation error, as
+    in ``quantised_reference_check``.  That bound is the plain path's
+    distance from float32 (no margin), which the kernels do not touch: a
+    wrong kernel cannot widen it."""
+    from melspec_gpt_vqvae_tpu_torch.models import gpt as G
+    from melspec_gpt_vqvae_tpu_torch.ops.mel_kernel import \
+        waveform_to_mel_fused
+    from melspec_gpt_vqvae_tpu_torch.pipeline import (GenerationPipeline,
+                                                     tokenize)
+    from melspec_gpt_vqvae_tpu_torch.serving import random_weights
+    exp = dataclasses.replace(exp, model=exp.model.replace(
+        n_layer=2, dtype="float32", cache_dtype="int8",
+        decode_weight_dtype="int8"))
+    gpt, vq, voc = random_weights(exp, seed)
+    gpt = G.tree_to(gpt, device=dev)
+    on = GenerationPipeline(exp, gpt, vq, voc, bf16=False)
+    off = GenerationPipeline(exp, gpt, vq, voc, bf16=False,
+                             use_kernels=False)
+    cls = [1, 6]
+    toks, _ = on.generate_tokens(cls, None, sample=False)
+    toks_off, _ = off.generate_tokens(cls, None, sample=False)
+    cond = G.class_embed(gpt, torch.tensor(cls, device=dev))
+    step_err, differ, l_on = lockstep_on_off(gpt, exp.model, cond, toks)
+    l_off = free_running(gpt, exp.model, cond, toks, False)
+    l_f32 = free_running(gpt, exp.model.replace(
+        cache_dtype="auto", decode_weight_dtype="auto"), cond, toks, None)
+    f32w = exp.model.replace(decode_weight_dtype="auto")
+    e_err = max_err(free_running(gpt, f32w, cond, toks, None),
+                    free_running(gpt, f32w, cond, toks, False))
+    specs, specs_off = on.decode_specs(toks), off.decode_specs(toks)
+    wavs, wavs_off = on.vocode(specs), off.vocode(specs)
+    # the codes through tokenize itself, the latents that explain a
+    # differing code through mel_codes (the same arithmetic, spelled out)
+    k_codes = tokenize(on.vq, wav, exp.mel).cpu()
+    p_codes = tokenize(off.vq, wav, exp.mel, use_kernels=False).cpu()
+    k_lat = mel_codes(on.vq, waveform_to_mel_fused(wav, exp.mel))[1]
+    p_lat = mel_codes(off.vq, waveform_to_mel_fused(
+        wav, exp.mel, use_kernels=False), use_kernels=False)[1]
+    res = {"int8_cache_f32_weights_logits": e_err,
+           "stepwise_logits": step_err,
+           "steps_first_layer_slot_differs": differ,
+           "free_running_logits": max_err(l_on, l_off),
+           "bound_quantisation_error": max_err(l_off, l_f32),
+           "kernels_quantisation_error": max_err(l_on, l_f32),
+           "specs": max_err(specs, specs_off),
+           "wavs": max_err(wavs, wavs_off),
+           "tokenize_codes_differing": int((k_codes != p_codes).sum()),
+           "tokenize_unexplained_flips": unexplained_flips(
+               p_codes, k_codes, p_lat, k_lat, on.vq),
+           "greedy_token_agreement": (toks == toks_off).float().mean()
+           .item()}
+    print(f"  kernels on vs off (f32, 2-layer GPT, int8 cache and weights, "
+          f"full-width VQ-VAE + MelGAN): {json.dumps(res)}")
+    check(e_err <= 1e-3, "kernels vs plain, int8 cache and float32 weights: "
+          "teacher-forced logits")
+    check(differ == 0, "kernels vs plain, step for step: the first layer's "
+          "new cache slot")
+    check(max(step_err, res["free_running_logits"])
+          <= res["bound_quantisation_error"],
+          "kernels vs plain, int8 weights: logits beyond the quantisation "
+          "error")
+    check(res["specs"] <= 1e-3 and res["wavs"] <= 1e-3,
+          "kernels vs plain: decode and vocoder")
+    check(res["tokenize_unexplained_flips"] == 0,
+          "kernels vs plain: tokenize codes")
+
+
+def served_checkpoint_check(dev, wav, wrappers, zero, decode_launches,
+                            smi_line):
+    """Phase 5, run from the training tree: the checkpoint the training
+    phase wrote served through build_pipeline, HTTP, sample.main, as its
+    own draft, and with the kernels off.  Returns kernel E's launches on
+    the HTTP path (24 x 265 a batch-8 call, plus the warm-up runs)."""
+    from melspec_gpt_vqvae_tpu_torch import sample as sample_cli
+    from melspec_gpt_vqvae_tpu_torch.pipeline import (GenerationPipeline,
+                                                     tokenize, wav_bytes)
+    from melspec_gpt_vqvae_tpu_torch.serving import (GenerationService,
+                                                    build_pipeline, serve)
+    from melspec_gpt_vqvae_tpu_torch.training.checkpoint import \
+        CheckpointManager
+    from melspec_gpt_vqvae_tpu_torch.training.optim import named_leaves
+    steps = 265
+    (exp, pipe), t_load = wall(lambda: build_pipeline(
+        "vas", experiment="smoke", resume="last", device=dev))
+    m = exp.model
+    check((m.dtype, m.cache_dtype, m.decode_weight_dtype, m.n_layer)
+          == ("bfloat16", "int8", "int8", 24),
+          f"served checkpoint config {m.dtype}/{m.cache_dtype}/"
+          f"{m.decode_weight_dtype}, {m.n_layer} layers")
+    saved = CheckpointManager(os.path.join(
+        "lightning_logs", "smoke-vas", "checkpoints", "version_0")).restore(
+        "last", mmap=True)["state"]["params"]
+    served = dict(named_leaves(pipe.gpt_params))
+    same = all(torch.equal(t.to(torch.bfloat16), served[n].cpu())
+               for n, t in named_leaves(saved))
+    print(f"  build_pipeline(experiment='smoke', resume='last'): {t_load:.2f}"
+          f" s; its bf16 params equal the checkpoint's float32 params "
+          f"rounded to bf16, bit for bit: {same}")
+    check(same, "served params vs the checkpoint")
+    del saved
+
+    # --- HTTP -----------------------------------------------------------
+    svc = GenerationService(exp, pipe, batch=8)
+    httpd = serve(svc, "127.0.0.1", 0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        zero()
+        health = json.loads(http(url + "/healthz"))
+        check(health["platform"] == "cuda" and health["model"]["n_layer"]
+              == 24, f"/healthz {health}")
+        cap0 = pipe.graphs.capture_seconds
+        blob, t_get = wall(lambda: http(url + "/generate?class=3"))
+        cap_get = pipe.graphs.capture_seconds - cap0
+        pcm, rate = read_pcm(blob)
+        check(pcm.shape == (848 * 256,) and rate == 22050,
+              f"GET /generate: {pcm.shape} samples at {rate} Hz")
+        cap0 = pipe.graphs.capture_seconds
+        body, t_post = wall(lambda: json.loads(http(url + "/generate", {
+            "classes": list(range(8)), "deterministic": True, "seed": 5,
+            "format": "json"})))
+        cap_post = pipe.graphs.capture_seconds - cap0
+        ref, t_ref = wall(lambda: svc.generate(list(range(8)), sample=False))
+        steps_off = []
+        for i, clip in enumerate(body["clips"]):
+            got = read_pcm(base64.b64decode(clip["wav_base64"]))[0]
+            want = read_pcm(wav_bytes(ref["wavs"][i]))[0]
+            steps_off.append(int(np.abs(got.astype(np.int32)
+                                        - want.astype(np.int32)).max()))
+        print(f"  HTTP on {url}: /healthz {json.dumps(health)}")
+        print(f"  GET /generate?class=3 (batch 8, sampled top_k=100): "
+              f"{t_get:.2f} s, {cap_get:.2f} s of it the capture; POST 8 "
+              f"classes deterministic: {t_post:.2f} s, {cap_post:.2f} s of "
+              f"it the capture; the service's own greedy request "
+              f"{t_ref:.2f} s; largest PCM16 step between the POST's clips "
+              f"and the service's: {max(steps_off)}")
+        check([c["class"] for c in body["clips"]] == list(range(8))
+              and max(steps_off) <= 1, "POST /generate vs the service")
+        c = decode_launches(pipe, "HTTP", 3 * steps * m.n_layer)
+        check(c["attention"] > 0 and c["vocoder_stack"] > 0,
+              "the HTTP path launched kernels A and B")
+        e_http = c["decode_attention"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+    # --- kernels off, the same weights ------------------------------------
+    off = GenerationPipeline(exp, pipe.gpt_params, pipe.vq, pipe.melgan,
+                             use_kernels=False)
+    svc_on = GenerationService(exp, pipe, batch=8, seed=1)
+    svc_off = GenerationService(exp, off, batch=8, seed=1)
+    zero()
+    codes_off, t_tok = wall(lambda: tokenize(off.vq, wav, exp.mel,
+                                             use_kernels=False))
+    _, t_off_first = wall(lambda: svc_off.generate(list(range(8))))
+    out_off, t_off = wall(lambda: svc_off.generate(list(range(8))))
+    launched = {k: w.launches for k, w in wrappers.items()}
+    captured = off.graphs.captures > 0 and all(
+        p.graph is not None for p in off.graphs.last.programs)
+    out_on, t_on = wall(lambda: svc_on.generate(list(range(8))))
+    check_request(out_off, 8)
+    check_request(out_on, 8)
+    print(f"  use_kernels=False on the same weights: tokenize 48 clips "
+          f"{t_tok:.3f} s; launches {json.dumps(launched)}; decode program "
+          f"captured: {captured}")
+    print(f"  batch-8 request (sampled top_k=100), {smi_line}: kernels on "
+          f"{t_on:.3f} s, kernels off {t_off:.3f} s (first, with its "
+          f"capture, {t_off_first:.3f} s)")
+    check(codes_off.shape == (48, 265), "tokenize with the kernels off")
+    check(not any(launched.values()), "use_kernels=False launched kernels")
+    check(captured, "use_kernels=False: the decode program was not captured")
+    del off, svc_off, svc_on, svc, pipe
+    torch.cuda.empty_cache()
+
+    # --- the sample CLI ---------------------------------------------------
+    out_dir = Path("samples")
+    summary, t_cli = wall(lambda: sample_cli.main([
+        "--experiment", "smoke", "--resume", "last", "--classes", "0,3",
+        "--num", "2", "--batch", "8", "--out_dir", str(out_dir),
+        "--save_codes"]))
+    files = sorted(p.name for p in out_dir.iterdir())
+    print(f"  sample.main: {t_cli:.2f} s with its pipeline; files {files}")
+    check(summary["written"] == 4 and len(files) == 8
+          and all(f"class{c:02d}_{i:03d}{ext}" in files for c in (0, 3)
+                  for i in (0, 1) for ext in (".wav", "_codes.npy")),
+          "sample.main output")
+    torch.cuda.empty_cache()
+
+    # --- the checkpoint as its own draft ----------------------------------
+    (exp_d, dpipe), t_dload = wall(lambda: build_pipeline(
+        "vas", experiment="smoke", draft_experiment="smoke", resume="last",
+        draft_resume="last", device=dev))
+    out, t_d = wall(lambda: GenerationService(exp_d, dpipe, batch=1)
+                    .generate([3], sample=False))
+    stats = out["spec_stats"]
+    print(f"  the checkpoint as its own draft (24 + 24 layers, gamma "
+          f"{dpipe.gamma}), loaded in {t_dload:.2f} s: greedy batch-1 "
+          f"request {t_d:.2f} s with its capture, spec_stats "
+          f"{json.dumps(stats)}")
+    check(stats["rounds"] > 0 and stats["accepted"] == stats["drafted"],
+          "a self-draft must have every proposal accepted")
+    del dpipe
+    torch.cuda.empty_cache()
+    return e_http
+
+
+# ---------------------------------------------------------------------------
 # 4. training
 # ---------------------------------------------------------------------------
 
@@ -1383,9 +1694,9 @@ def run_train_cli(root, flash, train=True):
         val_losses.append(val_loss(*a, **kw))
         return val_losses[-1]
 
-    def recording_attend(q, k, v, n_unmasked=0):
+    def recording_attend(q, k, v, n_unmasked=0, **kw):
         a_calls.append((tuple(q.shape), q.dtype))
-        return attend(q, k, v, n_unmasked)
+        return attend(q, k, v, n_unmasked, **kw)
     cwd = os.getcwd()
     os.chdir(root)
     runner._val_loss, G.attend = recording_val_loss, recording_attend
@@ -1881,6 +2192,18 @@ def main():
         "evaluation_t265_f32": a_eval_launches}
     launches["attention"] += a_eval_launches
     train_reference_check(dev, batch)
+
+    phase("served_checkpoint",
+          "serving the trained checkpoint (HTTP, sample CLI, self-draft, "
+          "kernels on against off):")
+    cwd = os.getcwd()
+    os.chdir(TRAIN_ROOT)
+    try:
+        served_checkpoint_check(dev, wav, wrappers, zero, decode_launches,
+                                smi_line)
+    finally:
+        os.chdir(cwd)
+    kernels_on_off_f32(dev, exp, wav, seed=7)
     shutil.rmtree(TRAIN_ROOT)
 
     meta = {"attention": ("attention.cu", "attention.py:114"),

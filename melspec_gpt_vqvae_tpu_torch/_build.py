@@ -133,6 +133,22 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
+def use_kernel(use_kernels, *tensors: torch.Tensor) -> bool:
+    """Whether a wrapper launches its kernel on ``tensors``, by the
+    caller's switch: None takes the kernel for CUDA tensors and the plain
+    PyTorch version for CPU tensors (``on_cpu``); False takes the plain
+    version on either device; True takes the kernel, and raises for CPU
+    tensors, where there is none.  Only the caller turns a kernel off:
+    a kernel that fails to build or launch raises."""
+    cpu = on_cpu(*tensors)
+    if use_kernels is False:
+        return False
+    if cpu and use_kernels:
+        raise ValueError("use_kernels=True: the port's kernels run on the "
+                         "card only, and these tensors lie on the CPU")
+    return not cpu
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry point ``name`` on ``device``'s current stream (appended
     as the last argument) and raise if the launch failed."""

@@ -22,6 +22,8 @@ token and the decode step that follows it -- is recorded once in a
     each counted kernel one run of the body holds and adds them to the
     wrappers' ``launches`` on every replay.  The warm-up runs launch for
     real and count as such (``DecodeGraphs.warmup_launches`` says how many);
+    a body built with the kernels off (``use_kernels=False``) is captured
+    all the same, and its capture raises if it launched a counted kernel;
   * ``DecodeGraphs`` keeps the captured sessions (buffers + programs) of a
     few request shapes across requests, the oldest evicted first.  A
     session's buffers are shared by its replays, so it is not re-entrant:
@@ -77,16 +79,25 @@ class Program:
     stream of that run: it puts the buffers into a state the body can run
     from (a position inside the cache).  ``launches`` is what one replay
     adds to the wrappers' counts; ``warmup_launches`` what the warm-up
-    runs launched."""
+    runs launched.  ``use_kernels`` is the switch the body was built with:
+    with False, a counted kernel launched in the warm-up or the capture
+    raises."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device,
-                 reset: Optional[Callable[[], None]] = None, pool=None):
+                 reset: Optional[Callable[[], None]] = None, pool=None,
+                 use_kernels: Optional[bool] = None):
         self.fn = fn
         self.graph = None
         self.launches: Dict[str, int] = {}
         self.warmup_launches: Dict[str, int] = {}
         if device.type == "cuda":
             self._capture(device, reset or (lambda: None), pool)
+        if use_kernels is False and (self.launches
+                                     or any(self.warmup_launches.values())):
+            raise RuntimeError(
+                f"a decode body built with use_kernels=False launched "
+                f"kernels: {self.warmup_launches} in warm-up, "
+                f"{self.launches} captured")
 
     def _capture(self, device, reset, pool) -> None:
         before = launch_counts()

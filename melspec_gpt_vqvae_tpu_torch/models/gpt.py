@@ -190,11 +190,11 @@ def _qkv(x, p, cfg):
     return (_split_heads(a, cfg.n_head) for a in qkv.chunk(3, dim=-1))
 
 
-def _attn_block(x, p, cfg):
+def _attn_block(x, p, cfg, use_kernels=None):
     """Pre-LN attention half of an inference block; returns (x', k, v)
     with k, v of layout (B, H, T, hd)."""
     q, k, v = _qkv(x, p, cfg)
-    res = attend(q, k, v, cfg.n_unmasked)
+    res = attend(q, k, v, cfg.n_unmasked, use_kernels=use_kernels)
     y = _merge_heads(res) @ p["attn_proj"]["w"] + p["attn_proj"]["b"]
     return x + y, k, v
 
@@ -326,7 +326,8 @@ def _write_kv(cache: Dict, cfg: GPTConfig, l: int, pos,
 
 def gpt_prefill(params: Params, cfg: GPTConfig, cache: Dict,
                 idx: Optional[torch.Tensor],
-                cond_emb: Optional[torch.Tensor] = None
+                cond_emb: Optional[torch.Tensor] = None,
+                use_kernels: Optional[bool] = None
                 ) -> Tuple[torch.Tensor, Dict]:
     """Run the prompt (cond + given tokens) once, writing its keys and
     values into ``cache``.  Returns (logits at the last position (B, out),
@@ -335,7 +336,7 @@ def gpt_prefill(params: Params, cfg: GPTConfig, cache: Dict,
     t0 = x.shape[1]
     for l in range(cfg.n_layer):
         p = _layer(params["blocks"], l)
-        x, k, v = _attn_block(x, p, cfg)
+        x, k, v = _attn_block(x, p, cfg, use_kernels)
         _write_kv(cache, cfg, l, 0, k, v)
         x = x + _mlp(_layer_norm(x, p["ln2_s"], p["ln2_b"]), p)
     cache["len"] = t0
@@ -382,29 +383,35 @@ def _int8_mm(x: torch.Tensor, wq: torch.Tensor,
 
 
 def _mm(a: torch.Tensor, p: Params, pw: Optional[Dict],
-        name: str, fused: bool = False) -> torch.Tensor:
+        name: str, fused: bool = False,
+        use_kernels: Optional[bool] = None) -> torch.Tensor:
     """One block matrix product with bias: in the model dtype, or through
     the int8 weights ``pw`` of this layer (gpt.py:484-494).  ``fused``
     takes the int8 product through ops/int8_linear.py (on the card two
     kernels around the cuBLASLt product, no row padding outside them;
-    on the CPU the lines below, bit for bit)."""
+    on the CPU, or with ``use_kernels=False``, the lines below, bit for
+    bit)."""
     if pw is None:
         return a @ p[name]["w"] + p[name]["b"]
     a2 = a.reshape(-1, a.shape[-1])
     if fused:
-        out = _il.int8_linear(a2, pw[name]["q"], pw[name]["s"], p[name]["b"])
+        out = _il.int8_linear(a2, pw[name]["q"], pw[name]["s"], p[name]["b"],
+                              use_kernels=use_kernels)
         return out.reshape(*a.shape[:-1], -1)
     out = _int8_mm(a2, pw[name]["q"], pw[name]["s"])
     return out.reshape(*a.shape[:-1], -1).to(a.dtype) + p[name]["b"]
 
 
 def gpt_decode_step(params: Params, cfg: GPTConfig, cache: Dict,
-                    token: torch.Tensor, wq: Optional[Dict] = None
+                    token: torch.Tensor, wq: Optional[Dict] = None,
+                    use_kernels: Optional[bool] = None
                     ) -> Tuple[torch.Tensor, Dict]:
     """One cached decode step.  token (B,) -> (logits (B, out), cache).
     Attention covers the positions up to the current one, as the JAX step
     masks the rest; ``wq`` are the int8 block weights of
     ``quantize_block_weights`` (None: the model-dtype weights).
+    ``use_kernels=False`` takes the plain versions of kernel E and of the
+    int8 product's kernels (ops/), which read no host position either.
 
     ``cache["len"]`` a Python int is the eager step: the new slot is
     written by ``_write_kv`` at a host position, kernel E only attends.
@@ -436,16 +443,18 @@ def gpt_decode_step(params: Params, cfg: GPTConfig, cache: Dict,
         pw = None if wq is None else _layer(wq, l)
         h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
         q, k, v = (a.reshape(b, cfg.n_head, 1, cfg.head_dim)
-                   for a in _mm(h, p, pw, "attn_qkv", on_device).chunk(3, -1))
+                   for a in _mm(h, p, pw, "attn_qkv", on_device,
+                                use_kernels).chunk(3, -1))
         if quantised and on_device:
             o = _da.decode_attend_int8(
                 q[:, :, 0], cache["k"], cache["v"], cache["k_scale"],
-                cache["v_scale"], l, pos, k_new=k[:, :, 0], v_new=v[:, :, 0])
+                cache["v_scale"], l, pos, k_new=k[:, :, 0], v_new=v[:, :, 0],
+                use_kernels=use_kernels)
         elif quantised:
             _write_kv(cache, cfg, l, pos, k, v)
             o = _da.decode_attend_int8(q[:, :, 0], cache["k"], cache["v"],
                                        cache["k_scale"], cache["v_scale"], l,
-                                       pos)
+                                       pos, use_kernels=use_kernels)
         else:
             _write_kv(cache, cfg, l, pos, k, v)
             k_l, v_l = cache["k"][l], cache["v"][l]
@@ -454,10 +463,10 @@ def gpt_decode_step(params: Params, cfg: GPTConfig, cache: Dict,
             probs = torch.softmax(torch.where(valid, scores, -1e30), dim=-1)
             o = (probs.to(v_l.dtype).float()[:, :, None] @ v_l.float())
         x = x + _mm(o.reshape(b, cfg.n_embd).to(x.dtype), p, pw, "attn_proj",
-                    on_device)
+                    on_device, use_kernels)
         h2 = _layer_norm(x, p["ln2_s"], p["ln2_b"])
-        x = x + _mm(F.gelu(_mm(h2, p, pw, "mlp_up", on_device)), p, pw,
-                    "mlp_down", on_device)
+        x = x + _mm(F.gelu(_mm(h2, p, pw, "mlp_up", on_device, use_kernels)),
+                    p, pw, "mlp_down", on_device, use_kernels)
     if on_device:
         pos.add_(1)
     else:
@@ -540,7 +549,7 @@ class _GenerateSession:
     must sum as the eager segmented loop does."""
 
     def __init__(self, params, cfg, wq, batch, total_len, caps, steps,
-                 sample, skw, device):
+                 sample, skw, device, use_kernels=None):
         self.device = device
         self.cache = init_kv_cache(cfg, batch, max_len=total_len,
                                    device=device)
@@ -566,7 +575,8 @@ class _GenerateSession:
                 tok = sample_logits(None, self.logits, sample=sample, u=u,
                                     **skw)
                 self.tokens.index_copy_(1, self.step, tok[:, None])
-                logits, _ = gpt_decode_step(params, cfg, cache, tok, wq)
+                logits, _ = gpt_decode_step(params, cfg, cache, tok, wq,
+                                            use_kernels)
                 self.logits.copy_(logits)
                 self.step.add_(1)
             return run
@@ -581,8 +591,8 @@ class _GenerateSession:
             if cap < total_len:
                 view["k"] = self.cache["k"][:, :, :, :cap]
                 view["v"] = self.cache["v"][:, :, :, :cap]
-            self._by_cap[cap] = decode_graph.Program(body(view), device,
-                                                     reset, pool)
+            self._by_cap[cap] = decode_graph.Program(
+                body(view), device, reset, pool, use_kernels=use_kernels)
         self._any = None if not quantised else self._by_cap[total_len]
         self.programs = list(self._by_cap.values())
 
@@ -600,7 +610,7 @@ class _GenerateSession:
 
 
 def _generate_on_device(params, cfg, generator, cond_emb, given, steps,
-                        segments, sample, skw, wq, holder):
+                        segments, sample, skw, wq, holder, use_kernels=None):
     """``gpt_generate`` through a session of ``holder``: one eager prefill
     into the session's cache, then one replay a token."""
     b, p = cond_emb.shape[0], cond_emb.shape[1]
@@ -610,15 +620,17 @@ def _generate_on_device(params, cfg, generator, cond_emb, given, steps,
     dev = cond_emb.device
     key = ("generate", decode_graph.tensors_token(params, wq), cfg, b,
            start + steps, caps, steps, sample, tuple(sorted(skw.items())),
-           str(dev))
+           str(dev), use_kernels)
     sess = holder.session(key, lambda: _GenerateSession(
-        params, cfg, wq, b, start + steps, caps, steps, sample, skw, dev))
+        params, cfg, wq, b, start + steps, caps, steps, sample, skw, dev,
+        use_kernels))
     for name in ("k", "v", "k_scale", "v_scale"):
         if name in sess.cache:
             sess.cache[name].zero_()
     # the prefill writes at host positions and sets a host length: hand it
     # the session's tensors under a dict of its own
-    logits, _ = gpt_prefill(params, cfg, dict(sess.cache), given, cond_emb)
+    logits, _ = gpt_prefill(params, cfg, dict(sess.cache), given, cond_emb,
+                            use_kernels)
     u = (torch.rand((steps,) + logits.shape, generator=generator,
                     device=dev) if sample else None)
     sess.begin(logits, u, start)
@@ -629,7 +641,7 @@ def _generate_on_device(params, cfg, generator, cond_emb, given, steps,
 
 
 def gpt_generate_eager(params, cfg, generator, cond_emb, given, steps,
-                       segments, sample, skw, wq):
+                       segments, sample, skw, wq, use_kernels=None):
     """``gpt_generate``'s eager loop: a Python loop of ``gpt_decode_step``
     at host positions over a cache that grows by segments.  Returns (the
     new tokens (B, steps), the cache as the last step left it)."""
@@ -637,7 +649,8 @@ def gpt_generate_eager(params, cfg, generator, cond_emb, given, steps,
     t0 = 0 if given is None else given.shape[1]
     plan = _segment_plan(p + t0, steps, segments)
     cache = init_kv_cache(cfg, b, max_len=plan[0][0], device=cond_emb.device)
-    logits, cache = gpt_prefill(params, cfg, cache, given, cond_emb)
+    logits, cache = gpt_prefill(params, cfg, cache, given, cond_emb,
+                                use_kernels)
     u = (torch.rand((steps,) + logits.shape, generator=generator,
                     device=logits.device) if sample else None)
     toks = []
@@ -646,7 +659,8 @@ def gpt_generate_eager(params, cfg, generator, cond_emb, given, steps,
         for _ in range(seg):
             tok = sample_logits(None, logits, sample=sample,
                                 u=None if u is None else u[len(toks)], **skw)
-            logits, cache = gpt_decode_step(params, cfg, cache, tok, wq)
+            logits, cache = gpt_decode_step(params, cfg, cache, tok, wq,
+                                            use_kernels)
             toks.append(tok)
     return torch.stack(toks, dim=1), cache
 
@@ -658,7 +672,8 @@ def gpt_generate(params: Params, cfg: GPTConfig,
                  temperature: float = 1.0, top_k: Optional[int] = None,
                  top_p: Optional[float] = None, sample: bool = True,
                  segments: int = 1, wq: Optional[Dict] = None,
-                 graph=None) -> torch.Tensor:
+                 graph=None, use_kernels: Optional[bool] = None
+                 ) -> torch.Tensor:
     """KV-cached autoregressive generation: one prefill, then ``steps``
     cached single-token steps (the reference re-runs the full forward per
     token, minGPT.py:331-358).
@@ -684,6 +699,11 @@ def gpt_generate(params: Params, cfg: GPTConfig,
     ``decode_graph.DecodeGraphs``: as True, its captures kept for the next
     call of the same shape (without one every call captures anew).  The
     loops give the same tokens; a failed capture raises.
+
+    ``use_kernels`` is every wrapper's switch (``_build.use_kernel``):
+    False decodes through the plain versions of kernels A and E and of the
+    int8 product's kernels, captured on the card all the same; the
+    capture is keyed by it.
     """
     b, p = cond_emb.shape[0], cond_emb.shape[1]
     t0 = 0 if given is None else given.shape[1]
@@ -698,10 +718,11 @@ def gpt_generate(params: Params, cfg: GPTConfig,
         with torch.no_grad():
             out = _generate_on_device(params, cfg, generator, cond_emb,
                                       given, steps, segments, sample, skw,
-                                      wq, holder)
+                                      wq, holder, use_kernels)
     else:
         out, _ = gpt_generate_eager(params, cfg, generator, cond_emb, given,
-                                    steps, segments, sample, skw, wq)
+                                    steps, segments, sample, skw, wq,
+                                    use_kernels)
     if t0 > 0:
         out = torch.cat([given.long(), out], dim=1)
     return out

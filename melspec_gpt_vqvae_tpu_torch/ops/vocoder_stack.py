@@ -21,7 +21,7 @@ fix) is needed.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -150,13 +150,14 @@ def bf16_tile(c: int, t: int, batch: int, dils: Sequence[int]) -> int:
 
 
 def fused_resblock_stack(x: torch.Tensor, blocks: Sequence[nn.Module],
-                         packed=None) -> torch.Tensor:
+                         packed=None, *,
+                         use_kernels: Optional[bool] = None) -> torch.Tensor:
     """A stage's resblock stack: kernel B on CUDA tensors, ``resblock_stack``
-    on CPU tensors.  x (B, C, T) float32 or bfloat16, blocks' weights in the
+    on CPU tensors or with ``use_kernels=False``.  x (B, C, T) float32 or bfloat16, blocks' weights in the
     same dtype.  bfloat16 runs on the tensor cores (C in 32, 64, 128, 256),
     float32 as float FMA.  ``packed`` is ``pack(blocks, x.device, x.dtype)``
     kept by the caller; without it the weights are packed for this launch."""
-    if _build.on_cpu(x):
+    if not _build.use_kernel(use_kernels, x):
         return resblock_stack(x, blocks)
     b, c, t = x.shape
     dils = [blk.dilation for blk in blocks]

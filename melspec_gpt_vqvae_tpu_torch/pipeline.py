@@ -58,13 +58,20 @@ class GenerationPipeline:
     runs the eager loop instead (for a comparison; slow on the card).
     The captured programs share static buffers, so ``generate_tokens`` is
     not re-entrant: a lock serialises callers.
+
+    ``use_kernels`` is the counterpart of the JAX pipeline's
+    ``use_pallas``: None takes each kernel for CUDA tensors; False runs
+    every stage through the kernels' plain versions (``attend_xla``, the
+    plain decode attention and int8 product, the conv chain of the
+    vocoder), the decode loop still captured on the card; True raises on
+    the CPU.
     """
 
     def __init__(self, exp: ExperimentConfig, gpt_params, vq: VQModel,
                  melgan: MelGANGenerator, *, segments: int = 8,
                  chunk: int = 128, bf16: Optional[bool] = None,
                  draft_params=None, draft_cfg=None, gamma: int = 4,
-                 graph: bool = True):
+                 graph: bool = True, use_kernels: Optional[bool] = None):
         if (draft_params is None) != (draft_cfg is None):
             raise ValueError("pass both draft_params and draft_cfg, or "
                              "neither")
@@ -85,6 +92,7 @@ class GenerationPipeline:
         self.chunk = chunk
         self.bf16 = bf16
         self.graph = graph
+        self.use_kernels = use_kernels
         self.graphs = DecodeGraphs()
         self.block_weights = BlockWeightCache()
         self.draft_block_weights = BlockWeightCache()
@@ -113,7 +121,7 @@ class GenerationPipeline:
             self.graphs if self.device.type == "cuda" else None)
         kw = dict(steps=self.vcfg.code_h * self.vcfg.code_w,
                   temperature=temperature, top_k=top_k, top_p=top_p,
-                  sample=sample, graph=graph)
+                  sample=sample, graph=graph, use_kernels=self.use_kernels)
         with self._decode_lock:
             wq = self._wq(self.block_weights, self.gpt_params, self.gcfg)
             if self.draft_params is None:
@@ -146,7 +154,7 @@ class GenerationPipeline:
             # dataset scaling [-1, 1] -> [0, 1] mel (datasets/vas.py:81)
             mel01 = torch.clamp((spec.float() + 1.0) / 2.0, 0.0, 1.0)
             return self.melgan(mel01.to(self.melgan.conv_in.weight.dtype)
-                               .transpose(1, 2))
+                               .transpose(1, 2), self.use_kernels)
         return _chunked(voc, specs, self.chunk)
 
     def generate(self, classes, generator: Optional[torch.Generator], *,
@@ -174,20 +182,23 @@ class GenerationPipeline:
 
 @torch.inference_mode()
 def tokenize(vq: VQModel, wav: torch.Tensor,
-             mel_cfg: MelConfig = MelConfig()) -> torch.Tensor:
+             mel_cfg: MelConfig = MelConfig(), *,
+             use_kernels: Optional[bool] = None) -> torch.Tensor:
     """wav (B, samples) -> (B, code_h * code_w) GPT-order codes.
 
     The tokenize stage that bench.py:86-103 times in front of generation:
     mel (kernel D on the card), centre crop of the 860 frames to the
     VQ-VAE's width (848: frames 6..853), scale to [-1, 1], encode in the
     VQ-VAE's dtype, nearest codebook index in float32 (kernel C), then the
-    time-major flatten ``swapaxes(1, 2).reshape(B, -1)``.
+    time-major flatten ``swapaxes(1, 2).reshape(B, -1)``.  With
+    ``use_kernels=False`` the rFFT mel and the plain argmin in place of D
+    and C.
     """
-    mel = waveform_to_mel_fused(wav, mel_cfg)
+    mel = waveform_to_mel_fused(wav, mel_cfg, use_kernels=use_kernels)
     lo = (mel.shape[-1] - vq.cfg.resolution) // 2
     mel = mel[:, :, lo:lo + vq.cfg.resolution]
     x = (2.0 * mel - 1.0)[..., None].to(vq.quant_conv.weight.dtype)
-    grid = vq.encode_to_indices(x)
+    grid = vq.encode_to_indices(x, use_kernels)
     return grid.transpose(1, 2).reshape(grid.shape[0], -1)
 
 

@@ -1,0 +1,111 @@
+"""Online serving CLI of the PyTorch port: an HTTP endpoint for
+class-conditional clip generation.
+
+    python -m melspec_gpt_vqvae_tpu_torch.serve --dataset vas \\
+        --experiment myrun --resume best --batch 8 --port 8000 \\
+        [--vqvae_ckpt vqvae.ckpt] [--vocoder_ckpt vocoder/logs/vggsound]
+    curl -o clip.wav 'localhost:8000/generate?class=3&top_p=0.9'
+
+API (the JAX package's, serving.py there; JSON in, WAV or JSON out):
+  GET  /healthz                 -> {"status": "ok", platform, model, ...}
+  GET  /generate?class=3        -> audio/wav (one 10-second clip)
+  POST /generate {"classes": [0, 1], "num": 2, "temperature": 1.0,
+                  "top_k": 100, "top_p": 0.9, "deterministic": false,
+                  "seed": 7, "format": "json"}
+       -> {"clips": [{"class": 0, "wav_base64": ...}, ...], ...}
+
+The counterpart of the repository's ``serve.py``, with its flags minus
+``--mesh``, ``--platform`` and ``--artifact`` and plus ``--device`` (the
+card unless ``--device cpu``).  Requests are padded to the fixed
+``--batch``; the first request of a sampling shape captures its decode
+program, which the start-up warm-up does for the default knobs.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from .sample import pipeline_from_args
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--dataset", type=str, default="vas", choices=["vas"])
+    p.add_argument("--experiment", type=str, default=None)
+    p.add_argument("--resume", type=str, default="best")
+    p.add_argument("--init_random", action="store_true",
+                   help="random GPT weights (no checkpoint; smoke/demo)")
+    p.add_argument("--vqvae_ckpt", type=str, default=None)
+    p.add_argument("--vocoder_ckpt", type=str, default=None)
+    p.add_argument("--batch", type=int, default=8,
+                   help="fixed serving batch (one captured decode program "
+                        "a sampling shape)")
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--top_k", type=int, default=100)
+    p.add_argument("--top_p", type=float, default=0.0)
+    p.add_argument("--segments", type=int, default=8)
+    p.add_argument("--chunk", type=int, default=128)
+    p.add_argument("--seed", type=int, default=783435)
+    p.add_argument("--kv_cache", type=str, default=None,
+                   choices=["auto", "int8"])
+    p.add_argument("--int8_weights", type=int, default=None)
+    p.add_argument("--int8_decode", action="store_true",
+                   help="calibrated int8 VQ-decoder + vocoder convs (not "
+                        "ported yet: refused)")
+    p.add_argument("--override", type=str, default="")
+    p.add_argument("--draft_experiment", type=str, default=None,
+                   help="speculative decoding: run name of a smaller GPT "
+                        "draft (exact target distribution, lower latency)")
+    p.add_argument("--draft_resume", type=str, default="best")
+    p.add_argument("--draft_override", type=str, default="")
+    p.add_argument("--draft_random", type=str, default="",
+                   help="random-init draft config (mechanics smoke)")
+    p.add_argument("--gamma", type=int, default=4)
+    p.add_argument("--max_queue", type=int, default=16,
+                   help="bounded request queue: requests beyond this many "
+                        "in flight get 503 + Retry-After (load shedding)")
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000,
+                   help="0 takes a free port (printed)")
+    p.add_argument("--no_warmup", action="store_true",
+                   help="skip the start-up warm-up (the first request "
+                        "pays for the capture)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device, e.g. 'cuda', 'cuda:1' or 'cpu'")
+    return p.parse_args(argv)
+
+
+def start(argv=None):
+    """Build the pipeline and the service, warm up and bind the server;
+    returns the ``ThreadingHTTPServer`` (``main`` serves it until
+    interrupted)."""
+    from .serving import GenerationService, serve
+
+    args = parse_args(argv)
+    exp, pipe = pipeline_from_args(args)
+    svc = GenerationService(
+        exp, pipe, batch=args.batch, seed=args.seed,
+        temperature=args.temperature, top_k=args.top_k,
+        top_p=args.top_p if 0.0 < args.top_p < 1.0 else None,
+        max_queue=args.max_queue)
+    if not args.no_warmup:
+        svc.warmup()
+    httpd = serve(svc, args.host, args.port)
+    host, port = httpd.server_address[:2]
+    print(f"serving on http://{host}:{port} (batch {svc.batch}, "
+          f"{pipe.device})", flush=True)
+    return httpd
+
+
+def main(argv=None):
+    httpd = start(argv)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,37 +1,49 @@
-"""Serving layer: weights -> GenerationPipeline, and a thread-safe service.
+"""Serving layer: checkpoint -> GenerationPipeline, a thread-safe service
+and the HTTP server.
 
-Counterpart of melspec_gpt_vqvae_tpu/serving.py without its HTTP server:
-``build_pipeline`` makes the pipeline from random weights (seeded) or from
-JAX parameter trees carried across by bridge.py, with the JAX package's
+Counterpart of melspec_gpt_vqvae_tpu/serving.py.  ``build_pipeline`` makes
+the pipeline from a GPT run checkpoint of the port's own ``train_gpt``
+(``lightning_logs/{experiment}-{dataset}/checkpoints/version_*``), from
+random weights (seeded) or from JAX parameter trees carried across by
+bridge.py; the frozen VQ-VAE and MelGAN come from reference-format files
+(utils/convert.py) or from random weights.  It takes the JAX package's
 defaults: on the card (the default device) the bfloat16 model dtype, an
 int8 KV cache and int8 streamed block weights (serving.py:95-102); on the
 CPU, which is used only when the caller names it, float32 and neither;
-optionally with a speculative draft.  ``GenerationService`` pads requests
-to a fixed batch, serialises generation with a lock, sheds load past a
-bounded queue, seeds each request's ``torch.Generator`` and sums the
-speculative stats of a request.
+optionally with a speculative draft, from a run checkpoint or random.
+``GenerationService`` pads requests to a fixed batch, serialises
+generation with a lock, sheds load past a bounded queue, seeds each
+request's ``torch.Generator`` and sums the speculative stats of a request.
+``serve`` puts the service behind a standard-library HTTP server with the
+JAX package's routes and bodies (serving.py:300-413 there).
 
 Not ported yet, and refused with NotImplementedError (ROADMAP queue A):
-mesh serving (A12), the int8 decode stage (A6), draft weights from a run
-checkpoint (``draft_experiment``, A3) and the HTTP server (A4).
+mesh serving (A12) and the int8 decode stage (A6).
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
+import json
+import os
 import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Mapping, Optional
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
 
 from . import bridge
 from .configs import ExperimentConfig, load_preset, parse_overrides
-from .models.gpt import DTYPES, init_gpt_params, tree_to
+from .models.gpt import DTYPES, gpt_param_template, init_gpt_params, tree_to
 from .models.vocoder import MelGANGenerator
 from .models.vqvae import VQModel
-from .pipeline import GenerationPipeline
+from .pipeline import GenerationPipeline, wav_bytes
+from .training.checkpoint import CheckpointManager
+from .utils import convert
 
 
 def random_weights(exp: ExperimentConfig, seed: int):
@@ -45,36 +57,81 @@ def random_weights(exp: ExperimentConfig, seed: int):
     return gpt, vq, voc
 
 
-def build_pipeline(dataset: str = "vas", *, init_random: bool = False,
-                   params: Optional[Mapping] = None, override: str = "",
+def _restore_gpt_params(exp: ExperimentConfig, dataset: str,
+                        experiment: str, resume: str):
+    """(GPT params, epoch) of a run checkpoint of the port
+    (``lightning_logs/{experiment}-{dataset}/checkpoints/version_*``, the
+    newest version first, ``CheckpointManager``'s fallback to earlier
+    ones kept).  ``resume`` is 'best', 'last' or a checkpoint file.  The
+    file is mapped, not read: only ``["state"]["params"]`` is touched (at
+    the VAS width 1.2 GB of a 3.6 GB train state).  The params are held to
+    ``exp.model``'s geometry; a mismatch raises the ValueError with the
+    ``--override`` hint.  Leaves are float32 CPU tensors, as saved."""
+    root = os.path.join("lightning_logs", f"{experiment}-{dataset}",
+                        "checkpoints")
+    if not os.path.isdir(root):
+        raise FileNotFoundError(
+            f"no checkpoints dir at {root} (wrong --experiment, or the run "
+            "never saved, e.g. --ckpt_every -1)")
+    versions = sorted((d for d in os.listdir(root)
+                       if d.startswith("version_")),
+                      key=lambda d: int(d.split("_")[-1]))
+    if not versions:
+        raise FileNotFoundError(f"no checkpoints under {root}")
+    ckpt = CheckpointManager(os.path.join(root, versions[-1]))
+    out = ckpt.restore(resume, template={
+        "state": {"params": gpt_param_template(exp.model)}, "epoch": 0},
+        mmap=True)
+    return out["state"]["params"], int(out["epoch"])
+
+
+def build_pipeline(dataset: str = "vas", *, experiment: Optional[str] = None,
+                   resume: str = "best", init_random: bool = False,
+                   params: Optional[Mapping] = None,
+                   vqvae_ckpt: Optional[str] = None,
+                   vocoder_ckpt: Optional[str] = None, override: str = "",
                    seed: int = 783435, segments: int = 8, chunk: int = 128,
                    kv_cache: Optional[str] = None,
                    int8_weights: Optional[int] = None, device=None,
-                   mesh_spec: str = "", draft_random: str = "",
-                   draft_override: str = "", gamma: int = 4,
+                   mesh_spec: str = "",
                    draft_experiment: Optional[str] = None,
-                   int8_decode: bool = False, graph: bool = True):
+                   draft_resume: str = "best", draft_override: str = "",
+                   draft_random: str = "", gamma: int = 4,
+                   int8_decode: bool = False, graph: bool = True,
+                   use_kernels: Optional[bool] = None):
     """Construct the GenerationPipeline on ``device``: None means the
     card, and without one this raises -- the CPU is taken only when asked
-    for with ``device="cpu"``.  Weights are random (``init_random``, from ``seed``) or
-    ``params = {"gpt": ..., "vqvae": ..., "vocoder": ...}``, the JAX
-    package's parameter trees with numpy leaves.  ``kv_cache`` is "auto",
+    for with ``device="cpu"``.
+
+    The GPT comes from exactly one of: ``experiment`` (a run checkpoint,
+    ``resume`` 'best', 'last' or a file: ``_restore_gpt_params``),
+    ``init_random`` (random weights from ``seed``) or ``params = {"gpt":
+    ..., "vqvae": ..., "vocoder": ...}``, the JAX package's parameter trees
+    with numpy leaves.  The VQ-VAE and the MelGAN come from
+    ``vqvae_ckpt`` / ``vocoder_ckpt`` (reference-format files,
+    utils/convert.py; the vocoder's geometry from its ``args.yml``), else
+    from ``params``, else random from ``seed``.  ``kv_cache`` is "auto",
     "int8" or "int4" (None: "int8" on the card, "auto" on the CPU);
     ``int8_weights`` streams int8 block weights in decode (None: on the
-    card).  A speculative draft comes from ``params["draft"]`` or, with
+    card).  A speculative draft comes from ``draft_experiment`` (its
+    checkpoint ``draft_resume``), ``params["draft"]`` or, with
     ``draft_random`` (overrides such as "n_layer=4"), random weights from
     ``seed + 1``; its config is the target's overrides plus
     ``draft_override`` and ``draft_random`` (serving.py:115-146).
     ``graph=False`` makes the pipeline decode with the eager loop instead
-    of the captured program (pipeline.py), for a comparison.
-    Returns ``(exp, pipe)``.
+    of the captured program (pipeline.py), for a comparison;
+    ``use_kernels`` is the pipeline's kernel switch (False: no kernel of
+    the port runs).  Prints where
+    each set of weights came from, as the JAX loader does.  Returns
+    ``(exp, pipe)``.
     """
-    if mesh_spec or int8_decode or draft_experiment:
-        raise NotImplementedError("mesh serving, the int8 decode stage and "
-                                  "draft weights from a run checkpoint are "
-                                  "not ported yet (ROADMAP A12, A6, A3)")
-    if init_random == (params is not None):
-        raise ValueError("pass exactly one of init_random=True or params")
+    if mesh_spec or int8_decode:
+        raise NotImplementedError("mesh serving and the int8 decode stage "
+                                  "are not ported yet (ROADMAP A12, A6)")
+    if (experiment is not None) + bool(init_random) + (params is not None) \
+            != 1:
+        raise ValueError("pass exactly one of experiment=, "
+                         "init_random=True or params=")
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError('build_pipeline: no CUDA card is visible; the '
@@ -91,44 +148,83 @@ def build_pipeline(dataset: str = "vas", *, init_random: bool = False,
                   decode_weight_dtype="int8" if int8_w else "auto")
     exp = load_preset("GPT", dataset, **parse_overrides(override))
     exp = dataclasses.replace(exp, model=exp.model.replace(**dtypes))
+
+    # --- GPT weights ------------------------------------------------------
+    vq = voc = None
     if init_random:
         gpt, vq, voc = random_weights(exp, seed)
-    else:
+        print("GPT: random init (--init_random)")
+    elif params is not None:
         gpt = bridge.gpt_params_from_jax(params["gpt"])
-        vq = bridge.load_vqvae(params["vqvae"], exp.vqvae)
-        voc = bridge.load_melgan(params["vocoder"], exp.vocoder)
+        print("GPT: JAX parameter tree")
+    else:
+        gpt, epoch = _restore_gpt_params(exp, dataset, experiment, resume)
+        print(f"GPT: restored {resume} (epoch {epoch})")
     gpt = tree_to(gpt, device=device, dtype=DTYPES[exp.model.dtype])
 
+    # --- optional speculative draft ----------------------------------------
     draft, draft_cfg = None, None
     carried = params is not None and "draft" in params
-    if draft_override and not (draft_random or carried):
-        raise ValueError("draft_override needs draft_random or "
-                         "params['draft']")
-    if draft_random or carried:
+    if draft_override and not (draft_experiment or draft_random or carried):
+        raise ValueError("draft_override needs draft_experiment, "
+                         "draft_random or params['draft']")
+    if draft_experiment or draft_random or carried:
         d_ov = {**parse_overrides(override),
                 **parse_overrides(draft_override),
                 **parse_overrides(draft_random)}
-        draft_cfg = load_preset("GPT", dataset, **d_ov).model.replace(
-            **dtypes)
+        d_exp = load_preset("GPT", dataset, **d_ov)
+        d_exp = dataclasses.replace(d_exp,
+                                    model=d_exp.model.replace(**dtypes))
+        draft_cfg = d_exp.model
         for f in ("vocab_size", "block_size", "class_size"):
             if getattr(draft_cfg, f) != getattr(exp.model, f):
                 raise ValueError(
                     f"draft {f}={getattr(draft_cfg, f)} must equal the "
                     f"target's {getattr(exp.model, f)} (the speculative "
                     "accept/reject compares the two distributions)")
-        draft = (bridge.gpt_params_from_jax(params["draft"]) if carried else
-                 init_gpt_params(draft_cfg,
-                                 torch.Generator().manual_seed(seed + 1)))
+        if draft_experiment:
+            draft, d_epoch = _restore_gpt_params(d_exp, dataset,
+                                                 draft_experiment,
+                                                 draft_resume)
+            print(f"draft GPT: restored {draft_experiment} (epoch "
+                  f"{d_epoch}, {draft_cfg.n_layer}L, gamma={gamma})")
+        elif carried:
+            draft = bridge.gpt_params_from_jax(params["draft"])
+            print(f"draft GPT: JAX parameter tree ({draft_cfg.n_layer}L, "
+                  f"gamma={gamma})")
+        else:
+            draft = init_gpt_params(draft_cfg,
+                                    torch.Generator().manual_seed(seed + 1))
+            print(f"draft GPT: random init ({draft_cfg.n_layer}L, "
+                  f"gamma={gamma})")
         draft = tree_to(draft, device=device, dtype=DTYPES[draft_cfg.dtype])
+
+    # --- frozen decoders -------------------------------------------------
+    if experiment is not None and not (vqvae_ckpt and vocoder_ckpt):
+        g = torch.Generator().manual_seed(seed)
+        vq = bridge.init_conv_net_(VQModel(exp.vqvae), g)
+        voc = bridge.init_conv_net_(MelGANGenerator(exp.vocoder), g)
+    if vqvae_ckpt:
+        vq = convert.load_vqvae_params(vqvae_ckpt, exp.vqvae)
+        print(f"VQ-VAE: {vqvae_ckpt}")
+    elif params is not None:
+        vq = bridge.load_vqvae(params["vqvae"], exp.vqvae)
+    else:
+        print("VQ-VAE: random init (pass --vqvae_ckpt for real audio)")
+    if vocoder_ckpt:
+        voc, voc_cfg = convert.load_vocoder_params(vocoder_ckpt)
+        exp = dataclasses.replace(exp, vocoder=voc_cfg)
+        print(f"vocoder: {vocoder_ckpt}")
+    elif params is not None:
+        voc = bridge.load_melgan(params["vocoder"], exp.vocoder)
+    else:
+        print("vocoder: random init (pass --vocoder_ckpt for real audio)")
+
     pipe = GenerationPipeline(exp, gpt, vq, voc, segments=segments,
                               chunk=chunk, draft_params=draft,
-                              draft_cfg=draft_cfg, gamma=gamma, graph=graph)
+                              draft_cfg=draft_cfg, gamma=gamma, graph=graph,
+                              use_kernels=use_kernels)
     return exp, pipe
-
-
-def serve(*args, **kwargs):
-    raise NotImplementedError("HTTP serving of the port is not ported yet "
-                              "(ROADMAP A4); use GenerationService directly")
 
 
 class ServiceOverloaded(RuntimeError):
@@ -220,9 +316,125 @@ class GenerationService:
         return res
 
     def warmup(self):
-        """Run one request in each sample mode before taking traffic (the
-        first calls on the card build the kernels and warm the caches)."""
+        """Run one request in each sample mode the pipeline serves before
+        taking traffic (the first calls on the card build the kernels and
+        capture the decode programs).  A pipeline that serves fewer modes
+        says so in ``sample_modes``, as the JAX package's artifact
+        pipeline does (serving.py:289-297 there)."""
         t0 = time.time()
-        for mode in (True, False):
+        for mode in getattr(self.pipe, "sample_modes", (True, False)):
             self.generate([0], sample=mode)
         print(f"warmup: {time.time() - t0:.1f}s (batch {self.batch})")
+
+
+class _Handler(BaseHTTPRequestHandler):
+    """The JAX package's routes (serving.py:300-405 there):
+    ``GET /healthz``, ``GET /generate?class=3`` (audio/wav) and ``POST
+    /generate`` with a JSON body; 400 for bad input, 404 for another path,
+    503 with ``Retry-After`` when the service sheds load."""
+
+    server_version = "melspec-gpt-vqvae-torch"
+
+    def _send(self, code: int, body: bytes, ctype: str, headers=()):
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        for name, value in headers:
+            self.send_header(name, value)
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _json(self, code: int, obj, headers=()):
+        self._send(code, json.dumps(obj).encode(), "application/json",
+                   headers)
+
+    def log_message(self, fmt, *args):   # quiet unless asked
+        if os.environ.get("SERVE_VERBOSE"):
+            super().log_message(fmt, *args)
+
+    def do_GET(self):
+        url = urlparse(self.path)
+        if url.path == "/healthz":
+            svc = self.server.service
+            return self._json(200, {
+                "status": "ok",
+                "platform": svc.pipe.device.type,
+                "model": {"n_layer": svc.exp.model.n_layer,
+                          "n_embd": svc.exp.model.n_embd,
+                          "class_size": svc.exp.model.class_size},
+                "batch": svc.batch,
+                "uptime_s": round(time.time() - svc.started, 1),
+                "requests": svc.requests,
+                "queue": {"pending": svc._pending,
+                          "max": svc.max_queue, "shed": svc.shed}})
+        if url.path == "/generate":
+            params = {k: v[-1] for k, v in parse_qs(url.query).items()}
+            if "classes" in params:
+                params["classes"] = [int(c) for c in
+                                     params["classes"].split(",")]
+            return self._generate(params)
+        return self._json(404, {"error": f"unknown path {url.path}"})
+
+    def do_POST(self):
+        url = urlparse(self.path)
+        if url.path != "/generate":
+            return self._json(404, {"error": f"unknown path {url.path}"})
+        try:
+            n = int(self.headers.get("Content-Length", 0))
+            params = json.loads(self.rfile.read(n) or b"{}")
+        except ValueError as e:    # json.JSONDecodeError is a ValueError
+            return self._json(400, {"error": f"bad JSON body: {e}"})
+        return self._generate(params)
+
+    def _generate(self, params):
+        svc = self.server.service
+        try:
+            classes = params.get("classes", [int(params.get("class", 0))])
+            if isinstance(classes, int):
+                classes = [classes]
+            num = int(params.get("num", 1))
+            if num < 1 or num * len(classes) > 64 * svc.batch:
+                raise ValueError("num out of range")
+            classes = [c for c in classes for _ in range(num)]
+            fmt = params.get("format",
+                             "wav" if len(classes) == 1 else "json")
+            if fmt == "wav" and len(classes) != 1:
+                # refused before a decode is spent on the batch
+                raise ValueError("format=wav needs exactly 1 clip")
+            det = params.get("deterministic", False)
+            if isinstance(det, str):   # the GET query form
+                det = det.lower() in ("1", "true", "yes")
+            t0 = time.time()
+            out = svc.generate(classes, temperature=params.get("temperature"),
+                               top_k=params.get("top_k"),
+                               top_p=params.get("top_p"), sample=not det,
+                               seed=params.get("seed"))
+        except ServiceOverloaded as e:
+            # shed load rather than queue without bound: clients back off
+            return self._json(503, {"error": str(e)},
+                              headers=[("Retry-After", "2")])
+        except (ValueError, TypeError) as e:
+            return self._json(400, {"error": str(e)})
+        sr = svc.exp.data.sample_rate
+        if fmt == "wav":
+            return self._send(200, wav_bytes(out["wavs"][0], sr),
+                              "audio/wav")
+        clips = [{"class": int(c),
+                  "wav_base64": base64.b64encode(
+                      wav_bytes(out["wavs"][i], sr)).decode()}
+                 for i, c in enumerate(classes)]
+        body = {"clips": clips, "sample_rate": sr,
+                "seconds": round(time.time() - t0, 3)}
+        if out.get("spec_stats"):
+            body["speculative"] = out["spec_stats"]
+        return self._json(200, body)
+
+
+def serve(service: GenerationService, host: str = "127.0.0.1",
+          port: int = 8000) -> ThreadingHTTPServer:
+    """The HTTP server over ``service`` (returned; call ``serve_forever``
+    to answer requests).  Port 0 takes a free port: read it from
+    ``server_address``."""
+    httpd = ThreadingHTTPServer((host, port), _Handler)
+    httpd.service = service
+    return httpd

@@ -141,12 +141,16 @@ class CheckpointManager:
             f"0/-1 may only ever write 'last')")
 
     def restore(self, which: str = "last",
-                template: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+                template: Optional[Dict[str, Any]] = None,
+                mmap: bool = False) -> Dict[str, Any]:
         """Load ``which`` ('last', 'best' or a checkpoint file) onto the
         CPU.  With a ``template`` (e.g. ``{"state": task.state_template(),
         "epoch": 0}``; only its shapes are read) every tensor leaf must
-        have the template's shape, else a ValueError lists the mismatches.
-        Sets
+        have the template's shape, else a ValueError lists the mismatches;
+        the template may name a part of the tree only.  ``mmap`` maps the
+        file instead of reading it: a tensor's bytes are read when it is
+        used, so a caller that needs the params alone never reads the
+        optimizer moments.  Sets
         ``restored_batch_idx`` from the resolved checkpoint's meta.json
         (only ``last`` can be mid-epoch)."""
         self.wait()
@@ -158,7 +162,8 @@ class CheckpointManager:
                 with open(mp) as f:
                     self.restored_batch_idx = int(
                         json.load(f).get("last_batch_idx", -1))
-        out = torch.load(path, map_location="cpu", weights_only=True)
+        out = torch.load(path, map_location="cpu", weights_only=True,
+                         mmap=mmap)
         if template is not None:
             bad = _shape_mismatches(template, out)
             if bad:

@@ -50,6 +50,8 @@ PORT_MODULES = [
     "melspec_gpt_vqvae_tpu_torch.models.vocoder",
     "melspec_gpt_vqvae_tpu_torch.models.vqvae",
     "melspec_gpt_vqvae_tpu_torch.pipeline",
+    "melspec_gpt_vqvae_tpu_torch.sample",
+    "melspec_gpt_vqvae_tpu_torch.serve",
     "melspec_gpt_vqvae_tpu_torch.serving",
     "melspec_gpt_vqvae_tpu_torch.train_gpt",
     "melspec_gpt_vqvae_tpu_torch.training",
@@ -60,6 +62,7 @@ PORT_MODULES = [
     "melspec_gpt_vqvae_tpu_torch.training.runner",
     "melspec_gpt_vqvae_tpu_torch.utils",
     "melspec_gpt_vqvae_tpu_torch.utils.battery",
+    "melspec_gpt_vqvae_tpu_torch.utils.convert",
     "melspec_gpt_vqvae_tpu_torch.utils.profiling",
     "melspec_gpt_vqvae_tpu_torch.configs",
     "melspec_gpt_vqvae_tpu_torch.data",
@@ -74,14 +77,16 @@ PORT_MODULES = [
 def test_port_never_imports_jax():
     """The card's machine has no JAX: importing every module of the port
     and ``chip_smoke`` (import only) in a fresh interpreter must load none
-    of jax, flax, optax or orbax, and nothing of the JAX package -- not even
+    of jax, flax, optax, orbax or yaml (the card's machine has no PyYAML
+    either), and nothing of the JAX package -- not even
     its framework-free modules -- nor the repository's ``parity_check``."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
-            "              'melspec_gpt_vqvae_tpu', 'parity_check'))\n"
+            "              'yaml', 'melspec_gpt_vqvae_tpu',\n"
+            "              'parity_check'))\n"
             "assert not bad, bad\n")
     root = str(Path(__file__).resolve().parent.parent)
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

@@ -161,13 +161,10 @@ def test_service_sheds_load_past_the_queue_bound(pipes):
 
 
 @pytest.mark.parametrize("kw", [{"mesh_spec": "data=2"},
-                                {"int8_decode": True},
-                                {"draft_experiment": "my_draft"}])
+                                {"int8_decode": True}])
 def test_build_pipeline_refuses_what_is_not_ported(kw):
     with pytest.raises(NotImplementedError):
         build_on_cpu("vas", init_random=True, **kw)
-    with pytest.raises(NotImplementedError):
-        TSV.serve()
 
 
 def build_on_cpu(*args, **kw):
