@@ -36,9 +36,9 @@
      once a layer and decode step; then a profiled window of decode steps,
      replayed and eager (launches per token, device busy ms, busy share);
    - the captured programs against the eager loop (``graph=False``): equal
-     greedy tokens and cache bytes on the int8 (full depth), int4 and bf16
-     caches, equal sampled tokens for one seed, equal tokens and stats
-     under speculative decoding at batch 1 and 8 (6- and 4-layer copies);
+     greedy tokens and cache bytes on the int8, int4 and bf16 caches,
+     equal sampled tokens for one seed, equal tokens and stats under
+     speculative decoding at batch 1 and 8 (6- and 4-layer copies);
    - the bf16 KV cache with bf16 weights (batch-8 requests);
    - the int4 KV cache (batch-8 requests, sampled top-p);
    - speculative decoding with the 24-layer target and a random 4-layer
@@ -75,6 +75,25 @@
    own; on a float32 2-layer copy with the int8 cache, the kernels against
    their plain versions step for step (logits, cache bytes), and the
    decode, vocoder and tokenize stages.
+6. (Run after the serving paths of 2.)  Exports and serves the
+   ``torch.export`` artifact, and runs the int8 decode stage, at the VAS
+   width on the card's default (int8 KV cache and weights, batch 8): two
+   ``scripts/torch_export_serving.py`` processes,
+   started with the script (their tracing is host work), write a greedy
+   and a sampled (top_k 100) artifact; phase ``export`` loads both
+   (``ArtifactPipeline``), walks every graph of the loaded programs for
+   anything but ATen / prims ops, getitem and torch's higher-order ops,
+   and holds their tokens, greedy and sampled for one seed, equal to the
+   live pipeline with ``use_kernels=False`` (the share equal to the
+   kernels' own printed), with no kernel launched; export seconds,
+   artifact bytes, load and request seconds (artifact, live with and
+   without the kernels) printed.  Phase ``artifact_http``: ``serve
+   --artifact`` on a free port, 200 and a WAV for the baked knobs, 400
+   for another top_k.  Phase ``int8_decode``: ``build_pipeline(
+   int8_decode=True)`` (calibration seconds), the float pipeline's tokens
+   for one seed, kernel B not launched, the spectrogram's SNR and the
+   vocoder's (on the same spectrogram) against the bf16 / kernel-B stage
+   >= 20 dB, the whole stage's waveform SNR and the stages' seconds.
 
 Exits non-zero, printing no result, when there is no CUDA card or any check
 fails.  The last three lines of stdout are: a JSON object of the kernels,
@@ -91,6 +110,7 @@ import json
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 import urllib.request
@@ -913,15 +933,16 @@ def reference_check(dev, exp, wav, seed):
           "codes of the 48 clips through kernel D vs the plain mel")
 
 
-def mel_codes(vq, mel, use_kernels=None):
+def mel_codes(vq, mel):
     """(codes (B, 265) in GPT order on the CPU, latent rows (B * 265, D) in
     the same order, float64 on the CPU) of a (B, 80, 860) mel, as
-    ``tokenize`` takes it from there."""
+    ``tokenize`` takes it from there (the nearest index by the caller's
+    kernel scope)."""
     with torch.inference_mode():
         lo = (mel.shape[-1] - vq.cfg.resolution) // 2
         x = (2.0 * mel[:, :, lo:lo + vq.cfg.resolution] - 1.0)[:, None]
         z = vq.quant_conv(vq.encoder(x.to(vq.quant_conv.weight.dtype)))
-        grid = vq.quantize.nearest_index(z, use_kernels)
+        grid = vq.quantize.nearest_index(z)
     codes = grid.transpose(1, 2).reshape(grid.shape[0], -1).cpu()
     # (B, D, h, w) -> rows in tokenize's time-major order
     return codes, z.permute(0, 3, 2, 1).reshape(-1, z.shape[1]).double().cpu()
@@ -1221,10 +1242,11 @@ def captured_vs_eager(dev, pipe, seed):
     """The captured decode programs against the eager loop on the card,
     265 steps at batch 8 and the full VAS width: tokens must be equal, and
     after a plain decode the two caches byte for byte.  The card's default
-    (int8 cache and weights) runs at its full depth through ``pipe``; the
-    int4 and bf16 caches, a sampled request and speculative decoding at
-    batch 1 and 8 run on 6-layer (speculative: 4-layer target, 1-layer
-    draft) copies, since the eager loop is what costs the seconds here."""
+    (int8 cache and weights, greedy and sampled), the int4 and bf16 caches
+    and speculative decoding at batch 1 and 8 run on 6-layer (speculative:
+    4-layer target, 1-layer draft) copies of ``pipe``'s configuration,
+    since the eager loop is what costs the seconds here (the 24-layer
+    default ran here until the export phases took the run past 300 s)."""
     from melspec_gpt_vqvae_tpu_torch.models import decode_graph
     from melspec_gpt_vqvae_tpu_torch.models import gpt as G
     from melspec_gpt_vqvae_tpu_torch.models.speculative import \
@@ -1265,11 +1287,8 @@ def captured_vs_eager(dev, pipe, seed):
               if cfg.decode_weight_dtype == "int8" else None)
         return params, wq
 
-    m = pipe.gcfg
-    plain(f"greedy, {m.n_layer} layers, {m.cache_dtype} cache, "
-          f"{m.decode_weight_dtype} weights", pipe.gpt_params, m,
-          pipe.block_weights.get(pipe.gpt_params["blocks"]), 8, False)
-    for cache, w, sample, skw in (("int4", "int8", False, {}),
+    for cache, w, sample, skw in (("int8", "int8", False, {}),
+                                  ("int4", "int8", False, {}),
                                   ("auto", "auto", False, {}),
                                   ("int8", "int8", True, {"top_k": 100})):
         cfg = cfg_of(6, cache, w)
@@ -1378,6 +1397,7 @@ def lockstep_on_off(params, cfg, cond, toks):
     plain versions bit for bit, and so does E's write); every later value
     follows an attention output that E and its plain version round
     differently."""
+    from melspec_gpt_vqvae_tpu_torch import _build
     from melspec_gpt_vqvae_tpu_torch.models import gpt as G
     b, steps = toks.shape
     with torch.inference_mode():
@@ -1389,8 +1409,9 @@ def lockstep_on_off(params, cfg, cond, toks):
         out, worst, differ = [logits], 0.0, 0
         for i in range(steps - 1):
             copy_ = {k: v.clone() for k, v in cache.items()}
-            l_off, _ = G.gpt_decode_step(params, cfg, copy_, toks[:, i], wq,
-                                         use_kernels=False)
+            with _build.kernels(False):
+                l_off, _ = G.gpt_decode_step(params, cfg, copy_, toks[:, i],
+                                             wq)
             logits, cache = G.gpt_decode_step(params, cfg, cache, toks[:, i],
                                               wq)
             worst = max(worst, max_err(logits, l_off))
@@ -1400,23 +1421,24 @@ def lockstep_on_off(params, cfg, cond, toks):
     return worst, differ, torch.stack(out, 1).float().cpu()
 
 
-def free_running(params, cfg, cond, toks, use_kernels):
+def free_running(params, cfg, cond, toks, switch):
     """Teacher-forced logits (B, S, V) on the CPU of one device-position
-    run with its own cache (``use_kernels`` None: the kernels)."""
+    run with its own cache, inside ``_build.kernels(switch)`` (None: the
+    kernels)."""
+    from melspec_gpt_vqvae_tpu_torch import _build
     from melspec_gpt_vqvae_tpu_torch.models import gpt as G
     b, steps = toks.shape
-    with torch.inference_mode():
+    with torch.inference_mode(), _build.kernels(switch):
         cache = G.init_kv_cache(cfg, b, max_len=steps + 1,
                                 device=cond.device)
-        logits, cache = G.gpt_prefill(params, cfg, cache, None, cond,
-                                      use_kernels)
+        logits, cache = G.gpt_prefill(params, cfg, cache, None, cond)
         cache["len"] = torch.tensor([cache["len"]], device=cond.device)
         wq = (G.quantize_block_weights(params["blocks"])
               if cfg.decode_weight_dtype == "int8" else None)
         out = [logits]
         for i in range(steps - 1):
             logits, cache = G.gpt_decode_step(params, cfg, cache, toks[:, i],
-                                              wq, use_kernels)
+                                              wq)
             out.append(logits)
     return torch.stack(out, 1).float().cpu()
 
@@ -1424,7 +1446,8 @@ def free_running(params, cfg, cond, toks, use_kernels):
 def kernels_on_off_f32(dev, exp, wav, seed):
     """A float32 2-layer copy at the VAS widths with the int8 cache and
     int8 weights (kernels A, B, C, D, E and the int8 product's on the
-    path), the kernels against ``use_kernels=False`` on the same weights.
+    path), the kernels against a pipeline with ``use_kernels=False`` on
+    the same weights.
 
     With float32 weights and the int8 cache (E on the path) the
     teacher-forced logits of the two agree within 1e-3.  With int8
@@ -1437,6 +1460,7 @@ def kernels_on_off_f32(dev, exp, wav, seed):
     in ``quantised_reference_check``.  That bound is the plain path's
     distance from float32 (no margin), which the kernels do not touch: a
     wrong kernel cannot widen it."""
+    from melspec_gpt_vqvae_tpu_torch import _build
     from melspec_gpt_vqvae_tpu_torch.models import gpt as G
     from melspec_gpt_vqvae_tpu_torch.ops.mel_kernel import \
         waveform_to_mel_fused
@@ -1467,10 +1491,10 @@ def kernels_on_off_f32(dev, exp, wav, seed):
     # the codes through tokenize itself, the latents that explain a
     # differing code through mel_codes (the same arithmetic, spelled out)
     k_codes = tokenize(on.vq, wav, exp.mel).cpu()
-    p_codes = tokenize(off.vq, wav, exp.mel, use_kernels=False).cpu()
+    p_codes = off.tokenize(wav, exp.mel).cpu()
     k_lat = mel_codes(on.vq, waveform_to_mel_fused(wav, exp.mel))[1]
-    p_lat = mel_codes(off.vq, waveform_to_mel_fused(
-        wav, exp.mel, use_kernels=False), use_kernels=False)[1]
+    with _build.kernels(False):
+        p_lat = mel_codes(off.vq, waveform_to_mel_fused(wav, exp.mel))[1]
     res = {"int8_cache_f32_weights_logits": e_err,
            "stepwise_logits": step_err,
            "steps_first_layer_slot_differs": differ,
@@ -1508,7 +1532,7 @@ def served_checkpoint_check(dev, wav, wrappers, zero, decode_launches,
     the HTTP path (24 x 265 a batch-8 call, plus the warm-up runs)."""
     from melspec_gpt_vqvae_tpu_torch import sample as sample_cli
     from melspec_gpt_vqvae_tpu_torch.pipeline import (GenerationPipeline,
-                                                     tokenize, wav_bytes)
+                                                     wav_bytes)
     from melspec_gpt_vqvae_tpu_torch.serving import (GenerationService,
                                                     build_pipeline, serve)
     from melspec_gpt_vqvae_tpu_torch.training.checkpoint import \
@@ -1586,8 +1610,7 @@ def served_checkpoint_check(dev, wav, wrappers, zero, decode_launches,
     svc_on = GenerationService(exp, pipe, batch=8, seed=1)
     svc_off = GenerationService(exp, off, batch=8, seed=1)
     zero()
-    codes_off, t_tok = wall(lambda: tokenize(off.vq, wav, exp.mel,
-                                             use_kernels=False))
+    codes_off, t_tok = wall(lambda: off.tokenize(wav))
     _, t_off_first = wall(lambda: svc_off.generate(list(range(8))))
     out_off, t_off = wall(lambda: svc_off.generate(list(range(8))))
     launched = {k: w.launches for k, w in wrappers.items()}
@@ -1638,6 +1661,241 @@ def served_checkpoint_check(dev, wav, wrappers, zero, decode_launches,
     del dpipe
     torch.cuda.empty_cache()
     return e_http
+
+
+# ---------------------------------------------------------------------------
+# 6. the export artifact and the int8 decode stage
+# ---------------------------------------------------------------------------
+
+EXPORT_DIR = Path("build") / "chip_smoke_export"
+# artifact -> the flags of scripts/torch_export_serving.py beside
+# --init_random --batch 8 (the script's seed is chip_smoke's)
+EXPORTS = {"greedy": ["--deterministic"], "sampled": ["--top_k", "100"]}
+SNR_GATE_DB = 20.0
+
+
+def start_exports():
+    """Start scripts/torch_export_serving.py, one process an artifact, for
+    the card's default pipeline at the VAS width (random weights of
+    chip_smoke's seed): batch 8, greedy and sampled top_k 100, traced on
+    the card.  Tracing is host work, so it runs beside the phases before
+    ``export_check``.  Returns {name: (process, artifact, log)}."""
+    EXPORT_DIR.mkdir(parents=True, exist_ok=True)
+    script = Path(__file__).resolve().parent / "scripts" / \
+        "torch_export_serving.py"
+    procs = {}
+    for name, flags in EXPORTS.items():
+        path, log = EXPORT_DIR / f"{name}.pt2", EXPORT_DIR / f"{name}.log"
+        with open(log, "w") as out:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, str(script), "--init_random", "--batch", "8",
+                 "--out", str(path), *flags], stdout=out,
+                stderr=subprocess.STDOUT), path, log)
+    return procs
+
+
+def stop_exports(procs):
+    for proc, _, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def snr_db(ref, x):
+    ref, x = np.asarray(ref, np.float64), np.asarray(x, np.float64)
+    return float(10 * np.log10(np.mean(ref ** 2)
+                               / max(float(np.mean((x - ref) ** 2)), 1e-20)))
+
+
+def export_check(dev, procs, wrappers, zero):
+    """The two artifacts the export processes wrote, loaded and served
+    through ``ArtifactPipeline`` beside the live pipeline on the same
+    weights: greedy tokens and sampled tokens for one seed equal to the
+    live pipeline with ``use_kernels=False`` (both run the same ATen ops
+    on this card: export.py's guarantee, as the JAX package's), the share
+    equal to the kernels' own printed; every graph of the loaded programs
+    holds only ATen / prims ops, getitem and torch's higher-order ops, and
+    a request launches no kernel of the port.  Returns the live pipeline."""
+    from melspec_gpt_vqvae_tpu_torch import export as X
+    from melspec_gpt_vqvae_tpu_torch.pipeline import GenerationPipeline
+    from melspec_gpt_vqvae_tpu_torch.serving import build_pipeline
+    summaries, t0 = {}, time.perf_counter()
+    for name, (proc, path, log) in procs.items():
+        rc = proc.wait(timeout=900)
+        text = log.read_text()
+        check(rc == 0, f"export {name}: exit {rc}:\n{text[-4000:]}")
+        summaries[name] = json.loads(text.strip().splitlines()[-1])
+    print(f"  waited {time.perf_counter() - t0:.1f} s here for the export "
+          f"processes")
+    exp, pipe = build_pipeline("vas", init_random=True, seed=783435,
+                               device=dev)
+    off = GenerationPipeline(exp, pipe.gpt_params, pipe.vq, pipe.melgan,
+                             use_kernels=False)
+    cls = list(range(8))
+    for name, sample in (("greedy", False), ("sampled", True)):
+        s = summaries[name]
+        check(s["device"] == "cuda" and s["batch"] == 8
+              and s["sample"] == sample, f"export {name}: sidecar {s}")
+        apipe, t_load = wall(lambda: X.ArtifactPipeline.from_file(
+            str(procs[name][1]), pipe))
+        graphs = X.check_kernel_free(apipe.exported)
+        kw = dict(temperature=1.0, top_k=100, top_p=None, sample=sample)
+
+        def request(p):
+            return wall(lambda: p.generate(
+                cls, torch.Generator(device=dev).manual_seed(1234), **kw))
+        zero()
+        art, t_art = request(apipe)
+        launched = {k: w.launches for k, w in wrappers.items()}
+        request(off)                      # its capture
+        ref_off, t_off = request(off)
+        request(pipe)
+        ref_on, t_on = request(pipe)
+        check_request(art, 8)
+        res = {"export_s": round(s["export_seconds"], 2),
+               "artifact_bytes": s["bytes"], "graphs": graphs,
+               "load_s": round(t_load, 3),
+               "request_s": {"artifact": round(t_art, 3),
+                             "live_kernels_off": round(t_off, 3),
+                             "live_kernels_on": round(t_on, 3)},
+               "launches_in_artifact_requests": launched,
+               "tokens_equal_live_kernels_off": bool(np.array_equal(
+                   art["tokens"], ref_off["tokens"])),
+               "specs_max_err_vs_off": max_err(
+                   torch.from_numpy(art["specs"]),
+                   torch.from_numpy(ref_off["specs"])),
+               "wavs_max_err_vs_off": max_err(
+                   torch.from_numpy(art["wavs"]),
+                   torch.from_numpy(ref_off["wavs"])),
+               "token_share_equal_live_kernels_on": float(
+                   (art["tokens"] == ref_on["tokens"]).mean())}
+        print(f"  artifact {name} (batch 8{'' if sample else ', greedy'}"
+              f"{', sampled top_k=100, seed 1234' if sample else ''}): "
+              f"{json.dumps(res)}")
+        check(res["tokens_equal_live_kernels_off"],
+              f"artifact {name}: tokens differ from the live pipeline with "
+              "use_kernels=False")
+        check(not any(launched.values()),
+              f"artifact {name}: a request launched kernels {launched}")
+        # the same tokens through the same bf16 conv ops: bound at six
+        # bfloat16 steps at 1.0
+        check(max(res["specs_max_err_vs_off"], res["wavs_max_err_vs_off"])
+              <= 0.05, f"artifact {name}: decode vs the live pipeline")
+        del apipe
+    del off
+    torch.cuda.empty_cache()
+    return pipe
+
+
+def artifact_http_check():
+    """``python -m melspec_gpt_vqvae_tpu_torch.serve --init_random
+    --artifact sampled.pt2 --no_warmup`` on a free port: the batch and
+    knobs from the sidecar, one sample mode; a request with the baked
+    knobs gets 200 and a WAV, one with another top_k 400.  (The warm-up
+    would be one more artifact request; that it runs the baked mode only
+    is held on the CPU, tests/test_torch_port_export.py.)"""
+    import urllib.error
+
+    from melspec_gpt_vqvae_tpu_torch import serve as serve_cli
+    path = str(EXPORT_DIR / "sampled.pt2")
+    httpd, t_start = wall(lambda: serve_cli.start([
+        "--init_random", "--artifact", path, "--port", "0",
+        "--no_warmup"]))
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        svc = httpd.service
+        check(svc.batch == 8 and svc.pipe.sample_modes == (True,)
+              and svc.defaults["top_k"] == 100,
+              f"serve --artifact: batch {svc.batch}, modes "
+              f"{svc.pipe.sample_modes}, defaults {svc.defaults}")
+        health = json.loads(http(url + "/healthz"))
+        blob, t_get = wall(lambda: http(url + "/generate?class=3&seed=7"))
+        pcm, rate = read_pcm(blob)
+        try:
+            http(url + "/generate?class=3&top_k=5")
+            code, err = 200, ""
+        except urllib.error.HTTPError as e:
+            code, err = e.code, json.loads(e.read())["error"]
+        print(f"  serve --artifact on {url}: start (pipeline, load) "
+              f"{t_start:.2f} s; /healthz platform "
+              f"{health['platform']}, batch {health['batch']}; GET "
+              f"/generate?class=3 {t_get:.2f} s, {pcm.shape[0]} samples at "
+              f"{rate} Hz; top_k=5: {code} ({err[:80]})")
+        check(health["platform"] == "cuda" and health["batch"] == 8,
+              f"/healthz {health}")
+        check(pcm.shape == (848 * 256,) and rate == 22050,
+              f"GET /generate from the artifact: {pcm.shape} at {rate} Hz")
+        check(code == 400 and "re-export" in err,
+              f"another top_k: {code} {err}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    del httpd
+    torch.cuda.empty_cache()
+
+
+def int8_decode_check(dev, pipe, wrappers, zero):
+    """``build_pipeline(int8_decode=True)`` on the weights of ``pipe`` (the
+    card's default): its calibration's seconds; a batch-8 request's tokens
+    equal to ``pipe``'s for one seed (the stage runs after them, as in JAX
+    tests/test_quantized.py:236-257); kernel B not launched (the int8
+    stage replaces it); the stages' SNR against the bf16 / kernel-B stage
+    on the same tokens at or above SNR_GATE_DB, the JAX package's gate for
+    reference-scale random weights: scripts/int8_quality.py:222-227 gates
+    the spectrogram at 20 dB, and JAX tests/test_quantized.py holds the
+    vocoder to the same 20 dB on the float spectrogram, which is how the
+    waveform is held here; the waveform of the whole int8 stage (the int8
+    spectrogram through the int8 vocoder) is printed, as int8_quality.py
+    prints it, not gated; and the vq_decode and vocoder stage seconds of
+    both on the same tokens."""
+    from melspec_gpt_vqvae_tpu_torch.serving import build_pipeline
+    (_, qpipe), t_build = wall(lambda: build_pipeline(
+        "vas", init_random=True, seed=783435, device=dev, int8_decode=True))
+    cls = list(range(8))
+
+    def request(p):
+        return p.generate(cls, torch.Generator(device=dev).manual_seed(99),
+                          temperature=1.0, top_k=100)
+    zero()
+    out_q = request(qpipe)
+    b_launches = wrappers["vocoder_stack"].launches
+    out_f = request(pipe)
+    check_request(out_q, 8)
+    toks = torch.from_numpy(out_f["tokens"]).to(dev).long()
+    stages, specs = {}, {}
+    for name, p in (("bf16_kernel_b", pipe), ("int8", qpipe)):
+        p.vocode(p.decode_specs(toks))          # cuDNN plans, first calls
+        specs[name], t_dec = wall(lambda: p.decode_specs(toks))
+        _, t_voc = wall(lambda: p.vocode(specs[name]))
+        stages[name] = {"vq_decode_s": round(t_dec, 4),
+                        "vocoder_s": round(t_voc, 4)}
+    # the vocoders on the same (bf16 stage's) spectrogram
+    ref = specs["bf16_kernel_b"]
+    wav_f, wav_q = pipe.vocode(ref), qpipe.vocode(ref)
+    res = {"build_s": round(t_build, 2),
+           "calibrate_s": round(qpipe.calibrate_seconds, 2),
+           "quantised_convs": len(qpipe.qstate["w8"]),
+           "tokens_equal": bool(np.array_equal(out_q["tokens"],
+                                               out_f["tokens"])),
+           "kernel_b_launches": b_launches,
+           "spec_snr_db": round(snr_db(out_f["specs"], out_q["specs"]), 2),
+           "vocoder_wav_snr_db": round(snr_db(wav_f.float().cpu(),
+                                              wav_q.float().cpu()), 2),
+           "stage_wav_snr_db": round(snr_db(out_f["wavs"], out_q["wavs"]),
+                                     2),
+           "stage_seconds_batch8": stages}
+    print(f"  int8 decode stage (VAS width, batch 8, sampled top_k=100, "
+          f"seed 99): {json.dumps(res)} (gate: spec_snr_db and "
+          f"vocoder_wav_snr_db >= {SNR_GATE_DB} dB)")
+    check(res["tokens_equal"], "int8_decode: tokens differ from the float "
+          "pipeline's")
+    check(b_launches == 0, "int8_decode: kernel B launched")
+    check(min(res["spec_snr_db"], res["vocoder_wav_snr_db"]) >= SNR_GATE_DB,
+          "int8_decode: SNR against the bf16 stage below the gate")
+    del qpipe
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1996,6 +2254,15 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs "
                          "an NVIDIA card")
+    procs = start_exports()
+    try:
+        run(procs)
+    finally:
+        stop_exports(procs)
+
+
+def run(procs):
+    """The phases, with the export processes running from the start."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2170,6 +2437,16 @@ def main():
                         rounds * 4 * (5 * DRAFT_LAYERS + SPEC_LAYERS))
     check(c["attention"] > 0 and c["vocoder_stack"] > 0,
           "speculative path kernels")
+    del pipe
+    torch.cuda.empty_cache()
+
+    phase("export", "torch.export artifacts (VAS width, batch 8, int8 KV "
+          "cache and weights) against the live pipeline:")
+    pipe = export_check(dev, procs, wrappers, zero)
+    phase("artifact_http", "serve --artifact over HTTP:")
+    artifact_http_check()
+    phase("int8_decode", "the int8 decode stage (VAS width, batch 8):")
+    int8_decode_check(dev, pipe, wrappers, zero)
     del pipe
     torch.cuda.empty_cache()
 

@@ -13,16 +13,20 @@ out like it so each module's counterpart has the same name:
   - ``models/``  GPT (functional, KV-cached decode; on the card the decode
                  loop's body is a captured CUDA graph,
                  ``models/decode_graph.py``), VQ-VAE and MelGAN
-                 ``nn.Module``s;
+                 ``nn.Module``s, the int8 decode stage's mirrors
+                 (``models/quantized.py``, ``ops/quant.py``);
   - ``pipeline.py``, ``serving.py``  the generation round trip;
+  - ``export.py``  the ``torch.export`` serving artifact;
   - ``training/``, ``train_gpt.py``  GPT-class training and its CLI;
   - ``configs.py``, ``data/``, ``utils/battery.py``  the port's own copies
                  of the JAX package's framework-free modules;
   - ``bridge.py``  JAX parameter trees -> the port, and random inits;
-  - ``_build.py``  nvcc build of ``csrc/*.cu`` and the ctypes binding.
+  - ``_build.py``  nvcc build of ``csrc/*.cu``, the ctypes binding and the
+                 kernel switch's scope (``_build.kernels``).
 
 Every kernel wrapper takes its plain PyTorch version for CPU tensors and
-launches its kernel (or raises) for CUDA tensors, and counts its launches
+launches its kernel (or raises) for CUDA tensors, unless the enclosing
+``_build.kernels`` scope turns the kernels off, and counts its launches
 in a ``launches`` attribute.  The package imports torch, never JAX and
 nothing of the JAX package: what it needs of that package's framework-free
 modules it keeps as its own copy, and ``bridge.config_from_jax`` turns a

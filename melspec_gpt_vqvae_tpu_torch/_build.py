@@ -16,6 +16,8 @@ runs and ``torch.cuda.synchronize()`` would not report it.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -23,6 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -133,17 +136,47 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
-def use_kernel(use_kernels, *tensors: torch.Tensor) -> bool:
+_KERNELS: contextvars.ContextVar = contextvars.ContextVar(
+    "msgv_kernels", default=None)
+
+
+@contextlib.contextmanager
+def kernels(enabled: Optional[bool]):
+    """Scope of the kernel switch that every wrapper reads
+    (``use_kernel``): None takes each kernel for CUDA tensors and the
+    plain version for CPU tensors, False the plain version on either
+    device, True the kernel (CPU tensors then raise).  A context variable,
+    so a scope entered in one thread is not seen by another (the HTTP
+    server's handler threads each call a pipeline)."""
+    if enabled not in (None, False, True):
+        raise ValueError(f"kernels(enabled={enabled!r}): expected None, "
+                         "False or True")
+    token = _KERNELS.set(enabled)
+    try:
+        yield
+    finally:
+        _KERNELS.reset(token)
+
+
+def kernel_setting() -> Optional[bool]:
+    """The switch of the scope the caller is in (None outside any): what a
+    captured program bakes in, so it is part of every capture's key."""
+    return _KERNELS.get()
+
+
+def use_kernel(*tensors: torch.Tensor) -> bool:
     """Whether a wrapper launches its kernel on ``tensors``, by the
-    caller's switch: None takes the kernel for CUDA tensors and the plain
-    PyTorch version for CPU tensors (``on_cpu``); False takes the plain
-    version on either device; True takes the kernel, and raises for CPU
-    tensors, where there is none.  Only the caller turns a kernel off:
-    a kernel that fails to build or launch raises."""
+    switch of the enclosing ``kernels`` scope: None takes the kernel for
+    CUDA tensors and the plain PyTorch version for CPU tensors
+    (``on_cpu``); False takes the plain version on either device; True
+    takes the kernel, and raises for CPU tensors, where there is none.
+    Only the caller turns a kernel off: a kernel that fails to build or
+    launch raises."""
     cpu = on_cpu(*tensors)
-    if use_kernels is False:
+    setting = _KERNELS.get()
+    if setting is False:
         return False
-    if cpu and use_kernels:
+    if cpu and setting:
         raise ValueError("use_kernels=True: the port's kernels run on the "
                          "card only, and these tensors lie on the CPU")
     return not cpu

@@ -22,8 +22,8 @@ token and the decode step that follows it -- is recorded once in a
     each counted kernel one run of the body holds and adds them to the
     wrappers' ``launches`` on every replay.  The warm-up runs launch for
     real and count as such (``DecodeGraphs.warmup_launches`` says how many);
-    a body built with the kernels off (``use_kernels=False``) is captured
-    all the same, and its capture raises if it launched a counted kernel;
+    a body built inside ``_build.kernels(False)`` is captured all the same,
+    and its capture raises if it launched a counted kernel;
   * ``DecodeGraphs`` keeps the captured sessions (buffers + programs) of a
     few request shapes across requests, the oldest evicted first.  A
     session's buffers are shared by its replays, so it is not re-entrant:
@@ -45,6 +45,7 @@ from typing import Callable, Dict, Hashable, Optional
 
 import torch
 
+from .. import _build
 from ..ops import decode_attention as _da
 from ..ops import int8_linear as _il
 
@@ -79,23 +80,24 @@ class Program:
     stream of that run: it puts the buffers into a state the body can run
     from (a position inside the cache).  ``launches`` is what one replay
     adds to the wrappers' counts; ``warmup_launches`` what the warm-up
-    runs launched.  ``use_kernels`` is the switch the body was built with:
-    with False, a counted kernel launched in the warm-up or the capture
-    raises."""
+    runs launched.  The body is built and captured inside the caller's
+    ``_build.kernels`` scope, whose switch the capture bakes in (it is
+    ``kernels``): with False, a counted kernel launched in the warm-up or
+    the capture raises."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device,
-                 reset: Optional[Callable[[], None]] = None, pool=None,
-                 use_kernels: Optional[bool] = None):
+                 reset: Optional[Callable[[], None]] = None, pool=None):
         self.fn = fn
+        self.kernels = _build.kernel_setting()
         self.graph = None
         self.launches: Dict[str, int] = {}
         self.warmup_launches: Dict[str, int] = {}
         if device.type == "cuda":
             self._capture(device, reset or (lambda: None), pool)
-        if use_kernels is False and (self.launches
-                                     or any(self.warmup_launches.values())):
+        if self.kernels is False and (self.launches
+                                      or any(self.warmup_launches.values())):
             raise RuntimeError(
-                f"a decode body built with use_kernels=False launched "
+                f"a decode body built with the kernels off launched "
                 f"kernels: {self.warmup_launches} in warm-up, "
                 f"{self.launches} captured")
 

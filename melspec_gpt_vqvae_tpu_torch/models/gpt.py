@@ -41,6 +41,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import _build
 from ..configs import GPTConfig
 
 from ..ops import decode_attention as _da
@@ -51,6 +52,7 @@ from ..ops.decode_attention import quantize_kv4 as _quantize_kv4
 from ..ops.decode_attention import true_div as _div
 from ..ops.decode_attention import unpack4 as _unpack4  # noqa: F401
 from ..ops.flash_attention import flash_attention, make_dropout_mask
+from ..ops.quant import int_matmul
 from ..ops.sampling import sample_logits
 from . import decode_graph
 
@@ -190,11 +192,11 @@ def _qkv(x, p, cfg):
     return (_split_heads(a, cfg.n_head) for a in qkv.chunk(3, dim=-1))
 
 
-def _attn_block(x, p, cfg, use_kernels=None):
+def _attn_block(x, p, cfg):
     """Pre-LN attention half of an inference block; returns (x', k, v)
     with k, v of layout (B, H, T, hd)."""
     q, k, v = _qkv(x, p, cfg)
-    res = attend(q, k, v, cfg.n_unmasked, use_kernels=use_kernels)
+    res = attend(q, k, v, cfg.n_unmasked)
     y = _merge_heads(res) @ p["attn_proj"]["w"] + p["attn_proj"]["b"]
     return x + y, k, v
 
@@ -297,23 +299,26 @@ def init_kv_cache(cfg: GPTConfig, batch: int, max_len: Optional[int] = None,
             "len": 0}
 
 
+def _cache_rows(cfg: GPTConfig, k: torch.Tensor, v: torch.Tensor) -> Dict:
+    """(B, H, c, hd) keys and values as the cache stores them, by cache
+    name: the model dtype, or for an int8 / int4 cache the values from the
+    float32 scale and the scale in bfloat16 (gpt.py:401-414, 501-516)."""
+    if cfg.cache_dtype not in ("int8", "int4"):
+        return {"k": k, "v": v}
+    quant = _quantize_kv4 if cfg.cache_dtype == "int4" else _quantize_kv
+    (qk, sk), (qv, sv) = quant(k), quant(v)
+    return {"k": qk, "v": qv, "k_scale": sk.to(torch.bfloat16),
+            "v_scale": sv.to(torch.bfloat16)}
+
+
 def _write_kv(cache: Dict, cfg: GPTConfig, l: int, pos,
               k: torch.Tensor, v: torch.Tensor) -> None:
-    """Write (B, H, c, hd) keys and values into layer ``l`` of the cache
-    at positions pos .. pos + c - 1, quantising them for an int8 / int4
-    cache: the values from the float32 scale, the scale stored in
-    bfloat16 (gpt.py:401-414, 501-516).  ``pos`` is a Python int (a slice
-    assignment) or a one-element int64 tensor on the cache's device (an
-    ``index_copy_`` along the position axis, which a captured program can
-    replay at any position)."""
-    quantised = cfg.cache_dtype in ("int8", "int4")
-    if quantised:
-        quant = _quantize_kv4 if cfg.cache_dtype == "int4" else _quantize_kv
-        (qk, sk), (qv, sv) = quant(k), quant(v)
-        rows = {"k": qk, "v": qv, "k_scale": sk.to(torch.bfloat16),
-                "v_scale": sv.to(torch.bfloat16)}
-    else:
-        rows = {"k": k, "v": v}
+    """Write (B, H, c, hd) keys and values (``_cache_rows``) into layer
+    ``l`` of the cache at positions pos .. pos + c - 1.  ``pos`` is a
+    Python int (a slice assignment) or a one-element int64 tensor on the
+    cache's device (an ``index_copy_`` along the position axis, which a
+    captured program can replay at any position)."""
+    rows = _cache_rows(cfg, k, v)
     if isinstance(pos, torch.Tensor):
         idx = pos + torch.arange(k.shape[2], device=pos.device)
         for name, x in rows.items():
@@ -326,8 +331,7 @@ def _write_kv(cache: Dict, cfg: GPTConfig, l: int, pos,
 
 def gpt_prefill(params: Params, cfg: GPTConfig, cache: Dict,
                 idx: Optional[torch.Tensor],
-                cond_emb: Optional[torch.Tensor] = None,
-                use_kernels: Optional[bool] = None
+                cond_emb: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict]:
     """Run the prompt (cond + given tokens) once, writing its keys and
     values into ``cache``.  Returns (logits at the last position (B, out),
@@ -336,7 +340,7 @@ def gpt_prefill(params: Params, cfg: GPTConfig, cache: Dict,
     t0 = x.shape[1]
     for l in range(cfg.n_layer):
         p = _layer(params["blocks"], l)
-        x, k, v = _attn_block(x, p, cfg, use_kernels)
+        x, k, v = _attn_block(x, p, cfg)
         _write_kv(cache, cfg, l, 0, k, v)
         x = x + _mlp(_layer_norm(x, p["ln2_s"], p["ln2_b"]), p)
     cache["len"] = t0
@@ -359,17 +363,6 @@ def quantize_block_weights(blocks: Params) -> Dict:
             for name in ("attn_qkv", "attn_proj", "mlp_up", "mlp_down")}
 
 
-def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """int8 (M, K) @ int8 (K, N) -> exact int32 sums, by ``torch._int_mm``
-    (cuBLASLt on the card, oneDNN on the CPU).  cuBLASLt needs more than 16
-    rows: there the rows are zero-padded to a multiple of 8, at least 32,
-    and dropped again (zero rows are exact)."""
-    m = a.shape[0]
-    if a.is_cuda:
-        a = F.pad(a, (0, 0, 0, max(32, -(-m // 8) * 8) - m))
-    return torch._int_mm(a, b)[:m]
-
-
 def _int8_mm(x: torch.Tensor, wq: torch.Tensor,
              ws: torch.Tensor) -> torch.Tensor:
     """x (M, in) @ int8 weights (in, out) with per-row absmax activation
@@ -378,40 +371,87 @@ def _int8_mm(x: torch.Tensor, wq: torch.Tensor,
     xf = x.float()
     xs = torch.clamp_min(_div(xf.abs().amax(-1), 127.0), 1e-8)
     xq = torch.clamp(torch.round(xf / xs[:, None]), -127, 127)
-    acc = _int_matmul(xq.to(torch.int8), wq)
+    acc = int_matmul(xq.to(torch.int8), wq.t())
     return acc.float() * xs[:, None] * ws[None, :]
 
 
 def _mm(a: torch.Tensor, p: Params, pw: Optional[Dict],
-        name: str, fused: bool = False,
-        use_kernels: Optional[bool] = None) -> torch.Tensor:
+        name: str, fused: bool = False) -> torch.Tensor:
     """One block matrix product with bias: in the model dtype, or through
     the int8 weights ``pw`` of this layer (gpt.py:484-494).  ``fused``
     takes the int8 product through ops/int8_linear.py (on the card two
     kernels around the cuBLASLt product, no row padding outside them;
-    on the CPU, or with ``use_kernels=False``, the lines below, bit for
+    on the CPU, or with the kernels off, the lines below, bit for
     bit)."""
     if pw is None:
         return a @ p[name]["w"] + p[name]["b"]
     a2 = a.reshape(-1, a.shape[-1])
     if fused:
-        out = _il.int8_linear(a2, pw[name]["q"], pw[name]["s"], p[name]["b"],
-                              use_kernels=use_kernels)
+        out = _il.int8_linear(a2, pw[name]["q"], pw[name]["s"], p[name]["b"])
         return out.reshape(*a.shape[:-1], -1)
     out = _int8_mm(a2, pw[name]["q"], pw[name]["s"])
     return out.reshape(*a.shape[:-1], -1).to(a.dtype) + p[name]["b"]
 
 
+def _step_input(params: Params, cfg: GPTConfig, token: torch.Tensor,
+                pos) -> torch.Tensor:
+    """Token plus position embedding (B, D) of a decode step.  The
+    position clamps as the JAX step's dynamic_index_in_dim does
+    (speculative drafts run past the block); a device position is read by
+    an ``index_select``."""
+    if isinstance(pos, torch.Tensor):
+        pe = params["pos_emb"].index_select(
+            0, pos.clamp(max=cfg.block_size - 1))[0]
+    else:
+        pe = params["pos_emb"][min(pos, cfg.block_size - 1)]
+    return params["tok_emb"][token.long()] + pe
+
+
+def _dense_attend(q: torch.Tensor, k_l: torch.Tensor, v_l: torch.Tensor,
+                  valid: torch.Tensor, scale: float) -> torch.Tensor:
+    """One query row (B, H, 1, hd) over a model-dtype cache layer (B, H, T,
+    hd), ``valid`` (T,) the attended positions (gpt.py:545-551)."""
+    scores = (q.float() @ k_l.float().transpose(-1, -2))[:, :, 0] * scale
+    probs = torch.softmax(torch.where(valid, scores, -1e30), dim=-1)
+    return probs.to(v_l.dtype).float()[:, :, None] @ v_l.float()
+
+
+def _step_layers(params: Params, cfg: GPTConfig, x: torch.Tensor,
+                 wq: Optional[Dict], fused: bool, attend) -> torch.Tensor:
+    """The layer math of one decode step, the one copy of it that the eager
+    loop, the captured program and the exported program share: x (B, D)
+    -> logits (B, out).  ``attend(l, q, k, v)`` takes layer ``l``'s
+    (B, H, 1, hd) query, key and value, puts the key and value into the
+    cache as its caller keeps it, and returns the attention output
+    (B, H, [1,] hd); ``fused`` routes the int8 products through
+    ops/int8_linear.py (``_mm``)."""
+    b = x.shape[0]
+    for l in range(cfg.n_layer):
+        p = _layer(params["blocks"], l)
+        pw = None if wq is None else _layer(wq, l)
+        h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
+        q, k, v = (a.reshape(b, cfg.n_head, 1, cfg.head_dim)
+                   for a in _mm(h, p, pw, "attn_qkv", fused).chunk(3, -1))
+        o = attend(l, q, k, v)
+        x = x + _mm(o.reshape(b, cfg.n_embd).to(x.dtype), p, pw, "attn_proj",
+                    fused)
+        h2 = _layer_norm(x, p["ln2_s"], p["ln2_b"])
+        x = x + _mm(F.gelu(_mm(h2, p, pw, "mlp_up", fused)), p, pw,
+                    "mlp_down", fused)
+    x = _layer_norm(x, params["ln_f_s"], params["ln_f_b"])
+    return x @ params["head"]["w"]
+
+
 def gpt_decode_step(params: Params, cfg: GPTConfig, cache: Dict,
-                    token: torch.Tensor, wq: Optional[Dict] = None,
-                    use_kernels: Optional[bool] = None
+                    token: torch.Tensor, wq: Optional[Dict] = None
                     ) -> Tuple[torch.Tensor, Dict]:
     """One cached decode step.  token (B,) -> (logits (B, out), cache).
     Attention covers the positions up to the current one, as the JAX step
     masks the rest; ``wq`` are the int8 block weights of
-    ``quantize_block_weights`` (None: the model-dtype weights).
-    ``use_kernels=False`` takes the plain versions of kernel E and of the
-    int8 product's kernels (ops/), which read no host position either.
+    ``quantize_block_weights`` (None: the model-dtype weights).  With the
+    kernels off (``_build.kernels(False)``) the plain versions of kernel E
+    and of the int8 product's kernels run, which read no host position
+    either.
 
     ``cache["len"]`` a Python int is the eager step: the new slot is
     written by ``_write_kv`` at a host position, kernel E only attends.
@@ -421,58 +461,66 @@ def gpt_decode_step(params: Params, cfg: GPTConfig, cache: Dict,
     slot by ``index_copy_``, over a quantised cache kernel E quantises and
     writes the slot itself before it attends, the int8 products go
     through ops/int8_linear.py, and the position is advanced in place.
-    Both give the same logits and cache bit for bit."""
+    Both give the same logits and cache bit for bit, and the same as
+    ``gpt_decode_step_functional``: the three share ``_step_layers``."""
     pos = cache["len"]
     on_device = isinstance(pos, torch.Tensor)
-    # the position embedding index clamps as the JAX step's
-    # dynamic_index_in_dim does (speculative drafts run past the block)
-    if on_device:
-        pe = params["pos_emb"].index_select(
-            0, pos.clamp(max=cfg.block_size - 1))[0]
-    else:
-        pe = params["pos_emb"][min(pos, cfg.block_size - 1)]
-    x = params["tok_emb"][token.long()] + pe                     # (B, D)
-    b = x.shape[0]
-    max_len = cache["k"].shape[3]
     quantised = cfg.cache_dtype in ("int8", "int4")
     if not quantised:
-        valid = torch.arange(max_len, device=x.device) <= pos
+        valid = torch.arange(cache["k"].shape[3], device=token.device) <= pos
         scale = 1.0 / cfg.head_dim ** 0.5
-    for l in range(cfg.n_layer):
-        p = _layer(params["blocks"], l)
-        pw = None if wq is None else _layer(wq, l)
-        h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
-        q, k, v = (a.reshape(b, cfg.n_head, 1, cfg.head_dim)
-                   for a in _mm(h, p, pw, "attn_qkv", on_device,
-                                use_kernels).chunk(3, -1))
+    qc = ([cache[n] for n in ("k", "v", "k_scale", "v_scale")]
+          if quantised else None)
+
+    def attend(l, q, k, v):
         if quantised and on_device:
-            o = _da.decode_attend_int8(
-                q[:, :, 0], cache["k"], cache["v"], cache["k_scale"],
-                cache["v_scale"], l, pos, k_new=k[:, :, 0], v_new=v[:, :, 0],
-                use_kernels=use_kernels)
-        elif quantised:
-            _write_kv(cache, cfg, l, pos, k, v)
-            o = _da.decode_attend_int8(q[:, :, 0], cache["k"], cache["v"],
-                                       cache["k_scale"], cache["v_scale"], l,
-                                       pos, use_kernels=use_kernels)
-        else:
-            _write_kv(cache, cfg, l, pos, k, v)
-            k_l, v_l = cache["k"][l], cache["v"][l]
-            scores = (q.float() @ k_l.float().transpose(-1, -2))[:, :, 0] \
-                * scale
-            probs = torch.softmax(torch.where(valid, scores, -1e30), dim=-1)
-            o = (probs.to(v_l.dtype).float()[:, :, None] @ v_l.float())
-        x = x + _mm(o.reshape(b, cfg.n_embd).to(x.dtype), p, pw, "attn_proj",
-                    on_device, use_kernels)
-        h2 = _layer_norm(x, p["ln2_s"], p["ln2_b"])
-        x = x + _mm(F.gelu(_mm(h2, p, pw, "mlp_up", on_device, use_kernels)),
-                    p, pw, "mlp_down", on_device, use_kernels)
+            return _da.decode_attend_int8(q[:, :, 0], *qc, l, pos,
+                                          k_new=k[:, :, 0], v_new=v[:, :, 0])
+        _write_kv(cache, cfg, l, pos, k, v)
+        if quantised:
+            return _da.decode_attend_int8(q[:, :, 0], *qc, l, pos)
+        return _dense_attend(q, cache["k"][l], cache["v"][l], valid, scale)
+
+    logits = _step_layers(params, cfg, _step_input(params, cfg, token, pos),
+                          wq, on_device, attend)
     if on_device:
         pos.add_(1)
     else:
         cache["len"] = pos + 1
-    x = _layer_norm(x, params["ln_f_s"], params["ln_f_b"])
-    return x @ params["head"]["w"], cache
+    return logits, cache
+
+
+def gpt_decode_step_functional(params: Params, cfg: GPTConfig, layers: Dict,
+                               pos: torch.Tensor, token: torch.Tensor,
+                               wq: Optional[Dict] = None
+                               ) -> Tuple[torch.Tensor, Dict]:
+    """``gpt_decode_step`` at a device position, as a pure function: the
+    cache is ``layers`` (cache name -> tuple of one tensor a layer, (B, H,
+    T, ...)), and the new cache comes back beside the logits, every layer
+    a new tensor (``index_copy``, not ``index_copy_``); ``pos`` (1,) int64
+    is read, not advanced.  The body of the exported program's decode
+    ``scan`` (export.py), where no input may be written.  It calls no
+    kernel wrapper, whatever the scope: the int8 products are
+    ``_int8_mm``, the attention the plain one, which is the captured
+    step's arithmetic with the kernels off, bit for bit."""
+    quantised = cfg.cache_dtype in ("int8", "int4")
+    new = {name: list(ts) for name, ts in layers.items()}
+    if not quantised:
+        valid = torch.arange(new["k"][0].shape[2], device=token.device) <= pos
+        scale = 1.0 / cfg.head_dim ** 0.5
+
+    def attend(l, q, k, v):
+        for name, x in _cache_rows(cfg, k, v).items():
+            new[name][l] = new[name][l].index_copy(2, pos, x)
+        if quantised:
+            return _da.decode_attend_int8_xla(
+                q[:, :, 0], *(new[n][l][None] for n in
+                              ("k", "v", "k_scale", "v_scale")), 0, pos)
+        return _dense_attend(q, new["k"][l], new["v"][l], valid, scale)
+
+    logits = _step_layers(params, cfg, _step_input(params, cfg, token, pos),
+                          wq, False, attend)
+    return logits, {name: tuple(ts) for name, ts in new.items()}
 
 
 def _grow_cache(cache: Dict, new_len: int) -> Dict:
@@ -549,7 +597,7 @@ class _GenerateSession:
     must sum as the eager segmented loop does."""
 
     def __init__(self, params, cfg, wq, batch, total_len, caps, steps,
-                 sample, skw, device, use_kernels=None):
+                 sample, skw, device):
         self.device = device
         self.cache = init_kv_cache(cfg, batch, max_len=total_len,
                                    device=device)
@@ -575,8 +623,7 @@ class _GenerateSession:
                 tok = sample_logits(None, self.logits, sample=sample, u=u,
                                     **skw)
                 self.tokens.index_copy_(1, self.step, tok[:, None])
-                logits, _ = gpt_decode_step(params, cfg, cache, tok, wq,
-                                            use_kernels)
+                logits, _ = gpt_decode_step(params, cfg, cache, tok, wq)
                 self.logits.copy_(logits)
                 self.step.add_(1)
             return run
@@ -592,7 +639,7 @@ class _GenerateSession:
                 view["k"] = self.cache["k"][:, :, :, :cap]
                 view["v"] = self.cache["v"][:, :, :, :cap]
             self._by_cap[cap] = decode_graph.Program(
-                body(view), device, reset, pool, use_kernels=use_kernels)
+                body(view), device, reset, pool)
         self._any = None if not quantised else self._by_cap[total_len]
         self.programs = list(self._by_cap.values())
 
@@ -610,9 +657,12 @@ class _GenerateSession:
 
 
 def _generate_on_device(params, cfg, generator, cond_emb, given, steps,
-                        segments, sample, skw, wq, holder, use_kernels=None):
+                        segments, sample, skw, wq, holder):
     """``gpt_generate`` through a session of ``holder``: one eager prefill
-    into the session's cache, then one replay a token."""
+    into the session's cache, then one replay a token.  The session is
+    keyed by the kernel switch of the enclosing scope, which its programs
+    bake in: one captured with the kernels off is never replayed with them
+    on, nor the other way round."""
     b, p = cond_emb.shape[0], cond_emb.shape[1]
     start = p + (0 if given is None else given.shape[1])
     plan = _segment_plan(start, steps, segments)
@@ -620,17 +670,15 @@ def _generate_on_device(params, cfg, generator, cond_emb, given, steps,
     dev = cond_emb.device
     key = ("generate", decode_graph.tensors_token(params, wq), cfg, b,
            start + steps, caps, steps, sample, tuple(sorted(skw.items())),
-           str(dev), use_kernels)
+           str(dev), _build.kernel_setting())
     sess = holder.session(key, lambda: _GenerateSession(
-        params, cfg, wq, b, start + steps, caps, steps, sample, skw, dev,
-        use_kernels))
+        params, cfg, wq, b, start + steps, caps, steps, sample, skw, dev))
     for name in ("k", "v", "k_scale", "v_scale"):
         if name in sess.cache:
             sess.cache[name].zero_()
     # the prefill writes at host positions and sets a host length: hand it
     # the session's tensors under a dict of its own
-    logits, _ = gpt_prefill(params, cfg, dict(sess.cache), given, cond_emb,
-                            use_kernels)
+    logits, _ = gpt_prefill(params, cfg, dict(sess.cache), given, cond_emb)
     u = (torch.rand((steps,) + logits.shape, generator=generator,
                     device=dev) if sample else None)
     sess.begin(logits, u, start)
@@ -641,7 +689,7 @@ def _generate_on_device(params, cfg, generator, cond_emb, given, steps,
 
 
 def gpt_generate_eager(params, cfg, generator, cond_emb, given, steps,
-                       segments, sample, skw, wq, use_kernels=None):
+                       segments, sample, skw, wq):
     """``gpt_generate``'s eager loop: a Python loop of ``gpt_decode_step``
     at host positions over a cache that grows by segments.  Returns (the
     new tokens (B, steps), the cache as the last step left it)."""
@@ -649,8 +697,7 @@ def gpt_generate_eager(params, cfg, generator, cond_emb, given, steps,
     t0 = 0 if given is None else given.shape[1]
     plan = _segment_plan(p + t0, steps, segments)
     cache = init_kv_cache(cfg, b, max_len=plan[0][0], device=cond_emb.device)
-    logits, cache = gpt_prefill(params, cfg, cache, given, cond_emb,
-                                use_kernels)
+    logits, cache = gpt_prefill(params, cfg, cache, given, cond_emb)
     u = (torch.rand((steps,) + logits.shape, generator=generator,
                     device=logits.device) if sample else None)
     toks = []
@@ -659,8 +706,7 @@ def gpt_generate_eager(params, cfg, generator, cond_emb, given, steps,
         for _ in range(seg):
             tok = sample_logits(None, logits, sample=sample,
                                 u=None if u is None else u[len(toks)], **skw)
-            logits, cache = gpt_decode_step(params, cfg, cache, tok, wq,
-                                            use_kernels)
+            logits, cache = gpt_decode_step(params, cfg, cache, tok, wq)
             toks.append(tok)
     return torch.stack(toks, dim=1), cache
 
@@ -672,8 +718,7 @@ def gpt_generate(params: Params, cfg: GPTConfig,
                  temperature: float = 1.0, top_k: Optional[int] = None,
                  top_p: Optional[float] = None, sample: bool = True,
                  segments: int = 1, wq: Optional[Dict] = None,
-                 graph=None, use_kernels: Optional[bool] = None
-                 ) -> torch.Tensor:
+                 graph=None) -> torch.Tensor:
     """KV-cached autoregressive generation: one prefill, then ``steps``
     cached single-token steps (the reference re-runs the full forward per
     token, minGPT.py:331-358).
@@ -700,10 +745,10 @@ def gpt_generate(params: Params, cfg: GPTConfig,
     call of the same shape (without one every call captures anew).  The
     loops give the same tokens; a failed capture raises.
 
-    ``use_kernels`` is every wrapper's switch (``_build.use_kernel``):
-    False decodes through the plain versions of kernels A and E and of the
-    int8 product's kernels, captured on the card all the same; the
-    capture is keyed by it.
+    Inside ``_build.kernels(False)`` the decode runs through the plain
+    versions of kernels A and E and of the int8 product's kernels,
+    captured on the card all the same; the capture is keyed by the scope's
+    switch.
     """
     b, p = cond_emb.shape[0], cond_emb.shape[1]
     t0 = 0 if given is None else given.shape[1]
@@ -718,11 +763,70 @@ def gpt_generate(params: Params, cfg: GPTConfig,
         with torch.no_grad():
             out = _generate_on_device(params, cfg, generator, cond_emb,
                                       given, steps, segments, sample, skw,
-                                      wq, holder, use_kernels)
+                                      wq, holder)
     else:
         out, _ = gpt_generate_eager(params, cfg, generator, cond_emb, given,
-                                    steps, segments, sample, skw, wq,
-                                    use_kernels)
+                                    steps, segments, sample, skw, wq)
     if t0 > 0:
         out = torch.cat([given.long(), out], dim=1)
     return out
+
+
+def gpt_generate_scan(params: Params, cfg: GPTConfig, cond_emb: torch.Tensor,
+                      u: Optional[torch.Tensor], *, steps: int,
+                      temperature: float = 1.0, top_k: Optional[int] = None,
+                      top_p: Optional[float] = None, sample: bool = True,
+                      segments: int = 1, wq: Optional[Dict] = None
+                      ) -> torch.Tensor:
+    """``gpt_generate`` as a pure function of tensors, the form that
+    ``torch.export`` takes (export.py): one prefill, then the decode loop
+    as ``torch._higher_order_ops.scan``s, the counterpart of the
+    ``lax.scan``s of the JAX package's segmented ``gpt_generate``
+    (gpt.py:624-660 there) -- one scan a capacity of ``_segment_plan``
+    over a model-dtype cache, one at the full length over a quantised one,
+    as the captured session keeps them.  The body samples a token and runs
+    ``gpt_decode_step_functional``; the cache (one tensor a layer), the
+    position and the logits are its carry.  ``u`` (steps, B, V) float32
+    are the sampling uniforms that ``gpt_generate`` draws from its
+    generator (None with ``sample=False``); the int8 block weights are
+    quantised inside, as the JAX program quantises them per call.  Greedy
+    and sampled tokens equal ``gpt_generate``'s with the kernels off.
+    Returns (B, steps) int64."""
+    from torch._higher_order_ops.scan import scan
+
+    b, p = cond_emb.shape[0], cond_emb.shape[1]
+    dev = cond_emb.device
+    skw = dict(temperature=temperature, top_k=top_k, top_p=top_p)
+    if wq is None and cfg.decode_weight_dtype == "int8":
+        wq = quantize_block_weights(params["blocks"])
+    quantised = cfg.cache_dtype in ("int8", "int4")
+    plan = ([(p + steps, steps)] if quantised
+            else _segment_plan(p, steps, segments))
+    cache = init_kv_cache(cfg, b, max_len=plan[0][0], device=dev)
+    logits, cache = gpt_prefill(params, cfg, cache, None, cond_emb)
+    # one tensor a layer, so that a step writes (and copies) one layer's
+    # slot, not the stacked cache
+    layers = {name: tuple(t.clone() for t in cache[name].unbind(0))
+              for name in cache if name != "len"}
+    pos = torch.full((1,), p, dtype=torch.int64, device=dev)
+
+    def body(carry, x):
+        layers, pos, logits = carry
+        tok = sample_logits(None, logits, sample=sample,
+                            u=x if sample else None, **skw)
+        logits, layers = gpt_decode_step_functional(params, cfg, layers, pos,
+                                                    tok, wq)
+        return (layers, pos + 1, logits), tok
+
+    toks, done = [], 0
+    for cap, seg in plan:
+        if seg == 0:
+            continue
+        layers = {name: tuple(F.pad(t, (0, 0) * (t.ndim - 3) + (
+            0, cap - t.shape[2])) for t in ts) for name, ts in layers.items()}
+        xs = (u[done:done + seg] if sample
+              else torch.arange(seg, device=dev))
+        (layers, pos, logits), ys = scan(body, (layers, pos, logits), xs)
+        toks.append(ys)
+        done += seg
+    return torch.cat(toks, dim=0).transpose(0, 1)

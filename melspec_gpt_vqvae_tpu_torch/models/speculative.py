@@ -27,6 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import _build
 from ..configs import GPTConfig
 
 from ..ops import decode_attention as _da
@@ -38,8 +39,7 @@ from .gpt import (Params, _layer, _layer_norm, _mm, _write_kv,
 
 
 def gpt_decode_chunk(params: Params, cfg: GPTConfig, cache: Dict,
-                     tokens: torch.Tensor, wq: Optional[Dict] = None,
-                     use_kernels: Optional[bool] = None
+                     tokens: torch.Tensor, wq: Optional[Dict] = None
                      ) -> Tuple[torch.Tensor, Dict]:
     """Cached forward over a chunk of c tokens at positions ``cache['len']
     .. len + c - 1``, causal within the chunk and over the cached prefix
@@ -50,8 +50,7 @@ def gpt_decode_chunk(params: Params, cfg: GPTConfig, cache: Dict,
     c positions, which keeps greedy speculative decoding exact there too.
     The attention math is the JAX chunk's either way.  ``cache["len"]`` is
     a Python int or, for a captured program, a one-element int64 tensor
-    that is advanced in place, as in ``gpt_decode_step``, whose
-    ``use_kernels`` this takes too."""
+    that is advanced in place, as in ``gpt_decode_step``."""
     pos = cache["len"]
     on_device = isinstance(pos, torch.Tensor)
     b, c = tokens.shape
@@ -72,8 +71,7 @@ def gpt_decode_chunk(params: Params, cfg: GPTConfig, cache: Dict,
         pw = None if wq is None else _layer(wq, l)
         h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
         q, k, v = (a.reshape(b, c, nh, hd).transpose(1, 2)        # (B,H,c,hd)
-                   for a in _mm(h, p, pw, "attn_qkv", on_device,
-                                use_kernels).chunk(3, -1))
+                   for a in _mm(h, p, pw, "attn_qkv", on_device).chunk(3, -1))
         # kernel E once per chunk position: position j attends t <= pos + j
         # of the same cache the single step reads, so a verified token's
         # attention is bit for bit the step's.  On a device position the
@@ -83,13 +81,11 @@ def gpt_decode_chunk(params: Params, cfg: GPTConfig, cache: Dict,
         if quantised and on_device:
             o = torch.stack([_da.decode_attend_int8(
                 q[:, :, j], *qc, l, pos, k_new=k[:, :, j], v_new=v[:, :, j],
-                pos_offset=j, use_kernels=use_kernels) for j in range(c)],
-                dim=2)
+                pos_offset=j) for j in range(c)], dim=2)
         elif quantised:
             _write_kv(cache, cfg, l, pos, k, v)
             o = torch.stack([_da.decode_attend_int8(
-                q[:, :, j], *qc, l, pos + j, use_kernels=use_kernels)
-                for j in range(c)], dim=2)
+                q[:, :, j], *qc, l, pos + j) for j in range(c)], dim=2)
         else:
             _write_kv(cache, cfg, l, pos, k, v)
             k_l, v_l = cache["k"][l], cache["v"][l]
@@ -97,10 +93,10 @@ def gpt_decode_chunk(params: Params, cfg: GPTConfig, cache: Dict,
             probs = torch.softmax(torch.where(valid, scores, -1e30), dim=-1)
             o = probs.to(v_l.dtype).float() @ v_l.float()
         o = o.to(x.dtype).transpose(1, 2).reshape(b, c, cfg.n_embd)
-        x = x + _mm(o, p, pw, "attn_proj", on_device, use_kernels)
+        x = x + _mm(o, p, pw, "attn_proj", on_device)
         h2 = _layer_norm(x, p["ln2_s"], p["ln2_b"])
-        x = x + _mm(F.gelu(_mm(h2, p, pw, "mlp_up", on_device, use_kernels)),
-                    p, pw, "mlp_down", on_device, use_kernels)
+        x = x + _mm(F.gelu(_mm(h2, p, pw, "mlp_up", on_device)),
+                    p, pw, "mlp_down", on_device)
     if on_device:
         pos.add_(c)
     else:
@@ -115,10 +111,9 @@ class _EagerRounds:
     target, at host positions."""
 
     def __init__(self, params, cfg, wq, draft_params, draft_cfg, dwq, batch,
-                 max_len, device, use_kernels=None):
+                 max_len, device):
         self.target = (params, cfg, wq)
         self.draft = (draft_params, draft_cfg, dwq)
-        self.use_kernels = use_kernels
         self.t_cache = init_kv_cache(cfg, batch, max_len=max_len,
                                      device=device)
         self.d_cache = init_kv_cache(draft_cfg, batch, max_len=max_len,
@@ -127,11 +122,9 @@ class _EagerRounds:
     def prefill(self, given, cond_emb, draft_cond_emb):
         params, cfg, _ = self.target
         t_logits, self.t_cache = gpt_prefill(params, cfg, self.t_cache,
-                                             given, cond_emb,
-                                             self.use_kernels)
+                                             given, cond_emb)
         _, self.d_cache = gpt_prefill(self.draft[0], self.draft[1],
-                                      self.d_cache, given, draft_cond_emb,
-                                      self.use_kernels)
+                                      self.d_cache, given, draft_cond_emb)
         return t_logits
 
     def begin(self, u_pos, start):
@@ -146,20 +139,19 @@ class _EagerRounds:
         tok, xs, q_lps = y_prev, [], []
         for i in range(gamma):
             logits, self.d_cache = gpt_decode_step(params, cfg, self.d_cache,
-                                                   tok, wq, self.use_kernels)
+                                                   tok, wq)
             tok = draw(logits, produced + i)
             xs.append(tok)
             q_lps.append(filtered_log_probs(logits.float(), **skw))
         # catch-up: when every proposal is accepted the rewound draft cache
         # must also hold x_gamma's keys and values
-        _, self.d_cache = gpt_decode_step(params, cfg, self.d_cache, tok, wq,
-                                          self.use_kernels)
+        _, self.d_cache = gpt_decode_step(params, cfg, self.d_cache, tok, wq)
         return torch.stack(xs, dim=1), torch.stack(q_lps, dim=1)
 
     def verify(self, chunk):
         params, cfg, wq = self.target
         logits_c, self.t_cache = gpt_decode_chunk(params, cfg, self.t_cache,
-                                                  chunk, wq, self.use_kernels)
+                                                  chunk, wq)
         return logits_c
 
     def rewind(self, length):
@@ -175,11 +167,10 @@ class _SpeculativeSession:
     accept / reject arithmetic stays eager and rewinds them."""
 
     def __init__(self, params, cfg, wq, draft_params, draft_cfg, dwq, batch,
-                 max_len, steps, gamma, sample, skw, device, use_kernels=None):
+                 max_len, steps, gamma, sample, skw, device):
         self.device = device
         self.target = (params, cfg, wq)
         self.draft = (draft_params, draft_cfg, dwq)
-        self.use_kernels = use_kernels
         self.held = (params, wq, draft_params, dwq)
 
         def cache_of(c):
@@ -203,8 +194,7 @@ class _SpeculativeSession:
 
         def draft_step():
             logits, _ = gpt_decode_step(draft_params, draft_cfg,
-                                        self.d_cache, self.tok, dwq,
-                                        use_kernels)
+                                        self.d_cache, self.tok, dwq)
             u = (None if self.u_pos is None else self.u_pos.index_select(
                 0, self.idx.clamp(max=steps - 1))[0])
             tok = sample_logits(None, logits, sample=sample, u=u, **skw)
@@ -222,16 +212,15 @@ class _SpeculativeSession:
 
         def chunk_pass():
             logits_c, _ = gpt_decode_chunk(params, cfg, self.t_cache,
-                                           self.chunk, wq, use_kernels)
+                                           self.chunk, wq)
             self.logits_c.copy_(logits_c)
 
         pool = (torch.cuda.graph_pool_handle() if device.type == "cuda"
                 else None)
         self.draft_program = decode_graph.Program(
-            draft_step, device, reset_draft, pool, use_kernels=use_kernels)
+            draft_step, device, reset_draft, pool)
         self.chunk_program = decode_graph.Program(
-            chunk_pass, device, self.t_cache["len"].zero_, pool,
-            use_kernels=use_kernels)
+            chunk_pass, device, self.t_cache["len"].zero_, pool)
         self.programs = [self.draft_program, self.chunk_program]
 
     def prefill(self, given, cond_emb, draft_cond_emb):
@@ -242,10 +231,9 @@ class _SpeculativeSession:
         # the prefill writes at host positions and sets a host length:
         # hand it the session's tensors under a dict of its own
         t_logits, _ = gpt_prefill(self.target[0], self.target[1],
-                                  dict(self.t_cache), given, cond_emb,
-                                  self.use_kernels)
+                                  dict(self.t_cache), given, cond_emb)
         gpt_prefill(self.draft[0], self.draft[1], dict(self.d_cache), given,
-                    draft_cond_emb, self.use_kernels)
+                    draft_cond_emb)
         return t_logits
 
     def begin(self, u_pos, start):
@@ -282,8 +270,7 @@ def gpt_speculative_generate(
         temperature: float = 1.0, top_k: Optional[int] = None,
         top_p: Optional[float] = None, sample: bool = True,
         wq: Optional[Dict] = None, draft_wq: Optional[Dict] = None,
-        graph=None, use_kernels: Optional[bool] = None
-        ) -> Tuple[torch.Tensor, Dict[str, int]]:
+        graph=None) -> Tuple[torch.Tensor, Dict[str, int]]:
     """KV-cached speculative generation (speculative.py:177-344).  Returns
     ``(tokens (B, T0 + steps) int64, stats)``, the tokens distributed
     exactly as ``gpt_generate(params, cfg, ...)``'s, stats = {"rounds",
@@ -301,8 +288,9 @@ def gpt_speculative_generate(
     the eager passes, True the device-position passes (captured on the
     card, run eagerly on the CPU), a ``decode_graph.DecodeGraphs`` keeps
     the captures.  The accept / reject arithmetic is eager either way and
-    reads one number a round on the host.  ``use_kernels`` is
-    ``gpt_generate``'s switch, for both models' passes.
+    reads one number a round on the host.  The kernel switch is the
+    enclosing ``_build.kernels`` scope's, for both models' passes; the
+    captured session is keyed by it.
     """
     b, p_len = cond_emb.shape[0], cond_emb.shape[1]
     t0 = 0 if given is None else given.shape[1]
@@ -323,11 +311,11 @@ def gpt_speculative_generate(
         key = ("speculative", decode_graph.tensors_token(
             params, wq, draft_params, draft_wq), cfg, draft_cfg, b, max_len,
             steps, gamma, sample, tuple(sorted(skw.items())), str(dev),
-            use_kernels)
+            _build.kernel_setting())
         rounds_of = holder.session(key, lambda: _SpeculativeSession(
-            *models, b, max_len, steps, gamma, sample, skw, dev, use_kernels))
+            *models, b, max_len, steps, gamma, sample, skw, dev))
     else:
-        rounds_of = _EagerRounds(*models, b, max_len, dev, use_kernels)
+        rounds_of = _EagerRounds(*models, b, max_len, dev)
     with torch.no_grad():
         toks, stats = _speculative_rounds(
             rounds_of, generator, cond_emb, draft_cond_emb, given, steps,

@@ -18,12 +18,11 @@ Submodule names follow the flax parameter tree (``conv_in``, ``up_{i}``,
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import _build
 from ..configs import VocoderConfig
 
 from ..ops.vocoder_stack import fused_resblock_stack, pack
@@ -95,18 +94,16 @@ class MelGANGenerator(nn.Module):
         """Forget the packed weights; the next forward packs them anew."""
         self._packed.clear()
 
-    def forward(self, mel: torch.Tensor,
-                use_kernels: Optional[bool] = None) -> torch.Tensor:
-        """``use_kernels=False`` runs each stage's stack as plain convs
-        (cuDNN on the card) in place of kernel B."""
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        """With the kernels off (``_build.kernels(False)``) each stage's
+        stack runs as plain convs (cuDNN on the card) in place of kernel
+        B."""
         x = F.pad(mel.transpose(1, 2), (3, 3), mode="reflect")
         x = self.conv_in(x)
         for i in range(len(self.cfg.ratios)):
             x = getattr(self, f"up_{i}")(F.leaky_relu(x, 0.2))
-            fused = x.device.type != "cpu" and use_kernels is not False
             x = fused_resblock_stack(
                 x, self.stage_blocks(i),
-                self.packed_stage(i) if fused else None,
-                use_kernels=use_kernels)
+                self.packed_stage(i) if _build.use_kernel(x) else None)
         x = F.pad(F.leaky_relu(x, 0.2), (3, 3), mode="reflect")
         return torch.tanh(self.conv_out(x))[:, 0]

@@ -17,8 +17,6 @@ name.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -185,13 +183,11 @@ class VectorQuantizer(nn.Module):
         self.embedding = nn.Parameter(
             torch.zeros(num_embeddings, embedding_dim))
 
-    def nearest_index(self, z: torch.Tensor,
-                      use_kernels: Optional[bool] = None) -> torch.Tensor:
+    def nearest_index(self, z: torch.Tensor) -> torch.Tensor:
         """NCHW latents (B, D, h, w) -> int32 code grid (B, h, w)."""
         b, d, h, w = z.shape
         flat = z.permute(0, 2, 3, 1).reshape(-1, d)
-        return vq_nearest_index(flat, self.embedding,
-                                use_kernels=use_kernels).reshape(b, h, w)
+        return vq_nearest_index(flat, self.embedding).reshape(b, h, w)
 
     def get_codebook_entry(self, indices: torch.Tensor, shape):
         """indices (N,) -> NHWC latents of ``shape`` (b, h, w, c)
@@ -213,13 +209,12 @@ class VQModel(nn.Module):
         self.quant_conv = nn.Conv2d(z_enc, cfg.embedding_dim, 1)
         self.post_quant_conv = nn.Conv2d(cfg.embedding_dim, cfg.z_channels, 1)
 
-    def encode_to_indices(self, x: torch.Tensor,
-                          use_kernels: Optional[bool] = None) -> torch.Tensor:
+    def encode_to_indices(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, H, W, 1) -> code grid (B, h, w) int32
-        (reference: feature_extraction/extract_codes.py:48-50).
-        ``use_kernels=False`` takes the plain argmin on the card."""
+        (reference: feature_extraction/extract_codes.py:48-50).  With the
+        kernels off the plain argmin runs on the card."""
         z = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2)))
-        return self.quantize.nearest_index(z, use_kernels)
+        return self.quantize.nearest_index(z)
 
     def decode_code(self, code_grid: torch.Tensor) -> torch.Tensor:
         """(B, h, w) indices -> reconstruction (B, H, W, out_ch)."""

@@ -9,9 +9,10 @@ Counterpart of melspec_gpt_vqvae_tpu/ops/attention.py:
     ``use_flash_train`` is off;
   * ``attend`` -- kernel A (csrc/attention.cu), the counterpart of the
     Pallas ``attend_pallas``, for CUDA tensors; ``attend_xla`` for CPU
-    tensors and where the caller turns the kernels off
-    (``use_kernels=False``, the counterpart of ``use_pallas=False``).  Inference only: it has no backward and raises when a
-    gradient would have to flow through it.  Up to 16 rows (the serving
+    tensors and in a scope that turns the kernels off
+    (``_build.kernels(False)``, the counterpart of ``use_pallas=False``).
+    Inference only: it has no backward and raises when a gradient would
+    have to flow through it.  Up to 16 rows (the serving
     prefill) a warp takes a row; longer sequences at head dim 64 go
     through the tensor-core tile kernel;
   * ``attend_ref_tiled`` -- the tile kernel's loops in plain PyTorch (row
@@ -175,10 +176,9 @@ def _check(q, k, v) -> bool:
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           n_unmasked: int = 0, *,
-           use_kernels: Optional[bool] = None) -> torch.Tensor:
+           n_unmasked: int = 0) -> torch.Tensor:
     """Inference attention: kernel A on CUDA tensors, ``attend_xla`` on CPU
-    tensors or with ``use_kernels=False`` (``_build.use_kernel``).  q, k,
+    tensors or with the kernels off (``_build.use_kernel``).  q, k,
     v: (B, H, T, hd) of one dtype (float32 or bfloat16).  Kernel A has no
     backward, so a call that autograd would have to differentiate raises,
     on either device: a training forward goes through ``attend_xla`` or
@@ -186,7 +186,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
         raise RuntimeError("attend (kernel A) is inference-only: train "
                            "through attend_xla or ops.flash_attention")
-    if not _build.use_kernel(use_kernels, q, k, v):
+    if not _build.use_kernel(q, k, v):
         return attend_xla(q, k, v, n_unmasked)
     b, h, t, hd = q.shape
     if _check(q, k, v):

@@ -35,7 +35,7 @@ used here.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+import math
 
 import numpy as np
 import torch
@@ -118,7 +118,7 @@ def decode_attend_int8_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k_l, v_l = k[layer], v[layer]
     if k_l.dtype == torch.uint8:
         k_l, v_l = unpack4(k_l), unpack4(v_l)
-    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bhd,bhtd->bht", q.float(), k_l.float())
     scores = scores * k_scale[layer].float() * scale
     valid = torch.arange(scores.shape[-1], device=q.device) <= pos
@@ -220,13 +220,14 @@ def _rows(x: torch.Tensor, hd: int):
 def decode_attend_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        k_scale: torch.Tensor, v_scale: torch.Tensor,
                        layer: int, pos, *, k_new: torch.Tensor = None,
-                       v_new: torch.Tensor = None, pos_offset: int = 0,
-                       use_kernels: Optional[bool] = None) -> torch.Tensor:
+                       v_new: torch.Tensor = None,
+                       pos_offset: int = 0) -> torch.Tensor:
     """Decode attention over the quantised cache at position ``pos +
     pos_offset``: kernel E on CUDA tensors, the plain versions on CPU
-    tensors or with ``use_kernels=False`` (``write_kv_rows`` then
+    tensors or with the kernels off (``write_kv_rows`` then
     ``decode_attend_int8_xla``, neither of which reads the position on the
-    host, so a captured program takes them as it takes the kernel).  ``pos`` is a Python int or a one-element int64 tensor on the
+    host, so a captured program takes them as it takes the kernel).
+    ``pos`` is a Python int or a one-element int64 tensor on the
     cache's device, which the kernel reads when it runs (a position
     outside the cache then gives NaN and writes nothing).  With ``k_new``
     and ``v_new`` (B, H, hd) the same launch first quantises them into
@@ -241,7 +242,7 @@ def decode_attend_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors = [q, k, v, k_scale, v_scale]
     tensors += [pos] if isinstance(pos, torch.Tensor) else []
     tensors += [k_new, v_new] if k_new is not None else []
-    if not _build.use_kernel(use_kernels, *tensors):
+    if not _build.use_kernel(*tensors):
         if k_new is not None:
             write_kv_rows(k, v, k_scale, v_scale, layer, pos, k_new, v_new,
                           pos_offset)

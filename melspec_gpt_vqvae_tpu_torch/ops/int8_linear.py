@@ -17,16 +17,15 @@ cuBLASLt product:
     (no pad rows: the CPU's product takes any M);
   * ``rescale_bias`` -- int32 (Mpad, out), xs, ws, bias -> (M, out) of the
     model dtype; ``rescale_bias_xla`` the plain version;
-  * ``int8_linear`` -- the three in a row; ``use_kernels=False`` takes the
-    plain versions around the same product on either device.
+  * ``int8_linear`` -- the three in a row; with the kernels off
+    (``_build.kernels(False)``) the plain versions around the same product
+    on either device.
 
 The plain versions are the lines of ``_int8_mm`` / ``_mm`` themselves, and
 the kernels' results equal them bit for bit.
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -49,11 +48,11 @@ def quantize_rows_xla(x: torch.Tensor):
     return xq.to(torch.int8), xs
 
 
-def quantize_rows(x: torch.Tensor, *, use_kernels: Optional[bool] = None):
-    """``quantize_rows_xla`` on CPU tensors or with ``use_kernels=False``;
+def quantize_rows(x: torch.Tensor):
+    """``quantize_rows_xla`` on CPU tensors or with the kernels off;
     on CUDA tensors the kernel, whose int8 result has ``pad_rows(M)`` rows,
     the ones past M zero."""
-    if not _build.use_kernel(use_kernels, x):
+    if not _build.use_kernel(x):
         return quantize_rows_xla(x)
     if x.ndim != 2 or x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"quantize_rows takes a float32 or bfloat16 matrix, "
@@ -81,11 +80,10 @@ def rescale_bias_xla(acc: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
 
 
 def rescale_bias(acc: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
-                 bias: torch.Tensor, *,
-                 use_kernels: Optional[bool] = None) -> torch.Tensor:
-    """``rescale_bias_xla`` on CPU tensors or with ``use_kernels=False``,
+                 bias: torch.Tensor) -> torch.Tensor:
+    """``rescale_bias_xla`` on CPU tensors or with the kernels off,
     the kernel on CUDA tensors."""
-    if not _build.use_kernel(use_kernels, acc, xs, ws, bias):
+    if not _build.use_kernel(acc, xs, ws, bias):
         return rescale_bias_xla(acc, xs, ws, bias)
     m, width = xs.shape[0], acc.shape[1]
     if acc.dtype != torch.int32 or acc.ndim != 2 or acc.shape[0] < m \
@@ -112,14 +110,12 @@ rescale_bias.launches = 0
 
 
 def int8_linear(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
-                bias: torch.Tensor, *,
-                use_kernels: Optional[bool] = None) -> torch.Tensor:
+                bias: torch.Tensor) -> torch.Tensor:
     """x (M, in) of the model dtype @ int8 weights (in, out) with scales
     (out,), plus bias -> (M, out) of the model dtype.  With the kernels off
     on the card, the plain quantised rows are zero-padded to ``pad_rows``
     for cuBLASLt, as the kernel pads them."""
-    xq, xs = quantize_rows(x, use_kernels=use_kernels)
+    xq, xs = quantize_rows(x)
     if xq.is_cuda and xq.shape[0] < pad_rows(xs.shape[0]):
         xq = F.pad(xq, (0, 0, 0, pad_rows(xs.shape[0]) - xq.shape[0]))
-    return rescale_bias(torch._int_mm(xq, wq), xs, ws, bias,
-                        use_kernels=use_kernels)
+    return rescale_bias(torch._int_mm(xq, wq), xs, ws, bias)

@@ -25,7 +25,7 @@ kernel with one write of the (B, 80, 860) output.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -202,13 +202,12 @@ def mel_ref_fft(wav: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def waveform_to_mel_fused(wav: torch.Tensor, cfg: MelConfig = MelConfig(),
-                          *, use_kernels: Optional[bool] = None
+def waveform_to_mel_fused(wav: torch.Tensor, cfg: MelConfig = MelConfig()
                           ) -> torch.Tensor:
     """wav (B, samples) -> normalised mel (B, n_mels, trim_len), float32:
     kernel D on CUDA tensors, ``waveform_to_mel`` on CPU tensors or with
-    ``use_kernels=False``."""
-    if not _build.use_kernel(use_kernels, wav):
+    the kernels off."""
+    if not _build.use_kernel(wav):
         return waveform_to_mel(wav, cfg)
     if wav.ndim != 2:
         raise ValueError(f"expected (B, samples), got {tuple(wav.shape)}")

@@ -21,7 +21,7 @@ fix) is needed.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Sequence
 
 import torch
 import torch.nn as nn
@@ -150,14 +150,13 @@ def bf16_tile(c: int, t: int, batch: int, dils: Sequence[int]) -> int:
 
 
 def fused_resblock_stack(x: torch.Tensor, blocks: Sequence[nn.Module],
-                         packed=None, *,
-                         use_kernels: Optional[bool] = None) -> torch.Tensor:
+                         packed=None) -> torch.Tensor:
     """A stage's resblock stack: kernel B on CUDA tensors, ``resblock_stack``
-    on CPU tensors or with ``use_kernels=False``.  x (B, C, T) float32 or bfloat16, blocks' weights in the
-    same dtype.  bfloat16 runs on the tensor cores (C in 32, 64, 128, 256),
+    on CPU tensors or with the kernels off (``_build.use_kernel``).
+    x (B, C, T) float32 or bfloat16, blocks' weights in the same dtype.  bfloat16 runs on the tensor cores (C in 32, 64, 128, 256),
     float32 as float FMA.  ``packed`` is ``pack(blocks, x.device, x.dtype)``
     kept by the caller; without it the weights are packed for this launch."""
-    if not _build.use_kernel(use_kernels, x):
+    if not _build.use_kernel(x):
         return resblock_stack(x, blocks)
     b, c, t = x.shape
     dils = [blk.dilation for blk in blocks]

@@ -21,8 +21,6 @@ allow_tf32`` off (its default) for the plain version.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from .. import _build
@@ -110,13 +108,13 @@ def vq_nearest_index_tiled(x: torch.Tensor, codebook: torch.Tensor,
                  "busiest": busiest}
 
 
-def vq_nearest_index(x: torch.Tensor, codebook: torch.Tensor, *,
-                     use_kernels: Optional[bool] = None) -> torch.Tensor:
+def vq_nearest_index(x: torch.Tensor, codebook: torch.Tensor
+                     ) -> torch.Tensor:
     """Nearest codebook index for each row of x: kernel C on CUDA tensors,
-    ``vq_nearest_index_xla`` on CPU tensors or with ``use_kernels=False``.
+    ``vq_nearest_index_xla`` on CPU tensors or with the kernels off.
     (N, D) x (K, D) -> int32 (N,); inputs of any float dtype are compared
     in float32."""
-    if not _build.use_kernel(use_kernels, x, codebook):
+    if not _build.use_kernel(x, codebook):
         return vq_nearest_index_xla(x, codebook)
     n, d = x.shape
     k = codebook.shape[0]

@@ -10,21 +10,26 @@ stays float32 (ops/vq.py).  PyTorch runs eagerly; the stages are methods a
 caller can time one by one.  The one program that is kept is the decode
 loop's body: on the card a token's sampling and decode step are one
 captured CUDA graph (models/decode_graph.py), made at the first request
-of a shape and replayed from then on.
+of a shape and replayed from then on.  With ``int8_decode`` the VQ decode
+and vocoder stages run the calibrated int8 convolutions of
+models/quantized.py, as the JAX pipeline's int8 decode stage does.
 """
 
 from __future__ import annotations
 
 import io
 import threading
+import time
 import wave
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import _build
 from .configs import ExperimentConfig, MelConfig
 
+from .models import quantized as qz
 from .models.decode_graph import DecodeGraphs
 from .models.gpt import BlockWeightCache, class_embed, gpt_generate
 from .models.speculative import gpt_speculative_generate
@@ -60,18 +65,28 @@ class GenerationPipeline:
     not re-entrant: a lock serialises callers.
 
     ``use_kernels`` is the counterpart of the JAX pipeline's
-    ``use_pallas``: None takes each kernel for CUDA tensors; False runs
-    every stage through the kernels' plain versions (``attend_xla``, the
-    plain decode attention and int8 product, the conv chain of the
+    ``use_pallas``, and the one place the port's kernel switch is set:
+    each stage runs inside ``_build.kernels(use_kernels)``, which every
+    kernel wrapper reads.  None takes each kernel for CUDA tensors; False
+    runs every stage through the kernels' plain versions (``attend_xla``,
+    the plain decode attention and int8 product, the conv chain of the
     vocoder), the decode loop still captured on the card; True raises on
     the CPU.
+
+    ``int8_decode`` calibrates the int8 decode stage at construction
+    (models/quantized.py ``build_qstate``: 32 seeded random code grids,
+    batches of 16; ``calibrate_seconds``) and runs ``decode_specs`` and
+    ``vocode`` through its int8 convolutions, which take the place of
+    kernel B, as the JAX pipeline's int8 stage takes that of its fused
+    vocoder (pipeline.py:104-107, 166-195 there).
     """
 
     def __init__(self, exp: ExperimentConfig, gpt_params, vq: VQModel,
                  melgan: MelGANGenerator, *, segments: int = 8,
                  chunk: int = 128, bf16: Optional[bool] = None,
                  draft_params=None, draft_cfg=None, gamma: int = 4,
-                 graph: bool = True, use_kernels: Optional[bool] = None):
+                 graph: bool = True, use_kernels: Optional[bool] = None,
+                 int8_decode: bool = False):
         if (draft_params is None) != (draft_cfg is None):
             raise ValueError("pass both draft_params and draft_cfg, or "
                              "neither")
@@ -97,6 +112,15 @@ class GenerationPipeline:
         self.block_weights = BlockWeightCache()
         self.draft_block_weights = BlockWeightCache()
         self._decode_lock = threading.Lock()
+        self.qstate = None
+        self.calibrate_seconds = None
+        if int8_decode:
+            t0 = time.perf_counter()
+            with _build.kernels(use_kernels):
+                self.qstate = qz.build_qstate(self.vq, self.melgan,
+                                              self.vcfg, exp.vocoder,
+                                              n_calib=32, batch=16)
+            self.calibrate_seconds = time.perf_counter() - t0
 
     def _wq(self, cache: BlockWeightCache, params, cfg):
         if cfg.decode_weight_dtype != "int8":
@@ -121,8 +145,8 @@ class GenerationPipeline:
             self.graphs if self.device.type == "cuda" else None)
         kw = dict(steps=self.vcfg.code_h * self.vcfg.code_w,
                   temperature=temperature, top_k=top_k, top_p=top_p,
-                  sample=sample, graph=graph, use_kernels=self.use_kernels)
-        with self._decode_lock:
+                  sample=sample, graph=graph)
+        with self._decode_lock, _build.kernels(self.use_kernels):
             wq = self._wq(self.block_weights, self.gpt_params, self.gcfg)
             if self.draft_params is None:
                 return gpt_generate(self.gpt_params, self.gcfg, generator,
@@ -136,26 +160,46 @@ class GenerationPipeline:
                                          self.draft_params, self.draft_cfg),
                 **kw)
 
+    def decode_chunk(self, tokens: torch.Tensor) -> torch.Tensor:
+        """``decode_specs`` of one chunk, in the caller's kernel scope."""
+        # GPT order -> (B, code_h, code_w) raster: the tensor form of
+        # utils.codes.sequence_to_grid (melspec_gpt_vqvae_tpu/
+        # pipeline.py:163-165; reference minGPT.py:438-456)
+        grid = tokens.reshape(-1, self.vcfg.code_w, self.vcfg.code_h)
+        grid = grid.transpose(1, 2)
+        if self.qstate is not None:
+            return qz.decode_code_apply(self.vq, self.vcfg, grid,
+                                        qz.Int8Convs(self.qstate))[..., 0]
+        return self.vq.decode_code(grid)[..., 0]
+
+    def vocode_chunk(self, specs: torch.Tensor) -> torch.Tensor:
+        """``vocode`` of one chunk, in the caller's kernel scope."""
+        # dataset scaling [-1, 1] -> [0, 1] mel (datasets/vas.py:81)
+        mel01 = torch.clamp((specs.float() + 1.0) / 2.0, 0.0, 1.0)
+        mel = mel01.to(self.melgan.conv_in.weight.dtype).transpose(1, 2)
+        if self.qstate is not None:
+            return qz.melgan_apply(self.melgan, self.exp.vocoder, mel,
+                                   qz.Int8Convs(self.qstate))
+        return self.melgan(mel)
+
     @torch.inference_mode()
     def decode_specs(self, tokens: torch.Tensor) -> torch.Tensor:
         """GPT-order tokens (N, S) -> spectrograms (N, H, W) in [-1, 1]."""
-        def dec(t):
-            # GPT order -> (B, code_h, code_w) raster: the tensor form of
-            # utils.codes.sequence_to_grid (melspec_gpt_vqvae_tpu/
-            # pipeline.py:163-165; reference minGPT.py:438-456)
-            grid = t.reshape(-1, self.vcfg.code_w, self.vcfg.code_h)
-            return self.vq.decode_code(grid.transpose(1, 2))[..., 0]
-        return _chunked(dec, tokens, self.chunk)
+        with _build.kernels(self.use_kernels):
+            return _chunked(self.decode_chunk, tokens, self.chunk)
 
     @torch.inference_mode()
     def vocode(self, specs: torch.Tensor) -> torch.Tensor:
         """Spectrograms (N, H, W) in [-1, 1] -> waveforms (N, W * hop)."""
-        def voc(spec):
-            # dataset scaling [-1, 1] -> [0, 1] mel (datasets/vas.py:81)
-            mel01 = torch.clamp((spec.float() + 1.0) / 2.0, 0.0, 1.0)
-            return self.melgan(mel01.to(self.melgan.conv_in.weight.dtype)
-                               .transpose(1, 2), self.use_kernels)
-        return _chunked(voc, specs, self.chunk)
+        with _build.kernels(self.use_kernels):
+            return _chunked(self.vocode_chunk, specs, self.chunk)
+
+    def tokenize(self, wav: torch.Tensor,
+                 mel_cfg: Optional[MelConfig] = None) -> torch.Tensor:
+        """``tokenize`` through this pipeline's VQ-VAE, inside its kernel
+        switch's scope."""
+        with _build.kernels(self.use_kernels):
+            return tokenize(self.vq, wav, mel_cfg or self.exp.mel)
 
     def generate(self, classes, generator: Optional[torch.Generator], *,
                  temperature: float = 1.0, top_k: Optional[int] = 100,
@@ -182,23 +226,23 @@ class GenerationPipeline:
 
 @torch.inference_mode()
 def tokenize(vq: VQModel, wav: torch.Tensor,
-             mel_cfg: MelConfig = MelConfig(), *,
-             use_kernels: Optional[bool] = None) -> torch.Tensor:
+             mel_cfg: MelConfig = MelConfig()) -> torch.Tensor:
     """wav (B, samples) -> (B, code_h * code_w) GPT-order codes.
 
     The tokenize stage that bench.py:86-103 times in front of generation:
     mel (kernel D on the card), centre crop of the 860 frames to the
     VQ-VAE's width (848: frames 6..853), scale to [-1, 1], encode in the
     VQ-VAE's dtype, nearest codebook index in float32 (kernel C), then the
-    time-major flatten ``swapaxes(1, 2).reshape(B, -1)``.  With
-    ``use_kernels=False`` the rFFT mel and the plain argmin in place of D
-    and C.
+    time-major flatten ``swapaxes(1, 2).reshape(B, -1)``.  With the
+    kernels off (``_build.kernels(False)``; ``GenerationPipeline.tokenize``
+    enters its pipeline's scope) the rFFT mel and the plain argmin in
+    place of D and C.
     """
-    mel = waveform_to_mel_fused(wav, mel_cfg, use_kernels=use_kernels)
+    mel = waveform_to_mel_fused(wav, mel_cfg)
     lo = (mel.shape[-1] - vq.cfg.resolution) // 2
     mel = mel[:, :, lo:lo + vq.cfg.resolution]
     x = (2.0 * mel - 1.0)[..., None].to(vq.quant_conv.weight.dtype)
-    grid = vq.encode_to_indices(x, use_kernels)
+    grid = vq.encode_to_indices(x)
     return grid.transpose(1, 2).reshape(grid.shape[0], -1)
 
 

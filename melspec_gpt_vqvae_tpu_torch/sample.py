@@ -70,8 +70,9 @@ def parse_args(argv=None):
                    help="stream int8 decode weights (default: 1 on the "
                         "card)")
     p.add_argument("--int8_decode", action="store_true",
-                   help="calibrated int8 VQ-decoder + vocoder convs (not "
-                        "ported yet: refused)")
+                   help="calibrated int8 VQ-decoder + vocoder convs (an "
+                        "experiment, as in the JAX package; replaces "
+                        "kernel B)")
     p.add_argument("--override", type=str, default="",
                    help="comma k=v preset overrides, e.g. "
                         "'n_layer=2,n_embd=32'; repeat the run's own")

@@ -15,10 +15,14 @@ API (the JAX package's, serving.py there; JSON in, WAV or JSON out):
        -> {"clips": [{"class": 0, "wav_base64": ...}, ...], ...}
 
 The counterpart of the repository's ``serve.py``, with its flags minus
-``--mesh``, ``--platform`` and ``--artifact`` and plus ``--device`` (the
-card unless ``--device cpu``).  Requests are padded to the fixed
-``--batch``; the first request of a sampling shape captures its decode
-program, which the start-up warm-up does for the default knobs.
+``--mesh`` and ``--platform`` and plus ``--device`` (the card unless
+``--device cpu``).  Requests are padded to the fixed ``--batch``; the
+first request of a sampling shape captures its decode program, which the
+start-up warm-up does for the default knobs.  ``--artifact`` serves a
+``torch.export`` artifact of scripts/torch_export_serving.py instead: its
+sidecar fixes the batch and the sampling knobs (a request with others gets
+400), the weights come from the pipeline these flags build, and the
+warm-up runs the one baked mode.
 """
 
 from __future__ import annotations
@@ -50,8 +54,9 @@ def parse_args(argv=None):
                    choices=["auto", "int8"])
     p.add_argument("--int8_weights", type=int, default=None)
     p.add_argument("--int8_decode", action="store_true",
-                   help="calibrated int8 VQ-decoder + vocoder convs (not "
-                        "ported yet: refused)")
+                   help="calibrated int8 VQ-decoder + vocoder convs (an "
+                        "experiment, as in the JAX package; replaces "
+                        "kernel B)")
     p.add_argument("--override", type=str, default="")
     p.add_argument("--draft_experiment", type=str, default=None,
                    help="speculative decoding: run name of a smaller GPT "
@@ -61,6 +66,11 @@ def parse_args(argv=None):
     p.add_argument("--draft_random", type=str, default="",
                    help="random-init draft config (mechanics smoke)")
     p.add_argument("--gamma", type=int, default=4)
+    p.add_argument("--artifact", type=str, default="",
+                   help="serve from a torch.export artifact "
+                        "(scripts/torch_export_serving.py): no capture; "
+                        "the batch and sampling knobs come from its "
+                        "sidecar and differing requests get a 400")
     p.add_argument("--max_queue", type=int, default=16,
                    help="bounded request queue: requests beyond this many "
                         "in flight get 503 + Retry-After (load shedding)")
@@ -82,12 +92,32 @@ def start(argv=None):
     from .serving import GenerationService, serve
 
     args = parse_args(argv)
+    if args.artifact and (args.draft_experiment or args.draft_random
+                          or args.int8_decode):
+        # refused before build_pipeline: these would build (a draft, the
+        # int8 calibration) what the artifact then leaves unused
+        raise SystemExit("--artifact is single-device, no draft, no "
+                         "--int8_decode (export.py contract)")
     exp, pipe = pipeline_from_args(args)
-    svc = GenerationService(
-        exp, pipe, batch=args.batch, seed=args.seed,
-        temperature=args.temperature, top_k=args.top_k,
-        top_p=args.top_p if 0.0 < args.top_p < 1.0 else None,
-        max_queue=args.max_queue)
+    if args.artifact:
+        # the artifact's sidecar fixes batch and knobs; the weights are the
+        # pipeline's, cast to the dtypes the artifact was traced with
+        from .export import ArtifactPipeline
+        pipe = ArtifactPipeline.from_file(args.artifact, pipe)
+        m = pipe.meta
+        svc = GenerationService(
+            exp, pipe, batch=pipe.batch, seed=args.seed,
+            temperature=m["temperature"], top_k=m["top_k"],
+            top_p=m["top_p"], max_queue=args.max_queue)
+        print(f"artifact: {args.artifact} (batch {pipe.batch}, "
+              f"temperature {m['temperature']}, top_k {m['top_k']}, "
+              f"top_p {m['top_p']}, sample {m['sample']})")
+    else:
+        svc = GenerationService(
+            exp, pipe, batch=args.batch, seed=args.seed,
+            temperature=args.temperature, top_k=args.top_k,
+            top_p=args.top_p if 0.0 < args.top_p < 1.0 else None,
+            max_queue=args.max_queue)
     if not args.no_warmup:
         svc.warmup()
     httpd = serve(svc, args.host, args.port)

@@ -10,7 +10,8 @@ bridge.py; the frozen VQ-VAE and MelGAN come from reference-format files
 defaults: on the card (the default device) the bfloat16 model dtype, an
 int8 KV cache and int8 streamed block weights (serving.py:95-102); on the
 CPU, which is used only when the caller names it, float32 and neither;
-optionally with a speculative draft, from a run checkpoint or random.
+optionally with a speculative draft, from a run checkpoint or random, and
+optionally with the calibrated int8 decode stage (``int8_decode``).
 ``GenerationService`` pads requests to a fixed batch, serialises
 generation with a lock, sheds load past a bounded queue, seeds each
 request's ``torch.Generator`` and sums the speculative stats of a request.
@@ -18,7 +19,8 @@ request's ``torch.Generator`` and sums the speculative stats of a request.
 JAX package's routes and bodies (serving.py:300-413 there).
 
 Not ported yet, and refused with NotImplementedError (ROADMAP queue A):
-mesh serving (A12) and the int8 decode stage (A6).
+mesh serving (A12).  export.py serves a ``torch.export`` artifact of the
+pipeline through the same service (``ArtifactPipeline``).
 """
 
 from __future__ import annotations
@@ -121,13 +123,14 @@ def build_pipeline(dataset: str = "vas", *, experiment: Optional[str] = None,
     ``graph=False`` makes the pipeline decode with the eager loop instead
     of the captured program (pipeline.py), for a comparison;
     ``use_kernels`` is the pipeline's kernel switch (False: no kernel of
-    the port runs).  Prints where
-    each set of weights came from, as the JAX loader does.  Returns
-    ``(exp, pipe)``.
+    the port runs); ``int8_decode`` calibrates the int8 decode stage and
+    runs the VQ decode and the vocoder through it (in place of kernel B).
+    Prints where each set of weights came from, as the JAX loader does.
+    Returns ``(exp, pipe)``.
     """
-    if mesh_spec or int8_decode:
-        raise NotImplementedError("mesh serving and the int8 decode stage "
-                                  "are not ported yet (ROADMAP A12, A6)")
+    if mesh_spec:
+        raise NotImplementedError("mesh serving is not ported yet "
+                                  "(ROADMAP A12)")
     if (experiment is not None) + bool(init_random) + (params is not None) \
             != 1:
         raise ValueError("pass exactly one of experiment=, "
@@ -223,7 +226,11 @@ def build_pipeline(dataset: str = "vas", *, experiment: Optional[str] = None,
     pipe = GenerationPipeline(exp, gpt, vq, voc, segments=segments,
                               chunk=chunk, draft_params=draft,
                               draft_cfg=draft_cfg, gamma=gamma, graph=graph,
-                              use_kernels=use_kernels)
+                              use_kernels=use_kernels,
+                              int8_decode=int8_decode)
+    if int8_decode:
+        print(f"int8 decode stage: calibrated in "
+              f"{pipe.calibrate_seconds:.2f} s")
     return exp, pipe
 
 

@@ -35,17 +35,20 @@ PORT_MODULES = [
     "melspec_gpt_vqvae_tpu_torch",
     "melspec_gpt_vqvae_tpu_torch._build",
     "melspec_gpt_vqvae_tpu_torch.bridge",
+    "melspec_gpt_vqvae_tpu_torch.export",
     "melspec_gpt_vqvae_tpu_torch.ops.attention",
     "melspec_gpt_vqvae_tpu_torch.ops.decode_attention",
     "melspec_gpt_vqvae_tpu_torch.ops.flash_attention",
     "melspec_gpt_vqvae_tpu_torch.ops.int8_linear",
     "melspec_gpt_vqvae_tpu_torch.ops.mel",
     "melspec_gpt_vqvae_tpu_torch.ops.mel_kernel",
+    "melspec_gpt_vqvae_tpu_torch.ops.quant",
     "melspec_gpt_vqvae_tpu_torch.ops.sampling",
     "melspec_gpt_vqvae_tpu_torch.ops.vocoder_stack",
     "melspec_gpt_vqvae_tpu_torch.ops.vq",
     "melspec_gpt_vqvae_tpu_torch.models.decode_graph",
     "melspec_gpt_vqvae_tpu_torch.models.gpt",
+    "melspec_gpt_vqvae_tpu_torch.models.quantized",
     "melspec_gpt_vqvae_tpu_torch.models.speculative",
     "melspec_gpt_vqvae_tpu_torch.models.vocoder",
     "melspec_gpt_vqvae_tpu_torch.models.vqvae",

@@ -160,8 +160,10 @@ def test_service_sheds_load_past_the_queue_bound(pipes):
     assert svc.shed == 1
 
 
+# the int8 decode stage is ported (tests/test_torch_port_quantized.py);
+# mesh serving, data- or model-parallel, is not
 @pytest.mark.parametrize("kw", [{"mesh_spec": "data=2"},
-                                {"int8_decode": True}])
+                                {"mesh_spec": "model=2"}])
 def test_build_pipeline_refuses_what_is_not_ported(kw):
     with pytest.raises(NotImplementedError):
         build_on_cpu("vas", init_random=True, **kw)

@@ -1,12 +1,13 @@
 """PyTorch port: HTTP serving, the serve and sample entry points, and the
-explicit kernel switch (``use_kernels``).
+explicit kernel switch (the pipeline's ``use_kernels``, a
+``_build.kernels`` scope that every wrapper reads).
 
 The HTTP server runs on port 0 beside the JAX package's server over the
 same tiny weights (as tests/test_serving.py drives the JAX one): the same
 routes, bodies and status codes, and deterministic PCM within one step.
 The entry points run on the CPU from a checkpoint the port's own
 CheckpointManager wrote.  On the CPU every wrapper takes its plain
-version; ``use_kernels=True`` there must raise, not fall back.
+version; the switch on (True) there must raise, not fall back.
 """
 
 import base64
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 from melspec_gpt_vqvae_tpu import serving as JSV
+from melspec_gpt_vqvae_tpu_torch import _build
 from melspec_gpt_vqvae_tpu_torch import pipeline as TP
 from melspec_gpt_vqvae_tpu_torch import sample as sample_cli
 from melspec_gpt_vqvae_tpu_torch import serve as serve_cli
@@ -243,9 +245,13 @@ def test_entry_points_default_to_the_card(cli, monkeypatch):
 
 
 def test_int8_decode_is_refused_by_the_entry_points():
-    with pytest.raises(NotImplementedError):
-        sample_cli.main(["--init_random", "--override", SMALL,
-                         "--int8_decode", "--device", "cpu"])
+    """The int8 decode stage is ported; an artifact does not cover it, so
+    serve --artifact refuses --int8_decode before it builds anything (the
+    JAX serve.py's check)."""
+    with pytest.raises(SystemExit, match="int8_decode"):
+        serve_cli.start(["--init_random", "--override", SMALL,
+                         "--int8_decode", "--artifact", "none.pt2",
+                         "--device", "cpu"])
 
 
 # ------------------------------ warm-up ---------------------------------------
@@ -282,9 +288,17 @@ def test_warmup_serves_the_pipelines_sample_modes(modes, calls, capsys):
 
 # ------------------------------ the kernel switch -----------------------------
 
+def _scoped(fn):
+    """``fn`` as a call(switch) that runs it inside ``_build.kernels``."""
+    def call(u):
+        with _build.kernels(u):
+            return fn()
+    return call
+
+
 def _wrapper_calls():
-    """{name: call(use_kernels)} of every kernel wrapper on fixed small CPU
-    tensors."""
+    """{name: call(switch)} of every kernel wrapper on fixed small CPU
+    tensors, each call inside a ``_build.kernels(switch)`` scope."""
     g = torch.Generator().manual_seed(0)
 
     def r(*shape):
@@ -301,36 +315,33 @@ def _wrapper_calls():
                         torch.randint(-5, 5, (16, 8), generator=g,
                                       dtype=torch.int8))
 
-    def decode(u):
+    def decode():
         # a fresh cache a call: the write goes into it in place
         cache = [torch.zeros((1, 2, 2, 6, 8), dtype=torch.int8)
                  for _ in range(2)]
         scales = [torch.ones((1, 2, 2, 6), dtype=torch.bfloat16)
                   for _ in range(2)]
         o = TDA.decode_attend_int8(q1, *cache, *scales, 0,
-                                   torch.tensor([2]), k_new=k1, v_new=v1,
-                                   use_kernels=u)
+                                   torch.tensor([2]), k_new=k1, v_new=v1)
         return (o, *cache, *scales)
-    return {
-        "attend": lambda u: TA.attend(q, k, v, 2, use_kernels=u),
-        "fused_resblock_stack": lambda u: TVS.fused_resblock_stack(
-            x_voc, blocks, use_kernels=u),
-        "vq_nearest_index": lambda u: TV.vq_nearest_index(
-            x_vq, codebook, use_kernels=u),
-        "waveform_to_mel_fused": lambda u: TMK.waveform_to_mel_fused(
-            wav, mel_cfg, use_kernels=u),
+    return {name: _scoped(fn) for name, fn in {
+        "attend": lambda: TA.attend(q, k, v, 2),
+        "fused_resblock_stack": lambda: TVS.fused_resblock_stack(
+            x_voc, blocks),
+        "vq_nearest_index": lambda: TV.vq_nearest_index(x_vq, codebook),
+        "waveform_to_mel_fused": lambda: TMK.waveform_to_mel_fused(
+            wav, mel_cfg),
         "decode_attend_int8": decode,
-        "quantize_rows": lambda u: TL.quantize_rows(x_rows, use_kernels=u),
-        "rescale_bias": lambda u: TL.rescale_bias(acc, xs, ws, bias,
-                                                  use_kernels=u),
-    }
+        "quantize_rows": lambda: TL.quantize_rows(x_rows),
+        "rescale_bias": lambda: TL.rescale_bias(acc, xs, ws, bias),
+    }.items()}
 
 
 @pytest.mark.parametrize("name", list(_wrapper_calls()))
 @torch.no_grad()
 def test_wrapper_switch_on_cpu_tensors(name):
-    """use_kernels=True on CPU tensors raises (there is no kernel there);
-    False takes the plain version, as None does on the CPU."""
+    """The switch on (True) with CPU tensors raises (there is no kernel
+    there); False takes the plain version, as None does on the CPU."""
     call = _wrapper_calls()[name]
     with pytest.raises(ValueError, match="use_kernels=True"):
         call(True)
@@ -343,7 +354,7 @@ def test_wrapper_switch_on_cpu_tensors(name):
 
 
 def test_pipeline_switch_on_cpu():
-    """A pipeline or tokenize with use_kernels=True on the CPU raises;
+    """A pipeline or tokenize with the switch on (True) on the CPU raises;
     with False it decodes as the default (the plain versions either
     way)."""
     exp, _, tpipe = tiny_pipelines()
@@ -352,10 +363,12 @@ def test_pipeline_switch_on_cpu():
                                tpipe.melgan, use_kernels=True, **kw)
     with pytest.raises(ValueError, match="use_kernels=True"):
         on.generate([0, 1], None, sample=False)
+    mel_cfg = MelConfig(clip_samples=4096, trim_len=16)
     with pytest.raises(ValueError, match="use_kernels=True"):
-        TP.tokenize(tpipe.vq, torch.zeros(1, 4096),
-                    MelConfig(clip_samples=4096, trim_len=16),
-                    use_kernels=True)
+        on.tokenize(torch.zeros(1, 4096), mel_cfg)
+    with pytest.raises(ValueError, match="use_kernels=True"), \
+            _build.kernels(True):
+        TP.tokenize(tpipe.vq, torch.zeros(1, 4096), mel_cfg)
     off = TP.GenerationPipeline(tpipe.exp, tpipe.gpt_params, tpipe.vq,
                                 tpipe.melgan, use_kernels=False, **kw)
     ref = tpipe.generate([0, 1, 3], None, sample=False)
