@@ -59,10 +59,11 @@
    --resume last`` with ``use_flash_train`` off, so that kernel A runs the
    24 layers at (8, 16, 265, 64) float32, its validation loss held to the
    flash run's and its peak device memory to one train state; steps timed
-   against the plain-attention step, each with a profiled window of
-   three steps (device ms by kernel class, busy against wall); the loss
-   on one repeated batch falling; and one float32 train step of a 2-layer
-   copy on the card against the CPU.
+   against the plain-attention step and the same flash step under mixed
+   precision (bfloat16 products with float32 results), each with a
+   profiled window of three steps (device ms by kernel class, busy
+   against wall); the loss on one repeated batch falling; and one float32
+   train step of a 2-layer copy on the card against the CPU.
 5. Serves that checkpoint through the port's entry points, from the
    training tree: ``build_pipeline(experiment="smoke", resume="last")``
    (its bf16 params bit for bit the checkpoint's float32 ones, rounded),
@@ -77,7 +78,8 @@
    decode, vocoder and tokenize stages.
 6. (Run after the serving paths of 2.)  Exports and serves the
    ``torch.export`` artifact, and runs the int8 decode stage, at the VAS
-   width on the card's default (int8 KV cache and weights, batch 8): two
+   width on the card's default (int8 KV cache and weights, batch 8) with
+   a 6-layer GPT (EXPORT_LAYERS; 24 until the GPT-VAE phase came): two
    ``scripts/torch_export_serving.py`` processes,
    started with the script (their tracing is host work), write a greedy
    and a sampled (top_k 100) artifact; phase ``export`` loads both
@@ -94,6 +96,24 @@
    for one seed, kernel B not launched, the spectrogram's SNR and the
    vocoder's (on the same spectrogram) against the bf16 / kernel-B stage
    >= 20 dB, the whole stage's waveform SNR and the stages' seconds.
+
+7. (Phase ``vae``, last.)  The GPT-VAE: kernel F (keep 0.7 and 1) and
+   kernel A (float32) against their plain versions at its shapes, (24, 16,
+   265, 64) with n_unmasked 265 (the encoder) and (24, 16, 266, 64) causal
+   (the decoder), each timed with its bound; ``train_gpt_vae.main`` on the
+   battery's 48 clips (two train batches of 24, one valid batch) trains
+   the ``GPT_VAE_vas`` preset at full width (2 x 24 layers, mixed
+   precision, remat ``attn``, dropout 0.3) with ``use_flash_train`` for
+   4 steps, F's launches counted exactly (remat's recompute of every
+   attention region included); its 7.3 GB checkpoint restored bit for
+   bit, ``kl_weight`` included; ``--train 0 --eval 1 --resume last``
+   (kernel A in both stacks, MI, AU, NLL, PPL), ``--test 1 --iw_nsamples
+   20`` and greedy ``--reconstruct_from last`` through the captured decode
+   program, each timed with the kernels it launched; the loss on a
+   repeated batch falling; the step's ms, tokens/s and peak memory with
+   mixed precision and remat on and off (profiled windows with remat
+   ``attn``); a 2-layer float32 copy's train step, mixed precision off and
+   on, against the CPU.
 
 Exits non-zero, printing no result, when there is no CUDA card or any check
 fails.  The last three lines of stdout are: a JSON object of the kernels,
@@ -1671,14 +1691,19 @@ EXPORT_DIR = Path("build") / "chip_smoke_export"
 # artifact -> the flags of scripts/torch_export_serving.py beside
 # --init_random --batch 8 (the script's seed is chip_smoke's)
 EXPORTS = {"greedy": ["--deterministic"], "sampled": ["--top_k", "100"]}
+# depth of the exported pipeline's GPT (the VAS width; cut from 24 when the
+# GPT-VAE phase came: the artifact's request runs its decode scan eagerly,
+# ~60 ms a token at 24 layers)
+EXPORT_LAYERS = 6
+EXPORT_OVERRIDE = f"n_layer={EXPORT_LAYERS}"
 SNR_GATE_DB = 20.0
 
 
 def start_exports():
     """Start scripts/torch_export_serving.py, one process an artifact, for
-    the card's default pipeline at the VAS width (random weights of
-    chip_smoke's seed): batch 8, greedy and sampled top_k 100, traced on
-    the card.  Tracing is host work, so it runs beside the phases before
+    the card's default pipeline at the VAS width and EXPORT_LAYERS layers
+    (random weights of chip_smoke's seed): batch 8, greedy and sampled
+    top_k 100, traced on the card.  Tracing is host work, so it runs beside the phases before
     ``export_check``.  Returns {name: (process, artifact, log)}."""
     EXPORT_DIR.mkdir(parents=True, exist_ok=True)
     script = Path(__file__).resolve().parent / "scripts" / \
@@ -1689,7 +1714,8 @@ def start_exports():
         with open(log, "w") as out:
             procs[name] = (subprocess.Popen(
                 [sys.executable, str(script), "--init_random", "--batch", "8",
-                 "--out", str(path), *flags], stdout=out,
+                 "--override", EXPORT_OVERRIDE, "--out", str(path), *flags],
+                stdout=out,
                 stderr=subprocess.STDOUT), path, log)
     return procs
 
@@ -1728,7 +1754,7 @@ def export_check(dev, procs, wrappers, zero):
     print(f"  waited {time.perf_counter() - t0:.1f} s here for the export "
           f"processes")
     exp, pipe = build_pipeline("vas", init_random=True, seed=783435,
-                               device=dev)
+                               device=dev, override=EXPORT_OVERRIDE)
     off = GenerationPipeline(exp, pipe.gpt_params, pipe.vq, pipe.melgan,
                              use_kernels=False)
     cls = list(range(8))
@@ -1800,7 +1826,7 @@ def artifact_http_check():
     path = str(EXPORT_DIR / "sampled.pt2")
     httpd, t_start = wall(lambda: serve_cli.start([
         "--init_random", "--artifact", path, "--port", "0",
-        "--no_warmup"]))
+        "--no_warmup", "--override", EXPORT_OVERRIDE]))
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
@@ -1852,7 +1878,8 @@ def int8_decode_check(dev, pipe, wrappers, zero):
     both on the same tokens."""
     from melspec_gpt_vqvae_tpu_torch.serving import build_pipeline
     (_, qpipe), t_build = wall(lambda: build_pipeline(
-        "vas", init_random=True, seed=783435, device=dev, int8_decode=True))
+        "vas", init_random=True, seed=783435, device=dev, int8_decode=True,
+        override=EXPORT_OVERRIDE))
     cls = list(range(8))
 
     def request(p):
@@ -1968,8 +1995,8 @@ def run_train_cli(root, flash, train=True):
 
 def timed_steps(task, state, batch, n, lr=None):
     """``n`` train steps on one batch (dropout generators as fit_gpt draws
-    them); returns (losses, ms per step over the last n - 2 steps, peak
-    device bytes)."""
+    them) of a ``GPTTask`` or ``VAETask``; returns (losses, ms per step
+    over the last n - 2 steps, peak device bytes)."""
     from melspec_gpt_vqvae_tpu_torch.training.optim import with_lr
     from melspec_gpt_vqvae_tpu_torch.training.runner import step_generator
     if lr is not None:
@@ -1981,7 +2008,7 @@ def timed_steps(task, state, batch, n, lr=None):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         state, loss = task.train_step(state, batch,
-                                      step_generator(1, 0, i, task.device))
+                                      step_generator(1, 0, i, task.device))[:2]
         losses.append(loss)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / (n - 2)
@@ -1996,24 +2023,30 @@ TRAIN_KERNEL_CLASSES = (
     ("F dQ", ("flash_bwd_dq",)),
     ("F dK,dV", ("flash_bwd_dkv",)),
     ("F delta", ("flash_bwd_delta",)),
-    ("float32 GEMMs", ("gemm", "cutlass", "cublas", "gemv")),
+    # cuBLAS's float32 kernels carry "gemm" in their names, its Hopper
+    # bfloat16 ones "nvjet"
+    ("GEMMs", ("gemm", "cutlass", "cublas", "gemv", "nvjet")),
     ("AdamW", ("multi_tensor_apply", "adam")))
 
 
-def profile_train_step(task, state, batch, title, warm=2, steps=3):
-    """Device milliseconds of one full-width train step by kernel class,
-    from a ``torch.profiler`` window of ``steps`` steps after ``warm``
-    steps on ``batch``: kernel F's forward, dQ, dK/dV and delta kernels,
-    the float32 GEMMs, AdamW and the rest, the device's busy time against
-    the wall, and the kernels a step launches."""
+def profile_train_step(task, state, batch, title, f_forward, warm=2,
+                       steps=3):
+    """Device milliseconds of one full-width train step (a ``GPTTask``'s
+    or a ``VAETask``'s) by kernel class, from a ``torch.profiler`` window
+    of ``steps`` steps after ``warm`` steps on ``batch``: kernel F's
+    forward, dQ, dK/dV and delta kernels, the cuBLAS GEMMs (float32, or
+    bfloat16 under mixed precision), AdamW and the rest, the device's busy
+    time against the wall, and the kernels a step launches.  A window is
+    whole when it holds AdamW once a step and ``f_forward`` launches of
+    F's forward a step (less one at the window's edge)."""
     from torch.profiler import DeviceType, ProfilerActivity
 
     from melspec_gpt_vqvae_tpu_torch.training.runner import step_generator
 
     def step(i):
         nonlocal state
-        state, _ = task.train_step(state, batch,
-                                   step_generator(1, 0, i, task.device))
+        state = task.train_step(state, batch,
+                                step_generator(1, 0, i, task.device))[0]
     for i in range(warm):
         step(i)
     torch.cuda.synchronize()
@@ -2049,9 +2082,8 @@ def profile_train_step(task, state, batch, title, warm=2, steps=3):
         # AdamW runs once a step whatever the attention; with kernel F the
         # trace also holds its forward once a layer a step
         _, counts = tally(avgs)
-        return counts["AdamW"] >= steps and (
-            not task.cfg.use_flash_train
-            or counts["F forward"] >= task.cfg.n_layer * steps - 1)
+        return (counts["AdamW"] >= steps
+                and counts["F forward"] >= f_forward * steps - 1)
 
     avgs, whole = profiled(run, whole_trace, [ProfilerActivity.CUDA])
     ms, counts = tally(avgs)
@@ -2154,7 +2186,7 @@ def train_check(dev, mels, codes):
           f"{losses[0]:.4f} -> {losses[-1]:.4f} in 30 steps")
     check(all(np.isfinite(losses)), "non-finite training loss")
     check(losses[-1] < losses[0], "loss on a repeated batch did not fall")
-    prof = profile_train_step(task, state, batch, "kernel F")
+    prof = profile_train_step(task, state, batch, "kernel F", n_layer)
     # a trace that came back short three times over is a fault of the
     # tracer, not of the step: the launch counters above hold F exactly
     check(not prof["trace_whole"]
@@ -2162,7 +2194,18 @@ def train_check(dev, mels, codes):
               and all(prof["device_ms_per_step"][c] > 0
                       for c in ("F forward", "F dQ", "F dK,dV"))),
           "the profiled train step did not run kernel F in every layer")
-    del task, state, ckpt
+    # the same step under mixed precision (bfloat16 products, float32
+    # results and residual stream), on the same state and batch
+    mixed = GPTTask(load_vas_exp(use_flash_train=True, mixed_precision=True),
+                    dev)
+    mlosses, mms, mmem = timed_steps(mixed, state, batch, 10)
+    print(f"  flash attention, mixed precision: {mms:.1f} ms per step, "
+          f"{8 * 265 / (mms / 1e3):.0f} tokens/s, peak "
+          f"{mmem / 2 ** 30:.2f} GiB (float32: {ms:.1f} ms)")
+    check(all(np.isfinite(mlosses)), "non-finite mixed-precision loss")
+    profile_train_step(mixed, state, batch, "kernel F, mixed precision",
+                       n_layer)
+    del task, state, ckpt, mixed
     torch.cuda.empty_cache()
 
     plain = GPTTask(load_vas_exp(use_flash_train=False), dev)
@@ -2171,7 +2214,7 @@ def train_check(dev, mels, codes):
     print(f"  plain attention (attend_xla): {pms:.1f} ms per step, "
           f"{8 * 265 / (pms / 1e3):.0f} tokens/s, peak "
           f"{pmem / 2 ** 30:.2f} GiB")
-    prof = profile_train_step(plain, pstate, batch, "plain attention")
+    prof = profile_train_step(plain, pstate, batch, "plain attention", 0)
     check(prof["F_forward_launches_per_step"] == 0,
           "the plain-attention step launched kernel F")
     del plain, pstate
@@ -2184,12 +2227,12 @@ def load_vas_exp(**override):
     return load_preset("GPT", "vas", **override)
 
 
-def first_train_batch():
-    """The first batch of the synthetic tree's shuffled train split."""
+def first_train_batch(root=TRAIN_ROOT, batch_size=8):
+    """The first batch of a synthetic tree's shuffled train split."""
     from melspec_gpt_vqvae_tpu_torch.data import DataModule
-    dm = DataModule(batch_size=8, spec_dir_path=str(
-        TRAIN_ROOT / "data" / "vas" / "features" / "*" /
-        "melspec_10s_22050hz"), data_root=str(TRAIN_ROOT / "data"))
+    dm = DataModule(batch_size=batch_size, spec_dir_path=str(
+        root / "data" / "vas" / "features" / "*" / "melspec_10s_22050hz"),
+        data_root=str(root / "data"))
     dm.setup()
     return next(iter(dm.train_dataloader()))
 
@@ -2231,6 +2274,372 @@ def train_reference_check(dev, batch):
     check(res["loss_diff"] <= 5e-5, "train step loss vs CPU")
     check(g_rel <= 1e-4, "train step gradients vs CPU")
     check(p_bad == 0, "updated parameters vs CPU")
+
+
+# ---------------------------------------------------------------------------
+# 7. the GPT-VAE: kernels at its shapes, training, evaluation, step times
+# ---------------------------------------------------------------------------
+
+
+VAE_ROOT = Path("build") / "chip_smoke_vae"
+VAE_BATCH, VAE_EPOCHS = 24, 2          # two train batches an epoch: 4 steps
+# the two stacks' attention: the encoder unmasked over T = 265, the decoder
+# causal over the latent token and 265 codes
+VAE_SHAPES = (("encoder_t265_nu265", 265, 265), ("decoder_t266_causal", 266,
+                                                   0))
+
+
+def visible_pairs(t, nu):
+    """(query, key) pairs the minGPT window lets attend at length ``t``."""
+    nu = min(nu, t)
+    return t * (t + 1) // 2 + nu * (nu - 1) // 2
+
+
+def check_vae_kernels(dev):
+    """Kernel F (forward O, lse; backward dQ, dK, dV) and kernel A (float32)
+    against their plain versions at the GPT-VAE's shapes, (24, 16, 265, 64)
+    with n_unmasked 265 and (24, 16, 266, 64) causal, F at the preset's keep
+    0.7 (16-bit uniforms, scale 1 / 0.7) and at keep 1; the bounds of
+    ``check_flash`` and ``check_attention``.  Timed at keep 0.7 (F) and in
+    float32 (A), each with its bound.  Returns the rows' new entries (F
+    forward, F backward, A)."""
+    import torch.nn.functional as F
+
+    from melspec_gpt_vqvae_tpu_torch.ops.attention import attend, attend_xla
+    from melspec_gpt_vqvae_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd, flash_attention_ref_bwd,
+        flash_attention_ref_fwd, make_dropout_mask)
+    g = torch.Generator(device=dev).manual_seed(21)
+    rows = {"fwd": {"max_abs_err": 0.0}, "bwd": {"max_abs_err": 0.0},
+            "attention": {}}
+    for name, t, nu in VAE_SHAPES:
+        q, k, v, do = (torch.randn(VAE_BATCH, 16, t, 64, generator=g,
+                                   device=dev) for _ in range(4))
+        for keep_prob in (0.7, 1.0):
+            keep = make_dropout_mask(g, (VAE_BATCH, 16, t, t), 1 - keep_prob)
+            args = (nu, keep_prob)
+            o, lse = flash_attention_fwd(q, k, v, keep, *args)
+            o_ref, lse_ref = flash_attention_ref_fwd(q, k, v, keep, *args)
+            grads = flash_attention_bwd(q, k, v, keep, o, lse, do, *args)
+            refs = flash_attention_ref_bwd(q, k, v, keep, lse_ref, do, *args)
+            torch.cuda.synchronize()
+            e_o = max(max_err(o, o_ref), max_err(lse, lse_ref))
+            e_g = max(max_err(a, b) for a, b in zip(grads, refs))
+            print(f"  F flash attention ({VAE_BATCH},16,{t},64) n_unmasked="
+                  f"{nu:3d} keep={keep_prob:.1f}: O/lse max|err| {e_o:.3g} "
+                  f"(tol 3e-5), dQ/dK/dV {e_g:.3g} (tol 5e-5)")
+            check(e_o <= 3e-5, f"flash forward {name} keep {keep_prob}")
+            check(e_g <= 5e-5, f"flash backward {name} keep {keep_prob}")
+            again = flash_attention_bwd(q, k, v, keep, o, lse, do, *args)
+            check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                  f"flash backward {name} keep {keep_prob}: two launches "
+                  "differ")
+            for row, e in (("fwd", e_o), ("bwd", e_g)):
+                rows[row]["max_abs_err"] = max(rows[row]["max_abs_err"], e)
+        # timing at the preset's keep 0.7; the function's products over the
+        # visible pairs, at the TF32 rate, against its bytes
+        keep = make_dropout_mask(g, (VAE_BATCH, 16, t, t), 0.3)
+        o, lse = flash_attention_fwd(q, k, v, keep, nu, 0.7)
+        grads = flash_attention_bwd(q, k, v, keep, o, lse, do, nu, 0.7)
+        flops = VAE_BATCH * 16 * visible_pairs(t, nu) * 64 * 2
+        rows["fwd"][name + "_keep07"] = {
+            "ms": cuda_ms(lambda: flash_attention_fwd(q, k, v, keep, nu,
+                                                      0.7)),
+            "device_ms": device_ms(lambda: flash_attention_fwd(
+                q, k, v, keep, nu, 0.7), ["flash_fwd_kernel"]),
+            "plain_ms": cuda_ms(lambda: flash_attention_ref_fwd(
+                q, k, v, keep, nu, 0.7), reps=5),
+            "library_ms": None,
+            **bound(nbytes(q, k, v, keep, o, lse), 2 * flops, "tf32")}
+        rows["bwd"][name + "_keep07"] = {
+            "ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, keep, o, lse,
+                                                      do, nu, 0.7)),
+            "device_ms": device_ms(lambda: flash_attention_bwd(
+                q, k, v, keep, o, lse, do, nu, 0.7), ["flash_bwd_"]),
+            "plain_ms": cuda_ms(lambda: flash_attention_ref_bwd(
+                q, k, v, keep, lse, do, nu, 0.7), reps=5),
+            "library_ms": None,
+            **bound(nbytes(q, k, v, keep, o, lse, do, *grads), 5 * flops,
+                    "tf32")}
+        # kernel A in float32 (the evaluation forward's residual stream
+        # stays float32 under mixed precision); the library call is one
+        # float32 scaled_dot_product_attention with the same mask (causal,
+        # or none over the whole unmasked block)
+        err = max_err(attend(q, k, v, nu), attend_xla(q, k, v, nu))
+        print(f"  A attention float32 ({VAE_BATCH},16,{t},64) n_unmasked="
+              f"{nu}: max|err| {err:.3g} (tol 2e-05)")
+        check(err <= 2e-5, f"attention {name}")
+        causal = nu == 0
+        rows["attention"][name + "_f32"] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: attend(q, k, v, nu)),
+            "device_ms": device_ms(lambda: attend(q, k, v, nu), A_KERNELS),
+            "plain_ms": cuda_ms(lambda: attend_xla(q, k, v, nu), reps=5),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal)),
+            **bound(4 * nbytes(q), 2 * flops, "tf32")}
+        r = (rows["fwd"][name + "_keep07"], rows["bwd"][name + "_keep07"],
+             rows["attention"][name + "_f32"])
+        print(f"  timing ({VAE_BATCH},16,{t},64) n_unmasked={nu}: F forward "
+              f"keep 0.7 {r[0]['ms']:.4f} ms (device {r[0]['device_ms']:.4f},"
+              f" plain {r[0]['plain_ms']:.4f}, bound {r[0]['bound_ms']:.4f});"
+              f" F backward {r[1]['ms']:.4f} ms (device "
+              f"{r[1]['device_ms']:.4f}, plain {r[1]['plain_ms']:.4f}, bound "
+              f"{r[1]['bound_ms']:.4f}); A float32 {r[2]['ms']:.4f} ms "
+              f"(device {r[2]['device_ms']:.4f}, plain {r[2]['plain_ms']:.4f},"
+              f" scaled_dot_product_attention {r[2]['library_ms']:.4f}, "
+              f"bound {r[2]['bound_ms']:.4f})")
+        del q, k, v, do, keep, o, lse, grads
+    torch.cuda.empty_cache()
+    return rows
+
+
+def write_vae_tree(root, mels, codes):
+    """The battery's 48 clips and codes as a VAS tree for the GPT-VAE
+    (batch 24, drop_last): all 48 in the train split (two batches), the
+    last 24 again in the valid split (one batch)."""
+    write_vas_tree(root, mels, codes)
+    names = [f"class{i % 8}/clip_{i:03d}" for i in range(48)]
+    (root / "data" / "vas_train.txt").write_text("\n".join(names) + "\n")
+    (root / "data" / "vas_valid.txt").write_text("\n".join(names[24:])
+                                                 + "\n")
+
+
+def run_vae_cli(flags, override=""):
+    """``train_gpt_vae.main`` from VAE_ROOT with the GPT_VAE_vas preset (full
+    width, batch 24, dropout 0.3, mixed precision, remat attn), one
+    validation batch; returns main's result and, for each of
+    ``runner.evaluate_vae`` and ``vae_tools.reconstruct`` it ran, the
+    seconds and the launches of kernels A, E and F inside it."""
+    from melspec_gpt_vqvae_tpu_torch import train_gpt_vae
+    from melspec_gpt_vqvae_tpu_torch.ops.attention import attend
+    from melspec_gpt_vqvae_tpu_torch.ops.decode_attention import \
+        decode_attend_int8
+    from melspec_gpt_vqvae_tpu_torch.ops.flash_attention import \
+        flash_attention_fwd
+    from melspec_gpt_vqvae_tpu_torch.training import runner
+    from melspec_gpt_vqvae_tpu_torch.utils import vae_tools
+    counters = {"A": attend, "E": decode_attend_int8,
+                "F forward": flash_attention_fwd}
+    inside = []
+
+    def recorded(module, name):
+        fn = getattr(module, name)
+
+        def wrapper(*a, **kw):
+            before = {k: w.launches for k, w in counters.items()}
+            out, dt = wall(lambda: fn(*a, **kw))
+            inside.append((name, dt, {k: w.launches - before[k]
+                                      for k, w in counters.items()}))
+            return out
+        return fn, wrapper
+    argv = ["--dataset", "vas", "--experiment", "vsmoke", "--device", "cuda",
+            "--limit_val_batches", "1", "--override", override, *flags]
+    cwd = os.getcwd()
+    saved = [(runner, "evaluate_vae"), (vae_tools, "reconstruct")]
+    originals = []
+    os.chdir(VAE_ROOT)
+    try:
+        for module, name in saved:
+            fn, wrapper = recorded(module, name)
+            originals.append(fn)
+            setattr(module, name, wrapper)
+        return train_gpt_vae.main(train_gpt_vae.init_config(argv)), inside
+    finally:
+        for (module, name), fn in zip(saved, originals):
+            setattr(module, name, fn)
+        os.chdir(cwd)
+
+
+def vae_check(dev, mels, codes):
+    """The GPT-VAE on the card: ``train_gpt_vae.main`` trains the full-width
+    preset with kernel F (launches counted exactly, remat's recompute
+    included), its checkpoint restored bit for bit; the evaluation entry
+    point with kernel A (exactly 48 launches a validation batch in the
+    ELBO pass, 24 more in the MI / AU pass), the test entry point with
+    the IW-NLL and the greedy reconstructions through the captured decode
+    program; the loss on a repeated batch falls; step times with mixed
+    precision and remat on and off; a 2-layer float32 copy's train step
+    against the CPU.  Returns the launches of F (forward, backward) and A
+    on these paths."""
+    from melspec_gpt_vqvae_tpu_torch.ops.attention import attend
+    from melspec_gpt_vqvae_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    from melspec_gpt_vqvae_tpu_torch.training.optim import named_leaves
+    write_vae_tree(VAE_ROOT, mels, codes)
+    torch.cuda.empty_cache()
+    flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+    ((task, state, ckpt, _), _), dt = wall(lambda: run_vae_cli(
+        ["--train", "1", "--epochs_override", str(VAE_EPOCHS),
+         "--ckpt_every", "0", "--logging_frequency", "0", "--warm_up", "1",
+         "--kl_start", "0.1"], "use_flash_train=True"))
+    f_launches = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    cfg, n_layer = task.cfgs.encoder, task.cfgs.encoder.n_layer
+    steps = state["step"]
+    n_params = sum(t.numel() for _, t in named_leaves(state["params"]))
+    # a train step: each stack's forward (2 x n_layer), remat's recompute
+    # of every attention region (2 x n_layer); a validation batch: both
+    # stacks; the epoch-end MI / AU pass: the encoder
+    want = (steps * 4 * n_layer + VAE_EPOCHS * 3 * n_layer,
+            steps * 2 * n_layer)
+    print(f"  train_gpt_vae.main (GPT_VAE_vas: 2 x {n_layer} layers, "
+          f"{cfg.n_head} heads, {cfg.n_embd} wide, {n_params / 1e6:.1f}M "
+          f"parameters, batch {VAE_BATCH}, dropout {task.cfgs.decoder.attn_pdrop}"
+          f", mixed_precision {cfg.mixed_precision}, remat "
+          f"{cfg.remat_policy if cfg.remat else 'off'}, use_flash_train; "
+          f"{steps} steps, {VAE_EPOCHS} validation batches, a checkpoint): "
+          f"{dt:.1f} s; F launches forward {f_launches[0]}, backward "
+          f"{f_launches[1]} (expected {want}); remat adds "
+          f"{2 * n_layer} forward launches a step ({steps * 2 * n_layer} in "
+          f"this run); kl_weight {state['kl_weight'].item()}")
+    check(steps == 2 * VAE_EPOCHS, f"VAE train steps {steps}")
+    check(cfg.mixed_precision and cfg.remat and cfg.remat_policy == "attn"
+          and cfg.use_flash_train and cfg.n_embd == 1024 and n_layer == 24,
+          "the VAE run's configuration")
+    check(f_launches == want, "kernel F launches on the VAE training path")
+    ckpt_bytes = os.path.getsize(ckpt._resolve("last"))
+    (restored, rdt) = wall(lambda: ckpt.restore("last"))
+    same = trees_equal(restored["state"], task.state_tree(state))
+    print(f"  checkpoint {ckpt_bytes / 2 ** 30:.2f} GiB; restore('last') "
+          f"{rdt:.1f} s, equals the live params, AdamW moments, step and "
+          f"kl_weight bit for bit: {same}; extras {restored['extras']}")
+    check(same and "kl_weight" in restored["state"], "VAE checkpoint round "
+          "trip")
+    del restored
+
+    # evaluation, use_flash_train off: kernel A in both stacks
+    attend.launches = flash_attention_fwd.launches = 0
+    ((_, _, _, metrics), inside), dt = wall(lambda: run_vae_cli(
+        ["--train", "0", "--eval", "1", "--resume", "last"]))
+    ev = inside[0]
+    print(f"  train_gpt_vae.main --eval 1 --resume last (use_flash_train "
+          f"off, 1 val batch): {dt:.1f} s (evaluate_vae {ev[1]:.1f} s); "
+          f"launches {ev[2]}; {json.dumps(metrics['eval'])}")
+    check(ev[2] == {"A": 3 * n_layer, "E": 0, "F forward": 0},
+          "evaluation: kernel A 2 x n_layer launches a validation batch "
+          "(both stacks) and n_layer in the MI / AU pass, no F")
+    check(all(np.isfinite(v) for v in metrics["eval"].values())
+          and {"mutual_info", "active_units", "nll", "ppl"}
+          <= set(metrics["eval"]), "evaluation metrics")
+
+    # the test entry point with the IW-NLL, and greedy reconstructions
+    ((_, _, _, metrics), inside), dt = wall(lambda: run_vae_cli(
+        ["--train", "0", "--test", "1", "--iw_nsamples", "20", "--resume",
+         "last", "--reconstruct_from", "last", "--reconstruct_to",
+         "decoding.txt"]))
+    (_, t_iw, k_iw), (_, t_rec, k_rec) = inside
+    rows = (VAE_ROOT / "decoding.txt").read_text().splitlines()
+    print(f"  train_gpt_vae.main --test 1 --iw_nsamples 20 "
+          f"--reconstruct_from last: {dt:.1f} s; evaluate_vae with IW-NLL "
+          f"{t_iw:.1f} s, launches {k_iw}; {json.dumps(metrics['test'])}; "
+          f"greedy reconstructions of {len(rows)} clips {t_rec:.1f} s "
+          f"(captured decode program), launches {k_rec}")
+    check(np.isfinite(metrics["test"]["iw_nll"]), "IW-NLL")
+    # the ELBO and MI / AU passes, then the IW-NLL: the encoder once and
+    # the decoder for each of the 20 samples
+    check(k_iw == {"A": (3 + 1 + 20) * n_layer, "E": 0, "F forward": 0},
+          "IW-NLL launches")
+    check(len(rows) == VAE_BATCH and all(len(r.split()) == 265
+                                         for r in rows), "reconstructions")
+    # the encoder and the decoder's prefill (T = 1); the decode steps
+    # attend over a float32 cache in plain torch, no E
+    check(k_rec == {"A": 2 * n_layer, "E": 0, "F forward": 0},
+          "reconstruction launches")
+
+    # learning: the loss on one repeated batch falls
+    batch = first_train_batch(VAE_ROOT, VAE_BATCH)
+    losses, ms, mem = timed_steps(task, state, batch, 10, lr=3e-4)
+    print(f"  repeated batch at lr 3e-4: loss {losses[0]:.2f} -> "
+          f"{losses[-1]:.2f} in 10 steps")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "the VAE's loss on a repeated batch did not fall")
+
+    # step times: mixed precision and remat on and off, kernel F, on the
+    # same parameters (each with a fresh optimizer)
+    from melspec_gpt_vqvae_tpu_torch.training.vae_task import VAETask
+    params, kl = state["params"], state["kl_weight"]
+    del state, ckpt
+    torch.cuda.empty_cache()
+    steps_ms = {}
+    for mixed in (True, False):
+        for remat in ("attn", None):
+            exp = copy.deepcopy(task.exp)
+            exp.model = exp.model.replace(mixed_precision=mixed,
+                                          remat=remat is not None,
+                                          remat_policy=remat or "attn")
+            t2 = VAETask(exp, 2, dev)
+            st = {"params": params, "optimizer": t2._optimizer(params),
+                  "step": 0, "kl_weight": kl}
+            torch.cuda.empty_cache()
+            _, ms, mem = timed_steps(t2, st, batch, 5)
+            key = f"mixed_{'on' if mixed else 'off'}_remat_{remat or 'off'}"
+            steps_ms[key] = {"ms": ms, "tokens_per_s": VAE_BATCH * 265
+                             / (ms / 1e3), "peak_gib": mem / 2 ** 30}
+            print(f"  VAE step, {key}: {ms:.1f} ms, "
+                  f"{steps_ms[key]['tokens_per_s']:.0f} tokens/s, peak "
+                  f"{mem / 2 ** 30:.2f} GiB")
+            if remat == "attn":
+                profile_train_step(t2, st, batch, f"GPT-VAE, {key}",
+                                   4 * n_layer)
+            del st, t2
+    del params
+    torch.cuda.empty_cache()
+    vae_reference_check(dev, batch)
+    shutil.rmtree(VAE_ROOT)
+    return f_launches, ev[2]["A"] + k_iw["A"] + k_rec["A"]
+
+
+def vae_reference_check(dev, batch):
+    """One train step of a 2-layer GPT-VAE at the preset's widths, float32
+    parameters, dropout 0, kernel F, remat attn, with mixed precision off
+    and on, on the card against the CPU from the same weights and latent
+    noise, on 8 of the batch's clips.  Bounds: float32, loss 1e-5 of its
+    value and gradients 1e-4 of each leaf's max|g| (the class GPT's
+    check); mixed precision, loss 1e-4 and gradients 2e-2: the card's
+    backward rounds the incoming gradient to bfloat16 before its product
+    (cuBLAS takes no float32 x bfloat16 product), the CPU's does not, and
+    a bfloat16 value carries 2^-9 of relative rounding."""
+    from melspec_gpt_vqvae_tpu_torch.configs import load_preset
+    from melspec_gpt_vqvae_tpu_torch.training.optim import named_leaves
+    from melspec_gpt_vqvae_tpu_torch.training.vae_task import VAETask
+    small = {"codes": np.asarray(batch["codes"])[:8]}
+    eps = torch.randn(8, 1, 1024, generator=torch.Generator().manual_seed(3))
+    for mixed in (False, True):
+        exp = load_preset("GPT_VAE", "vas", n_layer=2, embd_pdrop=0.0,
+                          resid_pdrop=0.0, attn_pdrop=0.0,
+                          use_flash_train=True, mixed_precision=mixed,
+                          learning_rate=3e-4)
+        out = {}
+        for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            task = VAETask(exp, 2, d)
+            state = task.init_state(11)
+            state, loss, _ = task.train_step(state, small,
+                                             torch.Generator(device=d),
+                                             eps=eps.to(d))
+            out[name] = (loss.item(), {
+                n: (t.detach().cpu(), t.grad.cpu())
+                for n, t in named_leaves(state["params"])})
+        (l_cpu, cpu), (l_card, card) = out["cpu"], out["card"]
+        g_rel = max(max_err(card[n][1], cpu[n][1])
+                    / cpu[n][1].abs().max().clamp_min(1e-30).item()
+                    for n in cpu)
+        g_tol, l_tol = (2e-2, 1e-4) if mixed else (1e-4, 1e-5)
+        p_bad = sum(int((((card[n][0] - cpu[n][0]).abs()
+                          > 1e-6 + 1e-6 * cpu[n][0].abs())
+                         & (cpu[n][1].abs() > g_tol * cpu[n][1].abs().max()))
+                        .sum()) for n in cpu)
+        res = {"mixed_precision": mixed, "loss_cpu": l_cpu,
+               "loss_rel_diff": abs(l_card - l_cpu) / abs(l_cpu),
+               "grad_max_rel_err": g_rel,
+               "params_differing_beyond_grad_noise": p_bad}
+        print(f"  VAE train step (2-layer copy, VAS widths, 8 clips, dropout "
+              f"0, kernel F, remat attn) card vs CPU: {json.dumps(res)} "
+              f"(bounds: loss {l_tol:g}, gradients {g_tol:g} of each leaf's "
+              f"max|g|)")
+        check(res["loss_rel_diff"] <= l_tol, f"VAE step loss vs CPU, mixed "
+              f"{mixed}")
+        check(g_rel <= g_tol, f"VAE step gradients vs CPU, mixed {mixed}")
+        check(p_bad == 0, f"VAE step parameters vs CPU, mixed {mixed}")
 
 
 def check_bounds(kernels):
@@ -2440,12 +2849,14 @@ def run(procs):
     del pipe
     torch.cuda.empty_cache()
 
-    phase("export", "torch.export artifacts (VAS width, batch 8, int8 KV "
-          "cache and weights) against the live pipeline:")
+    phase("export", f"torch.export artifacts (VAS width, {EXPORT_LAYERS} "
+          "layers, batch 8, int8 KV cache and weights) against the live "
+          "pipeline:")
     pipe = export_check(dev, procs, wrappers, zero)
     phase("artifact_http", "serve --artifact over HTTP:")
     artifact_http_check()
-    phase("int8_decode", "the int8 decode stage (VAS width, batch 8):")
+    phase("int8_decode", f"the int8 decode stage (VAS width, "
+          f"{EXPORT_LAYERS}-layer GPT, batch 8):")
     int8_decode_check(dev, pipe, wrappers, zero)
     del pipe
     torch.cuda.empty_cache()
@@ -2482,6 +2893,30 @@ def run(procs):
         os.chdir(cwd)
     kernels_on_off_f32(dev, exp, wav, seed=7)
     shutil.rmtree(TRAIN_ROOT)
+
+    phase("vae", "the GPT-VAE (GPT_VAE_vas preset, full width, batch 24, "
+          "mixed precision, remat attn, random weights):")
+    vae_rows = check_vae_kernels(dev)
+    (vf_fwd, vf_bwd), va = vae_check(dev, mels, codes)
+    # the VAE's shapes join each row as entries of their own; F's worst
+    # error covers them
+    for row, new in (("flash_attention_fwd", vae_rows["fwd"]),
+                     ("flash_attention_bwd", vae_rows["bwd"]),
+                     ("attention", vae_rows["attention"])):
+        if "max_abs_err" in new:
+            err = new.pop("max_abs_err")
+            results[row]["max_abs_err_vae_shapes"] = err
+            results[row]["max_abs_err"] = max(results[row]["max_abs_err"],
+                                              err)
+        results[row].update(new)
+    for name, gpt_n, vae_n in (("flash_attention_fwd", f_launches[0], vf_fwd),
+                               ("flash_attention_bwd", f_launches[1],
+                                vf_bwd)):
+        results[name]["launches_by_path"] = {"gpt_training": gpt_n,
+                                             "vae_training": vae_n}
+        launches[name] = gpt_n + vae_n
+    results["attention"]["launches_by_path"]["vae_evaluation"] = va
+    launches["attention"] += va
 
     meta = {"attention": ("attention.cu", "attention.py:114"),
             "vocoder_stack": ("vocoder_stack.cu", "vocoder_pallas.py:143"),

@@ -22,7 +22,8 @@ covered once with the right shape.
 A JAX ``GPTTask`` train state crosses as the port's ``state_tree`` form
 (training/gpt_task.py): the params, the AdamW moments and count of the
 optax ``inject_hyperparams`` state's ``inner_state[0]``
-(``ScaleByAdamState``), its live learning rate and the step.
+(``ScaleByAdamState``), its live learning rate and the step; a JAX
+``VAETask`` state adds its ``kl_weight`` (training/vae_task.py).
 """
 
 from __future__ import annotations
@@ -91,25 +92,32 @@ def config_from_jax(cfg, cls=None):
 
 def gpt_params_from_jax(params: Mapping) -> Dict:
     """JAX GPT param tree (numpy leaves) -> the port's nested dict of
-    float32 CPU tensors (``models.gpt.tree_to`` moves it)."""
+    float32 CPU tensors (``models.gpt.tree_to`` moves it); a GPT-VAE's
+    ``{"encoder", "decoder"}`` tree of two GPTs crosses the same way."""
     if isinstance(params, Mapping):
         return {k: gpt_params_from_jax(v) for k, v in params.items()}
     return _tensor(params)
 
 
-def train_state_from_jax(params: Mapping, opt_state, step) -> Dict:
+def train_state_from_jax(params: Mapping, opt_state, step,
+                         kl_weight=None) -> Dict:
     """A JAX ``GPTTask`` state -- params, the ``gpt_adamw`` opt state
     (``InjectStatefulHyperparamsState``) and step -- as the port's
     ``state_tree`` dict of float32 CPU tensors, for
-    ``GPTTask.load_state``.  Reads the opt state by attribute, so it
-    needs no JAX import."""
+    ``GPTTask.load_state``; with a ``kl_weight``, a JAX ``VAETask`` state
+    with the AdamW optimizer (its ``{"encoder", "decoder"}`` params and
+    moments), for ``VAETask.load_state``.  Reads the opt state by
+    attribute, so it needs no JAX import."""
     adam = opt_state.inner_state[0]
-    return {"params": gpt_params_from_jax(params),
+    tree = {"params": gpt_params_from_jax(params),
             "mu": gpt_params_from_jax(adam.mu),
             "nu": gpt_params_from_jax(adam.nu),
             "count": int(np.asarray(adam.count)),
             "lr": float(np.asarray(opt_state.hyperparams["learning_rate"])),
             "step": int(np.asarray(step))}
+    if kl_weight is not None:
+        tree["kl_weight"] = torch.tensor(np.float32(np.asarray(kl_weight)))
+    return tree
 
 
 def train_state_to_numpy(tree: Dict) -> Dict:

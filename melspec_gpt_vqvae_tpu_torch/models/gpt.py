@@ -10,9 +10,14 @@ the JAX package scans.  For training the leaves are tensors with
 dropout masks from one ``torch.Generator``: the embedding's first, then
 per layer the attention's, the projection's and the MLP's (gpt.py:110-179,
 235-294).  With ``use_flash_train`` the attention of every forward, train
-and eval, is kernel F (ops/flash_attention.py); otherwise a training
-forward runs the plain differentiable ``attend_xla`` and an eval forward
-kernel A (ops/attention.py), as the JAX package's XLA and Pallas paths.
+and eval, is kernel F (ops/flash_attention.py); otherwise a forward that
+autograd records runs the plain differentiable ``attend_xla`` and an eval
+forward kernel A (ops/attention.py), as the JAX package's XLA and Pallas
+paths.  ``mixed_precision`` takes the block's four products with bfloat16
+operands and float32 results (``_dot``: one cuBLAS call on the card);
+``remat`` recomputes each block in the backward by the JAX package's
+policies (``_block_remat``), every recomputed region drawing its dropout
+masks again from the generator state it began at.
 
 Decode keeps a preallocated KV cache of layout (L, B, H, T, hd) and
 updates it in place: the JAX functions return a new cache, these write the
@@ -121,7 +126,10 @@ def tree_to(tree, **kw):
 
 
 def _layer_norm(x, scale, bias, eps: float = 1e-5):
-    return F.layer_norm(x, (x.shape[-1],), scale, bias, eps)
+    """Layer norm in x's dtype (float32 over bfloat16 parameters under
+    mixed precision, as the JAX package's promotes)."""
+    return F.layer_norm(x, (x.shape[-1],), scale.to(x.dtype),
+                        bias.to(x.dtype), eps)
 
 
 def _split_heads(x, n_head):
@@ -209,29 +217,167 @@ def _dropout(x, rate: float, generator: Optional[torch.Generator],
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
-def _block(x, p, cfg: GPTConfig, train: bool,
-           generator: Optional[torch.Generator]):
-    """One pre-LN block of ``gpt_apply`` (gpt.py:132-179).  The attention
-    branch is taken as the JAX block takes it: kernel F whenever
-    ``use_flash_train`` (with a keep-mask only in training), else the
-    plain ``attend_xla`` in training and kernel A in eval."""
-    q, k, v = _qkv(x, p, cfg)
+class _MixedMM(torch.autograd.Function):
+    """(M, K) @ (K, N) with bfloat16 operands and a float32 product from
+    one cuBLAS call that accumulates in float32 (``torch.mm(...,
+    out_dtype=torch.float32)``): the card's form of ``_dot``.  The
+    backward multiplies the gradient, rounded to bfloat16, by the other
+    bfloat16 operand and returns the products rounded to bfloat16, as the
+    JAX package's ``convert_element_type`` transposes round them.  JAX
+    multiplies the float32 gradient unrounded (cuBLAS has no float32 x
+    bfloat16 product); a TPU's one-pass product rounds it as this does."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ab, wb = a.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(ab, wb)
+        ctx.dtypes = (a.dtype, w.dtype)
+        return torch.mm(ab, wb, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        ab, wb = ctx.saved_tensors
+        gb = g.to(torch.bfloat16)
+        ga = gw = None
+        if ctx.needs_input_grad[0]:
+            ga = (gb @ wb.t()).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            gw = (ab.t() @ gb).to(ctx.dtypes[1])
+        return ga, gw
+
+
+def _dot(a: torch.Tensor, w: torch.Tensor, mixed: bool) -> torch.Tensor:
+    """A block's matrix product ``a (..., K) @ w (K, N)`` (gpt.py:127-136).
+    Under ``mixed_precision`` the operands are bfloat16 and the product
+    float32, never a bfloat16 product widened: on the card one cuBLAS call
+    (``_MixedMM``); on the CPU, which has no such call, the float32
+    product of the bfloat16-rounded operands, the same function (a product
+    of two bfloat16 values is exact in float32), whose autograd backward
+    is the JAX package's."""
+    if not mixed:
+        return a @ w
+    if a.is_cuda:
+        out = _MixedMM.apply(a.reshape(-1, a.shape[-1]), w)
+        return out.reshape(*a.shape[:-1], w.shape[1])
+    return a.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
+
+
+def _attn_half(x, p, cfg: GPTConfig, train: bool,
+               generator: Optional[torch.Generator]):
+    """The attention of a block: (B, T, D) residual -> (B, H, T, hd)
+    attention output (the JAX block's ``attn_out``).  The branch is taken
+    as the JAX block takes it: kernel F whenever ``use_flash_train`` (with
+    a keep-mask only in training), else the plain ``attend_xla`` wherever
+    autograd records (a training forward, or the GPT-VAE encoder's
+    dropout-free forward inside a train step) and kernel A in eval."""
+    mixed = cfg.mixed_precision
+    h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
+    qkv = _dot(h, p["attn_qkv"]["w"], mixed) + p["attn_qkv"]["b"]
+    q, k, v = (_split_heads(a, cfg.n_head) for a in qkv.chunk(3, dim=-1))
     if cfg.use_flash_train:
         rate = cfg.attn_pdrop if train else 0.0
         b, h, t = q.shape[:3]
         mask = make_dropout_mask(generator if train else None,
                                  (b, h, t, t), rate)
-        res = flash_attention(q.float(), k.float(), v.float(), mask,
-                              cfg.n_unmasked, 1.0 - rate).to(x.dtype)
-    elif train:
-        res = attend_xla(q, k, v, cfg.n_unmasked,
-                         dropout_rate=cfg.attn_pdrop, generator=generator)
-    else:
-        res = attend(q, k, v, cfg.n_unmasked)
-    y = _merge_heads(res) @ p["attn_proj"]["w"] + p["attn_proj"]["b"]
+        return flash_attention(q.float(), k.float(), v.float(), mask,
+                               cfg.n_unmasked, 1.0 - rate).to(x.dtype)
+    if train or q.requires_grad:
+        return attend_xla(q, k, v, cfg.n_unmasked,
+                          dropout_rate=cfg.attn_pdrop if train else 0.0,
+                          generator=generator)
+    return attend(q, k, v, cfg.n_unmasked)
+
+
+def _rest_half(x, res, p, cfg: GPTConfig, train: bool,
+               generator: Optional[torch.Generator]):
+    """The rest of a block after its attention output ``res``: projection,
+    residual, MLP, residual, with their two dropouts."""
+    mixed = cfg.mixed_precision
+    y = _dot(_merge_heads(res), p["attn_proj"]["w"], mixed) \
+        + p["attn_proj"]["b"]
     x = x + _dropout(y, cfg.resid_pdrop, generator, train)
-    m = _mlp(_layer_norm(x, p["ln2_s"], p["ln2_b"]), p)
+    h2 = _layer_norm(x, p["ln2_s"], p["ln2_b"])
+    m = F.gelu(_dot(h2, p["mlp_up"]["w"], mixed) + p["mlp_up"]["b"])
+    m = _dot(m, p["mlp_down"]["w"], mixed) + p["mlp_down"]["b"]
     return x + _dropout(m, cfg.resid_pdrop, generator, train)
+
+
+def _block(x, p, cfg: GPTConfig, train: bool,
+           generator: Optional[torch.Generator]):
+    """One pre-LN block of ``gpt_apply`` (gpt.py:141-187); its dropout
+    masks are drawn from ``generator`` in the order attention,
+    projection, MLP."""
+    return _rest_half(x, _attn_half(x, p, cfg, train, generator), p, cfg,
+                      train, generator)
+
+
+_SAVED_DOTS = ("mm", "addmm")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    results of the block's matrix products (``aten.mm`` / ``addmm``: the
+    JAX package's dots without batch dimensions), recompute the rest (the
+    attention's batched products included)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op.overloadpacket.__name__ in _SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, generator: Optional[torch.Generator], *args,
+           save_dots: bool = False):
+    """``fn(generator, *args)`` under ``torch.utils.checkpoint``: its
+    activations are dropped after the forward and recomputed in the
+    backward.  ``checkpoint`` restores only the global RNG, so the region
+    draws its dropout masks from a generator of its own, set to
+    ``generator``'s state as the region begins; the recompute starts again
+    from that state and draws the same masks, and ``generator`` is left
+    where the forward left the region's, as if ``fn`` had drawn from it
+    (the JAX package splits a key a layer up front, gpt.py:250-257)."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if save_dots:
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _save_dots)
+    if generator is None:
+        return checkpoint(lambda *a: fn(None, *a), *args,
+                          use_reentrant=False, preserve_rng_state=False,
+                          **kw)
+    start, end = generator.get_state(), []
+
+    def region(*a):
+        g = torch.Generator(device=generator.device)
+        g.set_state(start)
+        out = fn(g, *a)
+        end[:] = [g.get_state()]
+        return out
+    out = checkpoint(region, *args, use_reentrant=False,
+                     preserve_rng_state=False, **kw)
+    generator.set_state(end[0])
+    return out
+
+
+def _block_remat(x, p, cfg: GPTConfig, train: bool,
+                 generator: Optional[torch.Generator]):
+    """``_block`` recomputed in the backward (``make_block_body``,
+    gpt.py:214-232), by ``cfg.remat_policy``: ``full`` keeps only the
+    block's input; ``attn`` keeps the attention output as well -- two
+    regions, the attention and the rest -- so the projection's and the
+    MLP's backward read it and only the attention's replays it; ``dots``
+    keeps the results of the four matrix products."""
+    policy = cfg.remat_policy
+    if policy == "attn":
+        res = _remat(lambda g, x: _attn_half(x, p, cfg, train, g),
+                     generator, x)
+        return _remat(lambda g, x, res: _rest_half(x, res, p, cfg, train, g),
+                      generator, x, res)
+    if policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy={policy!r}: expected 'full', 'attn' "
+                         "or 'dots'")
+    return _remat(lambda g, x: _block(x, p, cfg, train, g), generator, x,
+                  save_dots=policy == "dots")
 
 
 def gpt_apply(params: Params, cfg: GPTConfig, idx: Optional[torch.Tensor],
@@ -241,18 +387,24 @@ def gpt_apply(params: Params, cfg: GPTConfig, idx: Optional[torch.Tensor],
     """Full forward.  idx (B, T) tokens or None; cond_emb (B, P, D)
     prepended embeddings.  ``train`` with a ``generator`` applies the three
     dropout rates (a training forward without a generator has no dropout,
-    as the JAX one without an rng).  Returns logits (B, P + T, out); the
-    JAX function's second result, the attention maps, is not ported."""
-    if cfg.mixed_precision:
-        raise NotImplementedError("mixed-precision training forward is not "
-                                  "ported (ROADMAP A7)")
+    as the JAX one without an rng).  ``cfg.mixed_precision`` takes the
+    block products in bfloat16 with float32 results and keeps the residual
+    stream, layer norms, softmax and head in float32 (``embed_tokens``
+    casts the embedding to float32); ``cfg.remat`` recomputes each block
+    in the backward (``_block_remat``) when autograd records.  Returns
+    logits (B, P + T, out); the JAX function's second result, the
+    attention maps, is not ported."""
     x = _embed(params, cfg, idx, cond_emb)
+    if cfg.mixed_precision:
+        x = x.float()
     train = bool(train) and generator is not None
     x = _dropout(x, cfg.embd_pdrop, generator, train)
+    block = (_block_remat if cfg.remat and torch.is_grad_enabled()
+             else _block)
     for p in _layers(params["blocks"]):
-        x = _block(x, p, cfg, train, generator)
+        x = block(x, p, cfg, train, generator)
     x = _layer_norm(x, params["ln_f_s"], params["ln_f_b"])
-    return x @ params["head"]["w"]
+    return x @ params["head"]["w"].to(x.dtype)
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,

@@ -1,0 +1,256 @@
+"""GPT-VAE training CLI of the PyTorch port.
+
+    python -m melspec_gpt_vqvae_tpu_torch.train_gpt_vae --dataset vas \\
+        --experiment my_vae --train 1 [--device cuda] [--override k=v,...]
+
+The counterpart of the JAX package's GPT_VAE_train.py, with its flags,
+preset merge (``load_preset("GPT_VAE", dataset)``, ``--override``, the VAE
+knobs from the flags) and run layout (``lightning_logs/{experiment}-
+{dataset}``: TensorBoard scalars and token text in
+``TensorBoardLoggs/version_N``, checkpoints in ``checkpoints/version_N``),
+plus ``--device`` (the card unless the caller names the CPU).  ``--train``,
+``--eval 1`` (with MI and AU), ``--test 1`` (adding the IW-NLL over
+``--iw_nsamples``), the stage-2 ``--load_path``, ``--reconstruct_from`` /
+``--decoding_strategy``, ``--save_latent`` and ``--test_interpolation``
+are ported.  Refused, each with its ROADMAP item: ``--model lstm`` (A11),
+a non-empty ``--mesh`` or ``--pp_micro`` (A12), ``--reconstruct_spec`` /
+``--vocoder`` (A8).  The JAX-only ``--prng`` and ``--platform`` are not
+taken; ``--gpus``, ``--num_nodes`` and ``--workers`` are taken and change
+nothing, as there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+
+def init_config(argv=None):
+    parser = argparse.ArgumentParser(description="GPT-VAE (PyTorch port)")
+    parser.add_argument("--dataset", type=str, required=True)
+    parser.add_argument("--experiment", type=str, required=True)
+    parser.add_argument("--model", type=str, choices=["gpt", "lstm"],
+                        default="gpt")
+    parser.add_argument("--gpus", nargs="+", type=int, default=[0])
+    parser.add_argument("--num_nodes", type=int, default=1)
+    parser.add_argument("--momentum", type=float, default=0.0)
+    parser.add_argument("--opt", type=str,
+                        choices=["sgd", "adam", "adamw", "adafactor"],
+                        default=None, help="default: the preset's (adamw)")
+    parser.add_argument("--lr", type=float, default=None)
+    parser.add_argument("--lr_decay", type=float, default=0.0,
+                        help="val-plateau LR decay factor (0 = off)")
+    parser.add_argument("--lr_decay_patience", type=int, default=5)
+    parser.add_argument("--lr_decay_start", type=int, default=15)
+    parser.add_argument("--nsamples", type=int, default=1)
+    parser.add_argument("--iw_train_nsamples", type=int, default=-1)
+    parser.add_argument("--iw_train_ns", type=int, default=1)
+    parser.add_argument("--iw_nsamples", type=int, default=500)
+    parser.add_argument("--train", type=int, default=0)
+    parser.add_argument("--resume", type=str, default=None)
+    parser.add_argument("--workers", type=int, default=1)
+    parser.add_argument("--eval", type=int, default=0)
+    parser.add_argument("--test", type=int, default=0)
+    parser.add_argument("--logging_frequency", type=int, default=500)
+    parser.add_argument("--load_path", type=str, default="",
+                        help="stage 2: the encoder from this checkpoint "
+                             "(a .pt file or a checkpoint directory)")
+    parser.add_argument("--test_interpolation", type=int, default=0)
+    parser.add_argument("--reconstruct_from", type=str, default="")
+    parser.add_argument("--reconstruct_to", type=str, default="decoding.txt")
+    parser.add_argument("--decoding_strategy", type=str,
+                        choices=["greedy", "beam", "sample"],
+                        default="greedy")
+    parser.add_argument("--reconstruct_spec", type=str, default="",
+                        help="frozen VQ-VAE for media (not ported)")
+    parser.add_argument("--vocoder", type=str, default="",
+                        help="frozen MelGAN for media (not ported)")
+    parser.add_argument("--warm_up", type=int, default=10)
+    parser.add_argument("--kl_start", type=float, default=1.0)
+    parser.add_argument("--seed", type=int, default=783435)
+    parser.add_argument("--save_latent", type=int, default=0)
+    parser.add_argument("--fix_var", type=float, default=-1)
+    parser.add_argument("--freeze_epoch", type=int, default=-1)
+    parser.add_argument("--beta", type=float, default=1.0,
+                        help="0 => plain AE")
+    parser.add_argument("--fb", type=int, default=0,
+                        help="free bits mode 0/1/2/3")
+    parser.add_argument("--target_kl", type=float, default=-1)
+    parser.add_argument("--data_root", type=str, default="./data")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device, e.g. 'cuda', 'cuda:1' or 'cpu'")
+    parser.add_argument("--mesh", type=str, default="",
+                        help="device mesh (not ported)")
+    parser.add_argument("--pp_micro", type=int, default=0,
+                        help="pipeline microbatches (not ported)")
+    parser.add_argument("--limit_train_batches", type=int, default=0)
+    parser.add_argument("--limit_val_batches", type=int, default=0)
+    parser.add_argument("--epochs_override", type=int, default=0)
+    parser.add_argument("--ckpt_every", type=int, default=1,
+                        help="checkpoint every N epochs (+ final); 0 = "
+                             "final only, -1 = never")
+    parser.add_argument("--ckpt_every_steps", type=int, default=0)
+    parser.add_argument("--max_steps", type=int, default=0)
+    parser.add_argument("--param_dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"])
+    parser.add_argument("--profile", type=str, default="",
+                        help="write a torch.profiler trace into this dir")
+    parser.add_argument("--override", type=str, default="",
+                        help="comma k=v preset overrides, e.g. "
+                             "'n_layer=2,n_embd=32,batch_size=4'")
+    return parser.parse_args(argv)
+
+
+def _refuse(args):
+    if args.model == "lstm":
+        raise NotImplementedError("--model lstm: the LSTM-VAE is not ported "
+                                  "(ROADMAP A11)")
+    if args.mesh or args.pp_micro:
+        raise NotImplementedError("--mesh / --pp_micro: distribution is not "
+                                  "ported (ROADMAP A12)")
+    if args.reconstruct_spec or args.vocoder:
+        raise NotImplementedError("media logging (--reconstruct_spec, "
+                                  "--vocoder) is not ported (ROADMAP A8)")
+
+
+def build_experiment(args):
+    """The preset with ``--override``, the VAE knobs and the optimiser
+    flags merged in, as GPT_VAE_train.py merges them."""
+    from .configs import VAEConfig, load_preset, parse_overrides
+    exp = load_preset("GPT_VAE", args.dataset,
+                      **parse_overrides(args.override))
+    exp.vae = VAEConfig(
+        nz=exp.model.n_embd, nsamples=args.nsamples,
+        iw_train_nsamples=args.iw_train_nsamples,
+        iw_train_ns=args.iw_train_ns, iw_nsamples=args.iw_nsamples,
+        warm_up=args.warm_up, kl_start=args.kl_start, beta=args.beta,
+        fb=args.fb, target_kl=args.target_kl, fix_var=args.fix_var,
+        freeze_epoch=args.freeze_epoch, save_latent=args.save_latent)
+    if args.epochs_override:
+        exp.train = dataclasses.replace(exp.train,
+                                        epochs=args.epochs_override)
+    if args.opt is not None:
+        exp.train = dataclasses.replace(exp.train, optimizer=args.opt,
+                                        momentum=args.momentum)
+    if args.lr is not None:
+        exp.train = dataclasses.replace(exp.train, learning_rate=args.lr)
+    if args.lr_decay:
+        exp.train = dataclasses.replace(
+            exp.train, lr_decay=args.lr_decay,
+            lr_decay_patience=args.lr_decay_patience,
+            lr_decay_start=args.lr_decay_start)
+    if args.param_dtype != "float32":
+        exp.model = exp.model.replace(dtype=args.param_dtype)
+    return exp
+
+
+def main(args):
+    """Run the CLI.  Returns (task, the trained state or None, the
+    checkpoint manager, {"eval": metrics, "test": metrics} of the passes
+    that ran) for callers that drive it from Python."""
+    import numpy as np
+    import torch
+
+    from .data import DataModule
+    from .training import runner
+    from .training.callbacks import VAETextLogger, metrics_epoch_end
+    from .training.checkpoint import (CheckpointManager, load_tree,
+                                      merge_subtree)
+    from .training.logging import TBLogger
+    from .training.vae_task import VAETask
+    from .utils import vae_tools
+    from .utils.profiling import trace
+
+    _refuse(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device")
+    np.random.seed(args.seed)
+    exp = build_experiment(args)
+    print(f"device: {device}"
+          + (f" ({torch.cuda.get_device_name(device)})"
+             if device.type == "cuda" else ""))
+
+    dm = DataModule(batch_size=exp.train.batch_size,
+                    spec_dir_path=exp.data.spec_dir_path,
+                    data_root=args.data_root)
+    dm.setup()
+    task = VAETask(exp, len(dm.train_dataloader()), device)
+
+    run_dir = os.path.join("lightning_logs",
+                           f"{args.experiment}-{args.dataset}")
+    log = TBLogger(run_dir)
+    ckpt = CheckpointManager(os.path.join(
+        run_dir, "checkpoints", f"version_{log.version}"))
+    media_cb = VAETextLogger(task, log)
+    epoch_cb = metrics_epoch_end(task, dm, log,
+                                 limit_batches=args.limit_val_batches or None)
+    limit_val = args.limit_val_batches or None
+
+    state, metrics = None, {}
+    if args.train:
+        with trace(args.profile or None):
+            if args.load_path and args.resume is None:
+                # stage 2 (GPT_VAE_train.py:133-144): the encoder from
+                # another run, saved as this run's resumable `last`
+                loaded = load_tree(os.path.abspath(args.load_path))
+                loaded = loaded.get("state", loaded).get("params", loaded)
+                fresh = task.init_state(args.seed)
+                tree = task.state_tree(fresh)
+                tree["params"] = merge_subtree(tree["params"], loaded,
+                                               "encoder")
+                ckpt.save({"state": tree, "epoch": -1,
+                           "extras": {"best_loss": 1e4, "pre_mi": 0.0,
+                                      "not_improved": 0}}, 0)
+                ckpt.wait()
+                del fresh, tree
+                print(f"loaded encoder from: {args.load_path}")
+                args.resume = "last"
+            state = runner.fit_vae(
+                task, dm, epochs=exp.train.epochs, log=log, ckpt=ckpt,
+                seed=args.seed, logging_frequency=args.logging_frequency,
+                media_cb=media_cb, epoch_end_cb=epoch_cb, resume=args.resume,
+                limit_train_batches=args.limit_train_batches or None,
+                limit_val_batches=limit_val, ckpt_every=args.ckpt_every,
+                ckpt_every_steps=args.ckpt_every_steps,
+                max_steps=args.max_steps or None)
+    if args.eval == 1:
+        metrics["eval"] = runner.evaluate_vae(
+            task, dm, split="val", ckpt=ckpt, resume=args.resume,
+            compute_mi_au=True, limit_batches=limit_val)
+    if args.test == 1:
+        metrics["test"] = runner.evaluate_vae(
+            task, dm,
+            split="test" if "vggsound" in exp.data.spec_dir_path else "val",
+            ckpt=ckpt, resume=args.resume, compute_mi_au=True,
+            iw_nsamples=args.iw_nsamples, limit_batches=limit_val)
+
+    def limited_val():
+        for i, b in enumerate(dm.val_dataloader()):
+            if limit_val and i >= limit_val:
+                break
+            yield b
+
+    if args.reconstruct_from:
+        restored, _ = runner._restore(task, ckpt, args.reconstruct_from)
+        vae_tools.reconstruct(task, restored, limited_val(),
+                              args.decoding_strategy, args.reconstruct_to)
+        print(f"reconstructions ({args.decoding_strategy}) -> "
+              f"{args.reconstruct_to}")
+    if args.save_latent:
+        restored, _ = runner._restore(task, ckpt, args.resume or "last")
+        fname = os.path.join(run_dir, "latent.txt")
+        vae_tools.visualize_latent(task, restored, limited_val(), fname)
+        print(f"latents -> {fname}")
+    if args.test_interpolation:
+        restored, _ = runner._restore(task, ckpt, args.resume or "last")
+        media_cb.log_interpolation(restored, next(iter(dm.val_dataloader())),
+                                   int(restored["step"]))
+        print("interpolation logged")
+    log.close()
+    return task, state, ckpt, metrics
+
+
+if __name__ == "__main__":
+    main(init_config())

@@ -12,7 +12,8 @@ end-of-epoch save, else the last consumed batch of a mid-epoch one).
 ``save`` copies the tree to host memory before it returns -- the train
 state may change in place right after -- and writes the file in a
 background thread; ``wait`` blocks until that write (and the ``best``
-copy) is on disk.
+copy) is on disk.  ``load_tree`` and ``merge_subtree`` serve the GPT-VAE's
+stage-2 warm start (an encoder taken from another run's checkpoint).
 """
 
 from __future__ import annotations
@@ -176,3 +177,22 @@ class CheckpointManager:
                     f"the original run used --override, repeat the exact "
                     f"same override with --resume.")
         return out
+
+
+def load_tree(path: str) -> Dict[str, Any]:
+    """The nested dict of a checkpoint file, or of ``last.pt`` in a
+    checkpoint directory, on the CPU (the JAX package's
+    ``CheckpointManager.load_tree``)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "last.pt")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def merge_subtree(params: Dict[str, Any], loaded: Dict[str, Any],
+                  key: str = "encoder") -> Dict[str, Any]:
+    """``params`` with its ``key`` subtree taken from ``loaded`` (the
+    stage-2 warm start: the reference keeps the keys holding "encoder" and
+    loads non-strict, GPT_VAE_train.py:133-144)."""
+    if key not in loaded:
+        raise KeyError(f"loaded checkpoint has no {key!r} subtree")
+    return dict(params, **{key: loaded[key]})

@@ -25,7 +25,8 @@ from ..models.gpt import (DTYPES, class_embed, count_params,
                           cross_entropy_loss, gpt_apply, gpt_generate,
                           gpt_param_template, init_gpt_params)
 from ..utils.profiling import StepTimer, gpt_fwd_flops, peak_flops
-from .optim import get_lr, gpt_adamw, named_leaves, with_lr
+from .optim import (get_lr, gpt_adamw, load_optimizer_state,
+                    optimizer_state_tree, with_lr)
 
 TrainState = Dict[str, object]
 
@@ -92,16 +93,8 @@ class GPTTask:
         live ``lr`` and the train ``step``.  Tensors are the live ones,
         detached, not copies."""
         opt = state["optimizer"]
-        mu, nu, count = {}, {}, 0
-        for name, t in named_leaves(state["params"]):
-            st = opt.state.get(t, {})
-            mu[name] = st.get("exp_avg", torch.zeros_like(t)).detach()
-            nu[name] = st.get("exp_avg_sq", torch.zeros_like(t)).detach()
-            if "step" in st:
-                count = int(st["step"])
         return {"params": _map(state["params"], lambda t: t.detach()),
-                "mu": _unflatten(state["params"], mu),
-                "nu": _unflatten(state["params"], nu), "count": count,
+                **optimizer_state_tree(opt, state["params"]),
                 "lr": get_lr(opt), "step": int(state["step"])}
 
     def load_state(self, tree: Dict) -> TrainState:
@@ -112,17 +105,7 @@ class GPTTask:
         params = _map(tree["params"], lambda t: torch.as_tensor(t).to(
             self.device, dtype, copy=True).requires_grad_(True))
         opt = with_lr(self._optimizer(params), tree["lr"])
-        count = int(tree["count"])
-        if count:
-            mu = dict(named_leaves(tree["mu"]))
-            nu = dict(named_leaves(tree["nu"]))
-            for name, t in named_leaves(params):
-                opt.state[t] = {
-                    "step": torch.tensor(float(count)),
-                    "exp_avg": torch.as_tensor(mu[name]).to(
-                        self.device, dtype, copy=True),
-                    "exp_avg_sq": torch.as_tensor(nu[name]).to(
-                        self.device, dtype, copy=True)}
+        load_optimizer_state(opt, params, tree)
         return {"params": params, "optimizer": opt, "step": int(tree["step"])}
 
     # ------------------------------------------------------------------
@@ -176,10 +159,3 @@ class GPTTask:
                          flops_per_step=3.0 * fwd,
                          peak=peak_flops(self.device, DTYPES[cfg.dtype]))
 
-
-def _unflatten(like, flat: Dict[str, torch.Tensor], prefix: str = ""):
-    """The nested layout of ``like`` filled from ``{"a/b/c": tensor}``."""
-    return {k: (_unflatten(v, flat, f"{prefix}/{k}" if prefix else k)
-                if isinstance(v, dict)
-                else flat[f"{prefix}/{k}" if prefix else k])
-            for k, v in like.items()}

@@ -1,17 +1,21 @@
-"""The minGPT two-group AdamW on a nested dict of parameter tensors.
+"""Optimizers on a nested dict of parameter tensors.
 
-Counterpart of melspec_gpt_vqvae_tpu/training/optim.py:25-80.  The JAX
+Counterpart of melspec_gpt_vqvae_tpu/training/optim.py:25-112.  The JAX
 package chains optax ``scale_by_adam`` -> ``add_decayed_weights`` (masked)
 -> ``scale(-lr)`` inside ``inject_hyperparams``; ``torch.optim.AdamW``
 makes the same decoupled update, ``p <- p - lr * (adam(g) + wd * p)``,
 with the decayed leaves in one parameter group and the rest in another.
-The live learning rate is the groups' ``lr``.
+``make_optimizer`` adds optax's ``adam``, ``sgd`` (with momentum) and
+``adafactor`` (``Adafactor``: optax's algorithm and defaults, written
+here) and global-norm clipping.  The live learning rate is the groups'
+``lr`` for every one of them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -59,6 +63,64 @@ def gpt_adamw(params, learning_rate: float, weight_decay: float = 0.01,
                              eps=1e-8)
 
 
+def unflatten(like, flat: Dict[str, torch.Tensor], prefix: str = ""):
+    """The nested layout of ``like`` filled from ``{"a/b/c": tensor}``."""
+    return {k: (unflatten(v, flat, f"{prefix}/{k}" if prefix else k)
+                if isinstance(v, dict)
+                else flat[f"{prefix}/{k}" if prefix else k])
+            for k, v in like.items()}
+
+
+def _is_adam(opt: torch.optim.Optimizer) -> bool:
+    return isinstance(opt, (torch.optim.Adam, torch.optim.AdamW))
+
+
+def optimizer_state_tree(opt: torch.optim.Optimizer, params) -> Dict:
+    """The optimizer's state over ``params`` as nested dicts of the live
+    tensors, detached.  Adam and AdamW: ``mu`` and ``nu`` laid out as the
+    params (zeros before the first step) and their step ``count``, the
+    form of the JAX ``ScaleByAdamState``; any other optimizer: ``opt``,
+    each leaf's state dict by the leaf's name."""
+    leaves = list(named_leaves(params))
+    if not _is_adam(opt):
+        return {"opt": {name: {k: (v.detach() if torch.is_tensor(v) else v)
+                               for k, v in opt.state.get(t, {}).items()}
+                        for name, t in leaves}}
+    mu, nu, count = {}, {}, 0
+    for name, t in leaves:
+        st = opt.state.get(t, {})
+        mu[name] = st.get("exp_avg", torch.zeros_like(t)).detach()
+        nu[name] = st.get("exp_avg_sq", torch.zeros_like(t)).detach()
+        if "step" in st:
+            count = int(st["step"])
+    return {"mu": unflatten(params, mu), "nu": unflatten(params, nu),
+            "count": count}
+
+
+def load_optimizer_state(opt: torch.optim.Optimizer, params,
+                         tree: Dict) -> None:
+    """Put ``optimizer_state_tree``'s state, copied onto each parameter's
+    device and dtype, into ``opt`` over ``params`` (the same layout)."""
+    def to(v, t):
+        return torch.as_tensor(v).to(t.device, t.dtype, copy=True)
+    if "opt" in tree:
+        for name, t in named_leaves(params):
+            st = tree["opt"].get(name)
+            if st:
+                opt.state[t] = {k: (v.clone() if k == "step" else to(v, t))
+                                if torch.is_tensor(v) else v
+                                for k, v in st.items()}
+        return
+    count = int(tree["count"])
+    if not count:
+        return
+    mu, nu = dict(named_leaves(tree["mu"])), dict(named_leaves(tree["nu"]))
+    for name, t in named_leaves(params):
+        opt.state[t] = {"step": torch.tensor(float(count)),
+                        "exp_avg": to(mu[name], t),
+                        "exp_avg_sq": to(nu[name], t)}
+
+
 def get_lr(optimizer: torch.optim.Optimizer) -> float:
     """The live learning rate (the groups share it)."""
     return float(optimizer.param_groups[0]["lr"])
@@ -72,3 +134,108 @@ def with_lr(optimizer: torch.optim.Optimizer,
     for g in optimizer.param_groups:
         g["lr"] = float(lr)
     return optimizer
+
+
+def clip_by_global_norm_(params, max_norm: float) -> None:
+    """Scale every gradient by ``max_norm / norm`` where the global norm of
+    all gradients is at least ``max_norm`` (optax
+    ``clip_by_global_norm``)."""
+    grads = [t.grad for t in params if t.grad is not None]
+    if not grads:
+        return
+    norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+    scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
+    for g in grads:
+        g.mul_(scale.to(g.dtype))
+
+
+def _factored_dims(shape, min_dim_size_to_factor: int):
+    """The two largest axes (second largest, largest) of a leaf whose
+    second moment is factored, or None (optax ``_factored_dims``)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(torch.optim.Optimizer):
+    """``optax.adafactor(learning_rate)`` with its defaults: a second
+    moment factored into row and column means over a leaf's two largest
+    axes when both are >= 128 (else kept whole), decay 1 - t^-0.8, eps
+    1e-30, the update clipped to block RMS 1, scaled by the learning rate
+    and by the leaf's RMS (at least 1e-3), no momentum, no weight decay
+    (optax factorized.py, clipping.py, transform.py).  Not
+    ``torch.optim.Adafactor``, which is another algorithm."""
+
+    MIN_DIM_TO_FACTOR, DECAY, EPS, CLIP, MIN_SCALE = 128, 0.8, 1e-30, 1.0, 1e-3
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, dict(lr=lr))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    self._update(p, group["lr"])
+
+    def _update(self, p, lr: float):
+        g, st = p.grad, self.state[p]
+        dims = _factored_dims(tuple(p.shape), self.MIN_DIM_TO_FACTOR)
+        if not st:
+            st["step"] = torch.tensor(0.0)
+            if dims is None:
+                st["v"] = torch.zeros_like(p)
+            else:
+                st["v_row"] = torch.zeros_like(p.sum(dims[1]))
+                st["v_col"] = torch.zeros_like(p.sum(dims[0]))
+        decay = 1.0 - (float(st["step"]) + 1.0) ** (-self.DECAY)
+        g2 = g * g + self.EPS
+        if dims is None:
+            st["v"].mul_(decay).add_((1.0 - decay) * g2)
+            u = g * st["v"] ** -0.5
+        else:
+            d1, d0 = dims
+            st["v_row"].mul_(decay).add_((1.0 - decay) * g2.mean(d0))
+            st["v_col"].mul_(decay).add_((1.0 - decay) * g2.mean(d1))
+            r = d1 - 1 if d1 > d0 else d1
+            row = (st["v_row"] / st["v_row"].mean(r, keepdim=True)) ** -0.5
+            u = g * row.unsqueeze(d0) * (st["v_col"] ** -0.5).unsqueeze(d1)
+        u = u / torch.clamp_min(torch.sqrt(torch.mean(u * u)) / self.CLIP,
+                                1.0)
+        u = u * lr * torch.clamp_min(torch.sqrt(torch.mean(p * p)),
+                                     self.MIN_SCALE)
+        p.sub_(u)
+        st["step"] += 1.0
+
+
+def make_optimizer(name: str, params, learning_rate: float,
+                   weight_decay: float = 0.01, betas=(0.9, 0.95),
+                   momentum: float = 0.0,
+                   grad_clip: Optional[float] = None
+                   ) -> torch.optim.Optimizer:
+    """The optimizer ``name`` over the leaves of ``params``
+    (optim.py:83-112 of the JAX package): ``adamw`` the minGPT two-group
+    AdamW (``gpt_adamw``), ``adam`` optax's Adam (eps 1e-8), ``sgd`` with
+    ``momentum`` (none at 0), ``adafactor`` (``Adafactor``).
+    ``grad_clip`` clips the gradients to that global norm before every
+    step."""
+    leaves = [t for _, t in named_leaves(params)]
+    if name == "adamw":
+        opt = gpt_adamw(params, learning_rate, weight_decay, betas)
+    elif name == "adam":
+        opt = torch.optim.Adam(leaves, lr=learning_rate, betas=tuple(betas),
+                               eps=1e-8)
+    elif name == "sgd":
+        opt = torch.optim.SGD(leaves, lr=learning_rate,
+                              momentum=momentum or 0.0)
+    elif name == "adafactor":
+        opt = Adafactor(leaves, lr=learning_rate)
+    else:
+        raise ValueError(f"unknown optimizer {name!r}")
+    if grad_clip:
+        opt.register_step_pre_hook(
+            lambda o, args, kwargs: clip_by_global_norm_(leaves, grad_clip))
+    return opt

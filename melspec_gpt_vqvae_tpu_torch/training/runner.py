@@ -1,7 +1,9 @@
-"""The GPT training loop: epochs, validation, checkpoints and resume.
+"""The training loops: epochs, validation, checkpoints and resume.
 
-Counterpart of melspec_gpt_vqvae_tpu/training/runner.py:56-227 for one
-device (the Lightning-Trainer role of the reference's GPT_train.py).  The
+Counterpart of melspec_gpt_vqvae_tpu/training/runner.py:56-428 for one
+device (the Lightning-Trainer role of the reference's GPT_train.py and
+GPT_VAE_train.py): ``fit_gpt`` / ``validate_gpt`` for the class GPT,
+``fit_vae`` / ``evaluate_vae`` for the GPT-VAE.  The
 loop semantics are the JAX package's: ``limit_train_batches`` /
 ``limit_val_batches``, ``ckpt_every`` epochs, ``ckpt_every_steps`` and
 ``max_steps`` (mid-epoch ``last`` saves with their batch index), and an
@@ -17,13 +19,13 @@ from __future__ import annotations
 
 import hashlib
 import time
-from typing import Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from .checkpoint import CheckpointManager
 from .logging import TBLogger
-from .optim import get_lr
+from .optim import get_lr, with_lr
 
 
 def step_generator(seed: int, epoch: int, gi: int,
@@ -62,14 +64,20 @@ def _should_save(epoch: int, epochs: int, ckpt_every: int) -> bool:
     return ckpt_every > 0 and (epoch + 1) % ckpt_every == 0
 
 
-def _restore(task, ckpt: CheckpointManager, resume: str):
-    """(train state, epoch) of checkpoint ``resume``.  The checkpoint is
-    held to the task's geometry through a template of shapes alone
-    (``state_template``), so a resume keeps one train state on the device,
-    never a fresh one beside the restored one."""
+def _restore_tree(task, ckpt: CheckpointManager, resume: str):
+    """(train state, the whole restored checkpoint) of ``resume``.  The
+    checkpoint is held to the task's geometry through a template of shapes
+    alone (``state_template``), so a resume keeps one train state on the
+    device, never a fresh one beside the restored one."""
     restored = ckpt.restore(resume, template={
         "state": task.state_template(), "epoch": 0})
-    return task.load_state(restored["state"]), int(restored["epoch"])
+    return task.load_state(restored.pop("state")), restored
+
+
+def _restore(task, ckpt: CheckpointManager, resume: str):
+    """(train state, epoch) of checkpoint ``resume`` (``_restore_tree``)."""
+    state, restored = _restore_tree(task, ckpt, resume)
+    return state, int(restored["epoch"])
 
 
 def _val_loss(task, state, loader, limit: Optional[int]) -> float:
@@ -167,3 +175,152 @@ def validate_gpt(task, dm, *, ckpt: CheckpointManager,
     val = _val_loss(task, state, dm.val_dataloader(), limit_val_batches)
     print(f"val/loss {val:.4f}")
     return val
+
+
+def fit_vae(task, dm, *, epochs: int, log: TBLogger,
+            ckpt: CheckpointManager, seed: int = 783435,
+            logging_frequency: int = 500,
+            media_cb: Optional[Callable] = None,
+            epoch_end_cb: Optional[Callable] = None,
+            resume: Optional[str] = None,
+            limit_train_batches: Optional[int] = None,
+            limit_val_batches: Optional[int] = None,
+            ckpt_every: int = 1, ckpt_every_steps: int = 0,
+            max_steps: Optional[int] = None):
+    """Train the GPT-VAE; returns the final train state (runner.py:230-386
+    of the JAX package).  As ``fit_gpt``, plus: ``kl_weight`` rides in the
+    state and the checkpoint carries ``extras`` (``best_loss``, ``pre_mi``,
+    ``not_improved``); a validation epoch's sums give NLL and PPL under a
+    generator pinned to (seed + 1, epoch, batch); an epoch not better than
+    ``best_loss - lr_decay_min_delta`` counts as stale, and with
+    ``train.lr_decay`` the learning rate is multiplied by it after
+    ``lr_decay_patience`` stale epochs from ``lr_decay_start`` on;
+    ``media_cb(state, batch, step, "train")`` runs every
+    ``logging_frequency`` batches and ``epoch_end_cb(state, epoch, agg,
+    extras, tokens=)`` after each validation with its token arrays."""
+    extras: Dict[str, Any] = {"best_loss": 1e4, "pre_mi": 0.0,
+                              "not_improved": 0}
+    if resume:
+        state, restored = _restore_tree(task, ckpt, resume)
+        extras = dict(restored.get("extras", extras))
+        start_epoch, start_batch = _resume_position(ckpt,
+                                                    int(restored["epoch"]))
+        print(f"Restored from {resume} at epoch {start_epoch}" +
+              (f" batch {start_batch}" if start_batch else ""))
+    else:
+        state = task.init_state(seed)
+        start_epoch, start_batch = 0, 0
+
+    train_loader = dm.train_dataloader()
+    val_loader = dm.val_dataloader()
+    timer = task.perf_timer(state["params"])
+    step = state["step"]
+    tr = task.exp.train
+
+    def save(epoch, **kw):
+        ckpt.save({"state": task.state_tree(state), "epoch": epoch,
+                   "extras": dict(extras)}, step, **kw)
+
+    for epoch in range(start_epoch, epochs):
+        train_loader.set_epoch(epoch)
+        off = start_batch if epoch == start_epoch else 0
+        if off or train_loader.start_batch:
+            train_loader.set_start_batch(off)
+        t0 = time.time()
+        for i, batch in enumerate(train_loader):
+            gi = i + off
+            if limit_train_batches and gi >= limit_train_batches:
+                break
+            gen = step_generator(seed, epoch, gi, task.device)
+            state, _, report = task.train_step(state, batch, gen, epoch=epoch)
+            step += 1
+            perf = timer.tick(len(batch["codes"]))
+            if perf:
+                log.scalars(perf, step)
+            if gi % 50 == 0:
+                log.scalars(report, step)
+            if media_cb and logging_frequency and gi % logging_frequency == 0:
+                media_cb(state, batch, step, "train")
+            hit_budget = max_steps is not None and step >= max_steps
+            if hit_budget or (ckpt_every_steps and
+                              step % ckpt_every_steps == 0):
+                save(epoch, batch_idx=gi)
+            if hit_budget:
+                print(f"max_steps {max_steps} reached at epoch {epoch} "
+                      f"batch {gi}; stopping")
+                ckpt.wait()
+                return state
+
+        outputs, val_tokens = [], []
+        for i, batch in enumerate(val_loader):
+            if limit_val_batches and i >= limit_val_batches:
+                break
+            outputs.append(task.eval_step(
+                state, batch, step_generator(seed + 1, epoch, i,
+                                             task.device)))
+            if epoch_end_cb:
+                val_tokens.append(task.batch_tokens(batch))
+        agg = (task.metrics_from_sums(task.sum_outputs(outputs))
+               if outputs else {})
+        for k, v in agg.items():
+            log.scalar(f"val/{k}", v, step)
+        print(f"epoch {epoch}: " +
+              " ".join(f"val/{k} {v:.4f}" for k, v in agg.items()) +
+              f" kl_w {float(state['kl_weight']):.4f}"
+              f" ({time.time() - t0:.1f}s)")
+        if agg:
+            # the reference's callbeck_of_my_dreams bookkeeping
+            # (GPT_VAE_callbacks.py:449-515) and its plateau decay
+            if agg["loss"] > extras["best_loss"] - tr.lr_decay_min_delta:
+                extras["not_improved"] = extras.get("not_improved", 0) + 1
+                if (tr.lr_decay and extras["not_improved"]
+                        >= tr.lr_decay_patience
+                        and epoch >= tr.lr_decay_start):
+                    new_lr = _live_lr(state) * tr.lr_decay
+                    with_lr(state["optimizer"], new_lr)
+                    extras["not_improved"] = 0
+                    print(f"epoch {epoch}: val loss plateaued "
+                          f"{tr.lr_decay_patience} epochs -> lr "
+                          f"{new_lr:.3e}")
+            else:
+                extras["not_improved"] = 0
+                extras["best_loss"] = agg["loss"]
+            log.scalar("learning_rate", _live_lr(state), step)
+        if _should_save(epoch, epochs, ckpt_every):
+            save(epoch, metric=agg.get("loss"))
+        if epoch_end_cb:
+            epoch_end_cb(state, epoch, agg, extras, tokens=val_tokens or None)
+    ckpt.wait()
+    return state
+
+
+def evaluate_vae(task, dm, *, split: str = "val",
+                 ckpt: Optional[CheckpointManager] = None,
+                 resume: Optional[str] = None, compute_mi_au: bool = False,
+                 iw_nsamples: int = 0,
+                 limit_batches: Optional[int] = None) -> Dict[str, float]:
+    """Loss, NLL, KL, reconstruction and PPL of a restored (or fresh)
+    state over one loader pass, plus the corpus MI and AU and the IW NLL
+    and PPL over the same batches' tokens (Lit_GPT_VAE.py:571-607,
+    utils.py:50-77); the noise from one generator seeded 0."""
+    state = (_restore_tree(task, ckpt, resume)[0] if resume and ckpt
+             else task.init_state())
+    loader = dm.test_dataloader() if split == "test" else dm.val_dataloader()
+    gen = torch.Generator(device=task.device).manual_seed(0)
+    outputs, tokens = [], []
+    for i, batch in enumerate(loader):
+        if limit_batches and i >= limit_batches:
+            break
+        outputs.append(task.eval_step(state, batch, gen))
+        if compute_mi_au or iw_nsamples > 0:
+            tokens.append(task.batch_tokens(batch))
+    agg = task.metrics_from_sums(task.sum_outputs(outputs))
+    if compute_mi_au:
+        mi, au, _ = task.calc_mi_au(state, tokens)
+        agg["mutual_info"] = mi
+        agg["active_units"] = au
+    if iw_nsamples > 0:
+        agg["iw_nll"], agg["iw_ppl"] = task.calc_iwnll(state, tokens,
+                                                       nsamples=iw_nsamples)
+    print(f"{split}: " + " ".join(f"{k} {v:.4f}" for k, v in agg.items()))
+    return agg
