@@ -115,6 +115,20 @@
    ``attn``); a 2-layer float32 copy's train step, mixed precision off and
    on, against the CPU.
 
+8. (Phase ``vqgan``, after ``vae``.)  The VQ-GAN first stage:
+   ``train_vqvae.main`` on the battery's 48 clips trains the ``VQVAEConfig``
+   preset at full width (ch 128, attention at 53, z 256, 128 codes, ndf 64;
+   batch 2 of 80 x 848 mels) for 4 steps, the adversarial phase from step
+   2, with kernel C exactly twice an iteration and once a validation batch
+   and ``d_weight`` inside its clip range; the checkpoint restored bit for
+   bit and evaluated through ``--train 0 --eval 1 --resume last``; C's
+   indices inside a train step against ``vq_nearest_index_xla`` on the
+   same latents (no unexplained flip) and C timed at that shape (N = 530);
+   the reconstruction loss on a repeated batch falling; the step's ms and
+   peak memory, a profiled window by launching op, the step with cuDNN's
+   TF32 on; a ch-16 copy's train step, float32 on the card against float64
+   on the CPU.
+
 Exits non-zero, printing no result, when there is no CUDA card or any check
 fails.  The last three lines of stdout are: a JSON object of the kernels,
 the card's ``nvidia-smi`` name and power limit, and
@@ -204,17 +218,52 @@ def profiled(run, complete, activities=None, tries=3):
     return avgs, False
 
 
+def queued_ms(fn, reps=20, hold_cycles=20_000_000):
+    """Mean milliseconds the card spends on one call of ``fn`` (every kernel
+    it launches, and the gaps between them), by CUDA events around ``reps``
+    calls queued behind a ``torch.cuda._sleep`` of ``hold_cycles`` cycles
+    (~10 ms): the host queues the calls while the card is held, so the
+    wrapper's host work does not count as long as ``fn`` does not
+    synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(hold_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# a profiler window must hold at least this share of the CUDA-event time of
+# the same calls, or it is taken again: a window can hold every launch with
+# too little time (kernel F's backward has read at 0.65 of the events' time).
+# The events also time the ~1 us by which queued kernels start apart (calls
+# of one small kernel read 0.9-1.0 us more by events than by the profiler
+# on the H100), so that much a kernel of the call is taken off them first.
+WINDOW_FLOOR, KERNEL_GAP_MS = 0.8, 0.001
+
+
 def device_ms(fn, names, reps=20):
     """Mean milliseconds that the port's kernels named in ``names``
     (substrings of the ``__global__`` functions in csrc/*.cu) spend on the
     card in one call of ``fn``: their device time in a ``torch.profiler``
     window of ``reps`` calls, free of the wrapper's host work and of any
-    PyTorch operator beside them.  Where three windows in a row come back
-    without the launches, the time is taken with CUDA events around the
-    calls instead (the wrapper's host work then counts) and the line says
-    so."""
+    PyTorch operator beside them.  A window is taken again (three windows
+    in all) unless it holds the launches (one may be lost at its edge) and
+    their time a call is at least ``WINDOW_FLOOR`` of ``queued_ms`` of the
+    same calls, less ``KERNEL_GAP_MS`` for each kernel a call launches;
+    after three refused windows the time is ``queued_ms``
+    (every kernel of the call and the gaps between them: an upper bound)
+    and the line says so.  ``device_ms.events_ms`` keeps the last call's
+    ``queued_ms``."""
+    from torch.profiler import DeviceType
     fn()
     torch.cuda.synchronize()
+    events_ms = queued_ms(fn, reps)
 
     def run():
         for _ in range(reps):
@@ -222,34 +271,38 @@ def device_ms(fn, names, reps=20):
         torch.cuda.synchronize()
 
     def tally(avgs):
-        total_us, calls = 0.0, 0
+        total_us, calls, launches = 0.0, 0, 0
         for ev in avgs:
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            launches += ev.count
             if any(n in ev.key for n in names) and "at::" not in ev.key:
-                us = getattr(ev, "device_time_total", None)
-                if us is None:
-                    us = ev.cuda_time_total
-                total_us += us
+                us = getattr(ev, "self_device_time_total", None)
+                total_us += us if us is not None else ev.self_cuda_time_total
                 calls += ev.count
-        return total_us, calls
+        per_call = round(calls / reps)
+        # average over the launches the trace holds, times the kernels one
+        # call launches
+        return ((total_us / 1e3 / calls * per_call if calls else 0.0), calls,
+                round(launches / reps))
 
     def complete(avgs):
-        # the trace may lose a launch at the window's edge
-        total_us, calls = tally(avgs)
+        # the trace may lose a launch at the window's edge, or time
+        ms, calls, kernels = tally(avgs)
         per_call = round(calls / reps)
         return (per_call >= 1 and calls >= (reps - 1) * per_call
-                and total_us > 0)
+                and ms >= WINDOW_FLOOR * (events_ms - KERNEL_GAP_MS * kernels))
 
     avgs, ok = profiled(run, complete)
-    total_us, calls = tally(avgs)
+    ms, calls, _ = tally(avgs)
+    device_ms.events_ms = events_ms
     if not ok:
-        ms = cuda_ms(fn, reps=reps)
-        print(f"  torch.profiler held {calls} launches of {names} in {reps} "
-              f"calls, three windows in a row: device time taken with CUDA "
-              f"events instead, {ms:.4f} ms a call")
-        return ms
-    # average over the launches the trace holds, times the kernels one call
-    # launches
-    return total_us / 1e3 / calls * round(calls / reps)
+        print(f"  torch.profiler held {calls} launches of {names}, "
+              f"{ms:.4f} ms a call against {events_ms:.4f} ms by CUDA "
+              f"events, three windows in a row: the CUDA-event time taken "
+              f"instead")
+        return events_ms
+    return ms
 
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W)
@@ -939,11 +992,12 @@ def reference_check(dev, exp, wav, seed):
            "greedy_token_agreement": (toks_gpu == toks).float().mean().item(),
            "code_agreement": (codes_gpu == codes).float().mean().item(),
            "codes_unexplained": unexplained_flips(
-               codes, codes_gpu, lat4[0][1], lat4[1][1], cpu.vq),
+               codes, codes_gpu, lat4[0][1], lat4[1][1],
+               cpu.vq.quantize.embedding),
            "kernel_vs_plain_mel_codes_differing":
                int((k_codes != p_codes).sum()),
            "kernel_vs_plain_mel_codes_unexplained": unexplained_flips(
-               p_codes, k_codes, p_lat, k_lat, cpu.vq)}
+               p_codes, k_codes, p_lat, k_lat, cpu.vq.quantize.embedding)}
     print(f"  reference (f32, 2-layer GPT, full-width VQ-VAE + MelGAN) card "
           f"vs CPU: {json.dumps(res)}")
     check(res["logits"] <= 1e-3, "teacher-forced logits vs CPU")
@@ -968,7 +1022,7 @@ def mel_codes(vq, mel):
     return codes, z.permute(0, 3, 2, 1).reshape(-1, z.shape[1]).double().cpu()
 
 
-def unexplained_flips(codes, codes_b, z, z_b, vq):
+def unexplained_flips(codes, codes_b, z, z_b, codebook):
     """Codes where one run picked a and the other b (GPT order, as tokenize
     returns them) although the difference of their latents cannot explain
     it.  With latents z and z' (rows in the codes' order), b can win in
@@ -977,7 +1031,7 @@ def unexplained_flips(codes, codes_b, z, z_b, vq):
     differing code is a fault."""
     a, b = codes.reshape(-1).long(), codes_b.reshape(-1).long()
     rows = (a != b).nonzero()[:, 0]
-    cb = vq.quantize.embedding.detach().double().cpu()
+    cb = codebook.detach().double().cpu()
     e2 = (cb * cb).sum(1)
     zr = z[rows]
     gap = (e2[b[rows]] - 2 * (zr * cb[b[rows]]).sum(1)) \
@@ -1525,7 +1579,7 @@ def kernels_on_off_f32(dev, exp, wav, seed):
            "wavs": max_err(wavs, wavs_off),
            "tokenize_codes_differing": int((k_codes != p_codes).sum()),
            "tokenize_unexplained_flips": unexplained_flips(
-               p_codes, k_codes, p_lat, k_lat, on.vq),
+               p_codes, k_codes, p_lat, k_lat, on.vq.quantize.embedding),
            "greedy_token_agreement": (toks == toks_off).float().mean()
            .item()}
     print(f"  kernels on vs off (f32, 2-layer GPT, int8 cache and weights, "
@@ -2342,11 +2396,19 @@ def check_vae_kernels(dev):
         o, lse = flash_attention_fwd(q, k, v, keep, nu, 0.7)
         grads = flash_attention_bwd(q, k, v, keep, o, lse, do, nu, 0.7)
         flops = VAE_BATCH * 16 * visible_pairs(t, nu) * 64 * 2
+        # device_ms is held against the CUDA-event time of the same calls
+        # (windows have read this shape at 0.46 / 0.67 of it); both go into
+        # the row
+        f_dev = device_ms(lambda: flash_attention_fwd(q, k, v, keep, nu, 0.7),
+                          ["flash_fwd_kernel"])
+        f_ev = device_ms.events_ms
+        b_dev = device_ms(lambda: flash_attention_bwd(
+            q, k, v, keep, o, lse, do, nu, 0.7), ["flash_bwd_"])
+        b_ev = device_ms.events_ms
         rows["fwd"][name + "_keep07"] = {
             "ms": cuda_ms(lambda: flash_attention_fwd(q, k, v, keep, nu,
                                                       0.7)),
-            "device_ms": device_ms(lambda: flash_attention_fwd(
-                q, k, v, keep, nu, 0.7), ["flash_fwd_kernel"]),
+            "device_ms": f_dev, "events_ms": f_ev,
             "plain_ms": cuda_ms(lambda: flash_attention_ref_fwd(
                 q, k, v, keep, nu, 0.7), reps=5),
             "library_ms": None,
@@ -2354,13 +2416,18 @@ def check_vae_kernels(dev):
         rows["bwd"][name + "_keep07"] = {
             "ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, keep, o, lse,
                                                       do, nu, 0.7)),
-            "device_ms": device_ms(lambda: flash_attention_bwd(
-                q, k, v, keep, o, lse, do, nu, 0.7), ["flash_bwd_"]),
+            "device_ms": b_dev, "events_ms": b_ev,
             "plain_ms": cuda_ms(lambda: flash_attention_ref_bwd(
                 q, k, v, keep, lse, do, nu, 0.7), reps=5),
             "library_ms": None,
             **bound(nbytes(q, k, v, keep, o, lse, do, *grads), 5 * flops,
                     "tf32")}
+        print(f"  F device time against CUDA events ({VAE_BATCH},16,{t},64) "
+              f"n_unmasked={nu}: forward {f_dev:.4f} / {f_ev:.4f} ms, "
+              f"backward {b_dev:.4f} / {b_ev:.4f} ms")
+        check(abs(f_dev - f_ev) <= 0.2 * f_ev and abs(b_dev - b_ev)
+              <= 0.2 * b_ev, f"F {name}: device time more than 20% from the "
+              "CUDA-event time of the same calls")
         # kernel A in float32 (the evaluation forward's residual stream
         # stays float32 under mixed precision); the library call is one
         # float32 scaled_dot_product_attention with the same mask (causal,
@@ -2642,6 +2709,411 @@ def vae_reference_check(dev, batch):
         check(p_bad == 0, f"VAE step parameters vs CPU, mixed {mixed}")
 
 
+# ---------------------------------------------------------------------------
+# 8. the VQ-GAN first stage: training, evaluation, kernel C inside training
+# ---------------------------------------------------------------------------
+
+
+VQGAN_ROOT = Path("build") / "chip_smoke_vqgan"
+# batch 2 (the CLI's default) of 80 x 848 mels: 2 x 5 x 53 = 530 latents
+VQGAN_STEPS, VQGAN_VAL, VQGAN_DISC_START, VQGAN_BATCH = 4, 1, 2, 2
+# a VQ-GAN step's device time by class: the kernels of the PyTorch ops
+# that launch them (their self device time in the profiler; cuDNN picks
+# direct, implicit-GEMM and FFT algorithms, all inside these ops), and the
+# port's kernel C and Adam's foreach kernels by name; what is in none is
+# "the rest"
+VQGAN_OP_CLASSES = (
+    ("convs", ("aten::cudnn_convolution", "aten::convolution_backward")),
+    ("GroupNorm", ("aten::native_group_norm",
+                   "aten::native_group_norm_backward")),
+    ("attention (bmm, softmax)", ("aten::bmm", "aten::_softmax",
+                                  "aten::_softmax_backward_data")))
+VQGAN_KERNEL_CLASSES = (("C", ("vq_nearest_kernel",)),
+                        ("Adam", ("multi_tensor_apply",)))
+
+
+def run_vqvae_cli(flags):
+    """``train_vqvae.main`` from VQGAN_ROOT at the ``VQVAEConfig`` preset
+    (the vas codebook of 128), on the card; returns main's result and the
+    logs of every train step it took."""
+    from melspec_gpt_vqvae_tpu_torch import train_vqvae
+    from melspec_gpt_vqvae_tpu_torch.training.vqvae_task import VQVAETask
+    argv = ["--dataset", "vas", "--experiment", "vqsmoke", "--device",
+            "cuda", "--limit_val_batches", str(VQGAN_VAL), *flags]
+    logs, step = [], VQVAETask.train_step
+
+    def recording(self, state, batch):
+        state, log = step(self, state, batch)
+        logs.append(log)
+        return state, log
+    cwd = os.getcwd()
+    os.chdir(VQGAN_ROOT)
+    VQVAETask.train_step = recording
+    try:
+        return train_vqvae.main(train_vqvae.init_config(argv)), logs
+    finally:
+        VQVAETask.train_step = step
+        os.chdir(cwd)
+
+
+def check_vq_in_training(task, state, batch):
+    """One train step with kernel C's two launches recorded (the generator
+    phase's forward, then the discriminator phase's on the updated
+    autoencoder): each held against ``vq_nearest_index_xla`` on the same
+    latents and codebook (unexplained flips must be 0), then C timed at
+    that shape.  Returns (state, C's row at the training shape)."""
+    from melspec_gpt_vqvae_tpu_torch.models import vqvae as VM
+    from melspec_gpt_vqvae_tpu_torch.ops.vq import vq_nearest_index_xla
+    calls, kernel = [], VM.vq_nearest_index
+
+    def recording(x, cb):
+        out = kernel(x, cb)
+        calls.append((x.clone(), cb.clone(), out.clone()))
+        return out
+    VM.vq_nearest_index = recording
+    try:
+        state, _ = task.train_step(state, batch)
+    finally:
+        VM.vq_nearest_index = kernel
+    check(len(calls) == 2, f"a train step launched kernel C {len(calls)} "
+          "times")
+    flips = differing = 0
+    for x, cb, out in calls:
+        ref = vq_nearest_index_xla(x, cb)
+        differing += int((out != ref).sum())
+        flips += unexplained_flips(ref.cpu(), out.cpu(), x.double().cpu(),
+                                   x.double().cpu(), cb)
+    x, cb, out = calls[0]
+    n, d = x.shape
+    k = cb.shape[0]
+    e2 = torch.sum(cb * cb, dim=1)
+    row = {"N": n, "K": k, "D": d, "indices_differing": differing,
+           "unexplained_flips": flips,
+           "ms": cuda_ms(lambda: kernel(x, cb), reps=100),
+           "device_ms": device_ms(lambda: kernel(x, cb),
+                                  ["vq_nearest_kernel"]),
+           "events_ms": device_ms.events_ms,
+           "plain_ms": cuda_ms(lambda: vq_nearest_index_xla(x, cb), reps=100),
+           # the library form: one cuBLAS product with the codebook norms as
+           # its bias, and an argmin (|x|^2 is the same for every code)
+           "library_ms": cuda_ms(lambda: torch.argmin(
+               torch.addmm(e2, x, cb.T, alpha=-2.0), 1), reps=100),
+           **bound(nbytes(x, cb, out), 2 * n * k * d, "f32")}
+    print(f"  C inside a train step (2 launches, latents {n} x {d}, K {k}, "
+          f"TF32 off): {differing} indices differ from vq_nearest_index_xla, "
+          f"{flips} unexplained; kernel {row['ms']:.4f} ms (device "
+          f"{row['device_ms']:.4f}, CUDA events {row['events_ms']:.4f}), "
+          f"plain {row['plain_ms']:.4f} ms, cuBLAS addmm + argmin "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']})")
+    check(flips == 0, "kernel C in the training forward: indices the "
+          "latents cannot explain")
+    return state, row
+
+
+def vqgan_steps(task, state, batch, n):
+    """``n`` train steps on one batch; (logs, ms a step over the last
+    n - 2, peak device bytes, the bytes allocated before them: the train
+    state and what earlier phases of the process still hold)."""
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    logs = []
+    for i in range(n):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, log = task.train_step(state, batch)
+        logs.append(log)
+    torch.cuda.synchronize()
+    return (logs, (time.perf_counter() - t0) * 1e3 / (n - 2),
+            torch.cuda.max_memory_allocated(), held)
+
+
+def profile_vqgan_step(task, state, batch, warm=1, steps=3):
+    """Device ms of a VQ-GAN train step by class (VQGAN_OP_CLASSES,
+    VQGAN_KERNEL_CLASSES) from a ``torch.profiler`` window of ``steps``
+    steps, the busy time against the wall, and the ten kernels that took
+    the most.  A window is whole when it holds kernel C twice a step (less
+    one at its edge) and the two Adams' launches."""
+    from torch.profiler import DeviceType
+    for _ in range(warm):
+        state = task.train_step(state, batch)[0]
+    torch.cuda.synchronize()
+    wall_ms = 0.0
+
+    def run():
+        nonlocal state, wall_ms
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state = task.train_step(state, batch)[0]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    def tally(avgs):
+        labels = [lab for lab, _ in VQGAN_OP_CLASSES + VQGAN_KERNEL_CLASSES]
+        ms = dict.fromkeys(labels, 0.0)
+        counts = dict.fromkeys(labels, 0)
+        busy, top = 0.0, []
+        for ev in avgs:
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            if ev.device_type == DeviceType.CUDA:
+                busy += us / 1e3 / steps
+                top.append((us / 1e3 / steps, ev.count / steps, ev.key[:90]))
+                label = next((lab for lab, names in VQGAN_KERNEL_CLASSES
+                              if any(n in ev.key.lower() for n in names)),
+                             None)
+            else:
+                label = next((lab for lab, names in VQGAN_OP_CLASSES
+                              if ev.key in names), None)
+            if label is not None:
+                ms[label] += us / 1e3 / steps
+                counts[label] += ev.count
+        ms["the rest"] = busy - sum(ms.values())
+        return ms, counts, busy, sorted(top, reverse=True)[:10]
+
+    def whole(avgs):
+        _, counts, _, _ = tally(avgs)
+        return counts["C"] >= 2 * steps - 1 and counts["Adam"] >= 2 * steps
+
+    avgs, ok = profiled(run, whole)
+    ms, counts, busy, top = tally(avgs)
+    res = {"device_ms_per_step": {k: round(v, 3) for k, v in ms.items()},
+           "device_busy_ms_per_step": round(busy, 3),
+           "wall_ms_per_step_profiled": round(wall_ms, 3),
+           "C_launches_per_step": counts["C"] / steps, "trace_whole": ok}
+    print(f"  VQ-GAN step (torch.profiler, {steps} steps after {warm}): "
+          f"{json.dumps(res)}")
+    for t, c, key in top:
+        print(f"    {t:8.3f} ms {c:6.1f} a step  {key}")
+    check(busy > 0, "profiler saw no device activity in the VQ-GAN step")
+    return res
+
+
+def vqgan_check(dev, mels, codes):
+    """The VQ-GAN first stage on the card: ``train_vqvae.main`` trains the
+    ``VQVAEConfig`` preset at full width (batch 2 of 80 x 848 mels, the
+    adversarial phase from step VQGAN_DISC_START), kernel C exactly twice an
+    iteration and once a validation batch; the checkpoint restored bit for
+    bit and evaluated through ``--train 0 --eval 1 --resume last``; C
+    inside a train step against its plain version and timed there; the
+    reconstruction loss on a repeated batch falling; step ms, peak memory
+    and a profiled window; a narrow float32 copy's step card vs CPU.
+    Returns (C's row at the training shape, C's launches on the training
+    and the evaluation path)."""
+    from melspec_gpt_vqvae_tpu_torch.ops.vq import vq_nearest_index
+    write_vas_tree(VQGAN_ROOT, mels, codes)
+    torch.cuda.empty_cache()
+    vq_nearest_index.launches = 0
+    ((task, state, ckpt, val), logs), dt = wall(lambda: run_vqvae_cli(
+        ["--train", "1", "--epochs", "1", "--limit_train_batches",
+         str(VQGAN_STEPS), "--disc_start", str(VQGAN_DISC_START)]))
+    c_train = vq_nearest_index.launches
+    cfg = task.cfg
+    n_ae = sum(p.numel() for p in state["model"].parameters())
+    n_disc = sum(p.numel() for p in state["disc"].parameters())
+    print(f"  train_vqvae.main (VQVAEConfig preset: ch {cfg.ch}, mult "
+          f"{cfg.ch_mult}, attention at {cfg.attn_resolutions}, z "
+          f"{cfg.z_channels}, K {cfg.num_embeddings}, ndf {cfg.disc_ndf}; "
+          f"{n_ae / 1e6:.2f}M + {n_disc / 1e6:.2f}M parameters; batch "
+          f"{VQGAN_BATCH}, {VQGAN_STEPS} steps, disc_start "
+          f"{VQGAN_DISC_START}, {VQGAN_VAL} validation batch, a checkpoint): "
+          f"{dt:.1f} s; C launches {c_train}; validation {json.dumps(val)}")
+    for i, log in enumerate(logs):
+        print(f"    step {i}: {json.dumps(log)}")
+    check(state["step"] == VQGAN_STEPS == len(logs),
+          f"VQ-GAN train steps {state['step']}")
+    check((cfg.ch, cfg.ch_mult, cfg.attn_resolutions, cfg.z_channels,
+           cfg.embedding_dim, cfg.num_embeddings, cfg.disc_ndf)
+          == (128, (1, 1, 2, 2, 4), (53,), 256, 256, 128, 64),
+          "the VQ-GAN run's configuration is not the preset")
+    check(c_train == 2 * VQGAN_STEPS + VQGAN_VAL,
+          "kernel C: two launches an iteration and one a validation batch")
+    lo, hi = cfg.min_adapt_weight, cfg.max_adapt_weight * cfg.disc_weight
+    for i, log in enumerate(logs):
+        live = i >= VQGAN_DISC_START
+        check(all(np.isfinite(v) for v in log.values()),
+              f"VQ-GAN step {i}: a non-finite log value")
+        check(lo <= log["train/d_weight"] <= hi,
+              f"VQ-GAN step {i}: d_weight {log['train/d_weight']} outside "
+              f"[{lo}, {hi}]")
+        check(log["train/disc_factor"] == (cfg.disc_factor if live else 0.0)
+              and (log["train/disc_loss"] > 0) == live,
+              f"VQ-GAN step {i}: the GAN terms are {'off' if live else 'on'}")
+    check(np.isfinite(val["val/aeloss"]), "VQ-GAN validation loss")
+
+    ckpt_bytes = os.path.getsize(ckpt._resolve("last"))
+    restored, rdt = wall(lambda: ckpt.restore("last"))
+    same = trees_equal(restored["state"], task.state_tree(state))
+    print(f"  checkpoint {ckpt_bytes / 2 ** 20:.1f} MiB; restore('last') "
+          f"{rdt:.2f} s, equals the live params, both Adams, the "
+          f"discriminator's statistics and the step bit for bit: {same}")
+    check(same, "VQ-GAN checkpoint round trip")
+    del restored
+
+    vq_nearest_index.launches = 0
+    ((_, _, _, ev), _), edt = wall(lambda: run_vqvae_cli(
+        ["--train", "0", "--eval", "1", "--resume", "last"]))
+    c_eval = vq_nearest_index.launches
+    print(f"  train_vqvae.main --train 0 --eval 1 --resume last: {edt:.1f} "
+          f"s; C launches {c_eval}; {json.dumps(ev)}")
+    check(c_eval == VQGAN_VAL, "kernel C: one launch a validation batch")
+    check(all(np.isfinite(v) for v in ev.values()), "VQ-GAN evaluation")
+
+    batch = first_train_batch(VQGAN_ROOT, VQGAN_BATCH)
+    state, c_row = check_vq_in_training(task, state, batch)
+
+    # learning on a repeated batch, and the step's time and memory
+    steps, ms, mem, held = vqgan_steps(task, state, batch, 20)
+    rec = [s["train/rec_loss"] for s in steps]
+    print(f"  VQ-GAN step, preset, batch {VQGAN_BATCH}, float32, TF32 off: "
+          f"{ms:.1f} ms, peak {mem / 2 ** 30:.2f} GiB ({held / 2 ** 30:.2f} "
+          f"GiB held before the steps); repeated batch: "
+          f"rec_loss {rec[0]:.4f} -> {rec[-1]:.4f} in 20 steps, d_weight "
+          f"{steps[-1]['train/d_weight']:.4g}")
+    check(all(np.isfinite(v) for s in steps for v in s.values()),
+          "non-finite VQ-GAN logs on the repeated batch")
+    check(rec[-1] < rec[0], "the VQ-GAN's rec_loss on a repeated batch did "
+          "not fall")
+    profile_vqgan_step(task, state, batch)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        ms32 = vqgan_steps(task, state, batch, 8)[1]
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    print(f"  the same step with cuDNN's TF32 on (torch's default for "
+          f"convs): {ms32:.1f} ms")
+    del task, state, ckpt
+    torch.cuda.empty_cache()
+    vqgan_reference_check(dev, batch)
+    shutil.rmtree(VQGAN_ROOT)
+    return c_row, (c_train, c_eval)
+
+
+# the log values of a VQ-GAN step computed before it updates anything, which
+# d_weight does not reach
+VQGAN_PRE_UPDATE = ("train/rec_loss", "train/quant_loss", "train/g_loss",
+                    "train/perplexity", "train/logits_real")
+
+
+def vqgan_reference_check(dev, batch):
+    """One train step of a narrow copy (ch 16, the preset's other widths)
+    from the same random weights on the card in float32 and on the CPU in
+    float64, with the GAN terms off (``disc_start`` beyond the step) and on.
+    The reference is float64 because the CPU's float32 GroupNorm takes its
+    variance as E[x^2] - E[x]^2, which on the battery's mels (channels whose
+    mean is 10-25 times their spread) is off by ~2e-3 after the first block
+    (the card's Welford statistics are not).  The CPU's first quantiser call
+    takes the card's codes: where its own argmin differs, the pick must be
+    a near-tie the two devices' latents explain (``unexplained_flips``),
+    and a flipped code would otherwise move every value after it.  Bounds:
+    the values the step computes before it updates anything
+    (VQGAN_PRE_UPDATE, and ``aeloss`` with the GAN terms off, where
+    ``d_weight`` reaches it times 0) 1e-4 relative (of at least 1e-3).  With
+    the GAN terms off also each leaf's gradient 1e-4 of its max |g|, and
+    the updated parameters 1e-4 relative wherever an element's gradient
+    agrees to 1e-4 of itself: Adam's first step is ~lr sign(g) / (1 +
+    eps / |g|), so a gradient near 0 or near eps moves its parameter by up
+    to 2 lr on one device against the other, which is the bound elsewhere;
+    leaves
+    whose gradient is 0 in exact arithmetic (a conv bias before a GroupNorm
+    of one channel a group, an attention key bias) aside; the
+    discriminator unchanged.  ``d_weight`` and the values after the update
+    are printed, not bounded: d_weight's denominator is the gradient of the
+    mean logit, which train-mode BatchNorm makes all but independent of the
+    input (a normalised channel's batch mean is its bias), a sum that
+    cancels to parts in 10^3 of its terms."""
+    from melspec_gpt_vqvae_tpu_torch.configs import VQVAEConfig
+    from melspec_gpt_vqvae_tpu_torch.models import vqvae as VM
+    from melspec_gpt_vqvae_tpu_torch.training.vqvae_task import VQVAETask
+    kernel = VM.vq_nearest_index
+    for live in (False, True):
+        cfg = VQVAEConfig(ch=16, disc_start=0 if live else 10)
+        card_calls, flips = [], {}
+
+        def recording(x, cb):
+            out = kernel(x, cb)
+            card_calls.append((x.double().cpu(), out.cpu()))
+            return out
+
+        def replaying(x, cb):
+            own = kernel(x, cb)
+            if flips:            # the discriminator phase's call: its own
+                return own
+            z_card, theirs = card_calls[0]
+            flips.update(differing=int((own != theirs).sum()),
+                         unexplained=unexplained_flips(
+                             own, theirs, x.double(), z_card, cb))
+            return theirs
+        out = {}
+        for name, d, fn in (("card", dev, recording),
+                            ("cpu", torch.device("cpu"), replaying)):
+            task = VQVAETask(cfg, d)
+            state = task.init_state(11)
+            x = task.batch_images(batch)
+            if d.type == "cpu":
+                for net in ("model", "disc"):
+                    state[net].double()
+                x = x.double()
+            task.batch_images = lambda _: x
+            VM.vq_nearest_index = fn
+            try:
+                state, logs = task.train_step(state, batch)
+            finally:
+                VM.vq_nearest_index = kernel
+            out[name] = (logs, {
+                f"{net}.{n}": (p.detach().cpu().double(),
+                               p.grad.cpu().double())
+                for net in ("model", "disc")
+                for n, p in state[net].named_parameters()})
+        (l_card, card), (l_cpu, cpu) = out["card"], out["cpu"]
+        keys = VQGAN_PRE_UPDATE + (() if live else ("train/aeloss",))
+        rel = {k: abs(l_card[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-3)
+               for k in l_cpu}
+        res = {"gan_terms": "on" if live else "off", "logs_cpu_f64": l_cpu,
+               "log_rel_err": rel, "codes": flips}
+        if not live:
+            ae = {n: v for n, v in cpu.items() if n.startswith("model.")}
+            scale = max(g.abs().max().item() for _, g in ae.values())
+            g_rel, p_bad, p_far, settled, total = 0.0, 0, 0.0, 0, 0
+            for n, (p, g) in ae.items():
+                dp = (card[n][0] - p).abs()
+                p_far = max(p_far, dp.max().item())
+                total += p.numel()
+                gmax = g.abs().max().item()
+                if gmax <= 1e-6 * scale:      # zero in exact arithmetic
+                    continue
+                dg = (card[n][1] - g).abs()
+                g_rel = max(g_rel, dg.max().item() / gmax)
+                # elements whose own gradient agrees to 1e-4: Adam moves
+                # them alike
+                agree = dg <= 1e-4 * g.abs()
+                settled += int(agree.sum())
+                p_bad += int(((dp > 1e-4 * p.abs() + 1e-7) & agree).sum())
+            res.update(grad_max_rel_err=g_rel,
+                       params_with_gradients_agreeing=f"{settled}/{total}",
+                       params_beyond_1e_4_of_those=p_bad,
+                       param_max_abs_diff=p_far,
+                       disc_unchanged=all(
+                           torch.equal(card[n][0], v[0])
+                           for n, v in cpu.items() if n.startswith("disc.")))
+        print(f"  VQ-GAN train step (ch-16 copy, GAN terms "
+              f"{res['gan_terms']}) card float32 vs CPU float64: "
+              f"{json.dumps(res)} (bounds: {', '.join(keys)} 1e-4 relative"
+              f"{'' if live else '; gradients 1e-4 of each leaf max; parameters 1e-4 relative where the element gradients agree to 1e-4, 2 lr elsewhere'})")
+        check(flips["unexplained"] == 0, "VQ-GAN step: codes the latents "
+              "cannot explain, card vs CPU")
+        check(all(rel[k] <= 1e-4 for k in keys),
+              f"VQ-GAN step logs vs CPU, GAN terms {res['gan_terms']}")
+        if not live:
+            check(g_rel <= 1e-4, "VQ-GAN step gradients vs CPU")
+            check(p_bad == 0 and p_far <= 2 * cfg.learning_rate + 1e-6,
+                  "VQ-GAN step parameters vs CPU")
+            check(res["disc_unchanged"],
+                  "the discriminator moved with the GAN terms off")
+
+
 def check_bounds(kernels):
     """No row's bound may exceed a time measured for the same function: the
     kernel's, its plain version's or the library call's.  A bound above one
@@ -2917,6 +3389,15 @@ def run(procs):
         launches[name] = gpt_n + vae_n
     results["attention"]["launches_by_path"]["vae_evaluation"] = va
     launches["attention"] += va
+
+    phase("vqgan", "the VQ-GAN first stage (VQVAEConfig preset, full width, "
+          "batch 2, float32, random weights):")
+    c_row, (c_train, c_eval) = vqgan_check(dev, mels, codes)
+    results["vq_nearest"]["training_n530_k128"] = c_row
+    results["vq_nearest"]["launches_by_path"] = {
+        "tokenize": launches["vq_nearest"], "vqgan_training": c_train,
+        "vqgan_evaluation": c_eval}
+    launches["vq_nearest"] += c_train + c_eval
 
     meta = {"attention": ("attention.cu", "attention.py:114"),
             "vocoder_stack": ("vocoder_stack.cu", "vocoder_pallas.py:143"),

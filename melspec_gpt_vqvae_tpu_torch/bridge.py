@@ -17,13 +17,20 @@ array) so that it never imports JAX:
     (models/vocoder.py:66-68) -- both 1-D cases reverse the axes.
 
 ``load_state_dict(strict=True)`` then checks that every module tensor is
-covered once with the right shape.
+covered once with the right shape.  The PatchGAN discriminator keeps the
+flax names themselves (``Conv_0``, ``BatchNorm_0`` with ``scale`` /
+``bias`` and the running ``mean`` / ``var``); only ``kernel`` ->
+``weight`` changes there.
 
 A JAX ``GPTTask`` train state crosses as the port's ``state_tree`` form
 (training/gpt_task.py): the params, the AdamW moments and count of the
 optax ``inject_hyperparams`` state's ``inner_state[0]``
 (``ScaleByAdamState``), its live learning rate and the step; a JAX
-``VAETask`` state adds its ``kl_weight`` (training/vae_task.py).
+``VAETask`` state adds its ``kl_weight`` (training/vae_task.py).  A JAX
+``VQVAETask`` state (``{ae_params, disc_params, disc_stats, opt_ae,
+opt_disc, step}``, its two optax Adam states included) crosses as the
+port's ``VQVAETask.state_tree`` (``vqgan_train_state_from_jax``) and back
+into the JAX layout with numpy leaves (``vqgan_train_state_to_numpy``).
 """
 
 from __future__ import annotations
@@ -38,11 +45,15 @@ import torch.nn as nn
 from . import configs
 from .configs import VocoderConfig, VQVAEConfig
 from .models.vocoder import MelGANGenerator
-from .models.vqvae import VectorQuantizer, VQModel
+from .models.vqvae import BatchNorm, VectorQuantizer, VQModel
 
 _RENAME = {"GroupNorm_0": "norm1", "GroupNorm_1": "norm2",
            "Conv_0": "conv1", "Conv_1": "conv2",
            "kernel": "weight", "scale": "weight"}
+_UNRENAME = {"norm1": "GroupNorm_0", "norm2": "GroupNorm_1",
+             "conv1": "Conv_0", "conv2": "Conv_1"}
+# the discriminator keeps its flax names; only a conv's kernel is renamed
+_DISC_RENAME = {"kernel": "weight"}
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -129,8 +140,10 @@ def train_state_to_numpy(tree: Dict) -> Dict:
     return tree
 
 
-def conv_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax VQModel / MelGANGenerator params -> torch state dict."""
+def conv_state_dict(params: Mapping, rename: Mapping = _RENAME
+                    ) -> Dict[str, torch.Tensor]:
+    """flax VQModel / MelGANGenerator params (or any tree of conv nets,
+    with the discriminator's ``_DISC_RENAME``) -> torch state dict."""
     sd = {}
     for path, leaf in _leaves(params):
         t = _tensor(leaf)
@@ -138,11 +151,89 @@ def conv_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             if t.ndim not in (3, 4):
                 raise ValueError(f"unexpected kernel rank at {path}")
             t = t.permute(3, 2, 0, 1) if t.ndim == 4 else t.permute(2, 1, 0)
-        name = ".".join(_RENAME.get(p, p) for p in path)
+        name = ".".join(rename.get(p, p) for p in path)
         if name in sd:
             raise ValueError(f"two JAX leaves map to {name}")
         sd[name] = t.contiguous()
     return sd
+
+
+def conv_tree_from_state_dict(sd: Mapping[str, torch.Tensor],
+                              disc: bool = False) -> Dict:
+    """The inverse of ``conv_state_dict`` for 2-D conv nets: a torch state
+    dict (the VQ-VAE's names, or with ``disc`` the discriminator's) -> the
+    flax tree with numpy leaves, conv kernels OIHW -> HWIO.  A 4-D
+    ``weight`` is a conv kernel; a 1-D one a GroupNorm's ``scale``."""
+    tree: Dict = {}
+    for name, t in sd.items():
+        a = t.detach().cpu().numpy()
+        *mods, leaf = name.split(".")
+        if leaf == "weight":
+            if a.ndim == 4:
+                a, leaf = a.transpose(2, 3, 1, 0), "kernel"
+            elif a.ndim == 1:
+                leaf = "scale"
+            else:
+                raise ValueError(f"unexpected weight rank at {name}")
+        if not disc:
+            mods = [_UNRENAME.get(p, p) for p in mods]
+        node = tree
+        for p in mods:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return tree
+
+
+def _adam_state(opt_state):
+    """The ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside an optax
+    ``adam`` state (a chain's tuple), read by attribute; None if absent."""
+    if hasattr(opt_state, "mu"):
+        return opt_state
+    if isinstance(opt_state, tuple):
+        for part in opt_state:
+            found = _adam_state(part)
+            if found is not None:
+                return found
+    return None
+
+
+def vqgan_train_state_from_jax(state: Mapping) -> Dict:
+    """A JAX ``VQVAETask`` state (numpy or JAX leaves) as the port's
+    ``VQVAETask.state_tree``: torch-named tensors for both nets and both
+    Adams' moments (kernels HWIO -> OIHW), the discriminator's BatchNorm
+    statistics, the Adams' counts and the step."""
+    def adam(opt, rename):
+        a = _adam_state(opt)
+        if a is None:
+            raise ValueError("no Adam state (count, mu, nu) in the JAX "
+                             "optimizer state")
+        return {"mu": conv_state_dict(a.mu, rename),
+                "nu": conv_state_dict(a.nu, rename),
+                "count": int(np.asarray(a.count))}
+    return {"ae_params": conv_state_dict(state["ae_params"]),
+            "disc_params": conv_state_dict(state["disc_params"],
+                                           _DISC_RENAME),
+            "disc_stats": conv_state_dict(state["disc_stats"], _DISC_RENAME),
+            "opt_ae": adam(state["opt_ae"], _RENAME),
+            "opt_disc": adam(state["opt_disc"], _DISC_RENAME),
+            "step": int(np.asarray(state["step"]))}
+
+
+def vqgan_train_state_to_numpy(tree: Mapping) -> Dict:
+    """The inverse of ``vqgan_train_state_from_jax``: a port
+    ``VQVAETask.state_tree`` in the JAX task's layout with numpy leaves
+    (flax names, HWIO kernels); each Adam as ``{"count", "mu", "nu"}``."""
+    def adam(opt, disc):
+        return {"count": np.int32(opt["count"]),
+                "mu": conv_tree_from_state_dict(opt["mu"], disc),
+                "nu": conv_tree_from_state_dict(opt["nu"], disc)}
+    return {"ae_params": conv_tree_from_state_dict(tree["ae_params"]),
+            "disc_params": conv_tree_from_state_dict(tree["disc_params"],
+                                                     True),
+            "disc_stats": conv_tree_from_state_dict(tree["disc_stats"], True),
+            "opt_ae": adam(tree["opt_ae"], False),
+            "opt_disc": adam(tree["opt_disc"], True),
+            "step": np.int32(tree["step"])}
 
 
 def load_vqvae(params: Mapping, cfg: VQVAEConfig) -> VQModel:
@@ -160,10 +251,11 @@ def load_melgan(params: Mapping, cfg: VocoderConfig) -> MelGANGenerator:
 @torch.no_grad()
 def init_conv_net_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights in place, like the flax defaults the JAX package
-    initialises with: conv kernels N(0, 1 / fan_in) (LeCun), zero biases,
-    GroupNorm (1, 0), the codebook U(-1/K, 1/K) (models/vqvae.py:184-190).
-    Drawn on ``generator``'s device, so a seed gives the same weights
-    wherever the model lives afterwards."""
+    initialises with: conv kernels N(0, 1 / fan_in) (LeCun), zero biases
+    where a conv has one, GroupNorm (1, 0), BatchNorm scale 1, bias 0 and
+    statistics mean 0, var 1, the codebook U(-1/K, 1/K)
+    (models/vqvae.py:184-190).  Drawn on ``generator``'s device, so a seed
+    gives the same weights wherever the model lives afterwards."""
     for m in model.modules():
         if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d)):
             w = m.weight
@@ -171,10 +263,16 @@ def init_conv_net_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 m, nn.ConvTranspose1d) else w.shape[1] * w.shape[2]
             w.copy_(torch.randn(w.shape, generator=generator,
                                 device=generator.device) * fan_in ** -0.5)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.GroupNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            m.scale.fill_(1.0)
+            m.bias.zero_()
+            m.mean.zero_()
+            m.var.fill_(1.0)
         elif isinstance(m, VectorQuantizer):
             k = m.embedding.shape[0]
             u = torch.rand(m.embedding.shape, generator=generator,

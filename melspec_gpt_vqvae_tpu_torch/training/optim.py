@@ -7,7 +7,7 @@ makes the same decoupled update, ``p <- p - lr * (adam(g) + wd * p)``,
 with the decayed leaves in one parameter group and the rest in another.
 ``make_optimizer`` adds optax's ``adam``, ``sgd`` (with momentum) and
 ``adafactor`` (``Adafactor``: optax's algorithm and defaults, written
-here) and global-norm clipping.  The live learning rate is the groups'
+here) and global-norm clipping; ``vqvae_adam`` the VQ-GAN's Adam.  The live learning rate is the groups'
 ``lr`` for every one of them.
 """
 
@@ -239,3 +239,10 @@ def make_optimizer(name: str, params, learning_rate: float,
         opt.register_step_pre_hook(
             lambda o, args, kwargs: clip_by_global_norm_(leaves, grad_clip))
     return opt
+
+
+def vqvae_adam(params, learning_rate: float) -> torch.optim.Optimizer:
+    """Adam with betas (0.5, 0.9) and eps 1e-8 over the leaves of
+    ``params``, for both VQ-GAN optimizers (optim.py:115-118 of the JAX
+    package; reference: big_model_attn_gan.py:834-844)."""
+    return make_optimizer("adam", params, learning_rate, betas=(0.5, 0.9))

@@ -1,8 +1,12 @@
-"""The deterministic stimulus battery of the code-parity check.
+"""The deterministic stimulus batteries: the code-parity check's and the
+learning proof's.
 
-The port's own copy of ``make_battery`` in the repository's
-``parity_check.py`` (numpy only): 48 clips of tones, chirps, harmonic
-stacks, AM tones and seeded noise mixes, bit for bit the same waveforms.
+The port's own copies of ``make_battery`` in the repository's
+``parity_check.py`` (numpy only: 48 clips of tones, chirps, harmonic
+stacks, AM tones and seeded noise mixes) and of ``make_tone_battery`` and
+``wavs_to_training_mels`` in ``scripts/quality_proof.py`` (64 clips of 4
+frequency-band classes, and their mels as the codec trains on them), bit
+for bit the same waveforms.
 """
 
 from __future__ import annotations
@@ -38,3 +42,46 @@ def make_battery(n_samples: int, sr: int = 22050) -> np.ndarray:
         wavs.append(0.15 * rng.standard_normal(n_samples)
                     + 0.15 * np.sin(2 * np.pi * (200 + 500 * seed) * t))
     return np.stack(wavs).astype(np.float32)
+
+
+SR = 22050
+N_CLASSES = 4
+TONES_PER_CLASS = 4
+JITTERS = 4
+
+
+def make_tone_battery(mcfg):
+    """64 clips: 4 frequency-band classes x 4 tones x 4 jittered variants.
+    Returns (wavs (64, clip_samples) float32, labels (64,) int32, base
+    frequencies (64,))."""
+    rng = np.random.default_rng(7)
+    t = np.arange(mcfg.clip_samples, dtype=np.float64) / SR
+    freqs = np.geomspace(150.0, 4000.0, N_CLASSES * TONES_PER_CLASS)
+    wavs, labels, base_freqs = [], [], []
+    for i, f in enumerate(freqs):
+        for j in range(JITTERS):
+            amp = 0.3 * (1.0 + 0.1 * rng.standard_normal())
+            w = amp * np.sin(2 * np.pi * f * (1 + 0.002 * j) * t)
+            w += 0.01 * rng.standard_normal(len(t))
+            wavs.append(w)
+            labels.append(i // TONES_PER_CLASS)
+            base_freqs.append(f)
+    return (np.stack(wavs).astype(np.float32), np.asarray(labels, np.int32),
+            np.asarray(base_freqs))
+
+
+def wavs_to_training_mels(wavs, mcfg, device):
+    """Mels of ``wavs`` on ``device`` (kernel D on the card), 16 clips a
+    call, cropped to 848 frames.  Returns numpy (mels01 (N, 80, 848) in [0,
+    1], x_all (N, 80, 848, 1) in [-1, 1] float32), the input of every
+    proof battery."""
+    import torch
+
+    from ..ops.mel_kernel import waveform_to_mel_fused
+    with torch.inference_mode():
+        mels = np.concatenate([
+            waveform_to_mel_fused(torch.as_tensor(wavs[i:i + 16]).to(device),
+                                  mcfg).cpu().numpy()
+            for i in range(0, len(wavs), 16)])             # (N, 80, 860)
+    mels = mels[:, :, 6:854]                               # crop 848
+    return mels, (2.0 * mels - 1.0)[..., None].astype(np.float32)

@@ -59,6 +59,7 @@ PORT_MODULES = [
     "melspec_gpt_vqvae_tpu_torch.serving",
     "melspec_gpt_vqvae_tpu_torch.train_gpt",
     "melspec_gpt_vqvae_tpu_torch.train_gpt_vae",
+    "melspec_gpt_vqvae_tpu_torch.train_vqvae",
     "melspec_gpt_vqvae_tpu_torch.training",
     "melspec_gpt_vqvae_tpu_torch.training.callbacks",
     "melspec_gpt_vqvae_tpu_torch.training.checkpoint",
@@ -67,6 +68,7 @@ PORT_MODULES = [
     "melspec_gpt_vqvae_tpu_torch.training.optim",
     "melspec_gpt_vqvae_tpu_torch.training.runner",
     "melspec_gpt_vqvae_tpu_torch.training.vae_task",
+    "melspec_gpt_vqvae_tpu_torch.training.vqvae_task",
     "melspec_gpt_vqvae_tpu_torch.utils",
     "melspec_gpt_vqvae_tpu_torch.utils.battery",
     "melspec_gpt_vqvae_tpu_torch.utils.convert",
@@ -82,15 +84,25 @@ PORT_MODULES = [
 ]
 
 
+# the port's scripts whose imports the test also loads (by path: scripts/
+# is no package)
+PORT_SCRIPTS = ["scripts/torch_quality_proof.py"]
+
+
 def test_port_never_imports_jax():
-    """The card's machine has no JAX: importing every module of the port
-    and ``chip_smoke`` (import only) in a fresh interpreter must load none
+    """The card's machine has no JAX: importing every module of the port,
+    ``chip_smoke`` (import only) and the port's scripts in ``PORT_SCRIPTS``
+    (their module level) in a fresh interpreter must load none
     of jax, flax, optax, orbax or yaml (the card's machine has no PyYAML
     either), and nothing of the JAX package -- not even
     its framework-free modules -- nor the repository's ``parity_check``."""
-    code = ("import importlib, sys\n"
+    code = ("import importlib, importlib.util, sys\n"
             f"for m in {PORT_MODULES + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"
+            f"for i, p in enumerate({PORT_SCRIPTS!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f's{i}', p)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec("
+            "spec))\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
             "              'yaml', 'melspec_gpt_vqvae_tpu',\n"
