@@ -129,6 +129,26 @@
    TF32 on; a ch-16 copy's train step, float32 on the card against float64
    on the CPU.
 
+9. (Phase ``media``, after ``vqgan``.)  Media logging through frozen
+   decoders: ``train_gpt.main`` at the full VAS preset (24 layers,
+   ``use_flash_train``, an int8 KV cache) for 2 steps and a validation
+   batch with ``--logging_frequency 1``, ``--reconstruct_spec`` phase
+   vqgan's run directory and ``--vocoder`` a reference-format MelGAN folder
+   of seeded random weights: every GPTImageLogger call's launches exactly
+   (A: three prefills; E: every decode step of its three generations plus
+   the warm-up runs of its captures; B: 4 a vocoded clip; no C or F), the
+   JAX tag set, (80, 848) spectrograms, a (266, 266) attention image and
+   217,088-sample WAVs; a callback's seconds beside a train step's; then
+   one VAETextLogger call with the same decoders on phase vae's checkpoint
+   (A and B counted exactly).  It removes the vae, vqgan and media trees.
+
+10. (Phase ``lstm``, last.)  The LSTM-VAE through ``train_gpt_vae.main
+    --model lstm`` at the VAE_vas preset (ni 512, nh 1024, nz 32, batch 8
+    grids = 40 sentences of 52) for 4 steps, no kernel launched; the
+    checkpoint restored bit for bit; ``--eval 1`` (MI, AU); greedy and beam
+    reconstructions and a sample from the prior, each timed; the loss on a
+    repeated batch falling; a float32 train step (dropout 0) card vs CPU.
+
 Exits non-zero, printing no result, when there is no CUDA card or any check
 fails.  The last three lines of stdout are: a JSON object of the kernels,
 the card's ``nvidia-smi`` name and power limit, and
@@ -2020,9 +2040,10 @@ def run_train_cli(root, flash, train=True):
     from melspec_gpt_vqvae_tpu_torch import train_gpt
     from melspec_gpt_vqvae_tpu_torch.models import gpt as G
     from melspec_gpt_vqvae_tpu_torch.training import runner
+    # media logging has a phase of its own (media_check): off here
     argv = ["--dataset", "vas", "--experiment", "smoke", "--device", "cuda",
-            "--limit_val_batches", str(VAL_BATCHES),
-            "--override", f"use_flash_train={flash}"]
+            "--limit_val_batches", str(VAL_BATCHES), "--logging_frequency",
+            "0", "--override", f"use_flash_train={flash}"]
     argv += (["--train", "1", "--epochs_override", "1", "--ckpt_every", "0",
               "--limit_train_batches", str(TRAIN_STEPS)] if train
              else ["--train", "0", "--eval", "1", "--resume", "last"])
@@ -2652,7 +2673,7 @@ def vae_check(dev, mels, codes):
     del params
     torch.cuda.empty_cache()
     vae_reference_check(dev, batch)
-    shutil.rmtree(VAE_ROOT)
+    # VAE_ROOT stays for phase media, which removes it
     return f_launches, ev[2]["A"] + k_iw["A"] + k_rec["A"]
 
 
@@ -2987,7 +3008,8 @@ def vqgan_check(dev, mels, codes):
     del task, state, ckpt
     torch.cuda.empty_cache()
     vqgan_reference_check(dev, batch)
-    shutil.rmtree(VQGAN_ROOT)
+    # VQGAN_ROOT stays for phase media (its --reconstruct_spec), which
+    # removes it
     return c_row, (c_train, c_eval)
 
 
@@ -3112,6 +3134,378 @@ def vqgan_reference_check(dev, batch):
                   "VQ-GAN step parameters vs CPU")
             check(res["disc_unchanged"],
                   "the discriminator moved with the GAN terms off")
+
+
+# ---------------------------------------------------------------------------
+# 9. media logging through frozen decoders: the class GPT and the GPT-VAE
+# ---------------------------------------------------------------------------
+
+
+MEDIA_ROOT = Path("build") / "chip_smoke_media"
+MEDIA_STEPS, MEDIA_VAL = 2, 1
+MEDIA_CLIP = 848 * 256          # samples of a vocoded (80, 848) spectrogram
+# the tags of one GPTImageLogger call (training/callbacks.py, letter for
+# letter the JAX package's)
+GPT_MEDIA_TAGS = (
+    ("conditioning", "text"), ("codes", "text"), ("codes_half", "text"),
+    ("codes_nopix", "text"), ("codes_det", "text"), ("att_nopix", "image"),
+    ("inputs", "image"), ("inputs_audio", "audio"),
+    ("reconstructions", "image"), ("reconstructions_audio", "audio"),
+    ("samples_half", "image"), ("samples_half_audio", "audio"),
+    ("samples_nopix", "image"), ("samples_nopix_audio", "audio"),
+    ("samples_det", "image"), ("samples_det_audio", "audio"))
+
+
+def write_melgan_dir(path, seed):
+    """A reference-format MelGAN folder of the VAS vocoder from seeded
+    random weights: ``best_netG.pt`` in the reference Sequential's layout,
+    each conv weight-normed with g = |v| (folded back to v), and
+    ``args.yml``."""
+    from melspec_gpt_vqvae_tpu_torch.bridge import init_conv_net_
+    from melspec_gpt_vqvae_tpu_torch.configs import VocoderConfig
+    from melspec_gpt_vqvae_tpu_torch.models.vocoder import MelGANGenerator
+    from melspec_gpt_vqvae_tpu_torch.utils import convert
+    cfg = VocoderConfig()
+    params = dict(init_conv_net_(MelGANGenerator(cfg), torch.Generator()
+                                 .manual_seed(seed)).named_parameters())
+    sd = {}
+    for port, ref in convert._melgan_reference_names(cfg).items():
+        w = params[f"{port}.weight"].detach()
+        sd[f"{ref}.weight_v"] = w
+        sd[f"{ref}.weight_g"] = w.pow(2).sum(dim=(1, 2), keepdim=True).sqrt()
+        sd[f"{ref}.bias"] = params[f"{port}.bias"].detach()
+    path.mkdir(parents=True, exist_ok=True)
+    torch.save(sd, path / "best_netG.pt")
+    (path / "args.yml").write_text(
+        "!!python/object:argparse.Namespace\n"
+        f"n_mel_channels: {cfg.n_mel_channels}\nngf: {cfg.ngf}\n"
+        f"n_residual_layers: {cfg.n_residual_layers}\n")
+
+
+def media_counters():
+    """The wrappers of the kernels a media or LSTM path could launch."""
+    from melspec_gpt_vqvae_tpu_torch.ops.attention import attend
+    from melspec_gpt_vqvae_tpu_torch.ops.decode_attention import \
+        decode_attend_int8
+    from melspec_gpt_vqvae_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    from melspec_gpt_vqvae_tpu_torch.ops.vocoder_stack import \
+        fused_resblock_stack
+    from melspec_gpt_vqvae_tpu_torch.ops.vq import vq_nearest_index
+    return {"A": attend, "B": fused_resblock_stack, "C": vq_nearest_index,
+            "E": decode_attend_int8, "F forward": flash_attention_fwd,
+            "F backward": flash_attention_bwd}
+
+
+def recording(cls, name, log, extra=None):
+    """Replace ``cls.name`` by a wrapper that appends (seconds on the card,
+    launches of each media counter inside, ``extra(self)`` before and
+    after) of every call to ``log``; returns the original."""
+    fn, counters = getattr(cls, name), media_counters()
+
+    def wrapper(self, *a, **kw):
+        before = {k: w.launches for k, w in counters.items()}
+        x0 = extra(self) if extra else None
+        out, dt = wall(lambda: fn(self, *a, **kw))
+        log.append((dt, {k: w.launches - before[k]
+                         for k, w in counters.items()},
+                    (x0, extra(self)) if extra else None))
+        return out
+    setattr(cls, name, wrapper)
+    return fn
+
+
+def media_records(log_dir):
+    """The JSON lines of a run's logger, every WAV they name checked (mono
+    16-bit, 22050 Hz, MEDIA_CLIP samples)."""
+    recs = [json.loads(line) for line in
+            (log_dir / "events.jsonl").read_text().splitlines()]
+    for r in recs:
+        if "audio" in r:
+            with wave.open(str(log_dir / r["audio"]), "rb") as w:
+                got = (w.getnchannels(), w.getsampwidth(), w.getframerate(),
+                       w.getnframes())
+            check(got == (1, 2, 22050, MEDIA_CLIP),
+                  f"{r['tag']}: WAV {got}")
+    return recs
+
+
+def media_check(dev, mels, codes, smi_line):
+    """Media logging on the card through the port's CLIs: ``train_gpt.main``
+    at the full VAS preset with ``--reconstruct_spec`` (phase vqgan's run
+    directory) and ``--vocoder`` (a reference-format folder of seeded
+    weights), every batch logged (``--logging_frequency 1``): each
+    GPTImageLogger call's tags and files, its launches of A (three
+    prefills), E (every decode step over the int8 cache, plus the warm-up
+    runs of its captures), B (4 a vocoded clip), no C or F; then one
+    VAETextLogger call with the same decoders on phase vae's checkpoint.
+    Returns {kernel: (launches on the GPT path, on the GPT-VAE call)}."""
+    from melspec_gpt_vqvae_tpu_torch import train_gpt, train_gpt_vae
+    from melspec_gpt_vqvae_tpu_torch.training import callbacks as CB
+    from melspec_gpt_vqvae_tpu_torch.training import runner
+    from melspec_gpt_vqvae_tpu_torch.training.checkpoint import \
+        CheckpointManager
+    from melspec_gpt_vqvae_tpu_torch.training.gpt_task import GPTTask
+    from melspec_gpt_vqvae_tpu_torch.training.logging import TBLogger
+    from melspec_gpt_vqvae_tpu_torch.training.vae_task import VAETask
+    write_vas_tree(MEDIA_ROOT, mels, codes)
+    write_melgan_dir(MEDIA_ROOT / "melgan", seed=5)
+    vq_run = (VQGAN_ROOT / "lightning_logs" / "vqsmoke-vas").resolve()
+    decoder_flags = ["--reconstruct_spec", str(vq_run),
+                     "--vocoder", str((MEDIA_ROOT / "melgan").resolve())]
+    counters = media_counters()
+    calls, steps = [], []
+    saved = [(CB.GPTImageLogger, "__call__",
+              recording(CB.GPTImageLogger, "__call__", calls,
+                        lambda cb: dict(cb.task.graphs.warmup_launches))),
+             (GPTTask, "train_step",
+              recording(GPTTask, "train_step", steps))]
+    argv = ["--dataset", "vas", "--experiment", "msmoke", "--device", "cuda",
+            "--train", "1", "--epochs_override", "1", "--ckpt_every", "-1",
+            "--limit_train_batches", str(MEDIA_STEPS),
+            "--limit_val_batches", str(MEDIA_VAL), "--logging_frequency",
+            "1", *decoder_flags,
+            "--override", "use_flash_train=True,cache_dtype=int8"]
+    for w in counters.values():
+        w.launches = 0
+    cwd = os.getcwd()
+    os.chdir(MEDIA_ROOT)
+    try:
+        (task, state, _), dt = wall(lambda: train_gpt.main(
+            train_gpt.init_config(argv)))
+    finally:
+        os.chdir(cwd)
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+    gpt_launches = {k: w.launches for k, w in counters.items()}
+    n_layer, t = task.cfg.n_layer, 265
+    decode_steps = (t - t // 2) + t + t      # half, nopix, det
+    print(f"  train_gpt.main (VAS preset, use_flash_train, int8 KV cache, "
+          f"{MEDIA_STEPS} steps, {MEDIA_VAL} val batch, --logging_frequency "
+          f"1, --reconstruct_spec the vqgan run, --vocoder a reference "
+          f"folder): {dt:.1f} s; launches {json.dumps(gpt_launches)}")
+    check(state["step"] == MEDIA_STEPS and len(steps) == MEDIA_STEPS
+          and len(calls) == MEDIA_STEPS + MEDIA_VAL,
+          f"media run: {state['step']} steps, {len(calls)} callbacks")
+    check(task.cfg.n_embd == 1024 and n_layer == 24
+          and task.cfg.cache_dtype == "int8", "the media run's config")
+    for i, (sec, k, (w0, w1)) in enumerate(calls):
+        e_warm = w1.get("decode_attention", 0) - w0.get("decode_attention", 0)
+        want = {"A": 3 * n_layer, "B": 4 * 5, "C": 0,
+                "E": decode_steps * n_layer + e_warm, "F forward": 0,
+                "F backward": 0}
+        print(f"    callback {i}: {sec:.2f} s, launches {json.dumps(k)} "
+              f"(E: {decode_steps} decode steps x {n_layer} layers + "
+              f"{e_warm} in the warm-up runs of its captures)")
+        check(k == want, f"media callback {i}: launches {k}, expected "
+              f"{want}")
+    check(gpt_launches["F forward"] == n_layer * (MEDIA_STEPS + MEDIA_VAL)
+          and gpt_launches["F backward"] == n_layer * MEDIA_STEPS,
+          "kernel F on the media run's steps")
+    logs = MEDIA_ROOT / "lightning_logs" / "msmoke-vas" / \
+        "TensorBoardLoggs" / "version_0"
+    recs = media_records(logs)
+    got = {(r["tag"], next(k for k in ("text", "image", "audio") if k in r))
+           for r in recs if "value" not in r and "histogram" not in r}
+    want_tags = {(f"{s}/{n}", kind) for s in ("train", "val")
+                 for n, kind in GPT_MEDIA_TAGS}
+    check(got == want_tags, f"media tags: missing "
+          f"{sorted(want_tags - got)}, extra {sorted(got - want_tags)}")
+    for r in recs:
+        if "image" in r:
+            shape = np.load(logs / r["image"]).shape
+            want = ((266, 266, 1) if r["tag"].endswith("att_nopix")
+                    else (80, 848, 1))
+            check(shape == want, f"{r['tag']}: image {shape}")
+    step_s = [s for s, _, _ in steps]
+    cb_s = [s for s, _, _ in calls]
+    print(f"  one media callback {cb_s[-1]:.2f} s (the first, with its "
+          f"three decode captures: {cb_s[0]:.2f} s) against the run's train "
+          f"steps {', '.join(f'{x:.3f}' for x in step_s)} s (phase training "
+          f"times the step steady), on {smi_line}")
+    del task, state
+    torch.cuda.empty_cache()
+
+    # the GPT-VAE's logger with the same decoders, on phase vae's checkpoint
+    vae_args = train_gpt_vae.init_config(
+        ["--dataset", "vas", "--experiment", "vsmoke", *decoder_flags])
+    exp = train_gpt_vae.build_experiment(vae_args)
+    vtask = VAETask(exp, 2, dev)
+    ckpt = CheckpointManager(str(VAE_ROOT / "lightning_logs" / "vsmoke-vas"
+                                 / "checkpoints" / "version_0"))
+    vstate, _ = runner._restore(vtask, ckpt, "last")
+    decoders = train_gpt.load_decoders(vae_args, exp, dev)
+    vlog = TBLogger(str(MEDIA_ROOT / "vae_logs"))
+    cb = CB.VAETextLogger(vtask, vlog, decoders,
+                          sample_rate=exp.data.sample_rate)
+    batch = first_train_batch(MEDIA_ROOT, VAE_BATCH)
+    for w in counters.values():
+        w.launches = 0
+    _, vdt = wall(lambda: cb(vstate, batch, int(vstate["step"]), "val"))
+    vae_launches = {k: w.launches for k, w in counters.items()}
+    vn, n_interp = vtask.cfgs.encoder.n_layer, cb.interpolation_steps
+    # greedy and beam: the encoder and the decoder's prefill each; the
+    # interpolation: two encoder forwards and a prefill a point (the decode
+    # steps attend over a float32 cache in plain torch); B: the original
+    # (no raw clip in the tree) and every decoded row
+    want = {"A": (2 * 2 + 2 + n_interp) * vn, "B": 4 * (4 + n_interp),
+            "C": 0, "E": 0, "F forward": 0, "F backward": 0}
+    print(f"  VAETextLogger call (phase vae's checkpoint, both decoders): "
+          f"{vdt:.2f} s, launches {json.dumps(vae_launches)}")
+    check(vae_launches == want, f"VAE media launches, expected {want}")
+    vlog.close()
+    vtags = {r["tag"] for r in media_records(Path(vlog.log_dir))}
+    want_tags = {"val/original_spec", "val/original_audio"} | {
+        f"val/{row}{sfx}" for row in
+        ["original_codes", "greedy_reconstruction", "beam_reconstruction"]
+        + [f"interpolation_{i}" for i in range(n_interp)]
+        for sfx in ("", "_spec", "_audio")}
+    check(vtags == want_tags, f"VAE media tags {sorted(vtags ^ want_tags)}")
+    del vtask, vstate, decoders, cb
+    torch.cuda.empty_cache()
+    for root in (MEDIA_ROOT, VAE_ROOT, VQGAN_ROOT):
+        shutil.rmtree(root)
+    return {k: (gpt_launches[k], vae_launches[k]) for k in counters}
+
+
+# ---------------------------------------------------------------------------
+# 10. the LSTM-VAE: training, evaluation, decoding
+# ---------------------------------------------------------------------------
+
+
+LSTM_ROOT = Path("build") / "chip_smoke_lstm"
+LSTM_STEPS, LSTM_BATCH = 4, 8
+
+
+def run_lstm_cli(flags):
+    """``train_gpt_vae.main --model lstm`` from LSTM_ROOT at the VAE_vas
+    preset (full width, batch 8), one validation batch."""
+    from melspec_gpt_vqvae_tpu_torch import train_gpt_vae
+    argv = ["--dataset", "vas", "--experiment", "lsmoke", "--model", "lstm",
+            "--device", "cuda", "--limit_val_batches", "1", *flags]
+    cwd = os.getcwd()
+    os.chdir(LSTM_ROOT)
+    try:
+        return train_gpt_vae.main(train_gpt_vae.init_config(argv))
+    finally:
+        os.chdir(cwd)
+
+
+def lstm_check(dev, mels, codes, smi_line):
+    """The LSTM-VAE on the card through ``train_gpt_vae.main --model
+    lstm``: the VAE_vas preset at full width (ni 512, encoder and decoder
+    nh 1024, nz 32, 130 symbols, sentences of 52; batch 8 grids = 40
+    sentences; SGD lr 1, clip 5) for LSTM_STEPS steps with the text logger,
+    no kernel launched; its checkpoint restored bit for bit; ``--eval 1``
+    (MI, AU); greedy and beam reconstructions and a sample from the prior,
+    each timed; the loss on a repeated batch falling; one float32 train
+    step (dropout 0) on the card against the CPU with TF32 off, within
+    phase vae's bounds.  Returns the step's ms and the evaluation's
+    seconds."""
+    from melspec_gpt_vqvae_tpu_torch.configs import load_lstm_preset
+    from melspec_gpt_vqvae_tpu_torch.training.lstm_task import LSTMVAETask
+    from melspec_gpt_vqvae_tpu_torch.training.optim import named_leaves
+    write_vas_tree(LSTM_ROOT, mels, codes)
+    counters = media_counters()
+    for w in counters.values():
+        w.launches = 0
+    (task, state, ckpt, _), dt = wall(lambda: run_lstm_cli(
+        ["--train", "1", "--epochs_override", "1", "--limit_train_batches",
+         str(LSTM_STEPS), "--logging_frequency", "2", "--warm_up", "1",
+         "--kl_start", "0.1"]))
+    cfg = task.cfg
+    launched = {k: w.launches for k, w in counters.items()}
+    n_params = sum(t.numel() for _, t in named_leaves(state["params"]))
+    print(f"  train_gpt_vae.main --model lstm (VAE_vas: ni {cfg.ni}, nh "
+          f"{cfg.enc_nh}/{cfg.dec_nh}, nz {cfg.nz}, vocab {cfg.vocab_size}, "
+          f"max_len {cfg.max_len}, {n_params / 1e6:.2f}M parameters, batch "
+          f"{task.exp.train.batch_size} grids = {5 * LSTM_BATCH} sentences; "
+          f"{LSTM_STEPS} steps, 1 validation batch, a checkpoint): "
+          f"{dt:.1f} s; kernel launches {json.dumps(launched)}")
+    check((cfg.ni, cfg.enc_nh, cfg.dec_nh, cfg.nz, cfg.vocab_size,
+           cfg.max_len, task.exp.train.batch_size)
+          == (512, 1024, 1024, 32, 130, 52, LSTM_BATCH),
+          "the LSTM run's configuration is not the preset")
+    check(state["step"] == LSTM_STEPS, f"LSTM train steps {state['step']}")
+    check(not any(launched.values()), "the LSTM path launched a kernel")
+    tags = {json.loads(line)["tag"] for line in (
+        LSTM_ROOT / "lightning_logs" / "lsmoke-vas" / "TensorBoardLoggs"
+        / "version_0" / "events.jsonl").read_text().splitlines()}
+    check({"train/original", "train/greedy_reconstruction",
+           "train/beam_reconstruction", "train/sampled_from_prior",
+           "metrics/mutual_info"} <= tags, f"LSTM log tags {sorted(tags)}")
+    restored, rdt = wall(lambda: ckpt.restore("last"))
+    same = trees_equal(restored["state"], task.state_tree(state))
+    print(f"  checkpoint restore('last') {rdt:.2f} s, equals the live "
+          f"params, SGD state, step and kl_weight bit for bit: {same}")
+    check(same, "LSTM checkpoint round trip")
+    (_, _, _, metrics), edt = wall(lambda: run_lstm_cli(
+        ["--train", "0", "--eval", "1", "--resume", "last"]))
+    print(f"  --eval 1 --resume last: {edt:.1f} s; "
+          f"{json.dumps(metrics['eval'])}")
+    check({"mutual_info", "active_units", "nll", "ppl"}
+          <= set(metrics["eval"])
+          and all(np.isfinite(v) for v in metrics["eval"].values()),
+          "LSTM evaluation metrics")
+    batch = first_train_batch(LSTM_ROOT, LSTM_BATCH)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for what, fn in (
+            ("greedy", lambda: task.reconstruct(state, batch, "greedy", gen)),
+            ("beam 5", lambda: task.reconstruct(state, batch, "beam", gen)),
+            ("prior sample", lambda: task.sample_from_prior(
+                state, 5 * LSTM_BATCH, generator=gen))):
+        toks, sec = wall(fn)
+        print(f"  {what}: {5 * LSTM_BATCH} sentences of {cfg.max_len} in "
+              f"{sec:.3f} s")
+        check(toks.shape == (5 * LSTM_BATCH, cfg.max_len)
+              and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+              f"LSTM {what} tokens")
+    # learning: the batch's ELBO at z = the posterior mean (no dropout)
+    # before and after 10 steps on it; the steps' own losses are noisy
+    # (dropout 0.5, one z draw, SGD at lr 1)
+    mean_z = torch.zeros(5 * LSTM_BATCH, 1, cfg.nz, device=dev)
+    before = task.eval_step(state, batch, eps=mean_z)["loss"]
+    losses, ms, mem = timed_steps(task, state, batch, 10)
+    after = task.eval_step(state, batch, eps=mean_z)["loss"]
+    print(f"  LSTM step: {ms:.1f} ms, {5 * LSTM_BATCH / (ms / 1e3):.0f} "
+          f"sentences/s, peak {mem / 2 ** 30:.2f} GiB, on {smi_line}; "
+          f"repeated batch: ELBO a sentence {before / (5 * LSTM_BATCH):.2f} "
+          f"-> {after / (5 * LSTM_BATCH):.2f} after 10 steps (step losses "
+          f"{losses[0]:.2f} ... {losses[-1]:.2f})")
+    check(all(np.isfinite(losses)) and after < before,
+          "the LSTM's loss on a repeated batch did not fall")
+    del task, state, ckpt
+    torch.cuda.empty_cache()
+
+    # one float32 step, dropout 0, the same weights and latent noise
+    exp, lcfg = load_lstm_preset("vas", dec_dropout_in=0.0,
+                                 dec_dropout_out=0.0)
+    eps = torch.randn(5 * LSTM_BATCH, 1, lcfg.nz,
+                      generator=torch.Generator().manual_seed(3))
+    out = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        t = LSTMVAETask(exp, lcfg, 5, d)
+        st = t.init_state(11)
+        st, loss, _ = t.train_step(st, batch, torch.Generator(device=d),
+                                   eps=eps.to(d))
+        out[name] = (loss.item(), {n: (p.detach().cpu(), p.grad.cpu())
+                                   for n, p in named_leaves(st["params"])})
+    (l_cpu, cpu), (l_card, card) = out["cpu"], out["card"]
+    g_rel = max(max_err(card[n][1], cpu[n][1])
+                / cpu[n][1].abs().max().clamp_min(1e-30).item() for n in cpu)
+    p_rel = max(max_err(card[n][0], cpu[n][0])
+                / cpu[n][0].abs().max().clamp_min(1e-30).item() for n in cpu)
+    res = {"loss_cpu": l_cpu,
+           "loss_rel_diff": abs(l_card - l_cpu) / abs(l_cpu),
+           "grad_max_rel_err": g_rel, "param_max_rel_err": p_rel}
+    print(f"  LSTM train step (preset widths, 40 sentences, dropout 0, "
+          f"float32, TF32 off) card vs CPU: {json.dumps(res)} (bounds: "
+          f"loss 1e-5, gradients and parameters 1e-4 of each leaf's max)")
+    check(res["loss_rel_diff"] <= 1e-5, "LSTM step loss vs CPU")
+    check(g_rel <= 1e-4 and p_rel <= 1e-4, "LSTM step gradients and "
+          "parameters vs CPU")
+    shutil.rmtree(LSTM_ROOT)
+    return {"step_ms": ms, "eval_s": edt}
 
 
 def check_bounds(kernels):
@@ -3398,6 +3792,22 @@ def run(procs):
         "tokenize": launches["vq_nearest"], "vqgan_training": c_train,
         "vqgan_evaluation": c_eval}
     launches["vq_nearest"] += c_train + c_eval
+
+    phase("media", "media logging through frozen decoders (VAS GPT preset, "
+          "full width, int8 KV cache; phase vae's GPT-VAE checkpoint):")
+    media = media_check(dev, mels, codes, smi_line)
+    for name, key in (("attention", "A"), ("vocoder_stack", "B"),
+                      ("decode_attention", "E"),
+                      ("flash_attention_fwd", "F forward"),
+                      ("flash_attention_bwd", "F backward")):
+        by_path = results[name].setdefault("launches_by_path",
+                                           {"serving": launches[name]})
+        by_path["media_gpt"], by_path["media_vae"] = media[key]
+        launches[name] += sum(media[key])
+
+    phase("lstm", "the LSTM-VAE (VAE_vas preset, full width, batch 8, "
+          "float32, random weights):")
+    lstm_check(dev, mels, codes, smi_line)
 
     meta = {"attention": ("attention.cu", "attention.py:114"),
             "vocoder_stack": ("vocoder_stack.cu", "vocoder_pallas.py:143"),

@@ -31,6 +31,11 @@ optax ``inject_hyperparams`` state's ``inner_state[0]``
 opt_disc, step}``, its two optax Adam states included) crosses as the
 port's ``VQVAETask.state_tree`` (``vqgan_train_state_from_jax``) and back
 into the JAX layout with numpy leaves (``vqgan_train_state_to_numpy``).
+A JAX ``LSTMVAETask`` state crosses as the port's
+``LSTMVAETask.state_tree`` (``lstm_vae_train_state_from_jax``): the
+params (same nested layout), the optimiser's state -- an SGD momentum
+trace as torch's ``momentum_buffer`` per leaf, or Adam's moments -- its
+live learning rate, the step and ``kl_weight``.
 """
 
 from __future__ import annotations
@@ -184,17 +189,60 @@ def conv_tree_from_state_dict(sd: Mapping[str, torch.Tensor],
     return tree
 
 
-def _adam_state(opt_state):
-    """The ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside an optax
-    ``adam`` state (a chain's tuple), read by attribute; None if absent."""
-    if hasattr(opt_state, "mu"):
+def _optax_state(opt_state, attr: str = "mu"):
+    """The optax state inside ``opt_state`` (a chain's tuple, an
+    ``inject_hyperparams`` state's ``inner_state``) that has ``attr``:
+    ``mu`` finds the ``ScaleByAdamState`` (``count``, ``mu``, ``nu``),
+    ``trace`` an SGD momentum ``TraceState``.  Read by attribute; None if
+    absent."""
+    if hasattr(opt_state, attr):
         return opt_state
+    if hasattr(opt_state, "inner_state"):
+        return _optax_state(opt_state.inner_state, attr)
     if isinstance(opt_state, tuple):
         for part in opt_state:
-            found = _adam_state(part)
+            found = _optax_state(part, attr)
             if found is not None:
                 return found
     return None
+
+
+def _adam_state(opt_state):
+    """The ``ScaleByAdamState`` inside an optax state, or None."""
+    return _optax_state(opt_state, "mu")
+
+
+def lstm_vae_params_from_jax(params: Mapping) -> Dict:
+    """A JAX LSTM-VAE param tree (``{"encoder", "decoder"}`` of ``embed``,
+    ``lstm`` {wx, wh, b}, ``linear`` / ``trans`` / ``pred`` {w}) as the
+    port's nested dict of float32 CPU tensors: the layouts are the same."""
+    return gpt_params_from_jax(params)
+
+
+def lstm_vae_train_state_from_jax(state: Mapping) -> Dict:
+    """A JAX ``LSTMVAETask`` state (params, the ``make_optimizer`` state,
+    step, kl_weight) as the port's ``LSTMVAETask.state_tree``: Adam's
+    ``mu`` / ``nu`` / ``count``, or for SGD the momentum trace of each leaf
+    as its ``momentum_buffer`` (torch's first momentum step sets the
+    buffer to the gradient, as optax's trace from zeros does); no entry
+    without momentum."""
+    from .training.optim import named_leaves
+    opt = state["opt_state"]
+    tree = {"params": lstm_vae_params_from_jax(state["params"]),
+            "lr": float(np.asarray(opt.hyperparams["learning_rate"])),
+            "step": int(np.asarray(state["step"])),
+            "kl_weight": torch.tensor(np.float32(np.asarray(
+                state["kl_weight"])))}
+    adam, trace = _adam_state(opt), _optax_state(opt, "trace")
+    if adam is not None:
+        tree.update(mu=gpt_params_from_jax(adam.mu),
+                    nu=gpt_params_from_jax(adam.nu),
+                    count=int(np.asarray(adam.count)))
+    else:
+        tree["opt"] = ({} if trace is None else {
+            name: {"momentum_buffer": t} for name, t in
+            named_leaves(gpt_params_from_jax(trace.trace))})
+    return tree
 
 
 def vqgan_train_state_from_jax(state: Mapping) -> Dict:

@@ -25,7 +25,7 @@ from typing import Any, Dict, NamedTuple, Optional
 class LSTMConfig(NamedTuple):
     """Legacy LSTM-VAE geometry (reference: config/config_vas.py); the
     counterpart of melspec_gpt_vqvae_tpu/models/lstm_vae.py::LSTMConfig,
-    kept here until the port has that model."""
+    which the port's models/lstm_vae.py reads from here."""
     vocab_size: int = 130          # 128 codes + <s> + </s>
     nz: int = 32
     ni: int = 512

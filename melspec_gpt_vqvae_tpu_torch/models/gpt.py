@@ -263,17 +263,25 @@ def _dot(a: torch.Tensor, w: torch.Tensor, mixed: bool) -> torch.Tensor:
 
 
 def _attn_half(x, p, cfg: GPTConfig, train: bool,
-               generator: Optional[torch.Generator]):
+               generator: Optional[torch.Generator],
+               return_attn: bool = False):
     """The attention of a block: (B, T, D) residual -> (B, H, T, hd)
     attention output (the JAX block's ``attn_out``).  The branch is taken
     as the JAX block takes it: kernel F whenever ``use_flash_train`` (with
     a keep-mask only in training), else the plain ``attend_xla`` wherever
     autograd records (a training forward, or the GPT-VAE encoder's
-    dropout-free forward inside a train step) and kernel A in eval."""
+    dropout-free forward inside a train step) and kernel A in eval.
+    ``return_attn`` takes the plain ``attend_xla`` whatever the config and
+    returns (output, its float32 probabilities (B, H, T, T)), as the JAX
+    block does for the attention maps (gpt.py:148)."""
     mixed = cfg.mixed_precision
     h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
     qkv = _dot(h, p["attn_qkv"]["w"], mixed) + p["attn_qkv"]["b"]
     q, k, v = (_split_heads(a, cfg.n_head) for a in qkv.chunk(3, dim=-1))
+    if return_attn:
+        return attend_xla(q, k, v, cfg.n_unmasked,
+                          dropout_rate=cfg.attn_pdrop if train else 0.0,
+                          generator=generator, return_attn=True)
     if cfg.use_flash_train:
         rate = cfg.attn_pdrop if train else 0.0
         b, h, t = q.shape[:3]
@@ -383,7 +391,8 @@ def _block_remat(x, p, cfg: GPTConfig, train: bool,
 def gpt_apply(params: Params, cfg: GPTConfig, idx: Optional[torch.Tensor],
               cond_emb: Optional[torch.Tensor] = None, *,
               train: bool = False,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None,
+              return_attn: bool = False):
     """Full forward.  idx (B, T) tokens or None; cond_emb (B, P, D)
     prepended embeddings.  ``train`` with a ``generator`` applies the three
     dropout rates (a training forward without a generator has no dropout,
@@ -392,19 +401,36 @@ def gpt_apply(params: Params, cfg: GPTConfig, idx: Optional[torch.Tensor],
     stream, layer norms, softmax and head in float32 (``embed_tokens``
     casts the embedding to float32); ``cfg.remat`` recomputes each block
     in the backward (``_block_remat``) when autograd records.  Returns
-    logits (B, P + T, out); the JAX function's second result, the
-    attention maps, is not ported."""
+    logits (B, P + T, out); with ``return_attn`` (the eval-only path of
+    the attention maps: plain attention, no remat) (logits, the last
+    layer's float32 attention probabilities (B, H, P + T, P + T)), as the
+    JAX function's scan carry keeps the last layer's (gpt.py:255-275)."""
     x = _embed(params, cfg, idx, cond_emb)
     if cfg.mixed_precision:
         x = x.float()
     train = bool(train) and generator is not None
     x = _dropout(x, cfg.embd_pdrop, generator, train)
     block = (_block_remat if cfg.remat and torch.is_grad_enabled()
-             else _block)
+             and not return_attn else _block)
+    att = None
     for p in _layers(params["blocks"]):
-        x = block(x, p, cfg, train, generator)
+        if return_attn:
+            res, att = _attn_half(x, p, cfg, train, generator, True)
+            x = _rest_half(x, res, p, cfg, train, generator)
+        else:
+            x = block(x, p, cfg, train, generator)
     x = _layer_norm(x, params["ln_f_s"], params["ln_f_b"])
-    return x @ params["head"]["w"].to(x.dtype)
+    logits = x @ params["head"]["w"].to(x.dtype)
+    return (logits, att) if return_attn else logits
+
+
+def gpt_attention_maps(params: Params, cfg: GPTConfig, idx: torch.Tensor,
+                       cond_emb: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The last layer's attention probabilities (B, H, T, T) of an eval
+    forward, for logging (gpt.py:668-673); the plain attention, no kernel."""
+    with torch.no_grad():
+        return gpt_apply(params, cfg, idx, cond_emb, return_attn=True)[1]
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,

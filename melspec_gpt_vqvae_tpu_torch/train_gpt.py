@@ -10,10 +10,17 @@ scalars in ``TensorBoardLoggs/version_N``, checkpoints in
 ``checkpoints/version_N``), minus the JAX-only ``--mesh``, ``--pp_micro``,
 ``--prng`` and ``--platform`` and plus ``--device``.  The data are the
 same split files and ``_mel.npy`` / ``_mel_code.npy`` trees, read by the
-port's own ``data`` module.  The media callbacks are not ported:
-``--reconstruct_spec`` and ``--vocoder`` are refused.  ``--eval 1`` and
-``--test 1`` each validate once (both: twice), as GPT_train.py does; a
-forward without ``use_flash_train`` runs kernel A in every layer.
+port's own ``data`` module.  Every ``--logging_frequency`` train and
+validation batch the media callback (``GPTImageLogger``) logs the
+gallery of ``GPTTask.log_samples``; with ``--reconstruct_spec`` (a
+reference VQ-VAE ``.pt`` / ``.ckpt``, or a port VQ-GAN run or checkpoint
+directory) its code rows are also logged as spectrograms, and with
+``--vocoder`` (a reference MelGAN directory: ``best_netG.pt`` and
+``args.yml``) the spectrograms as audio; a decoder that does not load
+stops the run before it starts.  ``--eval 1`` and ``--test 1`` each
+validate once (both: twice), as GPT_train.py does; a forward without
+``use_flash_train`` runs kernel A in every layer.  Distribution (``--mesh``
+/ ``--pp_micro``, ROADMAP A12) is not ported.
 """
 
 from __future__ import annotations
@@ -29,21 +36,21 @@ def init_config(argv=None):
     parser.add_argument("--experiment", type=str, required=True)
     parser.add_argument("--train", type=int, default=0)
     parser.add_argument("--resume", type=str, default=None)
-    # --workers, --logging_frequency (media logging) and
-    # --test_interpolation are taken for GPT_train.py's command lines and
-    # change nothing here, as --workers and --test_interpolation change
-    # nothing there
+    # --workers and --test_interpolation are taken for GPT_train.py's
+    # command lines and change nothing, as there
     parser.add_argument("--workers", type=int, default=1)
     parser.add_argument("--eval", type=int, default=0)
     parser.add_argument("--test", type=int, default=0)
-    parser.add_argument("--logging_frequency", type=int, default=200)
+    parser.add_argument("--logging_frequency", type=int, default=200,
+                        help="media logging every N train / val batches "
+                             "(0 = off)")
     parser.add_argument("--test_interpolation", type=int, default=0)
     parser.add_argument("--reconstruct_spec", type=str, default="",
-                        help="frozen VQ-VAE ckpt for spectrogram decode "
-                             "(media logging; not ported)")
+                        help="frozen VQ-VAE for spectrogram decode: a "
+                             "reference .pt/.ckpt or a port VQ-GAN run")
     parser.add_argument("--vocoder", type=str, default="",
-                        help="frozen MelGAN ckpt dir for audio decode "
-                             "(media logging; not ported)")
+                        help="frozen MelGAN dir (best_netG.pt, args.yml) "
+                             "for audio decode")
     parser.add_argument("--data_root", type=str, default="./data")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on, e.g. 'cuda', "
@@ -72,6 +79,20 @@ def init_config(argv=None):
     return args
 
 
+def load_decoders(args, exp, device):
+    """The media callbacks' ``FrozenDecoders`` from ``--reconstruct_spec``
+    and ``--vocoder`` (each optional; one that does not load raises),
+    on ``device``."""
+    from .training.callbacks import FrozenDecoders
+    from .utils.convert import load_vocoder_params, load_vqvae_params
+    vq = (load_vqvae_params(args.reconstruct_spec, exp.vqvae)
+          if args.reconstruct_spec else None)
+    vocoder = (load_vocoder_params(args.vocoder)[0] if args.vocoder
+               else None)
+    return FrozenDecoders(vq, vocoder, code_h=exp.vqvae.code_h,
+                          code_w=exp.vqvae.code_w, device=device)
+
+
 def main(args):
     """Run the CLI.  Returns (task, final train state or None, checkpoint
     manager) for callers that drive it from Python."""
@@ -82,14 +103,12 @@ def main(args):
     from .data import DataModule
 
     from .training import runner
+    from .training.callbacks import GPTImageLogger
     from .training.checkpoint import CheckpointManager
     from .training.gpt_task import GPTTask
     from .training.logging import TBLogger
     from .utils.profiling import trace
 
-    if args.reconstruct_spec or args.vocoder:
-        raise NotImplementedError("media logging (--reconstruct_spec, "
-                                  "--vocoder) is not ported (ROADMAP A8)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device")
@@ -104,6 +123,7 @@ def main(args):
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))
 
+    decoders = load_decoders(args, exp, device)
     dm = DataModule(batch_size=exp.train.batch_size,
                     spec_dir_path=exp.data.spec_dir_path,
                     data_root=args.data_root)
@@ -115,13 +135,16 @@ def main(args):
     log = TBLogger(run_dir)
     ckpt = CheckpointManager(os.path.join(
         run_dir, "checkpoints", f"version_{log.version}"))
+    media_cb = GPTImageLogger(task, log, decoders,
+                              sample_rate=exp.data.sample_rate)
 
     state = None
     if args.train:
         with trace(args.profile or None):
             state = runner.fit_gpt(
                 task, dm, epochs=exp.train.epochs, log=log, ckpt=ckpt,
-                seed=args.seed, resume=args.resume,
+                seed=args.seed, logging_frequency=args.logging_frequency,
+                media_cb=media_cb, resume=args.resume,
                 limit_train_batches=args.limit_train_batches or None,
                 limit_val_batches=args.limit_val_batches or None,
                 ckpt_every=args.ckpt_every,

@@ -12,11 +12,16 @@ plus ``--device`` (the card unless the caller names the CPU).  ``--train``,
 ``--eval 1`` (with MI and AU), ``--test 1`` (adding the IW-NLL over
 ``--iw_nsamples``), the stage-2 ``--load_path``, ``--reconstruct_from`` /
 ``--decoding_strategy``, ``--save_latent`` and ``--test_interpolation``
-are ported.  Refused, each with its ROADMAP item: ``--model lstm`` (A11),
-a non-empty ``--mesh`` or ``--pp_micro`` (A12), ``--reconstruct_spec`` /
-``--vocoder`` (A8).  The JAX-only ``--prng`` and ``--platform`` are not
-taken; ``--gpus``, ``--num_nodes`` and ``--workers`` are taken and change
-nothing, as there.
+are ported, and so is the media logging: every ``--logging_frequency``
+train batch ``VAETextLogger`` logs an original and its reconstructions as
+token text and, through ``--reconstruct_spec`` (a reference VQ-VAE file or
+a port VQ-GAN run) and ``--vocoder`` (a reference MelGAN directory), as
+spectrograms and audio.  ``--model lstm`` trains, evaluates and tests the
+legacy LSTM-VAE (``run_lstm``: the ``VAE_{dataset}`` preset with
+``--override``, ``LSTMTextLogger``).  Refused, with its ROADMAP item: a
+non-empty ``--mesh`` or ``--pp_micro`` (A12).  The JAX-only ``--prng`` and
+``--platform`` are not taken; ``--gpus``, ``--num_nodes`` and ``--workers``
+are taken and change nothing, as there.
 """
 
 from __future__ import annotations
@@ -63,9 +68,11 @@ def init_config(argv=None):
                         choices=["greedy", "beam", "sample"],
                         default="greedy")
     parser.add_argument("--reconstruct_spec", type=str, default="",
-                        help="frozen VQ-VAE for media (not ported)")
+                        help="frozen VQ-VAE for spectrogram decode: a "
+                             "reference .pt/.ckpt or a port VQ-GAN run")
     parser.add_argument("--vocoder", type=str, default="",
-                        help="frozen MelGAN for media (not ported)")
+                        help="frozen MelGAN dir (best_netG.pt, args.yml) "
+                             "for audio decode")
     parser.add_argument("--warm_up", type=int, default=10)
     parser.add_argument("--kl_start", type=float, default=1.0)
     parser.add_argument("--seed", type=int, default=783435)
@@ -103,15 +110,27 @@ def init_config(argv=None):
 
 
 def _refuse(args):
-    if args.model == "lstm":
-        raise NotImplementedError("--model lstm: the LSTM-VAE is not ported "
-                                  "(ROADMAP A11)")
     if args.mesh or args.pp_micro:
         raise NotImplementedError("--mesh / --pp_micro: distribution is not "
                                   "ported (ROADMAP A12)")
-    if args.reconstruct_spec or args.vocoder:
-        raise NotImplementedError("media logging (--reconstruct_spec, "
-                                  "--vocoder) is not ported (ROADMAP A8)")
+
+
+def _train_flags(exp, args):
+    """``exp.train`` with the epochs, optimiser and learning-rate flags
+    merged in, as GPT_VAE_train.py merges them."""
+    tr = exp.train
+    if args.epochs_override:
+        tr = dataclasses.replace(tr, epochs=args.epochs_override)
+    if args.opt is not None:
+        tr = dataclasses.replace(tr, optimizer=args.opt,
+                                 momentum=args.momentum)
+    if args.lr is not None:
+        tr = dataclasses.replace(tr, learning_rate=args.lr)
+    if args.lr_decay:
+        tr = dataclasses.replace(tr, lr_decay=args.lr_decay,
+                                 lr_decay_patience=args.lr_decay_patience,
+                                 lr_decay_start=args.lr_decay_start)
+    return tr
 
 
 def build_experiment(args):
@@ -127,19 +146,7 @@ def build_experiment(args):
         warm_up=args.warm_up, kl_start=args.kl_start, beta=args.beta,
         fb=args.fb, target_kl=args.target_kl, fix_var=args.fix_var,
         freeze_epoch=args.freeze_epoch, save_latent=args.save_latent)
-    if args.epochs_override:
-        exp.train = dataclasses.replace(exp.train,
-                                        epochs=args.epochs_override)
-    if args.opt is not None:
-        exp.train = dataclasses.replace(exp.train, optimizer=args.opt,
-                                        momentum=args.momentum)
-    if args.lr is not None:
-        exp.train = dataclasses.replace(exp.train, learning_rate=args.lr)
-    if args.lr_decay:
-        exp.train = dataclasses.replace(
-            exp.train, lr_decay=args.lr_decay,
-            lr_decay_patience=args.lr_decay_patience,
-            lr_decay_start=args.lr_decay_start)
+    exp.train = _train_flags(exp, args)
     if args.param_dtype != "float32":
         exp.model = exp.model.replace(dtype=args.param_dtype)
     return exp
@@ -159,6 +166,7 @@ def main(args):
                                       merge_subtree)
     from .training.logging import TBLogger
     from .training.vae_task import VAETask
+    from .train_gpt import load_decoders
     from .utils import vae_tools
     from .utils.profiling import trace
 
@@ -167,10 +175,13 @@ def main(args):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device")
     np.random.seed(args.seed)
+    if args.model == "lstm":
+        return run_lstm(args, device)
     exp = build_experiment(args)
     print(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))
+    decoders = load_decoders(args, exp, device)
 
     dm = DataModule(batch_size=exp.train.batch_size,
                     spec_dir_path=exp.data.spec_dir_path,
@@ -183,7 +194,8 @@ def main(args):
     log = TBLogger(run_dir)
     ckpt = CheckpointManager(os.path.join(
         run_dir, "checkpoints", f"version_{log.version}"))
-    media_cb = VAETextLogger(task, log)
+    media_cb = VAETextLogger(task, log, decoders,
+                             sample_rate=exp.data.sample_rate)
     epoch_cb = metrics_epoch_end(task, dm, log,
                                  limit_batches=args.limit_val_batches or None)
     limit_val = args.limit_val_batches or None
@@ -248,6 +260,75 @@ def main(args):
         media_cb.log_interpolation(restored, next(iter(dm.val_dataloader())),
                                    int(restored["step"]))
         print("interpolation logged")
+    log.close()
+    return task, state, ckpt, metrics
+
+
+def run_lstm(args, device):
+    """``--model lstm``: the legacy LSTM-VAE (GPT_VAE_train.py:322-399):
+    the ``VAE_{dataset}`` preset with ``--override``, its ``VAEConfig``
+    from the flags, ``fit_vae`` with ``LSTMTextLogger`` and the epoch-end
+    MI / AU, then ``--eval 1`` / ``--test 1`` through ``evaluate_vae``
+    (both on the validation split, as there).  Returns what ``main``
+    returns."""
+    import torch
+
+    from .configs import VAEConfig, load_lstm_preset, parse_overrides
+    from .data import DataModule
+    from .training import runner
+    from .training.callbacks import LSTMTextLogger, metrics_epoch_end
+    from .training.checkpoint import CheckpointManager
+    from .training.logging import TBLogger
+    from .training.lstm_task import LSTMVAETask
+
+    exp, cfg = load_lstm_preset(args.dataset,
+                                **parse_overrides(args.override))
+    exp.vae = VAEConfig(
+        nz=cfg.nz, nsamples=args.nsamples,
+        iw_train_nsamples=args.iw_train_nsamples,
+        iw_train_ns=args.iw_train_ns, iw_nsamples=args.iw_nsamples,
+        warm_up=args.warm_up, kl_start=args.kl_start, beta=args.beta,
+        fb=args.fb, target_kl=args.target_kl, fix_var=args.fix_var)
+    if args.fix_var > 0:
+        cfg = cfg._replace(fix_var=args.fix_var)
+    exp.train = _train_flags(exp, args)
+    print(f"device: {device}"
+          + (f" ({torch.cuda.get_device_name(device)})"
+             if device.type == "cuda" else ""))
+
+    dm = DataModule(batch_size=exp.train.batch_size,
+                    spec_dir_path=exp.data.spec_dir_path,
+                    data_root=args.data_root)
+    dm.setup()
+    task = LSTMVAETask(exp, cfg, len(dm.train_dataloader()), device)
+    run_dir = os.path.join("lightning_logs",
+                           f"{args.experiment}-{args.dataset}")
+    log = TBLogger(run_dir)
+    ckpt = CheckpointManager(os.path.join(
+        run_dir, "checkpoints", f"version_{log.version}"))
+    limit_val = args.limit_val_batches or None
+    state, metrics = None, {}
+    if args.train:
+        state = runner.fit_vae(
+            task, dm, epochs=exp.train.epochs, log=log, ckpt=ckpt,
+            seed=args.seed, logging_frequency=args.logging_frequency,
+            media_cb=LSTMTextLogger(task, log),
+            epoch_end_cb=metrics_epoch_end(task, dm, log,
+                                           limit_batches=limit_val),
+            resume=args.resume,
+            limit_train_batches=args.limit_train_batches or None,
+            limit_val_batches=limit_val, ckpt_every=args.ckpt_every,
+            ckpt_every_steps=args.ckpt_every_steps,
+            max_steps=args.max_steps or None)
+    if args.eval == 1:
+        metrics["eval"] = runner.evaluate_vae(
+            task, dm, split="val", ckpt=ckpt, resume=args.resume,
+            compute_mi_au=True, limit_batches=limit_val)
+    if args.test == 1:
+        metrics["test"] = runner.evaluate_vae(
+            task, dm, split="val", ckpt=ckpt, resume=args.resume,
+            compute_mi_au=True, iw_nsamples=args.iw_nsamples,
+            limit_batches=limit_val)
     log.close()
     return task, state, ckpt, metrics
 

@@ -3,8 +3,10 @@
 Counterpart of melspec_gpt_vqvae_tpu/training/gpt_task.py:34-205 on one
 device: next-token cross entropy over the 265 code positions behind the
 class token, the minGPT two-group AdamW, a train step that updates the
-parameters and the optimizer in place, and sampling through the KV-cached
-``gpt_generate``.
+parameters and the optimizer in place, sampling through the KV-cached
+``gpt_generate`` (the captured decode program on the card, its captures
+kept in ``GPTTask.graphs``) and the media callback's gallery
+(``log_samples``).
 
 A train state is ``{"params": nested dict of leaf tensors with
 requires_grad, "optimizer": torch.optim.AdamW, "step": int}``.
@@ -21,9 +23,10 @@ import torch
 
 from ..configs import ExperimentConfig, GPTConfig
 
+from ..models import decode_graph
 from ..models.gpt import (DTYPES, class_embed, count_params,
-                          cross_entropy_loss, gpt_apply, gpt_generate,
-                          gpt_param_template, init_gpt_params)
+                          cross_entropy_loss, gpt_apply, gpt_attention_maps,
+                          gpt_generate, gpt_param_template, init_gpt_params)
 from ..utils.profiling import StepTimer, gpt_fwd_flops, peak_flops
 from .optim import (get_lr, gpt_adamw, load_optimizer_state,
                     optimizer_state_tree, with_lr)
@@ -64,6 +67,9 @@ class GPTTask:
         self.exp = exp
         self.cfg = exp.model
         self.device = torch.device(device)
+        # the decode programs of ``sample``, kept across calls: the train
+        # state's parameters are updated in place, so their addresses hold
+        self.graphs = decode_graph.DecodeGraphs()
 
     def _optimizer(self, params) -> torch.optim.AdamW:
         tr = self.exp.train
@@ -146,7 +152,39 @@ class GPTTask:
             self.device))
         return gpt_generate(params, self.cfg, generator, cond, given,
                             steps=steps, temperature=temperature,
-                            top_k=top_k, sample=sample)
+                            top_k=top_k, sample=sample,
+                            graph=self.graphs if cond.is_cuda else None)
+
+    @torch.no_grad()
+    def log_samples(self, params, generator: torch.Generator, batch: Dict,
+                    temperature: float = 1.0, top_k: Optional[int] = 100,
+                    n: int = 1) -> Dict[str, np.ndarray]:
+        """The reference's gallery of the batch's first ``n`` items
+        (gpt_task.py:183-205, minGPT.py:530-612): their ``codes``,
+        ``codes_half`` (the first half given, the rest sampled),
+        ``codes_nopix`` (sampled from the class alone), ``codes_det``
+        (greedy) and ``att_nopix``, the last layer's attention over the
+        class token and ``codes_nopix``.  The three generations draw from
+        three generators seeded from ``generator``."""
+        x, c = self.batch_tensors(batch)
+        x, c = x[:n], c[:n]
+        seeds = torch.randint(2 ** 62, (3,), generator=generator,
+                              device=generator.device).tolist()
+        gens = [torch.Generator(device=self.device).manual_seed(s)
+                for s in seeds]
+        t = x.shape[1]
+        half = self.sample(params, gens[0], c, steps=t - t // 2,
+                           given=x[:, :t // 2], temperature=temperature,
+                           top_k=top_k, sample=True)
+        nopix = self.sample(params, gens[1], c, steps=t,
+                            temperature=temperature, top_k=top_k,
+                            sample=True)
+        det = self.sample(params, gens[2], c, steps=t, sample=False)
+        att = gpt_attention_maps(params, self.cfg, nopix,
+                                 class_embed(params, c))
+        return {k: v.cpu().numpy() for k, v in (
+            ("codes", x), ("codes_half", half), ("codes_nopix", nopix),
+            ("codes_det", det), ("att_nopix", att))}
 
     def perf_timer(self, params, window: int = 50) -> StepTimer:
         """StepTimer with tokens/s and, on a card with a known peak, MFU

@@ -1,21 +1,26 @@
-"""Scalar, text, histogram and image logging into a versioned run
-directory.
+"""Scalar, text, histogram, image and audio logging into a versioned run
+directory, and the attention heatmap of the media callbacks.
 
-Counterpart of melspec_gpt_vqvae_tpu/training/logging.py:17-72,106-108:
-each logger takes the next free ``{save_dir}/{name}/version_N`` directory
-and writes TensorBoard events there through tensorboardX where it is
-installed.  Where it is not, the same records go into ``events.jsonl`` in
+Counterpart of melspec_gpt_vqvae_tpu/training/logging.py: each logger
+takes the next free ``{save_dir}/{name}/version_N`` directory and writes
+TensorBoard events there through tensorboardX where it is installed
+(audio as a Summary proto of a PCM16 WAV made with the standard library,
+as the JAX package writes it: tensorboardX's ``add_audio`` needs
+soundfile).  Where it is not, the same records go into ``events.jsonl`` in
 that directory, one JSON object per line: ``{"tag", "step"}`` with
 ``"value"`` (a scalar), ``"text"``, ``"histogram"`` (per-bin ``counts``
-and bin ``edges``: one bin per integer for integer values, else 64) or
+and bin ``edges``: one bin per integer for integer values, else 64),
 ``"image"`` (the name of a ``.npy`` file beside ``events.jsonl`` holding
-the array as given, with its ``dataformats``).
+the array as given, with its ``dataformats``) or ``"audio"`` (the name of
+a mono PCM16 ``.wav`` file beside it, with its ``sample_rate``).
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
+import wave
 
 import numpy as np
 
@@ -98,8 +103,59 @@ class TBLogger:
         s = np.clip(s, 0.0, 1.0)[::-1, :]   # flip the frequency axis
         self.image(tag, s[..., None], step)
 
+    def audio(self, tag: str, wav, step: int, sample_rate: int = 22050):
+        """A mono waveform in [-1, 1] (clipped) as 16-bit PCM WAV."""
+        pcm = (np.clip(np.asarray(wav, np.float32).reshape(-1), -1.0, 1.0)
+               * 32767.0).astype("<i2")
+        if self._writer is None:
+            name = f"{tag.replace('/', '_')}_{int(step)}.wav"
+            _write_wav(os.path.join(self.log_dir, name), pcm, sample_rate)
+            self._line({"tag": tag, "step": int(step), "audio": name,
+                        "sample_rate": int(sample_rate)})
+            return
+        from tensorboardX.proto.summary_pb2 import Summary
+        buf = io.BytesIO()
+        _write_wav(buf, pcm, sample_rate)
+        audio = Summary.Audio(sample_rate=sample_rate, num_channels=1,
+                              length_frames=len(pcm),
+                              encoded_audio_string=buf.getvalue(),
+                              content_type="audio/wav")
+        self._writer._get_file_writer().add_summary(
+            Summary(value=[Summary.Value(tag=tag, audio=audio)]), step)
+
+    def flush(self):
+        if self._writer is not None:
+            self._writer.flush()
+        else:
+            self._jsonl.flush()
+
     def close(self):
         if self._writer is not None:
             self._writer.close()
         else:
             self._jsonl.close()
+
+
+def _write_wav(target, pcm: np.ndarray, sample_rate: int) -> None:
+    """Mono 16-bit PCM samples into a WAV file (a path or a file object)."""
+    with wave.open(target, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(pcm.tobytes())
+
+
+def attention_image(att, scale_by_prior: bool = True) -> np.ndarray:
+    """Per-head attention (B, H, T, T) -> one (B, T, T) heatmap in [0, 1]:
+    minus the causal uniform prior, summed over heads, each map min-max
+    normalised (reference _visualize_attention: GPT_callbacks.py:81-91)."""
+    att = np.asarray(att, np.float32)
+    b, h, t, _ = att.shape
+    if scale_by_prior:
+        prior = np.tril(np.ones((t, t), np.float32))
+        prior = prior / np.arange(1, t + 1, dtype=np.float32)[:, None]
+        att = att - prior[None, None]
+    agg = att.sum(axis=1)
+    lo = agg.min(axis=(1, 2), keepdims=True)
+    hi = agg.max(axis=(1, 2), keepdims=True)
+    return (agg - lo) / (hi - lo + 1e-8)

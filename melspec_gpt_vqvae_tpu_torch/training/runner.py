@@ -80,8 +80,10 @@ def _restore(task, ckpt: CheckpointManager, resume: str):
     return state, int(restored["epoch"])
 
 
-def _val_loss(task, state, loader, limit: Optional[int]) -> float:
-    """Batch-size-weighted mean validation loss."""
+def _val_loss(task, state, loader, limit: Optional[int],
+              on_batch: Optional[Callable] = None) -> float:
+    """Batch-size-weighted mean validation loss; ``on_batch(i, batch)``
+    runs after batch i's loss."""
     total, count = 0.0, 0
     for i, batch in enumerate(loader):
         if limit and i >= limit:
@@ -89,11 +91,15 @@ def _val_loss(task, state, loader, limit: Optional[int]) -> float:
         b = len(batch["target"])
         total += float(task.eval_step(state, batch)) * b
         count += b
+        if on_batch is not None:
+            on_batch(i, batch)
     return total / count if count else float("nan")
 
 
 def fit_gpt(task, dm, *, epochs: int, log: TBLogger,
             ckpt: CheckpointManager, seed: int = 783435,
+            logging_frequency: int = 200,
+            media_cb: Optional[Callable] = None,
             resume: Optional[str] = None,
             limit_train_batches: Optional[int] = None,
             limit_val_batches: Optional[int] = None,
@@ -101,6 +107,10 @@ def fit_gpt(task, dm, *, epochs: int, log: TBLogger,
             max_steps: Optional[int] = None):
     """Train the class-conditional GPT; returns the final train state.
 
+    ``media_cb(state, batch, step, split)`` runs after train batch ``gi``
+    and validation batch ``i`` whenever the index is a multiple of
+    ``logging_frequency`` (0: never), as the JAX loop calls it
+    (runner.py:156-158, 190-192 there), outside the step timer's window.
     ``ckpt_every_steps=N`` also saves ``last`` every N optimizer steps with
     its mid-epoch position; ``max_steps`` stops (and saves) after that many
     steps, possibly mid-epoch.  A resumed partial epoch's printed train
@@ -118,6 +128,10 @@ def fit_gpt(task, dm, *, epochs: int, log: TBLogger,
     val_loader = dm.val_dataloader()
     timer = task.perf_timer(state["params"])
     step = state["step"]
+
+    def val_media(i, batch):
+        if media_cb and logging_frequency and i % logging_frequency == 0:
+            media_cb(state, batch, step, "val")
 
     for epoch in range(start_epoch, epochs):
         train_loader.set_epoch(epoch)
@@ -140,6 +154,9 @@ def fit_gpt(task, dm, *, epochs: int, log: TBLogger,
             if gi % 50 == 0:
                 log.scalar("train/loss_step", loss, step)
                 log.scalar("learning_rate", _live_lr(state), step)
+            if media_cb and logging_frequency and gi % logging_frequency == 0:
+                with timer.paused(task.device):
+                    media_cb(state, batch, step, "train")
             hit_budget = max_steps is not None and step >= max_steps
             if hit_budget or (ckpt_every_steps and
                               step % ckpt_every_steps == 0):
@@ -154,7 +171,8 @@ def fit_gpt(task, dm, *, epochs: int, log: TBLogger,
 
         train_loss = (float(torch.stack(losses).mean()) if losses
                       else float("nan"))
-        val_loss = _val_loss(task, state, val_loader, limit_val_batches)
+        val_loss = _val_loss(task, state, val_loader, limit_val_batches,
+                             val_media)
         log.scalar("train/loss_epoch", train_loss, step)
         log.scalar("val/loss", val_loss, step)
         print(f"epoch {epoch}: train/loss {train_loss:.4f} "
@@ -240,7 +258,8 @@ def fit_vae(task, dm, *, epochs: int, log: TBLogger,
             if gi % 50 == 0:
                 log.scalars(report, step)
             if media_cb and logging_frequency and gi % logging_frequency == 0:
-                media_cb(state, batch, step, "train")
+                with timer.paused(task.device):
+                    media_cb(state, batch, step, "train")
             hit_budget = max_steps is not None and step >= max_steps
             if hit_budget or (ckpt_every_steps and
                               step % ckpt_every_steps == 0):

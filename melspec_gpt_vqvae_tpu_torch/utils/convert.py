@@ -14,7 +14,11 @@ fused in that order (convert.py:253-254 there).
 Native checkpoints of the JAX package (orbax directories) need JAX to
 read: ``scripts/torch_convert_orbax.py`` turns them into files these
 loaders take on a machine without it.  A file whose names are already the
-port's (what that script writes) loads as it is.
+port's (what that script writes) loads as it is.  The VQ-VAE loader also
+takes the port's own VQ-GAN runs (train_vqvae.py), the counterpart of the
+JAX loader's native directory: a checkpoint directory that the port's
+``CheckpointManager`` wrote, a run directory holding
+``checkpoints/version_N``, or one of its ``.pt`` files.
 """
 
 from __future__ import annotations
@@ -36,13 +40,17 @@ ORBAX_HINT = ("{path} is not a reference-format checkpoint (an orbax "
 
 
 def _load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A torch checkpoint's tensors by name: a raw ``state_dict``, or the
-    ``state_dict`` entry of a Lightning checkpoint.  The reference's files
-    hold more than tensors, hence ``weights_only=False``: load only files
-    you trust, as with the reference itself."""
+    """A torch checkpoint's tensors by name: a raw ``state_dict``, the
+    ``state_dict`` entry of a Lightning checkpoint, or the autoencoder
+    (``state["ae_params"]``) of a port VQ-GAN checkpoint.  The reference's
+    files hold more than tensors, hence ``weights_only=False``: load only
+    files you trust, as with the reference itself."""
     obj = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
+    if isinstance(obj, dict) and isinstance(obj.get("state"), dict) \
+            and "ae_params" in obj["state"]:
+        obj = obj["state"]["ae_params"]
     return {k: v.detach() for k, v in obj.items()
             if isinstance(v, torch.Tensor)}
 
@@ -117,10 +125,33 @@ def convert_vqvae_state_dict(sd: Dict[str, torch.Tensor],
     return _take(sd, names, _vq_reference_name, "VQ-VAE")
 
 
+def _vqgan_checkpoint(path: str):
+    """The ``last.pt`` of a port VQ-GAN run: in ``path`` itself (a
+    checkpoint directory) or in the newest ``checkpoints/version_N`` under
+    it (a run directory) that holds one; None if there is none."""
+    if os.path.isfile(os.path.join(path, "last.pt")):
+        return os.path.join(path, "last.pt")
+    ckpts = os.path.join(path, "checkpoints")
+    versions = (sorted((d for d in os.listdir(ckpts)
+                        if d.startswith("version_")),
+                       key=lambda d: int(d.split("_")[-1]), reverse=True)
+                if os.path.isdir(ckpts) else [])
+    for v in versions:
+        if os.path.isfile(os.path.join(ckpts, v, "last.pt")):
+            return os.path.join(ckpts, v, "last.pt")
+    return None
+
+
 def load_vqvae_params(path: str, cfg: VQVAEConfig) -> VQModel:
-    """The frozen VQ-VAE from a reference torch checkpoint (.pt / .ckpt)."""
+    """The frozen VQ-VAE from a reference torch checkpoint (.pt / .ckpt),
+    or the autoencoder of a port VQ-GAN run (its ``state["ae_params"]``;
+    a directory as ``_vqgan_checkpoint`` finds it).  A directory that is
+    neither (an orbax one) is refused."""
     if os.path.isdir(path):
-        raise ValueError(ORBAX_HINT.format(path=path))
+        found = _vqgan_checkpoint(path)
+        if found is None:
+            raise ValueError(ORBAX_HINT.format(path=path))
+        path = found
     model = VQModel(cfg)
     model.load_state_dict(convert_vqvae_state_dict(
         _load_torch_state_dict(path), cfg), strict=True)

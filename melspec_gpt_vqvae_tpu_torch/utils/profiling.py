@@ -58,7 +58,9 @@ class StepTimer:
     when the tokens per example are known and MFU when the useful FLOPs
     per step and the device's peak are.  Host clock: the window's last
     step has been queued, not necessarily finished, so over a short window
-    the rates run ahead of the device."""
+    the rates run ahead of the device.  Work between steps that is not a
+    step (a media callback) runs inside ``paused``, whose seconds the
+    window leaves out."""
 
     def __init__(self, window: int = 50, tokens_per_example: int = 0,
                  flops_per_step: float = 0.0,
@@ -70,6 +72,19 @@ class StepTimer:
         self.t0 = time.time()
         self.steps = 0
         self.examples = 0
+
+    @contextlib.contextmanager
+    def paused(self, device: Optional[torch.device] = None) -> Iterator[None]:
+        """Leave the block's seconds out of the window.  On a card the
+        steps queued before it are waited for first, so that their device
+        time stays in the window."""
+        if device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t = time.time()
+        try:
+            yield
+        finally:
+            self.t0 += time.time() - t
 
     def tick(self, batch_size: int) -> Optional[dict]:
         self.steps += 1

@@ -49,6 +49,7 @@ PORT_MODULES = [
     "melspec_gpt_vqvae_tpu_torch.models.decode_graph",
     "melspec_gpt_vqvae_tpu_torch.models.gpt",
     "melspec_gpt_vqvae_tpu_torch.models.gpt_vae",
+    "melspec_gpt_vqvae_tpu_torch.models.lstm_vae",
     "melspec_gpt_vqvae_tpu_torch.models.quantized",
     "melspec_gpt_vqvae_tpu_torch.models.speculative",
     "melspec_gpt_vqvae_tpu_torch.models.vocoder",
@@ -65,13 +66,16 @@ PORT_MODULES = [
     "melspec_gpt_vqvae_tpu_torch.training.checkpoint",
     "melspec_gpt_vqvae_tpu_torch.training.gpt_task",
     "melspec_gpt_vqvae_tpu_torch.training.logging",
+    "melspec_gpt_vqvae_tpu_torch.training.lstm_task",
     "melspec_gpt_vqvae_tpu_torch.training.optim",
     "melspec_gpt_vqvae_tpu_torch.training.runner",
     "melspec_gpt_vqvae_tpu_torch.training.vae_task",
     "melspec_gpt_vqvae_tpu_torch.training.vqvae_task",
     "melspec_gpt_vqvae_tpu_torch.utils",
     "melspec_gpt_vqvae_tpu_torch.utils.battery",
+    "melspec_gpt_vqvae_tpu_torch.utils.codes",
     "melspec_gpt_vqvae_tpu_torch.utils.convert",
+    "melspec_gpt_vqvae_tpu_torch.utils.demo",
     "melspec_gpt_vqvae_tpu_torch.utils.profiling",
     "melspec_gpt_vqvae_tpu_torch.utils.vae_tools",
     "melspec_gpt_vqvae_tpu_torch.configs",

@@ -451,7 +451,7 @@ def test_train_gpt_cli_on_cpu(vas_tree, tmp_path, monkeypatch):
     out = train_gpt.main(train_gpt.init_config(
         argv[:4] + ["--eval", "1", "--resume", "last"] + argv[6:]))
     assert out[1] is None
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="best_netG.pt"):
         train_gpt.main(train_gpt.init_config(argv + ["--vocoder", "x"]))
 
 

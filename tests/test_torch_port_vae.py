@@ -633,13 +633,20 @@ def test_train_gpt_vae_cli_on_cpu(vas_tree, tmp_path, monkeypatch):
                 assert torch.equal(t.detach(), ref) is same, (part, n)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--model", "lstm"], ["--mesh", "data=2"], ["--pp_micro", "2"],
-    ["--reconstruct_spec", "vq.ckpt"], ["--vocoder", "melgan"]],
+@pytest.mark.parametrize("flags,error,match", [
+    (["--model", "lstm"], ValueError, "n_layer"),
+    (["--mesh", "data=2"], NotImplementedError, "ROADMAP A12"),
+    (["--pp_micro", "2"], NotImplementedError, "ROADMAP A12"),
+    (["--reconstruct_spec", "vq.ckpt"], FileNotFoundError, "vq.ckpt"),
+    (["--vocoder", "melgan"], ValueError, "best_netG.pt")],
     ids=["lstm", "mesh", "pp_micro", "reconstruct_spec", "vocoder"])
-def test_train_gpt_vae_cli_refuses(vas_tree, tmp_path, monkeypatch, flags):
+def test_train_gpt_vae_cli_refuses(vas_tree, tmp_path, monkeypatch, flags,
+                                   error, match):
+    """What the CLI cannot run raises before the run directory is made:
+    distribution (ROADMAP A12), a decoder that does not load, and --model
+    lstm with the GPT's overrides (the LSTM preset has no n_layer)."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A1[12]|A8"):
+    with pytest.raises(error, match=match):
         train_gpt_vae.main(train_gpt_vae.init_config(
             _cli_argv(vas_tree, "--train", "1", *flags)))
     assert not (tmp_path / "lightning_logs").exists()
