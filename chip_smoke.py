@@ -115,7 +115,24 @@
    ``attn``); a 2-layer float32 copy's train step, mixed precision off and
    on, against the CPU.
 
-8. (Phase ``vqgan``, after ``vae``.)  The VQ-GAN first stage:
+7b. (Phase ``features``, after ``vae``.)  The offline tokenizer through
+   its entry points: the 48 battery clips written as wavs (int16 and
+   float32, the last one 3 s long) through
+   ``feature_extraction.extract_mel_spectrogram.main`` at ``-b 16`` (D
+   exactly 3 launches), every mel file held against the plain rFFT mel of
+   the wav on the card within 2e-3; ``extract_codes.main`` at ``-b 8`` on
+   a reference-format file of the ``VQVAEConfig`` preset's seeded weights
+   (C exactly 6), called with TF32 on: it must encode with TF32 off and
+   give the flags back; its codes against the plain argmin on the same
+   latents (no unexplained flip); a second run writes nothing;
+   ``--int8`` (its agreement with the float32 codes printed);
+   ``parity_check``'s four variants on 8 clips against its CPU subprocess
+   (D 3, C 4); ``mel_to_waveform`` (NNLS, Griffin-Lim 32 iterations) on 8
+   mel files, the mel of each waveform within mean |mel - mel2| < 0.05 of
+   the file over its active frames.  Each CLI's seconds and clips/s;
+   the counts join C's and D's ``launches_by_path``.
+
+8. (Phase ``vqgan``, after ``features``.)  The VQ-GAN first stage:
    ``train_vqvae.main`` on the battery's 48 clips trains the ``VQVAEConfig``
    preset at full width (ch 128, attention at 53, z 256, 128 codes, ndf 64;
    batch 2 of 80 x 848 mels) for 4 steps, the adversarial phase from step
@@ -124,7 +141,10 @@
    bit and evaluated through ``--train 0 --eval 1 --resume last``; C's
    indices inside a train step against ``vq_nearest_index_xla`` on the
    same latents (no unexplained flip) and C timed at that shape (N = 530);
-   the reconstruction loss on a repeated batch falling; the step's ms and
+   the reconstruction loss on a repeated batch falling (cuDNN's
+   deterministic algorithms from the first step to this check: the
+   adversarial phase amplifies the default ones' last-bit differences
+   until the check goes either way); the step's ms and
    peak memory, a profiled window by launching op, the step with cuDNN's
    TF32 on; a ch-16 copy's train step, float32 on the card against float64
    on the CPU.
@@ -2731,6 +2751,222 @@ def vae_reference_check(dev, batch):
 
 
 # ---------------------------------------------------------------------------
+# 7b. the offline tokenizer: wavs -> mel files -> code grids, parity_check,
+#     the mel inverse chain
+# ---------------------------------------------------------------------------
+
+
+FEATURES_ROOT = Path("build") / "chip_smoke_features"
+# the 48 battery clips through extract_mel_spectrogram at -b 16 (3 launches
+# of D) and extract_codes at -b 8 (6 of C); parity_check's variants on the
+# first 8 clips; Griffin-Lim on 8 of the mel files
+MEL_BATCH, CODE_BATCH, PARITY_CLIPS, ROUND_TRIP_CLIPS = 16, 8, 8, 8
+SHORT_CLIP = 3 * 22050     # the last wav, shorter than a clip
+
+
+def write_battery_wavs(folder, wavs):
+    """The battery as wav files: the even clips int16, the odd ones
+    float32, the last cut to SHORT_CLIP samples (the CLI pads it back with
+    zeros)."""
+    from scipy.io import wavfile
+    folder.mkdir(parents=True)
+    for i, w in enumerate(wavs):
+        if i == len(wavs) - 1:
+            w = w[:SHORT_CLIP]
+        wavfile.write(folder / f"clip{i:02d}.wav", 22050,
+                      (w * 32767).astype(np.int16) if i % 2 == 0 else w)
+
+
+def write_reference_vq(path, cfg, seed):
+    """A VQ-VAE of seeded random weights as the reference stores one: its
+    ``LitVQVAE`` names in a Lightning checkpoint's ``state_dict``."""
+    from melspec_gpt_vqvae_tpu_torch import bridge
+    from melspec_gpt_vqvae_tpu_torch.models.vqvae import VQModel
+    from melspec_gpt_vqvae_tpu_torch.utils.convert import _vq_reference_name
+    vq = bridge.init_conv_net_(VQModel(cfg),
+                               torch.Generator().manual_seed(seed))
+    torch.save({"state_dict": {_vq_reference_name(k): v for k, v in
+                               vq.state_dict().items()}}, path)
+
+
+def read_stack(folder, names, suffix):
+    return np.stack([np.load(folder / f"{n}{suffix}.npy") for n in names])
+
+
+def features_check(dev, battery):
+    """The offline tokenizer through its entry points, on the battery's
+    48 clips written as wavs (int16 and float32, one short): the mel CLI
+    (D exactly once a batch of 16), each mel file held against the plain
+    rFFT mel on the card within check_mel's 2e-3; the code CLI on a
+    reference-format file of the ``VQVAEConfig`` preset (C exactly once a
+    batch of 8), called with TF32 on: it must encode with TF32 off and
+    give the caller's flags back; its codes against the plain argmin on the
+    same latents (no unexplained flip); a second run writes nothing;
+    ``--int8`` (its agreement with the float32 codes printed);
+    ``parity_check`` on PARITY_CLIPS clips (D and C counted); the inverse
+    chain on ROUND_TRIP_CLIPS mel files, Griffin-Lim 32 iterations: the
+    mel of the waveform within tests/test_mel.py:111-123's criterion, mean
+    |mel - mel2| < 0.05 over the active frames.  Returns the record and
+    the launches of C and D by path."""
+    from melspec_gpt_vqvae_tpu_torch import parity_check
+    from melspec_gpt_vqvae_tpu_torch.configs import MelConfig, VQVAEConfig
+    from melspec_gpt_vqvae_tpu_torch.feature_extraction import (
+        extract_codes, extract_mel_spectrogram)
+    from melspec_gpt_vqvae_tpu_torch.models.vqvae import VQModel
+    from melspec_gpt_vqvae_tpu_torch.ops.mel import (mel_to_waveform,
+                                                    pad_or_trim,
+                                                    waveform_to_mel)
+    from melspec_gpt_vqvae_tpu_torch.ops.mel_kernel import \
+        waveform_to_mel_fused
+    from melspec_gpt_vqvae_tpu_torch.ops.vq import (vq_nearest_index,
+                                                   vq_nearest_index_xla)
+    from melspec_gpt_vqvae_tpu_torch.utils.convert import load_vqvae_params
+    shutil.rmtree(FEATURES_ROOT, ignore_errors=True)
+    features = FEATURES_ROOT / "features"
+    cls = features / "battery"
+    audio, mel_dir = cls / "audio_10s_22050hz", cls / "melspec_10s_22050hz"
+    write_battery_wavs(audio, battery)
+    n, mcfg, cfg = len(battery), MelConfig(), VQVAEConfig()
+    names = [f"clip{i:02d}" for i in range(n)]
+    rec, by_path = {}, {}
+
+    def counted(title, fn, d, c):
+        waveform_to_mel_fused.launches = vq_nearest_index.launches = 0
+        out, dt = wall(fn)
+        got = {"D": waveform_to_mel_fused.launches,
+               "C": vq_nearest_index.launches}
+        print(f"  {title}: {dt:.3f} s, launches {json.dumps(got)}")
+        check(got == {"D": d, "C": c}, f"{title}: launches {got}, expected "
+              f"D {d}, C {c}")
+        by_path[title] = got
+        rec[title] = {"seconds": round(dt, 4)}
+        return out, dt
+
+    # wavs -> mel files
+    written, dt = counted("extract_mel_spectrogram", lambda:
+                          extract_mel_spectrogram.main(
+                              ["-i", str(audio), "-o", str(mel_dir), "-b",
+                               str(MEL_BATCH)]), -(-n // MEL_BATCH), 0)
+    check(written == n, f"extract_mel_spectrogram wrote {written} of {n}")
+    rec["extract_mel_spectrogram"]["clips_per_s"] = round(n / dt, 2)
+    wavs = torch.stack([pad_or_trim(torch.from_numpy(
+        extract_mel_spectrogram.read_wav(audio / f"{nm}.wav")),
+        mcfg.clip_samples) for nm in names]).to(dev)
+    check(bool((wavs[-1, SHORT_CLIP:] == 0).all()), "short wav not padded")
+    mels = torch.from_numpy(read_stack(mel_dir, names, "_mel")).to(dev)
+    with torch.inference_mode():
+        err = max_err(mels, waveform_to_mel(wavs, mcfg))
+    print(f"  mel files {tuple(mels.shape)} vs the plain rFFT mel of the "
+          f"wavs as read: max|err| {err:.3g} (tol 2e-3)")
+    check(mels.shape == (n, 80, 860) and err <= 2e-3, "mel files vs plain")
+    rec["extract_mel_spectrogram"]["max_abs_err_vs_plain"] = err
+
+    # mel files -> code grids, with TF32 on in the caller
+    vq_path = FEATURES_ROOT / "vqvae.ckpt"
+    write_reference_vq(vq_path, cfg, seed=5)
+    argv = ["-i", str(features), "-m", str(vq_path), "-b", str(CODE_BATCH)]
+    flags, encode = [], VQModel.encode_to_indices
+
+    def tf32():
+        return (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+
+    def recording(self, x):
+        flags.append(tf32())
+        return encode(self, x)
+    VQModel.encode_to_indices = recording
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        written, dt = counted("extract_codes", lambda: extract_codes.main(
+            argv), 0, -(-n // CODE_BATCH))
+        after = tf32()
+    finally:
+        VQModel.encode_to_indices = encode
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"  TF32 (cuDNN, matmul) in the caller (True, True); in each of "
+          f"the CLI's {len(flags)} encodes {sorted(set(flags))}; after it "
+          f"{after}")
+    check(set(flags) == {(False, False)}, "extract_codes encoded with TF32")
+    check(after == (True, True), "extract_codes did not restore TF32")
+    check(written == n, f"extract_codes wrote {written} of {n}")
+    rec["extract_codes"]["clips_per_s"] = round(n / dt, 2)
+    rec["extract_mel_spectrogram+extract_codes_clips_per_s"] = round(
+        n / (rec["extract_mel_spectrogram"]["seconds"] + dt), 2)
+    codes = read_stack(cls / "codes_10s", names, "_mel_code")
+    vq = load_vqvae_params(str(vq_path), cfg).to(dev)
+    x = 2.0 * mels[:, :, 6:854] - 1.0
+    with torch.inference_mode():
+        z = torch.cat([vq.quant_conv(vq.encoder(x[i:i + CODE_BATCH, None]))
+                       for i in range(0, n, CODE_BATCH)])
+        rows = z.permute(0, 2, 3, 1).reshape(-1, z.shape[1])
+        plain = vq_nearest_index_xla(rows, vq.quantize.embedding).cpu()
+    z64 = rows.double().cpu()
+    flips = unexplained_flips(torch.from_numpy(codes), plain, z64, z64,
+                              vq.quantize.embedding)
+    differ = int((torch.from_numpy(codes).reshape(-1) != plain).sum())
+    print(f"  codes {codes.shape} {codes.dtype} vs the plain argmin on the "
+          f"same latents: {differ} differ, {flips} unexplained")
+    check(codes.shape == (n, 5, 53) and codes.dtype == np.int32
+          and flips == 0, "extract_codes codes vs the plain argmin")
+    stamps = {p: p.stat().st_mtime_ns for p in (cls / "codes_10s").iterdir()}
+    written, _ = counted("extract_codes_again", lambda: extract_codes.main(
+        argv), 0, 0)
+    check(written == 0 and stamps == {p: p.stat().st_mtime_ns for p in
+                                      (cls / "codes_10s").iterdir()},
+          "a second extract_codes run wrote files")
+
+    # --int8 on the same mel files
+    cls8 = FEATURES_ROOT / "features_int8" / "battery"
+    cls8.mkdir(parents=True)
+    (cls8 / "melspec_10s_22050hz").symlink_to(mel_dir.resolve())
+    written, dt = counted("extract_codes_int8", lambda: extract_codes.main(
+        ["-i", str(cls8.parent), "-m", str(vq_path), "-b", str(CODE_BATCH),
+         "--int8"]), 0, -(-n // CODE_BATCH))
+    agree = float((read_stack(cls8 / "codes_10s", names, "_mel_code")
+                   == codes).mean())
+    rec["extract_codes_int8"].update(clips_per_s=round(n / dt, 2),
+                                     code_agreement_vs_f32=agree)
+    print(f"  --int8: {written} grids, agreement with the float32 codes "
+          f"{agree:.4f}")
+    check(written == n, "extract_codes --int8 wrote too few grids")
+
+    # parity_check's variants on the first clips
+    batches = -(-PARITY_CLIPS // parity_check.BATCH)
+    parity, _ = counted("parity_check", lambda: parity_check.main(
+        ["--clips", str(PARITY_CLIPS), "--out",
+         str(FEATURES_ROOT / "parity.json")]), 3 * batches, 4 * batches)
+    check(list(parity["variants"]) == list(parity_check.VARIANTS),
+          "parity_check variants")
+    rec["parity_check"]["variants"] = {
+        k: v["match_rate"] for k, v in parity["variants"].items()}
+    print(f"  parity_check ({PARITY_CLIPS} clips) match rates vs the CPU: "
+          f"{json.dumps(rec['parity_check']['variants'])}")
+
+    # the inverse chain: mel files -> waveforms -> mels
+    pick = torch.arange(0, n, n // ROUND_TRIP_CLIPS)[:ROUND_TRIP_CLIPS]
+    g = torch.Generator(device=dev).manual_seed(0)
+    with torch.inference_mode():
+        back, dt = wall(lambda: mel_to_waveform(mels[pick], g, mcfg))
+        mel2 = waveform_to_mel(pad_or_trim(back, mcfg.clip_samples), mcfg)
+    active = mels[pick].amax(dim=1) > 0.1          # (clips, frames)
+    errs = [(mel2[i] - mels[pick][i])[:, active[i]].abs().mean().item()
+            for i in range(len(pick))]
+    rec["mel_to_waveform"] = {"seconds": round(dt, 4), "clips": len(pick),
+                              "mean_abs_mel_err": [round(e, 5)
+                                                   for e in errs]}
+    print(f"  mel_to_waveform {len(pick)} mels (NNLS 200, Griffin-Lim 32): "
+          f"{dt:.3f} s, {tuple(back.shape)}; mean |mel - mel2| over the "
+          f"active frames {max(errs):.4f} at worst (bound 0.05)")
+    check(back.shape == (len(pick), 859 * 256) and max(errs) < 0.05,
+          "mel_to_waveform round trip")
+    print(f"  features: {json.dumps(rec)}")
+    shutil.rmtree(FEATURES_ROOT)
+    return rec, by_path
+
+
+# ---------------------------------------------------------------------------
 # 8. the VQ-GAN first stage: training, evaluation, kernel C inside training
 # ---------------------------------------------------------------------------
 
@@ -2926,6 +3162,12 @@ def vqgan_check(dev, mels, codes):
     from melspec_gpt_vqvae_tpu_torch.ops.vq import vq_nearest_index
     write_vas_tree(VQGAN_ROOT, mels, codes)
     torch.cuda.empty_cache()
+    # cuDNN's deterministic algorithms from the first step to the check of
+    # the repeated batch: the adversarial phase amplifies the last-bit
+    # differences of the default (nondeterministic) convolution backward
+    # passes, and that check's rec_loss went either way between two runs of
+    # one tree.  The step is timed after it with torch's default algorithms.
+    torch.backends.cudnn.deterministic = True
     vq_nearest_index.launches = 0
     ((task, state, ckpt, val), logs), dt = wall(lambda: run_vqvae_cli(
         ["--train", "1", "--epochs", "1", "--limit_train_batches",
@@ -2985,18 +3227,21 @@ def vqgan_check(dev, mels, codes):
     batch = first_train_batch(VQGAN_ROOT, VQGAN_BATCH)
     state, c_row = check_vq_in_training(task, state, batch)
 
-    # learning on a repeated batch, and the step's time and memory
-    steps, ms, mem, held = vqgan_steps(task, state, batch, 20)
+    # learning on a repeated batch, then the step's time and memory
+    steps = vqgan_steps(task, state, batch, 20)[0]
     rec = [s["train/rec_loss"] for s in steps]
-    print(f"  VQ-GAN step, preset, batch {VQGAN_BATCH}, float32, TF32 off: "
-          f"{ms:.1f} ms, peak {mem / 2 ** 30:.2f} GiB ({held / 2 ** 30:.2f} "
-          f"GiB held before the steps); repeated batch: "
-          f"rec_loss {rec[0]:.4f} -> {rec[-1]:.4f} in 20 steps, d_weight "
+    print(f"  repeated batch (deterministic cuDNN): rec_loss {rec[0]:.4f} -> "
+          f"{rec[-1]:.4f} in 20 steps, d_weight "
           f"{steps[-1]['train/d_weight']:.4g}")
     check(all(np.isfinite(v) for s in steps for v in s.values()),
           "non-finite VQ-GAN logs on the repeated batch")
     check(rec[-1] < rec[0], "the VQ-GAN's rec_loss on a repeated batch did "
           "not fall")
+    torch.backends.cudnn.deterministic = False
+    _, ms, mem, held = vqgan_steps(task, state, batch, 8)
+    print(f"  VQ-GAN step, preset, batch {VQGAN_BATCH}, float32, TF32 off: "
+          f"{ms:.1f} ms, peak {mem / 2 ** 30:.2f} GiB ({held / 2 ** 30:.2f} "
+          f"GiB held before the steps)")
     profile_vqgan_step(task, state, batch)
     torch.backends.cudnn.allow_tf32 = True
     try:
@@ -3784,13 +4029,26 @@ def run(procs):
     results["attention"]["launches_by_path"]["vae_evaluation"] = va
     launches["attention"] += va
 
+    phase("features", "the offline tokenizer (extract_mel_spectrogram, "
+          "extract_codes, parity_check at the VQVAEConfig preset, seeded "
+          "weights; the mel inverse chain):")
+    feat, feat_launches = features_check(
+        dev, make_battery(exp.mel.clip_samples))
+    # C and D in the tokenizer's CLIs and parity_check, beside the main
+    # path's tokenize; the record keeps them by entry point
+    for name, key in (("vq_nearest", "C"), ("mel", "D")):
+        n = sum(c[key] for c in feat_launches.values())
+        results[name]["launches_by_path"] = {"tokenize": launches[name],
+                                             "features": n}
+        launches[name] += n
+    results["mel"]["features"] = {**feat, "launches": feat_launches}
+
     phase("vqgan", "the VQ-GAN first stage (VQVAEConfig preset, full width, "
           "batch 2, float32, random weights):")
     c_row, (c_train, c_eval) = vqgan_check(dev, mels, codes)
     results["vq_nearest"]["training_n530_k128"] = c_row
-    results["vq_nearest"]["launches_by_path"] = {
-        "tokenize": launches["vq_nearest"], "vqgan_training": c_train,
-        "vqgan_evaluation": c_eval}
+    results["vq_nearest"]["launches_by_path"].update(
+        vqgan_training=c_train, vqgan_evaluation=c_eval)
     launches["vq_nearest"] += c_train + c_eval
 
     phase("media", "media logging through frozen decoders (VAS GPT preset, "

@@ -1,11 +1,14 @@
-"""Mel-spectrogram frontend, forward chain, in plain PyTorch.
+"""Mel-spectrogram frontend, forward and inverse chain, in plain PyTorch.
 
-Counterpart of the forward half of melspec_gpt_vqvae_tpu/ops/mel.py
-(reference feature_extraction/extract_mel_spectrogram.py:141-190,
-librosa 0.8.1 semantics): pad or trim to 10 s, reflect pad n_fft / 2,
-periodic Hann, |rFFT|, Slaney filterbank (fmin 125, fmax 7600), then the
-LowerThresh / Log10 / scale / Clip / Trim chain.  ``waveform_to_mel`` is
-the plain version of kernel D (ops/mel_kernel.py).
+Counterpart of melspec_gpt_vqvae_tpu/ops/mel.py (reference
+feature_extraction/extract_mel_spectrogram.py:29-34, 141-190, librosa 0.8.1
+semantics).  Forward: pad or trim to 10 s, reflect pad n_fft / 2, periodic
+Hann, |rFFT|, Slaney filterbank (fmin 125, fmax 7600), then the
+LowerThresh / Log10 / scale / Clip / Trim chain; ``waveform_to_mel`` is the
+plain version of kernel D (ops/mel_kernel.py).  Inverse: the scalar chain
+undone, the filterbank inverted by projected-gradient NNLS, phases by
+Griffin-Lim with momentum; no TPU kernel computes these (XLA runs them
+there), so they are plain PyTorch on either device.
 
 The window and filterbank are built in numpy here: the JAX module cannot be
 imported without JAX.
@@ -14,6 +17,8 @@ imported without JAX.
 from __future__ import annotations
 
 import functools
+import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -90,13 +95,18 @@ def _reflect_pad(y: torch.Tensor, pad: int) -> torch.Tensor:
     return y.reshape(*lead, -1)
 
 
+def _windowed_frames(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """center=True frames: (..., samples) -> (..., n_frames, n_fft),
+    reflect-padded by n_fft / 2 and Hann-windowed."""
+    frames = _reflect_pad(y, n_fft // 2).unfold(-1, n_fft, hop)
+    return frames * torch.as_tensor(_hann(n_fft), device=y.device)
+
+
 def stft_magnitude(y: torch.Tensor, n_fft: int = 1024, hop: int = 256,
                    power: float = 1.0) -> torch.Tensor:
     """|STFT|^power with center=True reflect padding (librosa 0.8.1).
     y (..., samples) -> (..., 1 + n_fft // 2, n_frames)."""
-    frames = _reflect_pad(y, n_fft // 2).unfold(-1, n_fft, hop)
-    frames = frames * torch.as_tensor(_hann(n_fft), device=y.device)
-    spec = torch.fft.rfft(frames, dim=-1).abs()
+    spec = torch.fft.rfft(_windowed_frames(y, n_fft, hop), dim=-1).abs()
     if power != 1.0:
         spec = spec ** power
     return spec.transpose(-1, -2)
@@ -122,3 +132,127 @@ def waveform_to_mel(wav: torch.Tensor,
                                            cfg.n_mels, cfg.fmin, cfg.fmax),
                             device=wav.device)
     return mel_forward_chain(torch.matmul(basis, spec), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Inverse: mel -> STFT magnitude (NNLS) -> Griffin-Lim -> waveform
+# ---------------------------------------------------------------------------
+
+
+def stft_complex(y: torch.Tensor, n_fft: int = 1024,
+                 hop: int = 256) -> torch.Tensor:
+    """Complex STFT (center=True, reflect pad): (..., samples) ->
+    complex64 (..., 1 + n_fft // 2, n_frames)."""
+    return torch.fft.rfft(_windowed_frames(y, n_fft, hop),
+                          dim=-1).transpose(-1, -2)
+
+
+@functools.lru_cache(maxsize=8)
+def _window_sum_square(n_fft: int, hop: int, n_frames: int) -> np.ndarray:
+    """Sum of the squared Hann windows over the overlap-add positions of
+    ``n_frames`` frames, 1 where it is (numerically) 0; float32."""
+    idx = np.arange(n_frames)[:, None] * hop + np.arange(n_fft)[None, :]
+    wss = np.zeros(n_fft + hop * (n_frames - 1), np.float32)
+    np.add.at(wss, idx.reshape(-1), np.tile(_hann(n_fft) ** 2, n_frames))
+    return np.where(wss > 1e-10, wss, 1.0).astype(np.float32)
+
+
+def istft(stft: torch.Tensor, n_fft: int = 1024, hop: int = 256,
+          length: Optional[int] = None) -> torch.Tensor:
+    """Inverse STFT: Hann-windowed irFFT frames overlap-added (``fold``),
+    divided by the window-sum-square, the n_fft / 2 centre padding trimmed.
+    stft (..., 1 + n_fft // 2, n_frames) complex -> (..., samples)."""
+    frames = torch.fft.irfft(stft.transpose(-1, -2), n=n_fft, dim=-1)
+    frames = frames * torch.as_tensor(_hann(n_fft), device=frames.device)
+    lead, n_frames = frames.shape[:-2], frames.shape[-2]
+    out_len = n_fft + hop * (n_frames - 1)
+    sig = F.fold(frames.reshape(-1, n_frames, n_fft).transpose(1, 2),
+                 output_size=(1, out_len), kernel_size=(1, n_fft),
+                 stride=(1, hop)).reshape(*lead, out_len)
+    sig = sig / torch.as_tensor(_window_sum_square(n_fft, hop, n_frames),
+                                device=sig.device)
+    sig = sig[..., n_fft // 2: out_len - n_fft // 2]
+    return sig if length is None else sig[..., :length]
+
+
+def mel_inverse_chain(mel_norm: torch.Tensor,
+                      cfg: MelConfig = MelConfig()) -> torch.Tensor:
+    """Inverse of the scalar chain back to linear mel (reference:
+    extract_mel_spectrogram.py:154-163; Clip, Trim and LowerThresh are the
+    identity in inverse mode)."""
+    x = mel_norm * cfg.divide
+    x = x - cfg.add + cfg.subtract
+    x = x / cfg.multiply
+    return torch.pow(10.0, x)
+
+
+@functools.lru_cache(maxsize=8)
+def _nnls_step(cfg: MelConfig) -> float:
+    """1 / the spectral norm of the filterbank's Gram matrix (numpy, as the
+    JAX package computes it): the projected gradient's Lipschitz step."""
+    basis = mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin,
+                           cfg.fmax)
+    return 1.0 / (float(np.linalg.norm(basis.T @ basis, 2)) + 1e-10)
+
+
+def mel_to_stft(mel_linear: torch.Tensor, cfg: MelConfig = MelConfig(),
+                n_iter: int = 200) -> torch.Tensor:
+    """Invert the mel projection approximately by projected-gradient NNLS
+    (librosa.feature.inverse.mel_to_stft solves nnls(mel_basis, M); the
+    reference calls it at extract_mel_spectrogram.py:30-32): start from the
+    Gram-diagonal-scaled transpose projection, then ``n_iter`` steps of
+    s <- max(0, s - step B^T (B s - M)).  (..., n_mels, T) -> |STFT|
+    (..., 1 + n_fft // 2, T) (power 1 / spec_power applied)."""
+    basis = torch.as_tensor(mel_filterbank(cfg.sample_rate, cfg.n_fft,
+                                           cfg.n_mels, cfg.fmin, cfg.fmax),
+                            device=mel_linear.device)
+    basis_t = basis.T.contiguous()
+    gram_diag_inv = 1.0 / (torch.sum(basis * basis, dim=0) + 1e-10)
+    s = torch.clamp_min((basis_t @ mel_linear) * gram_diag_inv[:, None], 0.0)
+    step = _nnls_step(cfg)
+    for _ in range(n_iter):
+        grad = basis_t @ (basis @ s - mel_linear)
+        s = torch.clamp_min(s - step * grad, 0.0)
+    if cfg.spec_power != 1.0:
+        s = s ** (1.0 / cfg.spec_power)
+    return s
+
+
+def griffin_lim(mag: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                n_iter: int = 32, n_fft: int = 1024, hop: int = 256,
+                momentum: float = 0.99, length: Optional[int] = None,
+                uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Griffin-Lim phase reconstruction with momentum (librosa.griffinlim
+    defaults: 32 iterations, momentum 0.99, random initial phases).
+
+    The initial phases are 2 pi ``uniform``, a U[0, 1) draw of ``mag``'s
+    shape; without one it is drawn from ``generator`` (torch's default
+    generator if None).  JAX's ``jax.random.uniform`` cannot be reproduced
+    in torch: a caller that wants the JAX package's phases hands its draw
+    in.  mag (..., 1 + n_fft // 2, T) -> (..., samples)."""
+    if uniform is None:
+        uniform = torch.rand(mag.shape, generator=generator,
+                             device=mag.device)
+    angles = torch.exp(2j * math.pi * uniform.to(mag.device, torch.float32))
+    tprev = torch.zeros_like(angles)
+    keep = momentum / (1.0 + momentum)
+    for _ in range(n_iter):
+        rebuilt = stft_complex(istft(mag * angles, n_fft, hop), n_fft, hop)
+        update = rebuilt - keep * tprev
+        angles = update / (update.abs() + 1e-16)
+        tprev = rebuilt
+    return istft(mag * angles, n_fft, hop, length=length)
+
+
+def mel_to_waveform(mel_norm: torch.Tensor,
+                    generator: Optional[torch.Generator] = None,
+                    cfg: MelConfig = MelConfig(), gl_iters: int = 32,
+                    uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The whole inverse: normalised mel (..., n_mels, T) -> waveform
+    (..., (T - 1) hop) (reference ``inv_transforms``:
+    extract_mel_spectrogram.py:154-163).  ``generator`` / ``uniform`` give
+    Griffin-Lim's initial phases, as in ``griffin_lim``."""
+    mag = mel_to_stft(mel_inverse_chain(mel_norm, cfg), cfg)
+    return griffin_lim(mag, generator, n_iter=gl_iters, n_fft=cfg.n_fft,
+                       hop=cfg.hop_length, uniform=uniform)

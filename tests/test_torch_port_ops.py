@@ -36,6 +36,10 @@ PORT_MODULES = [
     "melspec_gpt_vqvae_tpu_torch._build",
     "melspec_gpt_vqvae_tpu_torch.bridge",
     "melspec_gpt_vqvae_tpu_torch.export",
+    "melspec_gpt_vqvae_tpu_torch.feature_extraction",
+    "melspec_gpt_vqvae_tpu_torch.feature_extraction.extract_codes",
+    "melspec_gpt_vqvae_tpu_torch.feature_extraction."
+    "extract_mel_spectrogram",
     "melspec_gpt_vqvae_tpu_torch.ops.attention",
     "melspec_gpt_vqvae_tpu_torch.ops.decode_attention",
     "melspec_gpt_vqvae_tpu_torch.ops.flash_attention",
@@ -54,6 +58,7 @@ PORT_MODULES = [
     "melspec_gpt_vqvae_tpu_torch.models.speculative",
     "melspec_gpt_vqvae_tpu_torch.models.vocoder",
     "melspec_gpt_vqvae_tpu_torch.models.vqvae",
+    "melspec_gpt_vqvae_tpu_torch.parity_check",
     "melspec_gpt_vqvae_tpu_torch.pipeline",
     "melspec_gpt_vqvae_tpu_torch.sample",
     "melspec_gpt_vqvae_tpu_torch.serve",
@@ -90,7 +95,8 @@ PORT_MODULES = [
 
 # the port's scripts whose imports the test also loads (by path: scripts/
 # is no package)
-PORT_SCRIPTS = ["scripts/torch_quality_proof.py"]
+PORT_SCRIPTS = ["scripts/torch_quality_proof.py",
+                "scripts/torch_int8_quality.py"]
 
 
 def test_port_never_imports_jax():
