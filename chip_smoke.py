@@ -64,6 +64,22 @@
    profiled window of three steps (device ms by kernel class, busy
    against wall); the loss on one repeated batch falling; and one float32
    train step of a 2-layer copy on the card against the CPU.
+4b. (Phase ``dist``, after ``training``.)  Distributed training with NCCL
+   at world size 1 (a process group from a file store in a temporary
+   directory): the class GPT at the VAS preset's full width (kernel F,
+   mixed precision) takes one step under ``--mesh data=1`` that must be
+   the plain step bit for bit (the loss and every parameter), with NCCL's
+   kernels in its profile (their device ms a step printed); the same step
+   with dropout 0 under ``pipe=1`` and 4 microbatches within 1e-5 (loss)
+   and 5e-5 (parameters) of the plain one, F exactly 24 x 4 forward and
+   backward launches, its evaluation without F kernel A exactly 24 x 4;
+   the GPT-VAE (``GPT_VAE_vas``, batch 24) one step under
+   ``data=1,model=1`` bit for bit the plain one; beside these, ``torchrun
+   --standalone --nproc_per_node 1 -m ...train_gpt --mesh data=1`` on the
+   training tree at 2 layers (one epoch), whose checkpoint is restored in
+   this process with no process group and its validation loss held to the
+   logged one within 1e-6; each path's ms a step with the card's name and
+   power limit.
 5. Serves that checkpoint through the port's entry points, from the
    training tree: ``build_pipeline(experiment="smoke", resume="last")``
    (its bf16 params bit for bit the checkpoint's float32 ones, rounded),
@@ -2372,6 +2388,374 @@ def train_reference_check(dev, batch):
 
 
 # ---------------------------------------------------------------------------
+# 6b. distributed training: NCCL at world size 1, the mesh paths against
+#     the plain ones, the torchrun launcher
+# ---------------------------------------------------------------------------
+
+
+# NCCL's kernels: its collectives carry "nccl" in their names; a one-rank
+# average is its oneRankReduce kernel (a product by 1 / 1)
+NCCL_KERNELS = ("nccl", "onerankreduce")
+DIST_EXPERIMENT, DIST_LAYERS = "dist", 2
+
+
+def start_torchrun():
+    """``torchrun --standalone --nproc_per_node 1 -m ...train_gpt --mesh
+    data=1`` from TRAIN_ROOT: one epoch of a DIST_LAYERS-layer VAS GPT
+    (use_flash_train), one validation batch, the final checkpoint; its
+    output in TRAIN_ROOT / torchrun.log.  Returns (process, log file)."""
+    log = open(TRAIN_ROOT / "torchrun.log", "w")
+    env = dict(os.environ)
+    root = str(Path(__file__).resolve().parent)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m",
+           "melspec_gpt_vqvae_tpu_torch.train_gpt", "--dataset", "vas",
+           "--experiment", DIST_EXPERIMENT, "--train", "1", "--device",
+           "cuda", "--mesh", "data=1", "--epochs_override", "1",
+           "--ckpt_every", "0", "--logging_frequency", "0",
+           "--limit_val_batches", "1", "--override",
+           f"n_layer={DIST_LAYERS},use_flash_train=True"]
+    return subprocess.Popen(cmd, cwd=TRAIN_ROOT, env=env, stdout=log,
+                            stderr=subprocess.STDOUT), log
+
+
+def wait_torchrun(proc, log):
+    """Wait for the launcher's run (``start_torchrun``); it must exit 0."""
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    text = (TRAIN_ROOT / "torchrun.log").read_text()
+    check(rc == 0, f"the torchrun run exited {rc}:\n{text[-4000:]}")
+    print(f"  the torchrun run ended {time.perf_counter() - t0:.1f} s after "
+          "the checks above")
+    for line in text.splitlines():
+        if line.startswith(("device:", "epoch")):
+            print(f"    torchrun: {line}")
+
+
+def logged_scalars(log_dir, tag):
+    """The values a TBLogger wrote under ``tag`` in ``log_dir``: its
+    ``events.jsonl`` where tensorboardX is missing, else its event file
+    (TFRecords of Event protos, read through tensorboardX's own proto)."""
+    jsonl = log_dir / "events.jsonl"
+    if jsonl.exists():
+        recs = [json.loads(line) for line in jsonl.read_text().splitlines()]
+        return [r["value"] for r in recs if r["tag"] == tag]
+    import struct
+
+    from tensorboardX.proto.event_pb2 import Event
+    out = []
+    for path in sorted(log_dir.glob("events.out.tfevents.*")):
+        data, pos = path.read_bytes(), 0
+        while pos + 12 <= len(data):
+            (n,) = struct.unpack("<Q", data[pos:pos + 8])
+            ev = Event.FromString(data[pos + 12:pos + 12 + n])
+            pos += 12 + n + 4
+            out += [v.simple_value for v in ev.summary.value if v.tag == tag]
+    return out
+
+
+def check_torchrun(dev):
+    """The launcher's checkpoint, restored in this process with no process
+    group: its validation loss on the same batch within 1e-6 of the one
+    the run logged."""
+    from melspec_gpt_vqvae_tpu_torch.data import DataModule
+    from melspec_gpt_vqvae_tpu_torch.training import runner
+    from melspec_gpt_vqvae_tpu_torch.training.checkpoint import \
+        CheckpointManager
+    from melspec_gpt_vqvae_tpu_torch.training.gpt_task import GPTTask
+    import torch.distributed as dist
+    check(not dist.is_initialized(), "a process group is still joined")
+    run = TRAIN_ROOT / "lightning_logs" / f"{DIST_EXPERIMENT}-vas"
+    vals = logged_scalars(run / "TensorBoardLoggs" / "version_0",
+                          "val/loss")
+    ckpt = CheckpointManager(str(run / "checkpoints" / "version_0"))
+    tree = ckpt.restore("last")
+    exp = load_vas_exp(n_layer=DIST_LAYERS, use_flash_train=True)
+    task = GPTTask(exp, dev)
+    state = task.load_state(tree["state"])
+    dm = DataModule(batch_size=8, spec_dir_path=str(
+        TRAIN_ROOT / "data" / "vas" / "features" / "*"
+        / "melspec_10s_22050hz"), data_root=str(TRAIN_ROOT / "data"))
+    dm.setup()
+    val = runner._val_loss(task, state, dm.val_dataloader(), 1)
+    steps = len(dm.train_dataloader())
+    print(f"  torchrun --standalone --nproc_per_node 1 -m "
+          f"melspec_gpt_vqvae_tpu_torch.train_gpt --mesh data=1 (VAS preset "
+          f"at {DIST_LAYERS} layers, use_flash_train, one epoch): its "
+          f"checkpoint at step {tree['state']['step']} (epoch "
+          f"{tree['epoch']}), val/loss logged {vals}; restored here with no "
+          f"process group: {val!r} (|diff| "
+          f"{abs(val - vals[-1]) if vals else None})")
+    check(len(vals) == 1 and tree["state"]["step"] == steps
+          and tree["epoch"] == 0, "the torchrun run's checkpoint")
+    check(abs(val - vals[-1]) <= 1e-6,
+          "the torchrun checkpoint's validation loss restored")
+
+
+def nccl_profile(task, state, batch, steps=2):
+    """NCCL's kernels in ``steps`` profiled train steps of a mesh task:
+    device ms and launches a step, and their names."""
+    from torch.profiler import DeviceType, ProfilerActivity
+
+    from melspec_gpt_vqvae_tpu_torch.training.runner import step_generator
+
+    def run():
+        for i in range(steps):
+            task.train_step(state, batch,
+                            step_generator(1, 0, i, task.device))
+        torch.cuda.synchronize()
+
+    def nccl(avgs):
+        return [ev for ev in avgs if ev.device_type == DeviceType.CUDA
+                and any(n in ev.key.lower() for n in NCCL_KERNELS)]
+    avgs, whole = profiled(run, lambda a: bool(nccl(a)),
+                           [ProfilerActivity.CUDA])
+    us = 0.0
+    for ev in nccl(avgs):
+        t = getattr(ev, "self_device_time_total", None)
+        us += ev.self_cuda_time_total if t is None else t
+    return {"device_ms_per_step": us / 1e3 / steps,
+            "launches_per_step": sum(ev.count for ev in nccl(avgs)) / steps,
+            "kernels": sorted({ev.key[:80] for ev in nccl(avgs)}),
+            "trace_whole": whole}
+
+
+def update_err(before, ref_after, after):
+    """A step's parameter update against a reference step's from the same
+    parameters ``before`` (lists of leaves with ``.grad``): over the
+    elements whose reference gradient lies farther from zero than the
+    leaf's largest gradient difference (there both steps' gradients have
+    one sign, so Adam's update is determined), the largest over leaves of
+    |update - reference update| / |reference update| (L2 norms); and the
+    share of elements that covers.  A step that left the parameters as
+    they were reads 1, one with the update's sign flipped 2."""
+    worst, kept, total = 0.0, 0, 0
+    for p0, r, m in zip(before, ref_after, after):
+        g_r, g_m = r.grad.float(), m.grad.float()
+        sure = g_r.abs() > (g_m - g_r).abs().max()
+        d_r = (r.detach().float() - p0.float())[sure]
+        d_m = (m.detach().float() - p0.float())[sure]
+        kept += int(sure.sum())
+        total += sure.numel()
+        den = d_r.norm()
+        if den > 0:
+            worst = max(worst, ((d_m - d_r).norm() / den).item())
+    return worst, kept / total
+
+
+def interleaved_ms(runs, warm=2, rounds=2, per=5):
+    """ms of each train step (synchronised before and after) of several
+    paths on the card, in alternating blocks so that a drift of the clocks
+    falls on every path alike: ``warm`` untimed steps each, then
+    ``rounds`` blocks of ``per`` timed steps each.  ``runs``: {name:
+    (task, state, batch)}; returns {name: [ms, ...]}."""
+    from melspec_gpt_vqvae_tpu_torch.training.runner import step_generator
+    out = {k: [] for k in runs}
+    for task, state, batch in runs.values():
+        for i in range(warm):
+            task.train_step(state, batch, step_generator(1, 0, i,
+                                                         task.device))
+    for r in range(rounds):
+        for k, (task, state, batch) in runs.items():
+            for i in range(per):
+                gen = step_generator(1, 0, warm + r * per + i, task.device)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                task.train_step(state, batch, gen)
+                torch.cuda.synchronize()
+                out[k].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def dist_check(dev, codes, batch, smi_line):
+    """The port's distributed training on the card, NCCL at world size 1
+    (a process group from a file store), the launcher beside it: the class
+    GPT (VAS preset, full width, kernel F, mixed precision) one step under
+    ``data=1`` bit for bit the plain step's, NCCL's kernels in it; the
+    same step with dropout 0 under ``pipe=1`` and 4 microbatches within
+    1e-5 (loss) and 1e-2 (gradients, of each leaf's largest) of the plain
+    one, its parameter update within 5e-2 of the plain step's
+    (``update_err``), F exactly 24 x 4 forward and backward launches, and
+    A exactly 24 x 4 in its evaluation without F; the GPT-VAE
+    (GPT_VAE_vas, full width, batch 24) one step under ``data=1,model=1``
+    bit for bit the plain one, NCCL's kernels in it; the launcher's run
+    (``wait_torchrun``, ``check_torchrun``); then each path's ms a step
+    (``interleaved_ms``).  Returns the launches of F (forward, backward)
+    and A on the pipe path."""
+    import tempfile
+
+    from melspec_gpt_vqvae_tpu_torch import train_gpt_vae
+    from melspec_gpt_vqvae_tpu_torch.ops.attention import attend
+    from melspec_gpt_vqvae_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    from melspec_gpt_vqvae_tpu_torch.parallel import (make_mesh,
+                                                      maybe_init_distributed,
+                                                      shutdown_distributed)
+    from melspec_gpt_vqvae_tpu_torch.training.gpt_task import GPTTask
+    from melspec_gpt_vqvae_tpu_torch.training.optim import named_leaves
+    from melspec_gpt_vqvae_tpu_torch.training.runner import step_generator
+    from melspec_gpt_vqvae_tpu_torch.training.vae_task import VAETask
+
+    def params_equal(a, b):
+        return all(torch.equal(x, y) for (_, x), (_, y) in
+                   zip(named_leaves(a["params"]), named_leaves(b["params"])))
+
+    def grads_rel_err(a, b):
+        # each leaf's gradient error over its largest gradient
+        return max(max_err(x.grad, y.grad)
+                   / x.grad.abs().max().clamp_min(1e-30).item()
+                   for (_, x), (_, y) in zip(named_leaves(a["params"]),
+                                             named_leaves(b["params"])))
+
+    launcher = start_torchrun()
+    store = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    maybe_init_distributed(dev, init_method=f"file://{store}/store", rank=0,
+                           world_size=1)
+    try:
+        # the class GPT: the preset's dropout 0.5 under data=1, dropout 0
+        # for the pipeline (its microbatches draw other masks)
+        exp = load_vas_exp(use_flash_train=True, mixed_precision=True)
+        exp0 = load_vas_exp(use_flash_train=True, mixed_precision=True,
+                            embd_pdrop=0.0, attn_pdrop=0.0,
+                            resid_pdrop=0.0)
+        tasks = {"plain": GPTTask(exp, dev),
+                 "plain again": GPTTask(exp, dev),
+                 "data=1": GPTTask(exp, dev, make_mesh({"data": 1}, dev)),
+                 "plain_p0": GPTTask(exp0, dev),
+                 "pipe=1,M=4": GPTTask(exp0, dev,
+                                       make_mesh({"pipe": 1}, dev, 4))}
+        first = tasks["plain"].init_state(7)
+        states = {k: t.load_state(tasks["plain"].state_tree(first))
+                  for k, t in tasks.items() if k != "plain"}
+        before = [t.detach().clone() for _, t in
+                  named_leaves(first["params"])]
+        states["plain"] = first
+        losses = {}
+        for k, t in tasks.items():
+            if k == "pipe=1,M=4":
+                flash_attention_fwd.launches = 0
+                flash_attention_bwd.launches = 0
+            states[k], losses[k] = t.train_step(
+                states[k], batch, step_generator(1, 0, 0, dev))
+        f_launches = (flash_attention_fwd.launches,
+                      flash_attention_bwd.launches)
+        same = (torch.equal(losses["plain"], losses["data=1"])
+                and params_equal(states["plain"], states["data=1"]))
+        again = (torch.equal(losses["plain"], losses["plain again"])
+                 and params_equal(states["plain"], states["plain again"]))
+        if not same:
+            print("  parameters the data=1 step left otherwise: " + ", ".join(
+                n for (n, x), (_, y) in zip(
+                    named_leaves(states["plain"]["params"]),
+                    named_leaves(states["data=1"]["params"]))
+                if not torch.equal(x, y)) + f"; the plain step repeated "
+                f"bit for bit: {again}")
+        pp_loss = abs(losses["plain_p0"].item() - losses["pipe=1,M=4"].item())
+        pp_upd, pp_share = update_err(
+            before, [t for _, t in named_leaves(states["plain_p0"]["params"])],
+            [t for _, t in named_leaves(states["pipe=1,M=4"]["params"])])
+        del before
+        pp_grad = grads_rel_err(states["plain_p0"], states["pipe=1,M=4"])
+        n_layer = exp.model.n_layer
+        print(f"  class GPT (VAS preset, full width, batch 8, kernel F, "
+              f"mixed precision): data=1 step bit for bit the plain "
+              f"step's (loss and every parameter): {same} (the plain step "
+              f"repeated: {again}); pipe=1, 4 "
+              f"microbatches, dropout 0: |loss diff| {pp_loss:.3g} (bound "
+              f"1e-5), gradients within {pp_grad:.3g} of each leaf's "
+              f"largest (bound 1e-2), the parameter update within "
+              f"{pp_upd:.3g} of the plain step's (bound 5e-2; over "
+              f"{pp_share:.4f} of the elements, the preset's lr "
+              f"{exp.train.learning_rate:g}); F launches {f_launches} "
+              f"(expected {n_layer} x 4 each)")
+        check(same, "the data=1 step is not the plain step bit for bit")
+        check(pp_loss <= 1e-5 and pp_grad <= 1e-2 and pp_upd <= 5e-2,
+              "the pipe=1 step against the plain step")
+        check(f_launches == (4 * n_layer, 4 * n_layer),
+              "kernel F on the pipe=1, M=4 path")
+        a_task = GPTTask(load_vas_exp(mixed_precision=True), dev,
+                         make_mesh({"pipe": 1}, dev, 4))
+        attend.launches = flash_attention_fwd.launches = 0
+        ev = a_task.eval_step(states["pipe=1,M=4"], batch).item()
+        a_launches = attend.launches
+        print(f"  its evaluation without F (pipe=1, M=4): kernel A "
+              f"{a_launches} launches (expected {4 * n_layer}), F "
+              f"{flash_attention_fwd.launches}; loss {ev:.4f}")
+        check(a_launches == 4 * n_layer and flash_attention_fwd.launches == 0
+              and np.isfinite(ev), "kernel A on the pipe=1 evaluation")
+
+        # the GPT-VAE under data=1,model=1
+        vexp = train_gpt_vae.build_experiment(train_gpt_vae.init_config(
+            ["--dataset", "vas", "--experiment", "x", "--warm_up", "1",
+             "--kl_start", "0.1", "--override", "use_flash_train=True"]))
+        grids = codes.reshape(-1, 53, 5).transpose(1, 2).cpu().numpy()
+        vbatch = {"codes": grids[:VAE_BATCH]}
+        vtasks = {"plain": VAETask(vexp, 2, dev),
+                  "data=1,model=1": VAETask(vexp, 2, dev, make_mesh(
+                      {"data": 1, "model": 1}, dev))}
+        vfirst = vtasks["plain"].init_state(7)
+        vstates = {"data=1,model=1": vtasks["data=1,model=1"].load_state(
+            vtasks["plain"].state_tree(vfirst)), "plain": vfirst}
+        vloss = {}
+        for k, t in vtasks.items():
+            vstates[k], vloss[k], _ = t.train_step(
+                vstates[k], vbatch, step_generator(1, 0, 0, dev))
+        vsame = (torch.equal(vloss["plain"], vloss["data=1,model=1"])
+                 and params_equal(vstates["plain"],
+                                  vstates["data=1,model=1"]))
+        print(f"  GPT-VAE (GPT_VAE_vas, full width, batch {VAE_BATCH}, "
+              f"dropout 0.3, mixed precision, remat attn, kernel F): "
+              f"data=1,model=1 step bit for bit the plain step's: {vsame} "
+              f"(loss {vloss['plain'].item():.4f})")
+        check(vsame, "the data=1,model=1 VAE step is not the plain one")
+
+        wait_torchrun(*launcher)
+        launcher = None
+
+        nccl = nccl_profile(tasks["data=1"], states["data=1"], batch)
+        print(f"  NCCL in the data=1 step (torch.profiler, 2 steps): "
+              f"{json.dumps(nccl)}")
+        vnccl = nccl_profile(vtasks["data=1,model=1"],
+                             vstates["data=1,model=1"], vbatch)
+        print(f"  NCCL in the GPT-VAE's data=1,model=1 step (torch.profiler, "
+              f"2 steps): {json.dumps(vnccl)}")
+        check(nccl["launches_per_step"] > 0
+              and vnccl["launches_per_step"] > 0,
+              "the profiler saw no NCCL kernel in a mesh step")
+        runs = {k: (tasks[k], states[k], batch)
+                for k in ("plain", "data=1", "plain_p0", "pipe=1,M=4")}
+        runs.update({f"vae {k}": (vtasks[k], vstates[k], vbatch)
+                     for k in vtasks})
+        times = interleaved_ms(runs)
+        print(f"  ms a step, median [min, max] of {len(times['plain'])} "
+              f"steps each ({smi_line}): " + ", ".join(
+                  f"{k} {np.median(v):.1f} [{min(v):.1f}, {max(v):.1f}]"
+                  for k, v in times.items())
+              + f"; NCCL device ms a step: data=1 "
+              f"{nccl['device_ms_per_step']:.3f}, GPT-VAE data=1,model=1 "
+              f"{vnccl['device_ms_per_step']:.3f}")
+        del tasks, states, vtasks, vstates, a_task, first, vfirst
+    finally:
+        shutdown_distributed()
+        if launcher is not None:
+            launcher[0].kill()
+            launcher[0].wait()
+            launcher[1].close()
+        shutil.rmtree(store, ignore_errors=True)
+    torch.cuda.empty_cache()
+    check_torchrun(dev)
+    return f_launches, a_launches
+
+
+# ---------------------------------------------------------------------------
 # 7. the GPT-VAE: kernels at its shapes, training, evaluation, step times
 # ---------------------------------------------------------------------------
 
@@ -3992,6 +4376,12 @@ def run(procs):
     launches["attention"] += a_eval_launches
     train_reference_check(dev, batch)
 
+    phase("dist", "distributed training, NCCL at world size 1 (VAS GPT and "
+          "GPT_VAE_vas presets, full width), and the torchrun launcher:")
+    dist_f, dist_a = dist_check(dev, codes, batch, smi_line)
+    results["attention"]["launches_by_path"]["dist_pipe1_m4_eval"] = dist_a
+    launches["attention"] += dist_a
+
     phase("served_checkpoint",
           "serving the trained checkpoint (HTTP, sample CLI, self-draft, "
           "kernels on against off):")
@@ -4020,12 +4410,13 @@ def run(procs):
             results[row]["max_abs_err"] = max(results[row]["max_abs_err"],
                                               err)
         results[row].update(new)
-    for name, gpt_n, vae_n in (("flash_attention_fwd", f_launches[0], vf_fwd),
-                               ("flash_attention_bwd", f_launches[1],
-                                vf_bwd)):
+    for name, gpt_n, vae_n, dist_n in (
+            ("flash_attention_fwd", f_launches[0], vf_fwd, dist_f[0]),
+            ("flash_attention_bwd", f_launches[1], vf_bwd, dist_f[1])):
         results[name]["launches_by_path"] = {"gpt_training": gpt_n,
-                                             "vae_training": vae_n}
-        launches[name] = gpt_n + vae_n
+                                             "vae_training": vae_n,
+                                             "dist_pipe1_m4": dist_n}
+        launches[name] = gpt_n + vae_n + dist_n
     results["attention"]["launches_by_path"]["vae_evaluation"] = va
     launches["attention"] += va
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -111,7 +112,13 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             so = _library_path()
             if not so.exists():
-                _build(so)
+                # the processes of one launch (torchrun) share the checkout:
+                # one builds, the others wait for its library
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                with open(BUILD_DIR / "build.lock", "w") as lock:
+                    fcntl.flock(lock, fcntl.LOCK_EX)
+                    if not so.exists():
+                        _build(so)
             lib = ctypes.CDLL(str(so))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)

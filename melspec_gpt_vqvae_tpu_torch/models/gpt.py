@@ -56,7 +56,7 @@ from ..ops.decode_attention import quantize_kv as _quantize_kv
 from ..ops.decode_attention import quantize_kv4 as _quantize_kv4
 from ..ops.decode_attention import true_div as _div
 from ..ops.decode_attention import unpack4 as _unpack4  # noqa: F401
-from ..ops.flash_attention import flash_attention, make_dropout_mask
+from ..ops.flash_attention import flash_attention
 from ..ops.quant import int_matmul
 from ..ops.sampling import sample_logits
 from . import decode_graph
@@ -262,9 +262,69 @@ def _dot(a: torch.Tensor, w: torch.Tensor, mixed: bool) -> torch.Tensor:
     return a.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
 
 
+def _local_heads(p, cfg: GPTConfig, tp) -> int:
+    """The heads a block's weights hold: all of them, or under tensor
+    parallelism this rank's share, read off the local ``attn_qkv``."""
+    heads = p["attn_qkv"]["w"].shape[-1] // (3 * cfg.head_dim)
+    if heads != cfg.n_head and tp is None:
+        raise ValueError(f"attn_qkv holds {heads} of {cfg.n_head} heads: a "
+                         "model-sharded block needs its mesh")
+    return heads
+
+
+def _head_keep(generator: Optional[torch.Generator], rate: float, shape,
+               cfg: GPTConfig, tp) -> Optional[torch.Tensor]:
+    """The attention's bool keep-mask (B, H, T, T) of the ``shape[1]``
+    heads this rank holds (None without dropout): the mask of every head
+    is drawn and, under tensor parallelism, this rank's are cut from it,
+    so that the generator, the same on every rank of the model group,
+    moves as on one device and each head keeps a mask of its own
+    (Megatron's two-generator rule, from one generator)."""
+    if generator is None or rate <= 0.0:
+        return None
+    b, h, t, s = shape
+    keep = bernoulli_u8(generator, 1.0 - rate, (b, cfg.n_head, t, s))
+    lo = tp.coord("model") * h if tp is not None else 0
+    return keep[:, lo:lo + h].contiguous()
+
+
+class _ToModel(torch.autograd.Function):
+    """Megatron's f, before a column-parallel product (``attn_qkv``,
+    ``mlp_up``): the identity forward; backward, the input's gradient (a
+    part on each model rank) summed over the model group."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        ctx.tp.all_reduce_(g, "model")
+        return g, None
+
+
+class _FromModel(torch.autograd.Function):
+    """Megatron's g, after a row-parallel product (``attn_proj``,
+    ``mlp_down``): forward, the partial products summed over the model
+    group; backward, the identity.  The replicated bias is added after it,
+    once."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        y = x.contiguous().clone()
+        tp.all_reduce_(y, "model")
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def _attn_half(x, p, cfg: GPTConfig, train: bool,
                generator: Optional[torch.Generator],
-               return_attn: bool = False):
+               return_attn: bool = False, tp=None):
     """The attention of a block: (B, T, D) residual -> (B, H, T, hd)
     attention output (the JAX block's ``attn_out``).  The branch is taken
     as the JAX block takes it: kernel F whenever ``use_flash_train`` (with
@@ -273,50 +333,65 @@ def _attn_half(x, p, cfg: GPTConfig, train: bool,
     dropout-free forward inside a train step) and kernel A in eval.
     ``return_attn`` takes the plain ``attend_xla`` whatever the config and
     returns (output, its float32 probabilities (B, H, T, T)), as the JAX
-    block does for the attention maps (gpt.py:148)."""
+    block does for the attention maps (gpt.py:148).  ``tp`` (a mesh with a
+    ``model`` axis) runs this rank's heads: H is its share."""
     mixed = cfg.mixed_precision
     h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
+    if tp is not None:
+        h = _ToModel.apply(h, tp)
     qkv = _dot(h, p["attn_qkv"]["w"], mixed) + p["attn_qkv"]["b"]
-    q, k, v = (_split_heads(a, cfg.n_head) for a in qkv.chunk(3, dim=-1))
+    heads = _local_heads(p, cfg, tp)
+    q, k, v = (_split_heads(a, heads) for a in qkv.chunk(3, dim=-1))
     if return_attn:
         return attend_xla(q, k, v, cfg.n_unmasked,
                           dropout_rate=cfg.attn_pdrop if train else 0.0,
                           generator=generator, return_attn=True)
+    rate = cfg.attn_pdrop if train else 0.0
+    b, hh, t = q.shape[:3]
+    keep = _head_keep(generator if train else None, rate, (b, hh, t, t),
+                      cfg, tp)
     if cfg.use_flash_train:
-        rate = cfg.attn_pdrop if train else 0.0
-        b, h, t = q.shape[:3]
-        mask = make_dropout_mask(generator if train else None,
-                                 (b, h, t, t), rate)
+        mask = None if keep is None else keep.view(torch.uint8)
         return flash_attention(q.float(), k.float(), v.float(), mask,
                                cfg.n_unmasked, 1.0 - rate).to(x.dtype)
     if train or q.requires_grad:
-        return attend_xla(q, k, v, cfg.n_unmasked,
-                          dropout_rate=cfg.attn_pdrop if train else 0.0,
-                          generator=generator)
+        return attend_xla(q, k, v, cfg.n_unmasked, dropout_rate=rate,
+                          keep=keep)
     return attend(q, k, v, cfg.n_unmasked)
 
 
 def _rest_half(x, res, p, cfg: GPTConfig, train: bool,
-               generator: Optional[torch.Generator]):
+               generator: Optional[torch.Generator], tp=None):
     """The rest of a block after its attention output ``res``: projection,
-    residual, MLP, residual, with their two dropouts."""
+    residual, MLP, residual, with their two dropouts.  Under ``tp`` the
+    projection and ``mlp_down`` sum their partial products over the model
+    group before their bias, and the dropouts act on the replicated
+    residual stream (the same generator, the same masks on every rank of
+    the group)."""
     mixed = cfg.mixed_precision
-    y = _dot(_merge_heads(res), p["attn_proj"]["w"], mixed) \
-        + p["attn_proj"]["b"]
+    y = _dot(_merge_heads(res), p["attn_proj"]["w"], mixed)
+    if tp is not None:
+        y = _FromModel.apply(y, tp)
+    y = y + p["attn_proj"]["b"]
     x = x + _dropout(y, cfg.resid_pdrop, generator, train)
     h2 = _layer_norm(x, p["ln2_s"], p["ln2_b"])
+    if tp is not None:
+        h2 = _ToModel.apply(h2, tp)
     m = F.gelu(_dot(h2, p["mlp_up"]["w"], mixed) + p["mlp_up"]["b"])
-    m = _dot(m, p["mlp_down"]["w"], mixed) + p["mlp_down"]["b"]
+    m = _dot(m, p["mlp_down"]["w"], mixed)
+    if tp is not None:
+        m = _FromModel.apply(m, tp)
+    m = m + p["mlp_down"]["b"]
     return x + _dropout(m, cfg.resid_pdrop, generator, train)
 
 
 def _block(x, p, cfg: GPTConfig, train: bool,
-           generator: Optional[torch.Generator]):
+           generator: Optional[torch.Generator], tp=None):
     """One pre-LN block of ``gpt_apply`` (gpt.py:141-187); its dropout
     masks are drawn from ``generator`` in the order attention,
     projection, MLP."""
-    return _rest_half(x, _attn_half(x, p, cfg, train, generator), p, cfg,
-                      train, generator)
+    return _rest_half(x, _attn_half(x, p, cfg, train, generator, tp=tp), p,
+                      cfg, train, generator, tp)
 
 
 _SAVED_DOTS = ("mm", "addmm")
@@ -368,7 +443,7 @@ def _remat(fn, generator: Optional[torch.Generator], *args,
 
 
 def _block_remat(x, p, cfg: GPTConfig, train: bool,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator], tp=None):
     """``_block`` recomputed in the backward (``make_block_body``,
     gpt.py:214-232), by ``cfg.remat_policy``: ``full`` keeps only the
     block's input; ``attn`` keeps the attention output as well -- two
@@ -377,22 +452,40 @@ def _block_remat(x, p, cfg: GPTConfig, train: bool,
     keeps the results of the four matrix products."""
     policy = cfg.remat_policy
     if policy == "attn":
-        res = _remat(lambda g, x: _attn_half(x, p, cfg, train, g),
+        res = _remat(lambda g, x: _attn_half(x, p, cfg, train, g, tp=tp),
                      generator, x)
-        return _remat(lambda g, x, res: _rest_half(x, res, p, cfg, train, g),
-                      generator, x, res)
+        return _remat(lambda g, x, res: _rest_half(x, res, p, cfg, train, g,
+                                                   tp), generator, x, res)
     if policy not in ("full", "dots"):
         raise ValueError(f"remat_policy={policy!r}: expected 'full', 'attn' "
                          "or 'dots'")
-    return _remat(lambda g, x: _block(x, p, cfg, train, g), generator, x,
-                  save_dots=policy == "dots")
+    return _remat(lambda g, x: _block(x, p, cfg, train, g, tp), generator,
+                  x, save_dots=policy == "dots")
+
+
+def embed_tokens(params: Params, cfg: GPTConfig,
+                 idx: Optional[torch.Tensor],
+                 cond_emb: Optional[torch.Tensor], train: bool,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The block stack's input: the embeddings (float32 under mixed
+    precision) with the embedding dropout of a training forward."""
+    x = _embed(params, cfg, idx, cond_emb)
+    if cfg.mixed_precision:
+        x = x.float()
+    return _dropout(x, cfg.embd_pdrop, generator, train)
+
+
+def gpt_head(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The block stack's output -> logits: ``ln_f`` and the head."""
+    x = _layer_norm(x, params["ln_f_s"], params["ln_f_b"])
+    return x @ params["head"]["w"].to(x.dtype)
 
 
 def gpt_apply(params: Params, cfg: GPTConfig, idx: Optional[torch.Tensor],
               cond_emb: Optional[torch.Tensor] = None, *,
               train: bool = False,
               generator: Optional[torch.Generator] = None,
-              return_attn: bool = False):
+              return_attn: bool = False, mesh=None):
     """Full forward.  idx (B, T) tokens or None; cond_emb (B, P, D)
     prepended embeddings.  ``train`` with a ``generator`` applies the three
     dropout rates (a training forward without a generator has no dropout,
@@ -404,12 +497,22 @@ def gpt_apply(params: Params, cfg: GPTConfig, idx: Optional[torch.Tensor],
     logits (B, P + T, out); with ``return_attn`` (the eval-only path of
     the attention maps: plain attention, no remat) (logits, the last
     layer's float32 attention probabilities (B, H, P + T, P + T)), as the
-    JAX function's scan carry keeps the last layer's (gpt.py:255-275)."""
-    x = _embed(params, cfg, idx, cond_emb)
-    if cfg.mixed_precision:
-        x = x.float()
+    JAX function's scan carry keeps the last layer's (gpt.py:255-275).
+
+    ``mesh`` (parallel/mesh.py) runs the forward over its ranks: a ``pipe``
+    axis through the GPipe schedule (``parallel.pipeline.gpt_apply_pp``,
+    the logits on every stage), a ``model`` axis with this rank's share of
+    the heads and MLP columns in ``params``' blocks (Megatron).  The
+    attention maps stay a single-device path: ``return_attn`` takes no
+    mesh."""
     train = bool(train) and generator is not None
-    x = _dropout(x, cfg.embd_pdrop, generator, train)
+    if mesh is not None and mesh.has("pipe") and not return_attn:
+        from ..parallel.pipeline import gpt_apply_pp
+        return gpt_apply_pp(params, cfg, idx, cond_emb, mesh=mesh,
+                            train=train, generator=generator)
+    tp = (mesh if mesh is not None and mesh.has("model") and not return_attn
+          else None)
+    x = embed_tokens(params, cfg, idx, cond_emb, train, generator)
     block = (_block_remat if cfg.remat and torch.is_grad_enabled()
              and not return_attn else _block)
     att = None
@@ -418,9 +521,8 @@ def gpt_apply(params: Params, cfg: GPTConfig, idx: Optional[torch.Tensor],
             res, att = _attn_half(x, p, cfg, train, generator, True)
             x = _rest_half(x, res, p, cfg, train, generator)
         else:
-            x = block(x, p, cfg, train, generator)
-    x = _layer_norm(x, params["ln_f_s"], params["ln_f_b"])
-    logits = x @ params["head"]["w"].to(x.dtype)
+            x = block(x, p, cfg, train, generator, tp)
+    logits = gpt_head(params, x)
     return (logits, att) if return_attn else logits
 
 

@@ -76,12 +76,15 @@ def vae_param_template(cfgs: VAEConfigs) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def encoder_forward(params: Params, cfgs: VAEConfigs, x: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def encoder_forward(params: Params, cfgs: VAEConfigs, x: torch.Tensor,
+                    mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, T) tokens -> (mean (B, nz), logvar (B, nz)): the last
     position's output halved (encoders.py:21-42); ``fix_var > 0`` fixes
-    the log variance."""
-    logits = gpt_apply(params["encoder"], cfgs.encoder, x)
+    the log variance.  ``mesh``, here and in every function below that
+    takes it, runs both GPT stacks over its ranks (``gpt_apply``'s: the
+    pipeline schedule on a ``pipe`` axis, this rank's heads on a ``model``
+    axis), as the JAX functions' ``pp=(mesh, n_micro)``."""
+    logits = gpt_apply(params["encoder"], cfgs.encoder, x, mesh=mesh)
     mean, logvar = logits[:, -1, :].chunk(2, dim=-1)
     if cfgs.vae.fix_var > 0:
         logvar = torch.full_like(mean, math.log(cfgs.vae.fix_var))
@@ -120,19 +123,20 @@ def gaussian_kl_per_dim(mu: torch.Tensor,
 
 def encode(params: Params, cfgs: VAEConfigs, x: torch.Tensor,
            nsamples: int = 1, generator: Optional[torch.Generator] = None,
-           eps: Optional[torch.Tensor] = None):
+           eps: Optional[torch.Tensor] = None, mesh=None):
     """-> (z (B, ns, nz), KL (B,)) (encoders.py:62-79)."""
-    mu, logvar = encoder_forward(params, cfgs, x)
+    mu, logvar = encoder_forward(params, cfgs, x, mesh)
     z = reparameterize(mu, logvar, nsamples, generator, eps)
     return z, gaussian_kl(mu, logvar)
 
 
 def eval_inference_dist(params: Params, cfgs: VAEConfigs, x: torch.Tensor,
-                        z: torch.Tensor, param=None) -> torch.Tensor:
+                        z: torch.Tensor, param=None,
+                        mesh=None) -> torch.Tensor:
     """log q(z|x) -> (B, nsamples) (encoders.py:106-134); ``param`` a
     precomputed (mu, logvar)."""
     nz = z.shape[2]
-    mu, logvar = (encoder_forward(params, cfgs, x) if param is None
+    mu, logvar = (encoder_forward(params, cfgs, x, mesh) if param is None
                   else param)
     mu, logvar = mu[:, None, :], logvar[:, None, :]
     dev = z - mu
@@ -147,31 +151,33 @@ def eval_inference_dist(params: Params, cfgs: VAEConfigs, x: torch.Tensor,
 
 def decoder_logits(params: Params, cfgs: VAEConfigs, x: torch.Tensor,
                    z_one: torch.Tensor, *, train: bool = False,
-                   generator: Optional[torch.Generator] = None
-                   ) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None,
+                   mesh=None) -> torch.Tensor:
     """Teacher-forced logits (B, T, V) for one latent z_one (B, nz): the
     input is [z, x[:, :-1]], so position i predicts x_i
     (decoders.py:23-38)."""
     return gpt_apply(params["decoder"], cfgs.decoder, x[:, :-1],
-                     z_one[:, None, :], train=train, generator=generator)
+                     z_one[:, None, :], train=train, generator=generator,
+                     mesh=mesh)
 
 
 def reconstruct_error(params: Params, cfgs: VAEConfigs, x: torch.Tensor,
                       z: torch.Tensor, *, train: bool = False,
-                      generator: Optional[torch.Generator] = None
-                      ) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      mesh=None) -> torch.Tensor:
     """Summed cross entropy per (batch, sample) -> (B, ns)
     (decoders.py:40-68); the samples' dropout masks are drawn in turn."""
     errs = [cross_entropy_loss(decoder_logits(
-        params, cfgs, x, z[:, i], train=train, generator=generator), x,
+        params, cfgs, x, z[:, i], train=train, generator=generator,
+        mesh=mesh), x,
         reduce="none").sum(-1) for i in range(z.shape[1])]
     return torch.stack(errs, dim=1)
 
 
 def log_probability(params: Params, cfgs: VAEConfigs, x: torch.Tensor,
-                    z: torch.Tensor) -> torch.Tensor:
+                    z: torch.Tensor, mesh=None) -> torch.Tensor:
     """log p(x|z) = -reconstruct_error (decoders.py:71-81)."""
-    return -reconstruct_error(params, cfgs, x, z)
+    return -reconstruct_error(params, cfgs, x, z, mesh=mesh)
 
 
 def vae_decode(params: Params, cfgs: VAEConfigs, z: torch.Tensor,
@@ -224,45 +230,46 @@ def sample_from_prior(cfgs: VAEConfigs, nsamples: int,
 def elbo_loss(params: Params, cfgs: VAEConfigs, x: torch.Tensor, kl_weight,
               nsamples: int = 1, *, train: bool = False,
               generator: Optional[torch.Generator] = None,
-              eps: Optional[torch.Tensor] = None):
+              eps: Optional[torch.Tensor] = None, mesh=None):
     """-> (loss (B,), rec (B,), kl (B,)) (Lit_GPT_VAE.py:176-195): the
     latent noise is drawn first, then the decoder's dropout masks."""
-    z, kl = encode(params, cfgs, x, nsamples, generator, eps)
+    z, kl = encode(params, cfgs, x, nsamples, generator, eps, mesh)
     rec = reconstruct_error(params, cfgs, x, z, train=train,
-                            generator=generator if train else None).mean(1)
+                            generator=generator if train else None,
+                            mesh=mesh).mean(1)
     return rec + kl_weight * kl, rec, kl
 
 
 def loss_iw(params: Params, cfgs: VAEConfigs, x: torch.Tensor, kl_weight,
             nsamples: int = 50, ns: int = 10,
             generator: Optional[torch.Generator] = None,
-            eps: Optional[torch.Tensor] = None):
+            eps: Optional[torch.Tensor] = None, mesh=None):
     """Importance-weighted objective -> (loss, nll, kl), each (B,): the
     differentiable IW NLL plus ``kl_weight`` x the analytic KL
     (modules/Lit_vae.py:542)."""
-    mu, logvar = encoder_forward(params, cfgs, x)
+    mu, logvar = encoder_forward(params, cfgs, x, mesh)
     kl = gaussian_kl(mu, logvar)
     nll = nll_iw(params, cfgs, x, nsamples, ns, generator,
-                 posterior=(mu, logvar), eps=eps)
+                 posterior=(mu, logvar), eps=eps, mesh=mesh)
     return nll + kl_weight * kl, nll, kl
 
 
 def training_loss(params: Params, cfgs: VAEConfigs, x: torch.Tensor,
                   kl_weight, *, nsamples: int = 1, train: bool = True,
                   generator: Optional[torch.Generator] = None,
-                  eps: Optional[torch.Tensor] = None):
+                  eps: Optional[torch.Tensor] = None, mesh=None):
     """Scalar training loss and its report by the free-bits mode fb in
     {0, 1, 2, 3} and beta = 0 (a plain autoencoder, or the IW objective
     with ``iw_train_nsamples``) (Lit_GPT_VAE.py:246-315).  ``eps`` is
     ``reparameterize``'s noise, or with the IW objective ``nll_iw``'s."""
     vae = cfgs.vae
     aux: Dict[str, torch.Tensor] = {}
-    kw = dict(train=train, generator=generator, eps=eps)
+    kw = dict(train=train, generator=generator, eps=eps, mesh=mesh)
     if vae.beta == 0 and vae.iw_train_nsamples > 0:
         loss, rec, kl = loss_iw(params, cfgs, x, kl_weight,
                                 nsamples=vae.iw_train_nsamples,
                                 ns=max(1, vae.iw_train_ns),
-                                generator=generator, eps=eps)
+                                generator=generator, eps=eps, mesh=mesh)
     elif vae.beta == 0:
         loss, rec, kl = elbo_loss(params, cfgs, x, 0.0, nsamples, **kw)
     elif vae.fb == 0:
@@ -271,14 +278,14 @@ def training_loss(params: Params, cfgs: VAEConfigs, x: torch.Tensor,
         _, rec, kl = elbo_loss(params, cfgs, x, kl_weight, nsamples, **kw)
         loss = rec + (kl > vae.target_kl).to(kl.dtype) * kl_weight * kl
     elif vae.fb == 2:
-        mu, logvar = encoder_forward(params, cfgs, x)
+        mu, logvar = encoder_forward(params, cfgs, x, mesh)
         z = reparameterize(mu, logvar, nsamples, generator, eps)
         kl_dim = gaussian_kl_per_dim(mu, logvar)
         mask = (kl_dim > vae.target_kl / float(cfgs.nz)).to(kl_dim.dtype)
         fake_kl = torch.sum(mask * kl_dim, dim=1)
         rec = reconstruct_error(params, cfgs, x, z, train=train,
-                                generator=generator if train else None
-                                ).mean(1)
+                                generator=generator if train else None,
+                                mesh=mesh).mean(1)
         loss = rec + kl_weight * fake_kl
         kl = kl_dim.sum(1)
         aux["fake_loss_kl"] = fake_kl.mean()
@@ -306,20 +313,20 @@ def log_prior(z: torch.Tensor) -> torch.Tensor:
 def nll_iw(params: Params, cfgs: VAEConfigs, x: torch.Tensor,
            nsamples: int = 500, ns: int = 10,
            generator: Optional[torch.Generator] = None, *,
-           posterior=None, eps: Optional[torch.Tensor] = None
-           ) -> torch.Tensor:
+           posterior=None, eps: Optional[torch.Tensor] = None,
+           mesh=None) -> torch.Tensor:
     """IW estimate of -log p(x) per item -> (B,), from nsamples // ns
     chunks of ns samples z ~ q(z|x) (utils.py:50-77, Lit_vae.py:610-668).
     ``posterior`` a precomputed (mu, logvar); ``eps`` (chunks, B, ns, nz)
     the noise of every chunk."""
     mu, logvar = (posterior if posterior is not None
-                  else encoder_forward(params, cfgs, x))
+                  else encoder_forward(params, cfgs, x, mesh))
     chunks = max(1, nsamples // ns)
     lls = []
     for c in range(chunks):
         z = reparameterize(mu, logvar, ns, generator,
                            None if eps is None else eps[c])
-        lls.append(log_probability(params, cfgs, x, z) + log_prior(z)
+        lls.append(log_probability(params, cfgs, x, z, mesh) + log_prior(z)
                    - eval_inference_dist(params, cfgs, x, z,
                                          param=(mu, logvar)))
     lls = torch.cat(lls, dim=1)                          # (B, chunks * ns)
@@ -387,17 +394,23 @@ def active_units_from_means(means: torch.Tensor, delta: float = 0.01):
 def corpus_mi_and_au(params: Params, cfgs: VAEConfigs,
                      batches: Iterable[torch.Tensor],
                      generator: Optional[torch.Generator] = None,
-                     eps: Optional[torch.Tensor] = None):
+                     eps: Optional[torch.Tensor] = None, mesh=None):
     """The posteriors of every (B, T) token batch, then (MI, AU, the AU
-    variances); (nan, 0, zeros) below two rows."""
+    variances); (nan, 0, zeros) below two rows.  A collective under a
+    mesh: the posteriors are pooled over its data group
+    (``parallel.reduce.pool_posteriors``), so that the statistics cover
+    the whole corpus, as the reference computes them on every rank
+    (callbacks/GPT_VAE_callbacks.py:429-436)."""
+    from ..parallel.reduce import pool_posteriors
     mus, logvars = [], []
     for x in batches:
-        mu, logvar = encoder_forward(params, cfgs, x)
-        mus.append(mu.float())
-        logvars.append(logvar.float())
-    if sum(m.shape[0] for m in mus) < 2:
+        mu, logvar = encoder_forward(params, cfgs, x, mesh)
+        mus.append(mu)
+        logvars.append(logvar)
+    pooled = pool_posteriors(mus, logvars, cfgs.nz, mesh)
+    if pooled is None:
         return float("nan"), 0, torch.zeros(cfgs.nz)
-    mu, logvar = torch.cat(mus), torch.cat(logvars)
+    mu, logvar = pooled
     mi = mi_from_posteriors(mu, logvar, generator, eps)
     au, au_var = active_units_from_means(mu)
     return float(mi), int(au), au_var

@@ -90,21 +90,24 @@ def bernoulli_u8(generator: torch.Generator, keep_prob: float,
 def attend_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                n_unmasked: int = 0, *, dropout_rate: float = 0.0,
                generator: Optional[torch.Generator] = None,
-               return_attn: bool = False):
+               return_attn: bool = False,
+               keep: Optional[torch.Tensor] = None):
     """q, k, v: (B, H, T, hd) -> (B, H, T, hd).  Scores and the PV product
     accumulate in float32; probabilities are rounded to v's dtype and the
     output to q's, as in the JAX ``attend_xla``.  With ``dropout_rate`` and
     a ``generator`` the probabilities are dropped and rescaled by
-    ``1 / (1 - rate)`` (attention.py:85-106).  ``return_attn`` also
-    returns the float32 probabilities (B, H, T, T) before dropout."""
+    ``1 / (1 - rate)`` (attention.py:85-106); ``keep``, a bool (B, H, T, T)
+    mask the caller drew, takes the generator's place.  ``return_attn``
+    also returns the float32 probabilities (B, H, T, T) before dropout."""
     t, hd = q.shape[2], q.shape[3]
     scale = 1.0 / float(np.sqrt(hd))
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     mask = torch.as_tensor(window_mask(t, n_unmasked), device=q.device)
     scores = torch.where(mask, scores, NEG_INF)
     attn = used = torch.softmax(scores, dim=-1)
-    if dropout_rate > 0.0 and generator is not None:
+    if keep is None and dropout_rate > 0.0 and generator is not None:
         keep = bernoulli_u8(generator, 1.0 - dropout_rate, attn.shape)
+    if keep is not None:
         used = torch.where(keep, attn / (1.0 - dropout_rate), 0.0)
     out = torch.matmul(used.to(v.dtype).float(), v.float()).to(q.dtype)
     return (out, attn) if return_attn else out

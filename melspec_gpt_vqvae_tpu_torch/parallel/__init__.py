@@ -1,0 +1,25 @@
+"""Distribution of the port's training over processes: the mesh and its
+sharding rules (``mesh``), cross-process metric reduction (``reduce``) and
+the GPipe schedule (``pipeline``, imported from its module: it builds on
+models/gpt.py)."""
+
+from .mesh import (  # noqa: F401
+    AXES,
+    DATA_AXIS,
+    MODEL_AXIS,
+    PIPE_AXIS,
+    Mesh,
+    as_mesh,
+    data_coordinate,
+    data_size,
+    gather_tree,
+    is_primary,
+    local_batch_slice,
+    make_mesh,
+    maybe_init_distributed,
+    parse_mesh,
+    process_count,
+    process_index,
+    shard_tree,
+    shutdown_distributed,
+)

@@ -1,0 +1,484 @@
+"""The process mesh and the Megatron sharding rules.
+
+Counterpart of melspec_gpt_vqvae_tpu/parallel/mesh.py.  The reference's
+only distribution mechanism is Lightning DDP (/root/reference/
+GPT_VAE_train.py:166-182: ``strategy="ddp..."``, ``devices=args.gpus``,
+``num_nodes=args.num_nodes``): an NCCL gradient all-reduce over a
+data-parallel axis.  The JAX package lays one ``jax.sharding.Mesh`` over
+every chip and adds a ``model`` axis (Megatron tensor parallelism) and a
+``pipe`` axis (GPipe pipeline parallelism, parallel/pipeline.py).
+
+Here a run is one process a GPU (``torchrun``), and a ``Mesh`` names the
+axes of the world's ranks in the JAX mesh's row-major order: under
+``{"data": 2, "model": 4}`` global rank ``r`` has data coordinate
+``r // 4`` and model coordinate ``r % 4``.  Each axis has one process
+group of the ranks that differ only in that coordinate.  The collectives
+are NCCL's on the card and gloo's when the caller names the CPU.  A mesh
+made without a process group (world size 1, no launcher) runs no
+collective: each group is that one rank.
+
+The JAX module's ``batch_sharding``, ``put_batch``, ``shard_batch``,
+``replicated`` and ``replicate_stragglers`` have no counterpart: they
+place host rows and scalars on a multi-device mesh, and here each
+process already holds its own rows (the loader shards them by data
+coordinate, ``DataModule(process_index=, process_count=)``) and its own
+parameters.  The TP sharding rules of ``gpt_param_pspecs`` (mesh.py:167-199
+there) and the ``pipe`` axis's of pipeline.py's ``gpt_param_pp_pspecs``
+are the shard and gather functions at the end of this module, on the
+port's nested dicts of tensors.  A gather brings the full leaves to
+global rank 0 alone, one leaf at a time: only rank 0 writes checkpoints
+and logs.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from datetime import timedelta
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
+AXES = (DATA_AXIS, MODEL_AXIS, PIPE_AXIS)
+
+
+def maybe_init_distributed(device="cuda",
+                           timeout: Optional[timedelta] = None, *,
+                           init_method: Optional[str] = None,
+                           rank: Optional[int] = None,
+                           world_size: Optional[int] = None) -> torch.device:
+    """Join a process group: the one ``torchrun`` describes (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) or,
+    given an ``init_method`` (e.g. ``file:///tmp/store``), ``world_size``
+    ranks there as ``rank``, without a launcher.  NCCL on a CUDA device
+    (``cuda:{LOCAL_RANK}`` under a launcher), gloo only when ``device`` is
+    the CPU.  A failure to initialise raises; nothing falls back to gloo
+    or the CPU.  Without a launcher's environment or an ``init_method``,
+    or with a group already joined, it starts nothing.  Returns the device
+    this process runs on."""
+    device = torch.device(device)
+    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if dist.is_initialized() or (init_method is None and not launched):
+        return device
+    kw = {"timeout": timeout}
+    if init_method is not None:
+        kw.update(init_method=init_method, rank=rank, world_size=world_size)
+    if device.type == "cpu":
+        dist.init_process_group("gloo", **kw)
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"--device {device}: no CUDA device")
+    if init_method is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", device_id=device, **kw)
+    return device
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group, if one was joined."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def process_index() -> int:
+    """This process's global rank (0 without a process group)."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def is_primary() -> bool:
+    """rank_zero_only equivalent (reference:
+    callbacks/GPT_callbacks.py:113 ``@rank_zero_only``): global rank 0."""
+    return process_index() == 0
+
+
+def parse_mesh(spec: str) -> Optional[Dict[str, int]]:
+    """``"data=2,model=4"`` -> ``{"data": 2, "model": 4}`` (the CLIs'
+    ``--mesh`` flag; empty string -> None -> every rank on ``data``)."""
+    if not spec:
+        return None
+    out = {}
+    for kv in spec.split(","):
+        k, v = kv.split("=")
+        if k not in AXES:
+            raise ValueError(f"--mesh {spec!r}: unknown axis {k!r} "
+                             f"(expected {', '.join(AXES)})")
+        out[k] = int(v)
+    return out
+
+
+class Mesh:
+    """Named axes over the world's ranks, row-major, with a process group
+    an axis.  ``n_micro`` is the pipeline's microbatch count on a ``pipe``
+    axis (0 = twice the stages).  ``device`` is where the collectives'
+    tensors live (the CUDA device under NCCL)."""
+
+    def __init__(self, shape: Dict[str, int], device, n_micro: int = 0):
+        self.shape = dict(shape)
+        self.device = torch.device(device)
+        self.n_micro = int(n_micro)
+        self.names = tuple(self.shape)
+        sizes = tuple(self.shape.values())
+        self.rank = process_index()
+        self.coords = dict(zip(self.names, _unravel(self.rank, sizes)))
+        self.ranks: Dict[str, List[int]] = {}
+        self.groups: Dict[str, Optional[dist.ProcessGroup]] = {}
+        for i, name in enumerate(self.names):
+            mine = None
+            # every rank creates every group, in the same order
+            for other in _product([s for j, s in enumerate(sizes)
+                                   if j != i]):
+                ranks = [_ravel(other[:i] + (c,) + other[i:], sizes)
+                         for c in range(sizes[i])]
+                group = (dist.new_group(ranks) if dist.is_initialized()
+                         else None)
+                if self.rank in ranks:
+                    mine = (ranks, group)
+            self.ranks[name], self.groups[name] = mine
+
+    def __repr__(self):
+        return (f"Mesh({self.shape}, rank {self.rank}, coords "
+                f"{self.coords}, n_micro {self.n_micro})")
+
+    def has(self, axis: str) -> bool:
+        return axis in self.shape
+
+    def size(self, axis: str) -> int:
+        """The axis's size; 1 for an axis the mesh does not have."""
+        return self.shape.get(axis, 1)
+
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate on the axis; 0 for an absent axis."""
+        return self.coords.get(axis, 0)
+
+    def group(self, axis: str) -> Optional[dist.ProcessGroup]:
+        """The axis's process group of this rank; None without a process
+        group or for an absent axis (a group of this rank alone)."""
+        return self.groups.get(axis)
+
+    def active(self, axis: str) -> bool:
+        """True where the axis has a process group to reduce over."""
+        return self.group(axis) is not None
+
+    @property
+    def sharded(self) -> bool:
+        """True when parameters are split across ranks (a model or pipe
+        axis of more than one rank)."""
+        return self.size(MODEL_AXIS) > 1 or self.size(PIPE_AXIS) > 1
+
+    def all_reduce_(self, t: torch.Tensor, axis: str,
+                    async_op: bool = False):
+        """Sum ``t`` in place over the axis (nothing without its group)."""
+        if not self.active(axis):
+            return None
+        return dist.all_reduce(t, group=self.group(axis), async_op=async_op)
+
+    def mean_(self, tensors: List[torch.Tensor], axis: str) -> None:
+        """Average each tensor in place over the axis, all in flight at
+        once: NCCL's AVG (a sum premultiplied by 1 / size; at one rank
+        NCCL's one-rank kernel, a product by 1), or under gloo, which has
+        no AVG, a sum and a division."""
+        if not self.active(axis) or not tensors:
+            return
+        group = self.group(axis)
+        avg = dist.get_backend(group) == "nccl"
+        op = dist.ReduceOp.AVG if avg else dist.ReduceOp.SUM
+        work = [dist.all_reduce(t, op=op, group=group, async_op=True)
+                for t in tensors]
+        for w in work:
+            w.wait()
+        if not avg:
+            n = float(self.size(axis))
+            for t in tensors:
+                t.div_(n)
+
+
+def _unravel(r: int, sizes) -> Tuple[int, ...]:
+    out = []
+    for s in reversed(sizes):
+        out.append(r % s)
+        r //= s
+    return tuple(reversed(out))
+
+
+def _ravel(coords, sizes) -> int:
+    r = 0
+    for c, s in zip(coords, sizes):
+        r = r * s + c
+    return r
+
+
+def _product(sizes) -> List[Tuple[int, ...]]:
+    out = [()]
+    for s in sizes:
+        out = [o + (c,) for o in out for c in range(s)]
+    return out
+
+
+def make_mesh(shape: Optional[Dict[str, int]] = None, device="cpu",
+              n_micro: int = 0) -> Mesh:
+    """A mesh over the world's ranks.  Default: every rank on ``data``; a
+    ``-1`` entry is inferred.  The product of the sizes must be the world
+    size (the JAX mesh's "device subset" has no counterpart: a process
+    that is no part of the mesh would still hold a GPU).  ``model`` and
+    ``pipe`` do not combine, as in the JAX package."""
+    n = process_count()
+    shape = dict(shape) if shape else {DATA_AXIS: n}
+    sizes = list(shape.values())
+    if sizes.count(-1) > 1:
+        raise ValueError("--mesh: at most one -1 axis")
+    if -1 in sizes:
+        known = math.prod(s for s in sizes if s != -1)
+        shape[list(shape)[sizes.index(-1)]] = n // known
+    want = math.prod(shape.values())
+    if want != n:
+        raise ValueError(
+            f"--mesh {','.join(f'{k}={v}' for k, v in shape.items())} spans "
+            f"{want} ranks but the world size is {n}: launch one process a "
+            f"rank (torchrun --nproc_per_node {want})")
+    if shape.get(MODEL_AXIS, 1) > 1 and shape.get(PIPE_AXIS, 1) > 1:
+        raise ValueError("--mesh: the model and pipe axes do not combine "
+                         "(tensor parallelism inside pipeline stages is "
+                         "not supported, as in the JAX package)")
+    return Mesh(shape, device, n_micro)
+
+
+def as_mesh(mesh, device, n_micro: int = 0) -> Optional[Mesh]:
+    """A task's ``mesh`` argument -- None (the plain single-device path), a
+    ``Mesh`` (which carries its own ``n_micro``) or a ``--mesh`` spec
+    string, made here with ``n_micro`` -- as a ``Mesh`` or None."""
+    if mesh is None or isinstance(mesh, Mesh):
+        return mesh
+    return make_mesh(parse_mesh(mesh), device, n_micro)
+
+
+def data_coordinate(mesh: Optional[Mesh]) -> int:
+    """This rank's data coordinate: which shard of the batches it reads."""
+    return mesh.coord(DATA_AXIS) if mesh is not None else 0
+
+
+def data_size(mesh: Optional[Mesh]) -> int:
+    """The number of data shards."""
+    return mesh.size(DATA_AXIS) if mesh is not None else 1
+
+
+def local_batch_slice(global_batch_size: int,
+                      mesh: Optional[Mesh] = None) -> slice:
+    """This rank's rows of a globally indexed batch (the DDP
+    DistributedSampler equivalent): the data coordinate's contiguous
+    share."""
+    per = global_batch_size // data_size(mesh)
+    i = data_coordinate(mesh)
+    return slice(i * per, (i + 1) * per)
+
+
+def broadcast_object(obj, src: int = 0):
+    """``obj`` of rank ``src`` on every rank (itself without a process
+    group)."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
+def barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# Gradients: the DP all-reduce and the pipe axis's replicated leaves
+# ---------------------------------------------------------------------------
+
+
+def reduce_gradients(mesh: Optional[Mesh], named_params) -> None:
+    """Make every rank's gradients the global batch's, before the
+    optimizer: on a ``pipe`` axis, sum the gradients of the leaves every
+    stage holds (embeddings, ``ln_f``, the head: only some stages reach
+    them, the rest count zeros) over the pipe group; then average every
+    gradient over the ``data`` group (DDP's mean).  Runs every collective
+    the mesh's axes have, one rank or more."""
+    if mesh is None:
+        return
+    leaves = list(named_params)
+    if mesh.active(PIPE_AXIS):
+        work = []
+        for name, t in leaves:
+            if "blocks" in name:
+                continue
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
+            work.append(mesh.all_reduce_(t.grad, PIPE_AXIS, async_op=True))
+        for w in work:
+            w.wait()
+    mesh.mean_([t.grad for _, t in leaves if t.grad is not None],
+               DATA_AXIS)
+
+
+def mean_over_data(mesh: Optional[Mesh], values: List[torch.Tensor]
+                   ) -> List[torch.Tensor]:
+    """0-d tensors averaged over the data group in one all-reduce (the
+    global batch's loss and report from each shard's): new tensors."""
+    if mesh is None or not mesh.active(DATA_AXIS):
+        return values
+    vec = torch.stack([v.detach().float().reshape(()) for v in values])
+    mesh.mean_([vec], DATA_AXIS)
+    return [vec[i].to(v.dtype) for i, v in enumerate(values)]
+
+
+# ---------------------------------------------------------------------------
+# GPT parameter sharding rules (Megatron-style TP over MODEL_AXIS).
+# Leaf names are the nested dict's paths ("blocks/attn_qkv/w"), in the
+# layout of models/gpt.py::init_gpt_params (2-D weights are (in, out)).
+# ---------------------------------------------------------------------------
+
+_TP_RULES = (("attn_qkv/w", "qkv"), ("attn_qkv/b", "qkv"),
+             ("attn_proj/w", 1), ("mlp_up/w", -1), ("mlp_up/b", -1),
+             ("mlp_down/w", 1))
+
+
+def tp_rule(name: str):
+    """How a leaf is cut over ``model``: "qkv" (the fused projection's
+    columns, head slice r of each of q, k and v), an axis (``-1`` the
+    output columns of ``mlp_up``; ``1`` the input rows of ``attn_proj`` and
+    ``mlp_down``), or None (replicated: embeddings, layer norms, the
+    row-parallel biases, the head)."""
+    if "blocks" not in name:
+        return None
+    for suffix, rule in _TP_RULES:
+        if name.endswith(suffix):
+            return rule
+    return None
+
+
+def tp_shard(name: str, full: torch.Tensor, r: int, m: int) -> torch.Tensor:
+    """Rank ``r`` of ``m``'s part of the full leaf ``name``.  The fused
+    ``attn_qkv`` is cut head-aligned: ``[q_r | k_r | v_r]``, not the
+    contiguous column blocks JAX's ``P(None, None, "model")`` names (XLA
+    keeps the semantics whatever the cut; an explicit shard must hold
+    whole heads)."""
+    rule = tp_rule(name)
+    if rule is None or m == 1:
+        return full
+    if rule == "qkv":
+        return torch.cat([c.chunk(m, dim=-1)[r]
+                          for c in full.chunk(3, dim=-1)], dim=-1)
+    return full.chunk(m, dim=rule)[r]
+
+
+def tp_gather(name: str, parts: List[torch.Tensor]) -> torch.Tensor:
+    """The full leaf from every model rank's part (``tp_shard``'s
+    inverse)."""
+    rule = tp_rule(name)
+    if rule is None or len(parts) == 1:
+        return parts[0]
+    if rule == "qkv":
+        thirds = [p.chunk(3, dim=-1) for p in parts]
+        return torch.cat([torch.cat([t[i] for t in thirds], dim=-1)
+                          for i in range(3)], dim=-1)
+    return torch.cat(parts, dim=rule)
+
+
+def pp_shard(name: str, full: torch.Tensor, s: int, n: int) -> torch.Tensor:
+    """Stage ``s`` of ``n``'s layers of a stacked ``blocks`` leaf (its
+    leading layer axis); the other leaves are held whole by every stage."""
+    if "blocks" not in name or n == 1:
+        return full
+    return full.chunk(n, dim=0)[s]
+
+
+def split_axis(mesh: Optional[Mesh], name: str) -> Optional[str]:
+    """The axis the leaf ``name`` is cut over under the mesh: ``model``
+    (``tp_rule``), ``pipe`` (a stacked ``blocks`` leaf), or None where
+    every rank holds it whole."""
+    if mesh is None:
+        return None
+    if mesh.size(MODEL_AXIS) > 1 and tp_rule(name) is not None:
+        return MODEL_AXIS
+    if mesh.size(PIPE_AXIS) > 1 and "blocks" in name:
+        return PIPE_AXIS
+    return None
+
+
+def shard_leaf(mesh: Optional[Mesh], name: str,
+               full: torch.Tensor) -> torch.Tensor:
+    """This rank's part of the full leaf ``name`` under the mesh."""
+    if mesh is None:
+        return full
+    full = tp_shard(name, full, mesh.coord(MODEL_AXIS), mesh.size(MODEL_AXIS))
+    return pp_shard(name, full, mesh.coord(PIPE_AXIS), mesh.size(PIPE_AXIS))
+
+
+def gather_leaf(mesh: Optional[Mesh], name: str, local: torch.Tensor,
+                device="cpu") -> Optional[torch.Tensor]:
+    """The full leaf ``name`` on global rank 0, a copy on ``device``; None
+    on every other rank.  A leaf cut over an axis is gathered from the
+    parts of rank 0's group of that axis (``dist.gather``: each of those
+    ranks sends its part once, the others take no part); a whole leaf is
+    rank 0's own.  Without a mesh, ``local`` itself."""
+    if mesh is None:
+        return local
+    axis = split_axis(mesh, name)
+    primary = is_primary()
+    local = local.detach()
+    if axis is None:
+        return local.to(device, copy=True) if primary else None
+    if 0 not in mesh.ranks[axis]:
+        return None
+    local = local.contiguous()
+    parts = ([torch.empty_like(local) for _ in range(mesh.size(axis))]
+             if primary else None)
+    dist.gather(local, parts, dst=0, group=mesh.group(axis))
+    if not primary:
+        return None
+    full = (tp_gather(name, parts) if axis == MODEL_AXIS
+            else torch.cat(parts, dim=0))
+    return full.to(device)
+
+
+def check_divisible(mesh: Optional[Mesh], cfg) -> None:
+    """Raise where a GPT config does not split over the mesh: heads over
+    ``model``, layers over ``pipe``."""
+    if mesh is None:
+        return
+    m, s = mesh.size(MODEL_AXIS), mesh.size(PIPE_AXIS)
+    if cfg.n_head % m:
+        raise ValueError(f"n_head {cfg.n_head} not divisible by model={m}")
+    if cfg.n_layer % s:
+        raise ValueError(f"n_layer {cfg.n_layer} not divisible by pipe={s}")
+
+
+def _walk(tree, fn, prefix: str = ""):
+    if isinstance(tree, dict):
+        return {k: _walk(v, fn, f"{prefix}/{k}" if prefix else k)
+                for k, v in tree.items()}
+    return fn(prefix, tree)
+
+
+def shard_tree(mesh: Optional[Mesh], tree, prefix: str = ""):
+    """A nested dict of full leaves -> this rank's parts (by each leaf's
+    path, ``prefix`` before it)."""
+    if mesh is None:
+        return tree
+    return _walk(tree, lambda n, t: shard_leaf(mesh, n, t), prefix)
+
+
+def gather_tree(mesh: Optional[Mesh], tree, prefix: str = "",
+                device="cpu"):
+    """This rank's nested dict of parts -> the full leaves on global rank
+    0, one leaf at a time, each moved to ``device`` (the host by default)
+    before the next is gathered (``gather_leaf``); None on every other
+    rank.  Without a mesh, ``tree`` itself."""
+    if mesh is None:
+        return tree
+    full = _walk(tree, lambda n, t: gather_leaf(mesh, n, t, device), prefix)
+    return full if is_primary() else None

@@ -2,13 +2,15 @@
 
     python -m melspec_gpt_vqvae_tpu_torch.train_gpt --dataset vas \\
         --experiment my_gpt --train 1 [--device cuda] [--override k=v,...]
+    torchrun --nproc_per_node 4 -m melspec_gpt_vqvae_tpu_torch.train_gpt \\
+        --dataset vas --experiment my_gpt --train 1 --mesh data=2,model=2
 
 The counterpart of the JAX package's GPT_train.py, with its flags, preset
 merge (``load_preset("GPT", dataset)`` plus ``--override``) and log and
 checkpoint layout (``lightning_logs/{experiment}-{dataset}``, TensorBoard
 scalars in ``TensorBoardLoggs/version_N``, checkpoints in
-``checkpoints/version_N``), minus the JAX-only ``--mesh``, ``--pp_micro``,
-``--prng`` and ``--platform`` and plus ``--device``.  The data are the
+``checkpoints/version_N``), minus the JAX-only ``--prng`` and
+``--platform`` and plus ``--device``.  The data are the
 same split files and ``_mel.npy`` / ``_mel_code.npy`` trees, read by the
 port's own ``data`` module.  Every ``--logging_frequency`` train and
 validation batch the media callback (``GPTImageLogger``) logs the
@@ -19,8 +21,18 @@ directory) its code rows are also logged as spectrograms, and with
 ``args.yml``) the spectrograms as audio; a decoder that does not load
 stops the run before it starts.  ``--eval 1`` and ``--test 1`` each
 validate once (both: twice), as GPT_train.py does; a forward without
-``use_flash_train`` runs kernel A in every layer.  Distribution (``--mesh``
-/ ``--pp_micro``, ROADMAP A12) is not ported.
+``use_flash_train`` runs kernel A in every layer.
+
+Distribution: one process a GPU under ``torchrun`` (NCCL; gloo with
+``--device cpu``), ``--mesh`` naming the axes over the world's ranks
+(``data``: DDP; ``model``: Megatron tensor parallelism; ``pipe``: the
+GPipe schedule with ``--pp_micro`` microbatches), its product the world
+size; without ``--mesh`` every rank is on ``data``.  Each data rank reads
+its shard of the split with the preset's batch size (the global batch is
+``data`` times that), rank 0 alone logs and writes checkpoints, which hold
+full leaves and restore under any mesh.  ``--gpus`` and ``--num_nodes``
+are taken for the JAX CLI's command lines and change nothing: the
+launcher sets the world.
 """
 
 from __future__ import annotations
@@ -52,9 +64,19 @@ def init_config(argv=None):
                         help="frozen MelGAN dir (best_netG.pt, args.yml) "
                              "for audio decode")
     parser.add_argument("--data_root", type=str, default="./data")
+    parser.add_argument("--mesh", type=str, default="",
+                        help="e.g. 'data=8', 'data=4,model=2', "
+                             "'data=2,pipe=4' (pipeline parallel)")
+    parser.add_argument("--pp_micro", type=int, default=0,
+                        help="pipeline microbatches (0 = 2*stages)")
+    parser.add_argument("--gpus", nargs="+", type=int, default=[0],
+                        help="accepted for parity; torchrun sets the world")
+    parser.add_argument("--num_nodes", type=int, default=1,
+                        help="accepted for parity; torchrun sets the world")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on, e.g. 'cuda', "
-                             "'cuda:1' or 'cpu'")
+                             "'cuda:1' or 'cpu' (under torchrun, "
+                             "cuda:LOCAL_RANK)")
     parser.add_argument("--limit_train_batches", type=int, default=0)
     parser.add_argument("--limit_val_batches", type=int, default=0)
     parser.add_argument("--epochs_override", type=int, default=0)
@@ -93,6 +115,26 @@ def load_decoders(args, exp, device):
                           code_w=exp.vqvae.code_w, device=device)
 
 
+def init_mesh(args):
+    """(device, mesh or None) of a run: join the launcher's process group
+    first (``maybe_init_distributed``: NCCL on ``cuda:{LOCAL_RANK}``, gloo
+    for ``--device cpu``), then the ``--mesh`` over its ranks; no mesh for
+    a single process without ``--mesh``, every rank on ``data`` for a
+    launched one without it.  A mesh that does not span the world
+    raises."""
+    import torch
+
+    from .parallel import (make_mesh, maybe_init_distributed, parse_mesh,
+                           process_count)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device")
+    device = maybe_init_distributed(device)
+    if not args.mesh and process_count() == 1:
+        return device, None
+    return device, make_mesh(parse_mesh(args.mesh), device, args.pp_micro)
+
+
 def main(args):
     """Run the CLI.  Returns (task, final train state or None, checkpoint
     manager) for callers that drive it from Python."""
@@ -101,6 +143,7 @@ def main(args):
 
     from .configs import load_preset, parse_overrides
     from .data import DataModule
+    from .parallel import data_coordinate, data_size, is_primary
 
     from .training import runner
     from .training.callbacks import GPTImageLogger
@@ -109,26 +152,27 @@ def main(args):
     from .training.logging import TBLogger
     from .utils.profiling import trace
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device")
-
+    device, mesh = init_mesh(args)
     np.random.seed(args.seed)
     exp = load_preset("GPT", args.dataset, **parse_overrides(args.override))
     if args.epochs_override:
         exp.train = exp.train.__class__(
             learning_rate=exp.train.learning_rate,
             epochs=args.epochs_override, batch_size=exp.train.batch_size)
-    print(f"device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+    if is_primary():
+        print(f"device: {device}"
+              + (f" ({torch.cuda.get_device_name(device)})"
+                 if device.type == "cuda" else "")
+              + (f", {mesh}" if mesh is not None else ""))
 
     decoders = load_decoders(args, exp, device)
     dm = DataModule(batch_size=exp.train.batch_size,
                     spec_dir_path=exp.data.spec_dir_path,
-                    data_root=args.data_root)
+                    data_root=args.data_root,
+                    process_index=data_coordinate(mesh),
+                    process_count=data_size(mesh))
     dm.setup()
-    task = GPTTask(exp, device)
+    task = GPTTask(exp, device, mesh)
 
     run_dir = os.path.join("lightning_logs",
                            f"{args.experiment}-{args.dataset}")
@@ -160,4 +204,8 @@ def main(args):
 
 
 if __name__ == "__main__":
-    main(init_config())
+    from .parallel import shutdown_distributed
+    try:
+        main(init_config())
+    finally:
+        shutdown_distributed()

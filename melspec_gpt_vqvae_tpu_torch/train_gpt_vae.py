@@ -2,6 +2,8 @@
 
     python -m melspec_gpt_vqvae_tpu_torch.train_gpt_vae --dataset vas \\
         --experiment my_vae --train 1 [--device cuda] [--override k=v,...]
+    torchrun --nproc_per_node 4 -m melspec_gpt_vqvae_tpu_torch.train_gpt_vae \\
+        --dataset vas --experiment my_vae --train 1 --mesh data=2,pipe=2
 
 The counterpart of the JAX package's GPT_VAE_train.py, with its flags,
 preset merge (``load_preset("GPT_VAE", dataset)``, ``--override``, the VAE
@@ -18,10 +20,14 @@ token text and, through ``--reconstruct_spec`` (a reference VQ-VAE file or
 a port VQ-GAN run) and ``--vocoder`` (a reference MelGAN directory), as
 spectrograms and audio.  ``--model lstm`` trains, evaluates and tests the
 legacy LSTM-VAE (``run_lstm``: the ``VAE_{dataset}`` preset with
-``--override``, ``LSTMTextLogger``).  Refused, with its ROADMAP item: a
-non-empty ``--mesh`` or ``--pp_micro`` (A12).  The JAX-only ``--prng`` and
-``--platform`` are not taken; ``--gpus``, ``--num_nodes`` and ``--workers``
-are taken and change nothing, as there.
+``--override``, ``LSTMTextLogger``).  ``--mesh`` / ``--pp_micro``
+distribute the run as ``train_gpt``'s do (``train_gpt.init_mesh``: one
+process a GPU under ``torchrun``; data, model and pipe axes for the
+GPT-VAE, a data axis only for the LSTM-VAE, as in the JAX package); the
+reconstruction, latent and interpolation tools then run on rank 0 on the
+gathered parameters.  The JAX-only ``--prng`` and ``--platform`` are not
+taken; ``--gpus``, ``--num_nodes`` and ``--workers`` are taken and change
+nothing, as there (the launcher sets the world).
 """
 
 from __future__ import annotations
@@ -88,9 +94,10 @@ def init_config(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device, e.g. 'cuda', 'cuda:1' or 'cpu'")
     parser.add_argument("--mesh", type=str, default="",
-                        help="device mesh (not ported)")
+                        help="e.g. 'data=8', 'data=4,model=2', "
+                             "'data=2,pipe=4' (pipeline parallel)")
     parser.add_argument("--pp_micro", type=int, default=0,
-                        help="pipeline microbatches (not ported)")
+                        help="pipeline microbatches (0 = 2*stages)")
     parser.add_argument("--limit_train_batches", type=int, default=0)
     parser.add_argument("--limit_val_batches", type=int, default=0)
     parser.add_argument("--epochs_override", type=int, default=0)
@@ -107,12 +114,6 @@ def init_config(argv=None):
                         help="comma k=v preset overrides, e.g. "
                              "'n_layer=2,n_embd=32,batch_size=4'")
     return parser.parse_args(argv)
-
-
-def _refuse(args):
-    if args.mesh or args.pp_micro:
-        raise NotImplementedError("--mesh / --pp_micro: distribution is not "
-                                  "ported (ROADMAP A12)")
 
 
 def _train_flags(exp, args):
@@ -166,28 +167,30 @@ def main(args):
                                       merge_subtree)
     from .training.logging import TBLogger
     from .training.vae_task import VAETask
-    from .train_gpt import load_decoders
+    from .parallel import data_coordinate, data_size, is_primary
+    from .train_gpt import init_mesh, load_decoders
     from .utils import vae_tools
     from .utils.profiling import trace
 
-    _refuse(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device")
+    device, mesh = init_mesh(args)
     np.random.seed(args.seed)
     if args.model == "lstm":
-        return run_lstm(args, device)
+        return run_lstm(args, device, mesh)
     exp = build_experiment(args)
-    print(f"device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+    if is_primary():
+        print(f"device: {device}"
+              + (f" ({torch.cuda.get_device_name(device)})"
+                 if device.type == "cuda" else "")
+              + (f", {mesh}" if mesh is not None else ""))
     decoders = load_decoders(args, exp, device)
 
     dm = DataModule(batch_size=exp.train.batch_size,
                     spec_dir_path=exp.data.spec_dir_path,
-                    data_root=args.data_root)
+                    data_root=args.data_root,
+                    process_index=data_coordinate(mesh),
+                    process_count=data_size(mesh))
     dm.setup()
-    task = VAETask(exp, len(dm.train_dataloader()), device)
+    task = VAETask(exp, len(dm.train_dataloader()), device, mesh)
 
     run_dir = os.path.join("lightning_logs",
                            f"{args.experiment}-{args.dataset}")
@@ -209,15 +212,17 @@ def main(args):
                 loaded = load_tree(os.path.abspath(args.load_path))
                 loaded = loaded.get("state", loaded).get("params", loaded)
                 fresh = task.init_state(args.seed)
-                tree = task.state_tree(fresh)
-                tree["params"] = merge_subtree(tree["params"], loaded,
-                                               "encoder")
+                tree = task.state_tree(fresh)   # None off rank 0
+                if tree is not None:
+                    tree["params"] = merge_subtree(tree["params"], loaded,
+                                                   "encoder")
                 ckpt.save({"state": tree, "epoch": -1,
                            "extras": {"best_loss": 1e4, "pre_mi": 0.0,
                                       "not_improved": 0}}, 0)
                 ckpt.wait()
                 del fresh, tree
-                print(f"loaded encoder from: {args.load_path}")
+                if is_primary():
+                    print(f"loaded encoder from: {args.load_path}")
                 args.resume = "last"
             state = runner.fit_vae(
                 task, dm, epochs=exp.train.epochs, log=log, ckpt=ckpt,
@@ -244,27 +249,36 @@ def main(args):
                 break
             yield b
 
+    def restored_full(which):
+        # the tools run on rank 0, on one device, on the full parameters
+        return task.media_state(runner._restore(task, ckpt, which)[0])
+
     if args.reconstruct_from:
-        restored, _ = runner._restore(task, ckpt, args.reconstruct_from)
-        vae_tools.reconstruct(task, restored, limited_val(),
-                              args.decoding_strategy, args.reconstruct_to)
-        print(f"reconstructions ({args.decoding_strategy}) -> "
-              f"{args.reconstruct_to}")
+        restored = restored_full(args.reconstruct_from)
+        if is_primary():
+            vae_tools.reconstruct(task, restored, limited_val(),
+                                  args.decoding_strategy,
+                                  args.reconstruct_to)
+            print(f"reconstructions ({args.decoding_strategy}) -> "
+                  f"{args.reconstruct_to}")
     if args.save_latent:
-        restored, _ = runner._restore(task, ckpt, args.resume or "last")
-        fname = os.path.join(run_dir, "latent.txt")
-        vae_tools.visualize_latent(task, restored, limited_val(), fname)
-        print(f"latents -> {fname}")
+        restored = restored_full(args.resume or "last")
+        if is_primary():
+            fname = os.path.join(run_dir, "latent.txt")
+            vae_tools.visualize_latent(task, restored, limited_val(), fname)
+            print(f"latents -> {fname}")
     if args.test_interpolation:
+        # the logger gathers the parameters itself
         restored, _ = runner._restore(task, ckpt, args.resume or "last")
         media_cb.log_interpolation(restored, next(iter(dm.val_dataloader())),
                                    int(restored["step"]))
-        print("interpolation logged")
+        if is_primary():
+            print("interpolation logged")
     log.close()
     return task, state, ckpt, metrics
 
 
-def run_lstm(args, device):
+def run_lstm(args, device, mesh=None):
     """``--model lstm``: the legacy LSTM-VAE (GPT_VAE_train.py:322-399):
     the ``VAE_{dataset}`` preset with ``--override``, its ``VAEConfig``
     from the flags, ``fit_vae`` with ``LSTMTextLogger`` and the epoch-end
@@ -280,6 +294,7 @@ def run_lstm(args, device):
     from .training.checkpoint import CheckpointManager
     from .training.logging import TBLogger
     from .training.lstm_task import LSTMVAETask
+    from .parallel import data_coordinate, data_size, is_primary
 
     exp, cfg = load_lstm_preset(args.dataset,
                                 **parse_overrides(args.override))
@@ -292,15 +307,19 @@ def run_lstm(args, device):
     if args.fix_var > 0:
         cfg = cfg._replace(fix_var=args.fix_var)
     exp.train = _train_flags(exp, args)
-    print(f"device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+    if is_primary():
+        print(f"device: {device}"
+              + (f" ({torch.cuda.get_device_name(device)})"
+                 if device.type == "cuda" else "")
+              + (f", {mesh}" if mesh is not None else ""))
 
     dm = DataModule(batch_size=exp.train.batch_size,
                     spec_dir_path=exp.data.spec_dir_path,
-                    data_root=args.data_root)
+                    data_root=args.data_root,
+                    process_index=data_coordinate(mesh),
+                    process_count=data_size(mesh))
     dm.setup()
-    task = LSTMVAETask(exp, cfg, len(dm.train_dataloader()), device)
+    task = LSTMVAETask(exp, cfg, len(dm.train_dataloader()), device, mesh)
     run_dir = os.path.join("lightning_logs",
                            f"{args.experiment}-{args.dataset}")
     log = TBLogger(run_dir)
@@ -334,4 +353,8 @@ def run_lstm(args, device):
 
 
 if __name__ == "__main__":
-    main(init_config())
+    from .parallel import shutdown_distributed
+    try:
+        main(init_config())
+    finally:
+        shutdown_distributed()

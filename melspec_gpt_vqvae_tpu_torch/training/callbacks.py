@@ -26,6 +26,13 @@ whatever ``_build.kernels`` scope the caller entered (none: the kernels on
 the card, so the vocoder's stacks run kernel B).  Each logger draws its
 noise from a ``torch.Generator`` of its own, seeded 0.  Without decoders
 the loggers write the text alone; nothing here catches an error.
+
+Under a mesh every rank calls the callbacks, as the loops call them
+everywhere: a logger first takes the task's ``media_state`` (the full
+parameters, gathered to global rank 0 when the mesh splits them; None
+on the other ranks), then logs on rank 0 alone, on one device (the
+reference's ``@rank_zero_only``); ``metrics_epoch_end``'s MI and AU are
+a collective over the data group, logged and printed by rank 0.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import torch
 from ..data.vocab import VocabEntry
 from ..models.vocoder import MelGANGenerator
 from ..models.vqvae import VQModel
+from ..parallel.mesh import is_primary
 from ..utils.codes import sequence_to_grid
 from ..utils.demo import extract_audio_from_video, which_ffmpeg
 from .logging import TBLogger, attention_image
@@ -161,6 +169,9 @@ class GPTImageLogger:
     def __call__(self, state, batch, step: int, split: str):
         if "codes" not in batch:
             return
+        state = self.task.media_state(state)
+        if not is_primary():
+            return
         gallery = self.task.log_samples(state["params"], self.generator,
                                         batch, top_k=self.top_k,
                                         n=self.max_images)
@@ -219,6 +230,9 @@ class VAETextLogger:
     def __call__(self, state, batch, step: int, split: str):
         if "codes" not in batch:
             return
+        state = self.task.media_state(state)
+        if not is_primary():
+            return
         if "image" in batch:
             inp = np.asarray(batch["image"][0])
             self.log.spectrogram(f"{split}/original_spec", inp, step)
@@ -238,12 +252,17 @@ class VAETextLogger:
             self._log_codes(f"{split}/{strategy}_reconstruction",
                             self.task.reconstruct(state, one, strategy,
                                                   self.generator), step)
-        self.log_interpolation(state, batch, step, split=split)
+        self._interpolation(state, batch, step, split)
         self.log.flush()
 
     def log_interpolation(self, state, batch, step: int, split: str = "val"):
         """Greedy decodes between the first two items' latents (the
         ``--test_interpolation`` path, GPT_VAE_callbacks.py:324-386)."""
+        state = self.task.media_state(state)
+        if is_primary():
+            self._interpolation(state, batch, step, split)
+
+    def _interpolation(self, state, batch, step: int, split: str):
         codes = np.asarray(batch["codes"])
         if codes.shape[0] < 2:
             return
@@ -275,7 +294,7 @@ class LSTMTextLogger:
                                     self.vocab.decode_sentence(row)), step)
 
     def __call__(self, state, batch, step: int, split: str):
-        if "codes" not in batch:
+        if "codes" not in batch or not is_primary():
             return
         one = {"codes": np.asarray(batch["codes"])[:1]}
         self._log_text(f"{split}/original", self.task.batch_tokens(one),
@@ -317,6 +336,7 @@ def metrics_epoch_end(task, dm, log: TBLogger,
             log.scalar("metrics/ppl", agg["ppl"], step)
             log.scalar("metrics/nll", agg["nll"], step)
         log.scalar("metrics/starting_best_loss", extras["best_loss"], step)
-        print(f"epoch {epoch}: mutual_info {mi:.4f} active_units {au}")
+        if is_primary():
+            print(f"epoch {epoch}: mutual_info {mi:.4f} active_units {au}")
 
     return cb

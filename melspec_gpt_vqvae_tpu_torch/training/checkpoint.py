@@ -12,8 +12,15 @@ end-of-epoch save, else the last consumed batch of a mid-epoch one).
 ``save`` copies the tree to host memory before it returns -- the train
 state may change in place right after -- and writes the file in a
 background thread; ``wait`` blocks until that write (and the ``best``
-copy) is on disk.  ``load_tree`` and ``merge_subtree`` serve the GPT-VAE's
-stage-2 warm start (an encoder taken from another run's checkpoint).
+copy) is on disk.  Under a process group every rank enters ``save`` (the
+task's ``state_tree``, a collective, has gathered the full leaves to rank
+0; the other ranks pass what they hold, None under a mesh that splits
+parameters), rank 0 alone copies and writes, and ``wait`` ends in a
+barrier, so that no rank reads a checkpoint before it is whole; every
+rank keeps the same ``meta`` (the metric is the cross-process one) and
+``restore`` reads on every rank.  ``load_tree`` and ``merge_subtree``
+serve the GPT-VAE's stage-2 warm start (an encoder taken from another
+run's checkpoint).
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ import threading
 from typing import Any, Dict, Optional
 
 import torch
+
+from ..parallel.mesh import barrier, is_primary
 
 
 def _to_host(tree):
@@ -71,11 +80,12 @@ class CheckpointManager:
                 self.meta = json.load(f)
 
     def wait(self):
-        """Block until the last save is on disk; raise what its write
-        raised."""
+        """Block until the last save is on disk, every rank with it; raise
+        what its write raised."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("checkpoint write failed") from err
@@ -86,7 +96,8 @@ class CheckpointManager:
         the best so far (mode min; NaN never improves, and a NaN best is
         replaced by the first finite metric)."""
         self.wait()   # the previous write must be durable first
-        host = _to_host(tree)
+        primary = is_primary()
+        host = _to_host(tree) if primary else None
         self.meta["last_step"] = int(step)
         self.meta["last_batch_idx"] = int(batch_idx)
         prev = self.meta.get("best_metric")
@@ -115,8 +126,9 @@ class CheckpointManager:
             except Exception as e:   # raised by the next wait()
                 self._error = e
 
-        self._pending = threading.Thread(target=write, daemon=True)
-        self._pending.start()
+        if primary:
+            self._pending = threading.Thread(target=write, daemon=True)
+            self._pending.start()
 
     def _resolve(self, which: str) -> str:
         """'last' / 'best' in this directory, else in the newest earlier

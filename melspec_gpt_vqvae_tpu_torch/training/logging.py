@@ -13,6 +13,10 @@ and bin ``edges``: one bin per integer for integer values, else 64),
 ``"image"`` (the name of a ``.npy`` file beside ``events.jsonl`` holding
 the array as given, with its ``dataformats``) or ``"audio"`` (the name of
 a mono PCM16 ``.wav`` file beside it, with its ``sample_rate``).
+
+Under a process group only global rank 0 writes: the other ranks'
+loggers take rank 0's version number and a writer that drops every
+record, as the JAX package's TBLogger off its primary process.
 """
 
 from __future__ import annotations
@@ -25,24 +29,61 @@ import wave
 import numpy as np
 
 
+class _NullWriter:
+    """The writer of every rank but 0 under a process group: it drops what
+    it is given."""
+
+    def _drop(self, *args, **kwargs):
+        pass
+
+    add_scalar = add_text = add_histogram = add_image = add_wav = _drop
+    flush = close = _drop
+
+
+def _summary_writer(log_dir: str):
+    """tensorboardX's ``SummaryWriter`` on ``log_dir`` with ``add_wav``
+    (PCM16 samples as a Summary proto of a WAV), or None where tensorboardX
+    is not installed."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        return None
+
+    class Writer(SummaryWriter):
+        def add_wav(self, tag, pcm, step, sample_rate):
+            from tensorboardX.proto.summary_pb2 import Summary
+            buf = io.BytesIO()
+            _write_wav(buf, pcm, sample_rate)
+            audio = Summary.Audio(sample_rate=sample_rate, num_channels=1,
+                                  length_frames=len(pcm),
+                                  encoded_audio_string=buf.getvalue(),
+                                  content_type="audio/wav")
+            self._get_file_writer().add_summary(
+                Summary(value=[Summary.Value(tag=tag, audio=audio)]), step)
+
+    return Writer(log_dir)
+
+
 class TBLogger:
     def __init__(self, save_dir: str, name: str = "TensorBoardLoggs"):
+        from ..parallel.mesh import broadcast_object, is_primary
         base = os.path.join(save_dir, name)
         version = 0
-        while os.path.exists(os.path.join(base, f"version_{version}")):
-            version += 1
-        self.version = version
-        self.log_dir = os.path.join(base, f"version_{version}")
+        if is_primary():
+            while os.path.exists(os.path.join(base, f"version_{version}")):
+                version += 1
+        # every rank joins the broadcast
+        self.version = broadcast_object(version)
+        self.log_dir = os.path.join(base, f"version_{self.version}")
+        self._jsonl = None
+        if not is_primary():
+            self._writer = _NullWriter()
+            return
         os.makedirs(self.log_dir, exist_ok=True)
-        try:
-            from tensorboardX import SummaryWriter
-        except ImportError:
-            self._writer = None
+        self._writer = _summary_writer(self.log_dir)
+        if self._writer is None:
             self._jsonl = open(os.path.join(self.log_dir, "events.jsonl"),
                                "a")
-        else:
-            self._writer = SummaryWriter(self.log_dir)
-            self._jsonl = None
 
     def _line(self, record: dict):
         self._jsonl.write(json.dumps(record) + "\n")
@@ -113,15 +154,7 @@ class TBLogger:
             self._line({"tag": tag, "step": int(step), "audio": name,
                         "sample_rate": int(sample_rate)})
             return
-        from tensorboardX.proto.summary_pb2 import Summary
-        buf = io.BytesIO()
-        _write_wav(buf, pcm, sample_rate)
-        audio = Summary.Audio(sample_rate=sample_rate, num_channels=1,
-                              length_frames=len(pcm),
-                              encoded_audio_string=buf.getvalue(),
-                              content_type="audio/wav")
-        self._writer._get_file_writer().add_summary(
-            Summary(value=[Summary.Value(tag=tag, audio=audio)]), step)
+        self._writer.add_wav(tag, pcm, step, sample_rate)
 
     def flush(self):
         if self._writer is not None:

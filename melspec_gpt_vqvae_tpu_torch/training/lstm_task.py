@@ -21,6 +21,11 @@ and ``callbacks.metrics_epoch_end`` drive it unchanged:
 A train state is ``VAETask``'s: ``{"params": {"encoder", "decoder"},
 "optimizer", "step": int, "kl_weight": 0-d float32 tensor}``; a non-Adam
 optimiser's state is saved per leaf (``optim.optimizer_state_tree``).
+
+A ``mesh`` may have a ``data`` axis only, as in the JAX package
+(lstm_task.py:32-33, 117-135, 189 there): the gradients are averaged over
+it before the clip, the step's loss and report are the global batch's,
+and the evaluation's sums, MI / AU and IW-NLL are reduced over it.
 """
 
 from __future__ import annotations
@@ -33,9 +38,13 @@ import torch
 from ..configs import ExperimentConfig, LSTMConfig
 from ..models import gpt_vae as G
 from ..models import lstm_vae as L
+from ..parallel.mesh import (DATA_AXIS, as_mesh, data_coordinate,
+                             data_size, mean_over_data, reduce_gradients)
+from ..parallel.reduce import cross_process_sum, pool_posteriors
 from ..utils.profiling import StepTimer
 from .gpt_task import _map
-from .optim import load_optimizer_state, make_optimizer, with_lr
+from .optim import (load_optimizer_state, make_optimizer, named_leaves,
+                    with_lr)
 from .vae_task import VAETask
 
 TrainState = Dict[str, object]
@@ -64,10 +73,14 @@ class LSTMVAETask:
     has, on the LSTM model."""
 
     def __init__(self, exp: ExperimentConfig, cfg: LSTMConfig,
-                 steps_per_epoch: int, device: torch.device):
+                 steps_per_epoch: int, device: torch.device, mesh=None):
         self.exp = exp
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = as_mesh(mesh, self.device)
+        if self.mesh is not None and set(self.mesh.names) - {DATA_AXIS}:
+            raise ValueError(f"--mesh {self.mesh.shape}: the LSTM-VAE is "
+                             "data-parallel only (a 'data' axis)")
         vae = exp.vae
         if vae.warm_up > 0 and steps_per_epoch > 0:
             self.anneal_rate = (1.0 - vae.kl_start) / (
@@ -79,7 +92,8 @@ class LSTMVAETask:
         tr = self.exp.train
         return make_optimizer(tr.optimizer, params, tr.learning_rate,
                               tr.weight_decay, tr.betas,
-                              momentum=tr.momentum, grad_clip=tr.grad_clip)
+                              momentum=tr.momentum, grad_clip=tr.grad_clip,
+                              mesh=self.mesh)
 
     def init_state(self, seed: int = 783435) -> TrainState:
         """Random parameters from ``seed`` (drawn on the CPU), a fresh
@@ -142,6 +156,7 @@ class LSTMVAETask:
             state["params"], self.cfg, vae, x, kl_weight,
             nsamples=vae.nsamples, train=True, generator=generator, eps=eps)
         loss.backward()
+        reduce_gradients(self.mesh, named_leaves(state["params"]))
         opt.step()
         state["step"] += 1
         state["kl_weight"] = kl_weight.detach()
@@ -154,7 +169,13 @@ class LSTMVAETask:
             "train/kl_weight": state["kl_weight"]}
         if "fake_loss_kl" in aux:
             report["train/fake_loss_kl"] = aux["fake_loss_kl"].detach()
-        return state, loss.detach(), report
+        keys = [k for k in report if k != "train/kl_weight"]
+        loss, *vals = mean_over_data(self.mesh, [loss.detach()]
+                                     + [report[k] for k in keys])
+        report.update(zip(keys, vals))
+        return state, loss, report
+
+    media_state = VAETask.media_state
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch,
@@ -189,16 +210,19 @@ class LSTMVAETask:
                    eps: Optional[torch.Tensor] = None):
         """Corpus MI and AU (Lit_vae.py:341-453) over loader batches or
         (N, T) token arrays; (nan, 0, zeros) below two sentences.  ``eps``
-        (N, nz) is the MI's noise, else drawn from ``generator``."""
+        (N, nz) is the MI's noise, else drawn from ``generator``.  A
+        collective under a mesh: the posteriors pooled over its data
+        group."""
         mus, logvars = [], []
         for b in batches:
             mu, lv = L.lstm_encoder_forward(state["params"]["encoder"],
                                             self.cfg, self.batch_tokens(b))
             mus.append(mu)
             logvars.append(lv)
-        if sum(m.shape[0] for m in mus) < 2:
+        pooled = pool_posteriors(mus, logvars, self.cfg.nz, self.mesh)
+        if pooled is None:
             return float("nan"), 0, torch.zeros(self.cfg.nz)
-        mu, lv = torch.cat(mus), torch.cat(logvars)
+        mu, lv = pooled
         mi = G.mi_from_posteriors(mu, lv, self._generator(generator), eps)
         au, au_var = G.active_units_from_means(mu)
         return float(mi), int(au), au_var
@@ -208,8 +232,11 @@ class LSTMVAETask:
                    nsamples: int = 500, ns: int = 10,
                    generator: Optional[torch.Generator] = None):
         """(IW NLL, IW PPL) over loader batches or token arrays
-        (Lit_vae.py:610-643)."""
+        (Lit_vae.py:610-643); the sums reduced over the mesh's data
+        group."""
         g = self._generator(generator)
+        if generator is None and data_coordinate(self.mesh):
+            g.manual_seed(data_coordinate(self.mesh))
         nll_sum, words, sents = 0.0, 0, 0
         for b in batches:
             x = self.batch_tokens(b)
@@ -217,6 +244,9 @@ class LSTMVAETask:
                                            nsamples, ns, g).sum())
             words += (x.shape[1] - 1) * x.shape[0]
             sents += x.shape[0]
+        tot = cross_process_sum({"nll": nll_sum, "words": float(words),
+                                 "sents": float(sents)}, self.mesh)
+        nll_sum, words, sents = tot["nll"], tot["words"], tot["sents"]
         nll = nll_sum / sents
         return nll, float(np.exp(nll * sents / words))
 
@@ -254,5 +284,5 @@ class LSTMVAETask:
         return self.decode(state, z, strategy, g)
 
     def perf_timer(self, params, window: int = 50) -> StepTimer:
-        """StepTimer of grids (``examples``) a second."""
-        return StepTimer(window)
+        """StepTimer of grids (``examples``) a second, the global batch's."""
+        return StepTimer(window, batch_scale=data_size(self.mesh))

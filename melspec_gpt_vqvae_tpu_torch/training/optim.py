@@ -136,16 +136,32 @@ def with_lr(optimizer: torch.optim.Optimizer,
     return optimizer
 
 
-def clip_by_global_norm_(params, max_norm: float) -> None:
+def clip_by_global_norm_(named, max_norm: float, mesh=None) -> None:
     """Scale every gradient by ``max_norm / norm`` where the global norm of
     all gradients is at least ``max_norm`` (optax
-    ``clip_by_global_norm``)."""
-    grads = [t.grad for t in params if t.grad is not None]
+    ``clip_by_global_norm``).  ``named``: ``(name, tensor)`` leaves.  Under
+    a ``mesh`` that splits parameters (a model or pipe axis of more than
+    one rank) the squares of the leaves cut over that axis are summed over
+    its group and those of the leaves every rank holds whole counted once.
+    Runs after the gradients' DP all-reduce, so every data rank clips
+    alike."""
+    from ..parallel.mesh import MODEL_AXIS, PIPE_AXIS, split_axis
+    grads = [(n, t.grad) for n, t in named if t.grad is not None]
     if not grads:
         return
-    norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+    whole = parts = torch.zeros((), device=grads[0][1].device)
+    for n, g in grads:
+        sq = torch.sum(g.float() ** 2)
+        if split_axis(mesh, n) is None:
+            whole = whole + sq
+        else:
+            parts = parts + sq
+    if mesh is not None and mesh.sharded:
+        mesh.all_reduce_(parts, MODEL_AXIS if mesh.size(MODEL_AXIS) > 1
+                         else PIPE_AXIS)
+    norm = torch.sqrt(whole + parts)
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
-    for g in grads:
+    for _, g in grads:
         g.mul_(scale.to(g.dtype))
 
 
@@ -214,15 +230,24 @@ class Adafactor(torch.optim.Optimizer):
 def make_optimizer(name: str, params, learning_rate: float,
                    weight_decay: float = 0.01, betas=(0.9, 0.95),
                    momentum: float = 0.0,
-                   grad_clip: Optional[float] = None
+                   grad_clip: Optional[float] = None, mesh=None
                    ) -> torch.optim.Optimizer:
     """The optimizer ``name`` over the leaves of ``params``
     (optim.py:83-112 of the JAX package): ``adamw`` the minGPT two-group
     AdamW (``gpt_adamw``), ``adam`` optax's Adam (eps 1e-8), ``sgd`` with
     ``momentum`` (none at 0), ``adafactor`` (``Adafactor``).
     ``grad_clip`` clips the gradients to that global norm before every
-    step."""
-    leaves = [t for _, t in named_leaves(params)]
+    step; under a ``mesh`` that splits parameters, over every rank's
+    parts (``clip_by_global_norm_``).  optax's ``adafactor`` factors and
+    clips over whole leaves, so it refuses such a mesh."""
+    named = list(named_leaves(params))
+    leaves = [t for _, t in named]
+    if name == "adafactor" and mesh is not None and mesh.sharded:
+        raise ValueError("the adafactor optimizer over parameters split by "
+                         "a model or pipe axis is not supported: its "
+                         "factored moments and update clipping need whole "
+                         "leaves (use adamw, adam or sgd, or a data-only "
+                         "--mesh)")
     if name == "adamw":
         opt = gpt_adamw(params, learning_rate, weight_decay, betas)
     elif name == "adam":
@@ -237,7 +262,8 @@ def make_optimizer(name: str, params, learning_rate: float,
         raise ValueError(f"unknown optimizer {name!r}")
     if grad_clip:
         opt.register_step_pre_hook(
-            lambda o, args, kwargs: clip_by_global_norm_(leaves, grad_clip))
+            lambda o, args, kwargs: clip_by_global_norm_(named, grad_clip,
+                                                         mesh))
     return opt
 
 

@@ -13,6 +13,14 @@ step's dropout generator a pure function of (seed, epoch, batch index)
 (``step_generator``), so a resumed run draws the masks the uninterrupted
 run drew.  Losses stay on the device inside an epoch; the host reads them
 once at its end, and every 50 steps for the step scalar.
+
+Under a task's mesh (parallel/mesh.py) every rank runs the loop on its
+data shard: the dropout generators fold in the data coordinate, the
+validation sums are summed over the data group before the means, NLL,
+PPL and the best-checkpoint decision (``cross_process_sum``, the
+reference's ``sync_dist``; runner.py:50-53, 327, 417 of the JAX package),
+checkpoints are gathered to rank 0 and written there, and only rank 0
+logs and prints.
 """
 
 from __future__ import annotations
@@ -23,19 +31,40 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from ..parallel.mesh import data_coordinate, is_primary
+from ..parallel.reduce import cross_process_sum
 from .checkpoint import CheckpointManager
 from .logging import TBLogger
 from .optim import get_lr, with_lr
 
 
 def step_generator(seed: int, epoch: int, gi: int,
-                   device: torch.device) -> torch.Generator:
+                   device: torch.device, data_rank: int = 0
+                   ) -> torch.Generator:
     """The dropout generator of batch ``gi`` of ``epoch``, seeded by a
     stable 63-bit hash of (seed, epoch, gi) -- the counterpart of the JAX
-    loop's ``fold_in(fold_in(key(seed), epoch), gi)``."""
-    h = hashlib.blake2b(f"{seed}:{epoch}:{gi}".encode(), digest_size=8)
+    loop's ``fold_in(fold_in(key(seed), epoch), gi)``.  A data rank other
+    than 0 folds its coordinate in, so that each shard of a step's batch
+    draws its own masks (JAX draws them over the global array); the ranks
+    of one model or pipe group share it."""
+    key = f"{seed}:{epoch}:{gi}" + (f":{data_rank}" if data_rank else "")
+    h = hashlib.blake2b(key.encode(), digest_size=8)
     s = int.from_bytes(h.digest(), "little") & (2 ** 63 - 1)
     return torch.Generator(device=device).manual_seed(s)
+
+
+def _mesh(task):
+    return getattr(task, "mesh", None)
+
+
+def _gen(task, seed: int, epoch: int, gi: int) -> torch.Generator:
+    return step_generator(seed, epoch, gi, task.device,
+                          data_coordinate(_mesh(task)))
+
+
+def _print(*args):
+    if is_primary():
+        print(*args)
 
 
 def _live_lr(state) -> float:
@@ -82,8 +111,8 @@ def _restore(task, ckpt: CheckpointManager, resume: str):
 
 def _val_loss(task, state, loader, limit: Optional[int],
               on_batch: Optional[Callable] = None) -> float:
-    """Batch-size-weighted mean validation loss; ``on_batch(i, batch)``
-    runs after batch i's loss."""
+    """Batch-size-weighted mean validation loss over every data shard;
+    ``on_batch(i, batch)`` runs after batch i's loss."""
     total, count = 0.0, 0
     for i, batch in enumerate(loader):
         if limit and i >= limit:
@@ -93,7 +122,8 @@ def _val_loss(task, state, loader, limit: Optional[int],
         count += b
         if on_batch is not None:
             on_batch(i, batch)
-    return total / count if count else float("nan")
+    r = cross_process_sum({"sum": total, "count": float(count)}, _mesh(task))
+    return r["sum"] / r["count"] if r["count"] else float("nan")
 
 
 def fit_gpt(task, dm, *, epochs: int, log: TBLogger,
@@ -118,7 +148,7 @@ def fit_gpt(task, dm, *, epochs: int, log: TBLogger,
     if resume:
         state, epoch0 = _restore(task, ckpt, resume)
         start_epoch, start_batch = _resume_position(ckpt, epoch0)
-        print(f"Restored from {resume} at epoch {start_epoch}" +
+        _print(f"Restored from {resume} at epoch {start_epoch}" +
               (f" batch {start_batch}" if start_batch else ""))
     else:
         state = task.init_state(seed)
@@ -144,7 +174,7 @@ def fit_gpt(task, dm, *, epochs: int, log: TBLogger,
             gi = i + off
             if limit_train_batches and gi >= limit_train_batches:
                 break
-            gen = step_generator(seed, epoch, gi, task.device)
+            gen = _gen(task, seed, epoch, gi)
             state, loss = task.train_step(state, batch, gen)
             losses.append(loss)
             step += 1
@@ -164,7 +194,7 @@ def fit_gpt(task, dm, *, epochs: int, log: TBLogger,
                 ckpt.save({"state": task.state_tree(state), "epoch": epoch},
                           step, batch_idx=gi)
             if hit_budget:
-                print(f"max_steps {max_steps} reached at epoch {epoch} "
+                _print(f"max_steps {max_steps} reached at epoch {epoch} "
                       f"batch {gi}; stopping")
                 ckpt.wait()
                 return state
@@ -175,7 +205,7 @@ def fit_gpt(task, dm, *, epochs: int, log: TBLogger,
                              val_media)
         log.scalar("train/loss_epoch", train_loss, step)
         log.scalar("val/loss", val_loss, step)
-        print(f"epoch {epoch}: train/loss {train_loss:.4f} "
+        _print(f"epoch {epoch}: train/loss {train_loss:.4f} "
               f"val/loss {val_loss:.4f} ({time.time() - t0:.1f}s)")
         if _should_save(epoch, epochs, ckpt_every):
             ckpt.save({"state": task.state_tree(state), "epoch": epoch},
@@ -191,7 +221,7 @@ def validate_gpt(task, dm, *, ckpt: CheckpointManager,
     state = (_restore(task, ckpt, resume)[0] if resume
              else task.init_state())
     val = _val_loss(task, state, dm.val_dataloader(), limit_val_batches)
-    print(f"val/loss {val:.4f}")
+    _print(f"val/loss {val:.4f}")
     return val
 
 
@@ -223,7 +253,7 @@ def fit_vae(task, dm, *, epochs: int, log: TBLogger,
         extras = dict(restored.get("extras", extras))
         start_epoch, start_batch = _resume_position(ckpt,
                                                     int(restored["epoch"]))
-        print(f"Restored from {resume} at epoch {start_epoch}" +
+        _print(f"Restored from {resume} at epoch {start_epoch}" +
               (f" batch {start_batch}" if start_batch else ""))
     else:
         state = task.init_state(seed)
@@ -249,7 +279,7 @@ def fit_vae(task, dm, *, epochs: int, log: TBLogger,
             gi = i + off
             if limit_train_batches and gi >= limit_train_batches:
                 break
-            gen = step_generator(seed, epoch, gi, task.device)
+            gen = _gen(task, seed, epoch, gi)
             state, _, report = task.train_step(state, batch, gen, epoch=epoch)
             step += 1
             perf = timer.tick(len(batch["codes"]))
@@ -265,7 +295,7 @@ def fit_vae(task, dm, *, epochs: int, log: TBLogger,
                               step % ckpt_every_steps == 0):
                 save(epoch, batch_idx=gi)
             if hit_budget:
-                print(f"max_steps {max_steps} reached at epoch {epoch} "
+                _print(f"max_steps {max_steps} reached at epoch {epoch} "
                       f"batch {gi}; stopping")
                 ckpt.wait()
                 return state
@@ -275,15 +305,15 @@ def fit_vae(task, dm, *, epochs: int, log: TBLogger,
             if limit_val_batches and i >= limit_val_batches:
                 break
             outputs.append(task.eval_step(
-                state, batch, step_generator(seed + 1, epoch, i,
-                                             task.device)))
+                state, batch, _gen(task, seed + 1, epoch, i)))
             if epoch_end_cb:
                 val_tokens.append(task.batch_tokens(batch))
-        agg = (task.metrics_from_sums(task.sum_outputs(outputs))
-               if outputs else {})
+        # every rank joins the sum, an empty shard too
+        sums = cross_process_sum(task.sum_outputs(outputs), _mesh(task))
+        agg = task.metrics_from_sums(sums) if sums["num_sents"] else {}
         for k, v in agg.items():
             log.scalar(f"val/{k}", v, step)
-        print(f"epoch {epoch}: " +
+        _print(f"epoch {epoch}: " +
               " ".join(f"val/{k} {v:.4f}" for k, v in agg.items()) +
               f" kl_w {float(state['kl_weight']):.4f}"
               f" ({time.time() - t0:.1f}s)")
@@ -298,7 +328,7 @@ def fit_vae(task, dm, *, epochs: int, log: TBLogger,
                     new_lr = _live_lr(state) * tr.lr_decay
                     with_lr(state["optimizer"], new_lr)
                     extras["not_improved"] = 0
-                    print(f"epoch {epoch}: val loss plateaued "
+                    _print(f"epoch {epoch}: val loss plateaued "
                           f"{tr.lr_decay_patience} epochs -> lr "
                           f"{new_lr:.3e}")
             else:
@@ -325,7 +355,8 @@ def evaluate_vae(task, dm, *, split: str = "val",
     state = (_restore_tree(task, ckpt, resume)[0] if resume and ckpt
              else task.init_state())
     loader = dm.test_dataloader() if split == "test" else dm.val_dataloader()
-    gen = torch.Generator(device=task.device).manual_seed(0)
+    gen = torch.Generator(device=task.device).manual_seed(
+        data_coordinate(_mesh(task)))
     outputs, tokens = [], []
     for i, batch in enumerate(loader):
         if limit_batches and i >= limit_batches:
@@ -333,7 +364,8 @@ def evaluate_vae(task, dm, *, split: str = "val",
         outputs.append(task.eval_step(state, batch, gen))
         if compute_mi_au or iw_nsamples > 0:
             tokens.append(task.batch_tokens(batch))
-    agg = task.metrics_from_sums(task.sum_outputs(outputs))
+    agg = task.metrics_from_sums(cross_process_sum(
+        task.sum_outputs(outputs), _mesh(task)))
     if compute_mi_au:
         mi, au, _ = task.calc_mi_au(state, tokens)
         agg["mutual_info"] = mi
@@ -341,5 +373,5 @@ def evaluate_vae(task, dm, *, split: str = "val",
     if iw_nsamples > 0:
         agg["iw_nll"], agg["iw_ppl"] = task.calc_iwnll(state, tokens,
                                                        nsamples=iw_nsamples)
-    print(f"{split}: " + " ".join(f"{k} {v:.4f}" for k, v in agg.items()))
+    _print(f"{split}: " + " ".join(f"{k} {v:.4f}" for k, v in agg.items()))
     return agg

@@ -14,6 +14,15 @@ A train state is ``{"params": {"encoder", "decoder"} of leaf tensors with
 requires_grad, "optimizer", "step": int, "kl_weight": 0-d float32 tensor
 on the device}``; ``state_tree`` / ``load_state`` turn it into and out of
 the nested dict that checkpoints and bridge.py carry, as ``GPTTask``'s do.
+
+A ``mesh`` runs both GPT stacks over the world's ranks as ``GPTTask``'s
+does (vae_task.py:42-149 of the JAX package): Megatron shards of both
+stacks' blocks on a ``model`` axis, the pipeline schedule for both on a
+``pipe`` axis, the gradients averaged over ``data``; the loss and report
+of a train step are the global batch's, and the evaluation's sums, MI /
+AU and IW-NLL are reduced over the data group.  Reconstruction, decoding
+and interpolation (the media and the CLI's tools) run on one device on
+full parameters (``media_state``).
 """
 
 from __future__ import annotations
@@ -26,8 +35,14 @@ import torch
 from ..configs import ExperimentConfig
 from ..models import gpt_vae as V
 from ..models.gpt import DTYPES, count_params
+from ..parallel.mesh import (as_mesh, check_divisible, data_coordinate,
+                             data_size, mean_over_data, reduce_gradients,
+                             shard_tree)
+from ..parallel.pipeline import loss_backward
+from ..parallel.reduce import cross_process_sum
 from ..utils.profiling import StepTimer, gpt_fwd_flops, peak_flops
-from .gpt_task import _map, tokens_from_batch
+from .gpt_task import (GPTTask, _map, _split, gather_state_tree,
+                       shard_state_tree, tokens_from_batch)
 from .optim import (get_lr, load_optimizer_state, make_optimizer,
                     named_leaves, optimizer_state_tree, with_lr)
 
@@ -35,13 +50,16 @@ TrainState = Dict[str, object]
 
 
 class VAETask:
-    """Config, device and steps of the GPT-VAE."""
+    """Config, device, mesh and steps of the GPT-VAE (``mesh`` and
+    ``pp_micro`` as ``GPTTask``'s)."""
 
     def __init__(self, exp: ExperimentConfig, steps_per_epoch: int,
-                 device: torch.device):
+                 device: torch.device, mesh=None, pp_micro: int = 0):
         self.exp = exp
         self.cfgs = V.make_vae_configs(exp.model, exp.vae)
         self.device = torch.device(device)
+        self.mesh = as_mesh(mesh, self.device, pp_micro)
+        check_divisible(self.mesh, self.cfgs.encoder)
         vae = exp.vae
         if vae.warm_up > 0 and steps_per_epoch > 0:
             self.anneal_rate = (1.0 - vae.kl_start) / (
@@ -54,15 +72,16 @@ class VAETask:
         tr = self.exp.train
         return make_optimizer(tr.optimizer, params, tr.learning_rate,
                               tr.weight_decay, tr.betas,
-                              momentum=tr.momentum)
+                              momentum=tr.momentum, mesh=self.mesh)
 
     def init_state(self, seed: int = 783435) -> TrainState:
         """Random parameters from ``seed`` (drawn on the CPU), a fresh
-        optimizer, step 0, ``kl_weight = kl_start``."""
-        params = V.init_vae_params(self.cfgs,
-                                   torch.Generator().manual_seed(seed),
-                                   device=self.device)
-        params = _map(params, lambda t: t.detach().requires_grad_(True))
+        optimizer, step 0, ``kl_weight = kl_start``; under a mesh this
+        rank's shard of the full tree."""
+        full = V.init_vae_params(self.cfgs,
+                                 torch.Generator().manual_seed(seed))
+        params = _map(shard_tree(self.mesh, full), lambda t: t.to(
+            self.device, copy=True).requires_grad_(True))
         return {"params": params, "optimizer": self._optimizer(params),
                 "step": 0, "kl_weight": torch.tensor(
                     float(self.exp.vae.kl_start), device=self.device)}
@@ -81,19 +100,24 @@ class VAETask:
             out.update(mu=params, nu=params, count=0)
         return out
 
-    def state_tree(self, state: TrainState) -> Dict:
+    def state_tree(self, state: TrainState) -> Optional[Dict]:
         """params, the optimizer's state (``optim.optimizer_state_tree``),
         the live ``lr``, the train ``step`` and ``kl_weight``; the live
-        tensors, detached."""
+        tensors, detached (under a mesh that splits parameters, the full
+        leaves on rank 0's host and None on the other ranks: a
+        collective)."""
         opt = state["optimizer"]
-        return {"params": _map(state["params"], lambda t: t.detach()),
-                **optimizer_state_tree(opt, state["params"]),
-                "lr": get_lr(opt), "step": int(state["step"]),
-                "kl_weight": state["kl_weight"].detach()}
+        return gather_state_tree(self.mesh, {
+            "params": _map(state["params"], lambda t: t.detach()),
+            **optimizer_state_tree(opt, state["params"]),
+            "lr": get_lr(opt), "step": int(state["step"]),
+            "kl_weight": state["kl_weight"].detach()})
 
     def load_state(self, tree: Dict) -> TrainState:
         """A train state on this task's device from a ``state_tree``-shaped
-        dict; every tensor copied exactly."""
+        dict; every tensor copied exactly (under a mesh, this rank's
+        shard)."""
+        tree = shard_state_tree(self.mesh, tree)
         dtype = DTYPES[self.cfgs.encoder.dtype]
         params = _map(tree["params"], lambda t: torch.as_tensor(t).to(
             self.device, dtype, copy=True).requires_grad_(True))
@@ -120,7 +144,8 @@ class VAETask:
         zeroed (its parameters put back after the step), not its
         gradients: the optimizer's moments go on moving as in the JAX
         task.  Updates the state in place; returns (state, the loss, the
-        report), 0-d tensors on the device."""
+        report), 0-d tensors on the device: under a mesh the global
+        batch's, ``eps`` this rank's rows' noise."""
         vae = self.exp.vae
         x = self.batch_tokens(batch)
         if vae.beta == 0:
@@ -132,8 +157,10 @@ class VAETask:
         opt.zero_grad(set_to_none=True)
         loss, aux = V.training_loss(state["params"], self.cfgs, x, kl_weight,
                                     nsamples=vae.nsamples, train=True,
-                                    generator=generator, eps=eps)
-        loss.backward()
+                                    generator=generator, eps=eps,
+                                    mesh=self.mesh)
+        loss_backward(loss, self.mesh)
+        reduce_gradients(self.mesh, named_leaves(state["params"]))
         frozen = vae.freeze_epoch >= 0 and epoch >= vae.freeze_epoch
         if frozen:
             enc = [t for _, t in named_leaves(state["params"]["encoder"])]
@@ -154,7 +181,14 @@ class VAETask:
             "train/kl_weight": state["kl_weight"]}
         if "fake_loss_kl" in aux:
             report["train/fake_loss_kl"] = aux["fake_loss_kl"].detach()
-        return state, loss.detach(), report
+        keys = [k for k in report if k != "train/kl_weight"]
+        loss, *vals = mean_over_data(self.mesh, [loss.detach()]
+                                     + [report[k] for k in keys])
+        report.update(zip(keys, vals))
+        return state, loss, report
+
+    # the full parameters on rank 0 for its media and tools on one device
+    media_state = GPTTask.media_state
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch,
@@ -167,7 +201,8 @@ class VAETask:
         kl_w = (state["kl_weight"] if self.exp.vae.beta == 0 else 1.0)
         loss, rec, kl = V.elbo_loss(state["params"], self.cfgs, x, kl_w,
                                     self.exp.vae.nsamples,
-                                    generator=generator, eps=eps)
+                                    generator=generator, eps=eps,
+                                    mesh=self.mesh)
         b, t = x.shape
         return {"loss": float(loss.sum()), "loss_rc": float(rec.sum()),
                 "loss_kl": float(kl.sum()), "num_words": (t - 1) * b,
@@ -200,25 +235,34 @@ class VAETask:
 
     def calc_mi_au(self, state: TrainState, batches: Iterable,
                    generator: Optional[torch.Generator] = None):
-        """Corpus MI and AU over loader batches or (B, T) token arrays."""
+        """Corpus MI and AU over loader batches or (B, T) token arrays; a
+        collective under a mesh (the posteriors pooled over the data
+        group, the statistics then the same on every rank)."""
         return V.corpus_mi_and_au(state["params"], self.cfgs,
                                   (self.batch_tokens(b) for b in batches),
-                                  self._generator(generator))
+                                  self._generator(generator),
+                                  mesh=self.mesh)
 
     @torch.no_grad()
     def calc_iwnll(self, state: TrainState, batches: Iterable,
                    nsamples: int = 500, ns: int = 10,
                    generator: Optional[torch.Generator] = None):
         """(IW NLL, IW PPL) over loader batches or token arrays
-        (utils.py:50-77)."""
+        (utils.py:50-77); the sums reduced over the mesh's data group, each
+        data rank drawing its own noise."""
         g = self._generator(generator)
+        if generator is None and data_coordinate(self.mesh):
+            g.manual_seed(data_coordinate(self.mesh))
         nll_sum, words, sents = 0.0, 0, 0
         for b in batches:
             x = self.batch_tokens(b)
             nll_sum += float(V.nll_iw(state["params"], self.cfgs, x,
-                                      nsamples, ns, g).sum())
+                                      nsamples, ns, g, mesh=self.mesh).sum())
             words += (x.shape[1] - 1) * x.shape[0]
             sents += x.shape[0]
+        tot = cross_process_sum({"nll": nll_sum, "words": float(words),
+                                 "sents": float(sents)}, self.mesh)
+        nll_sum, words, sents = tot["nll"], tot["words"], tot["sents"]
         nll = nll_sum / sents
         return nll, float(np.exp(nll * sents / words))
 
@@ -258,12 +302,14 @@ class VAETask:
         the encoder and decoder passes."""
         enc, dec = self.cfgs.encoder, self.cfgs.decoder
         b = self.exp.train.batch_size
-        fwd = (gpt_fwd_flops(count_params(params["encoder"]), b,
+        full = V.vae_param_template(self.cfgs)
+        fwd = (gpt_fwd_flops(count_params(full["encoder"]), b,
                              enc.block_size, enc.n_layer, enc.n_embd)
-               + gpt_fwd_flops(count_params(params["decoder"]), b,
+               + gpt_fwd_flops(count_params(full["decoder"]), b,
                                dec.block_size, dec.n_layer, dec.n_embd))
         return StepTimer(window, tokens_per_example=enc.block_size,
-                         flops_per_step=3.0 * fwd,
+                         flops_per_step=3.0 * fwd / _split(self.mesh),
                          peak=peak_flops(self.device, torch.bfloat16
                                          if enc.mixed_precision
-                                         else DTYPES[enc.dtype]))
+                                         else DTYPES[enc.dtype]),
+                         batch_scale=data_size(self.mesh))

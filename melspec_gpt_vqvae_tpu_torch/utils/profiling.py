@@ -60,15 +60,19 @@ class StepTimer:
     step has been queued, not necessarily finished, so over a short window
     the rates run ahead of the device.  Work between steps that is not a
     step (a media callback) runs inside ``paused``, whose seconds the
-    window leaves out."""
+    window leaves out.  ``tick`` gets this process's rows; ``batch_scale``
+    (the mesh's data size) makes examples and tokens a second the global
+    batch's, while MFU stays this device's: ``flops_per_step`` is the
+    work of one rank's step, ``peak`` one device's."""
 
     def __init__(self, window: int = 50, tokens_per_example: int = 0,
                  flops_per_step: float = 0.0,
-                 peak: Optional[float] = None):
+                 peak: Optional[float] = None, batch_scale: int = 1):
         self.window = window
         self.tokens_per_example = tokens_per_example
         self.flops_per_step = flops_per_step
         self.peak = peak
+        self.batch_scale = batch_scale
         self.t0 = time.time()
         self.steps = 0
         self.examples = 0
@@ -88,7 +92,7 @@ class StepTimer:
 
     def tick(self, batch_size: int) -> Optional[dict]:
         self.steps += 1
-        self.examples += batch_size
+        self.examples += batch_size * self.batch_scale
         if self.steps % self.window:
             return None
         dt = time.time() - self.t0

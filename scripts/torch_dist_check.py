@@ -1,0 +1,221 @@
+#!/usr/bin/env python
+"""The port's distributed training on several cards against one card.
+
+Run under ``torchrun`` with one process a card, e.g. on four:
+
+    torchrun --standalone --nproc_per_node 4 scripts/torch_dist_check.py
+
+(``--device cpu --override n_layer=4,n_embd=32,n_head=4`` rehearses it
+with gloo on the CPU at a narrow width.)
+
+The class GPT at the VAS preset's full width (24 layers, 16 heads, 1024
+wide, kernel F, mixed precision unless ``--override
+mixed_precision=False``, dropout 0, seed 7) takes one train step on a
+seeded global batch of 8 under each mesh of the world's ranks --
+``data=N`` (DDP), ``model=N`` and ``data=2,model=N/2`` (Megatron),
+``pipe=N`` and ``data=2,pipe=N/2`` (GPipe, 2 microbatches a data rank)
+-- each data rank on its rows. Rank 0 takes the same step on one card
+(no mesh) and compares the loss, every gradient gathered to full leaves
+on rank 0 (its error over the leaf's largest) and the parameter update
+(``_update_err``: over the elements whose one-card gradient lies farther
+from zero than the leaf's largest gradient difference, |update - one
+card's update| / |one card's update|, the worst leaf; a step that left
+the parameters as they were reads 1). The bounds of loss, gradients and
+update: float32 1e-5, 1e-3 and 5e-2; mixed precision 2e-4, 1e-2 and
+5e-2, because a product's operands are rounded to bfloat16 after sums
+taken in another order (the model axis splits the row-parallel
+products' K, the data and pipe axes the batch), so an operand one
+float32 ulp apart can land a bfloat16 ulp (2^-8) apart, and such flips
+add up over 24 layers. Then each mesh's ms a step (5 steps, the last 3
+timed) and NCCL's device ms a step (``torch.profiler``). Rank 0 prints
+one JSON line a mesh and, last, ``{"ok": ..., "world": N, "card":
+...}``; the exit code is 1 when a bound fails.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+NCCL_KERNELS = ("nccl", "onerankreduce")
+
+
+def _grads(params):
+    from melspec_gpt_vqvae_tpu_torch.training.gpt_task import _map
+    return _map(params, lambda t: t.grad.detach())
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        name = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _flat(v, name)
+        else:
+            yield name, v
+
+
+def _update_err(before, ref_after, ref_grads, after, grads):
+    """(the worst leaf's update error, the share of elements it covers):
+    see the module's docstring.  Every argument maps leaf names to host
+    tensors."""
+    worst, kept, total = 0.0, 0, 0
+    for k, g_r in ref_grads.items():
+        g_r, g_m = g_r.float(), grads[k].float().cpu()
+        sure = g_r.abs() > (g_m - g_r).abs().max()
+        d_r = (ref_after[k].float() - before[k].float())[sure]
+        d_m = (after[k].float() - before[k].float())[sure]
+        kept += int(sure.sum())
+        total += sure.numel()
+        den = d_r.norm()
+        if den > 0:
+            worst = max(worst, ((d_m - d_r).norm() / den).item())
+    return worst, kept / total
+
+
+def _nccl_ms(task, state, batch, gen, steps=2):
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            task.train_step(state, batch, gen(i))
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and any(
+                n in ev.key.lower() for n in NCCL_KERNELS):
+            t = getattr(ev, "self_device_time_total", None)
+            us += ev.self_cuda_time_total if t is None else t
+    return us / 1e3 / steps
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _ms(task, state, batch, gen, dev):
+    """ms a step over steps 3-5 of 5."""
+    times = []
+    for i in range(5):
+        _sync(dev)
+        t0 = time.perf_counter()
+        task.train_step(state, batch, gen(i))
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.mean(times[2:]))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--override", default="",
+                    help="more preset overrides, e.g. a narrow width")
+    args = ap.parse_args()
+    from melspec_gpt_vqvae_tpu_torch.configs import (load_preset,
+                                                     parse_overrides)
+    from melspec_gpt_vqvae_tpu_torch.parallel import (is_primary,
+                                                      local_batch_slice,
+                                                      maybe_init_distributed,
+                                                      process_count,
+                                                      shutdown_distributed)
+    from melspec_gpt_vqvae_tpu_torch.parallel.mesh import gather_tree
+    from melspec_gpt_vqvae_tpu_torch.training.gpt_task import GPTTask
+    from melspec_gpt_vqvae_tpu_torch.training.runner import step_generator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = maybe_init_distributed(args.device)
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    n = process_count()
+    exp = load_preset("GPT", "vas", **{
+        "use_flash_train": True, "mixed_precision": True,
+        "embd_pdrop": 0.0, "attn_pdrop": 0.0, "resid_pdrop": 0.0,
+        **parse_overrides(args.override)})
+    mixed = exp.model.mixed_precision
+    loss_bound, grad_bound = (2e-4, 1e-2) if mixed else (1e-5, 1e-3)
+    rng = np.random.default_rng(0)
+    batch = {"codes": rng.integers(0, 128, (8, 5, 53)).astype(np.int64),
+             "target": rng.integers(0, 8, (8,)).astype(np.int64)}
+
+    def gen(i):
+        return step_generator(1, 0, i, dev)
+
+    ref = None
+    if is_primary():
+        plain = GPTTask(exp, dev)
+        st = plain.init_state(7)
+        before = {k: v.detach().to("cpu", copy=True) for k, v in
+                  _flat(st["params"])}
+        st, loss = plain.train_step(st, batch, gen(0))
+        # copies: the timed steps below move the live tensors
+        ref = {"loss": loss.item(), "before": before,
+               "params": {k: v.detach().to("cpu", copy=True) for k, v in
+                          _flat(st["params"])},
+               "grads": {k: v.to("cpu", copy=True)
+                         for k, v in _flat(_grads(st["params"]))}}
+        ref["ms"] = _ms(plain, st, batch, gen, dev)
+        print(json.dumps({"mesh": "one card", "mixed_precision": mixed,
+                          "loss": ref["loss"], "ms": ref["ms"]}),
+              flush=True)
+        del plain, st
+
+    meshes = [(f"data={n}", 0), (f"model={n}", 0),
+              (f"data=2,model={n // 2}", 0), (f"pipe={n}", 2),
+              (f"data=2,pipe={n // 2}", 2)]
+    ok = True
+    for spec, micro in meshes:
+        task = GPTTask(exp, dev, spec, pp_micro=micro)
+        state = task.init_state(7)
+        rows = local_batch_slice(8, task.mesh)
+        local = {k: v[rows] for k, v in batch.items()}
+        state, loss = task.train_step(state, local, gen(0))
+        # the full leaves on rank 0, None on the other ranks
+        grads = gather_tree(task.mesh, _grads(state["params"]))
+        tree = task.state_tree(state)
+        params = (None if not is_primary() else
+                  {k: v.to("cpu", copy=True) for k, v in
+                   _flat(tree["params"])})
+        del tree
+        ms = _ms(task, state, local, gen, dev)
+        nccl = (_nccl_ms(task, state, local, gen) if dev.type == "cuda"
+                else None)
+        if is_primary():
+            g_err = max(
+                (g.float().cpu() - ref["grads"][k].float()).abs().max().item()
+                / ref["grads"][k].abs().max().clamp_min(1e-30).item()
+                for k, g in _flat(grads))
+            u_err, share = _update_err(ref["before"], ref["params"],
+                                       ref["grads"], params,
+                                       dict(_flat(grads)))
+            row = {"mesh": spec, "n_micro": micro, "loss": loss.item(),
+                   "loss_diff": abs(loss.item() - ref["loss"]),
+                   "grad_rel_err": g_err, "update_err": u_err,
+                   "update_share": share, "ms": ms, "nccl_device_ms": nccl}
+            row["ok"] = (row["loss_diff"] <= loss_bound
+                         and g_err <= grad_bound and u_err <= 5e-2)
+            ok = ok and row["ok"]
+            print(json.dumps(row), flush=True)
+        del task, state, grads, params
+    if is_primary():
+        card = "cpu"
+        if dev.type == "cuda":
+            card = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True,
+                text=True).stdout.strip().splitlines()[0]
+        print(json.dumps({"ok": ok, "world": n, "card": card}),
+              flush=True)
+    shutdown_distributed()
+    if not ok:
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -50,6 +50,10 @@ PORT_MODULES = [
     "melspec_gpt_vqvae_tpu_torch.ops.sampling",
     "melspec_gpt_vqvae_tpu_torch.ops.vocoder_stack",
     "melspec_gpt_vqvae_tpu_torch.ops.vq",
+    "melspec_gpt_vqvae_tpu_torch.parallel",
+    "melspec_gpt_vqvae_tpu_torch.parallel.mesh",
+    "melspec_gpt_vqvae_tpu_torch.parallel.pipeline",
+    "melspec_gpt_vqvae_tpu_torch.parallel.reduce",
     "melspec_gpt_vqvae_tpu_torch.models.decode_graph",
     "melspec_gpt_vqvae_tpu_torch.models.gpt",
     "melspec_gpt_vqvae_tpu_torch.models.gpt_vae",
@@ -96,7 +100,8 @@ PORT_MODULES = [
 # the port's scripts whose imports the test also loads (by path: scripts/
 # is no package)
 PORT_SCRIPTS = ["scripts/torch_quality_proof.py",
-                "scripts/torch_int8_quality.py"]
+                "scripts/torch_int8_quality.py",
+                "scripts/torch_dryrun_multiprocess.py"]
 
 
 def test_port_never_imports_jax():

@@ -635,18 +635,23 @@ def test_train_gpt_vae_cli_on_cpu(vas_tree, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags,error,match", [
     (["--model", "lstm"], ValueError, "n_layer"),
-    (["--mesh", "data=2"], NotImplementedError, "ROADMAP A12"),
-    (["--pp_micro", "2"], NotImplementedError, "ROADMAP A12"),
+    (["--mesh", "data=2"], ValueError, "world size is 1"),
+    (["--mesh", "pipe=2", "--pp_micro", "2"], ValueError, "world size is 1"),
     (["--reconstruct_spec", "vq.ckpt"], FileNotFoundError, "vq.ckpt"),
     (["--vocoder", "melgan"], ValueError, "best_netG.pt")],
     ids=["lstm", "mesh", "pp_micro", "reconstruct_spec", "vocoder"])
 def test_train_gpt_vae_cli_refuses(vas_tree, tmp_path, monkeypatch, flags,
                                    error, match):
-    """What the CLI cannot run raises before the run directory is made:
-    distribution (ROADMAP A12), a decoder that does not load, and --model
-    lstm with the GPT's overrides (the LSTM preset has no n_layer)."""
+    """What the CLI cannot run raises before the run directory is made: a
+    --mesh (with or without --pp_micro) that does not span the world's
+    ranks (a single process here: the flags parse, the mesh is refused),
+    a decoder that does not load, and --model lstm with the GPT's
+    overrides (the LSTM preset has no n_layer)."""
     monkeypatch.chdir(tmp_path)
+    args = train_gpt_vae.init_config(
+        _cli_argv(vas_tree, "--train", "1", *flags))
+    if "--pp_micro" in flags:
+        assert args.mesh == "pipe=2" and args.pp_micro == 2
     with pytest.raises(error, match=match):
-        train_gpt_vae.main(train_gpt_vae.init_config(
-            _cli_argv(vas_tree, "--train", "1", *flags)))
+        train_gpt_vae.main(args)
     assert not (tmp_path / "lightning_logs").exists()
