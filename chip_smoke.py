@@ -14,7 +14,9 @@
    batch 1 the rows of one (b, h) are split over up to 4 CTAs); and the
    int8 block product bit for bit against the CPU: the plain chain
    (``_int8_mm``, cuBLASLt) and the two kernels around the same product
-   (``quantize_rows``, ``rescale_bias``).  Each kernel is
+   (``quantize_rows``, ``rescale_bias``), with the quantising kernel's
+   scale pass alone (``row_scales``) and its pass with given scales,
+   which tensor parallelism's row-cut products take.  Each kernel is
    timed at the main path's shape: ``ms`` with its wrapper (CUDA events),
    ``device_ms`` the kernel alone (``torch.profiler``), ``plain_ms`` its
    plain version, ``library_ms`` the one PyTorch call that computes the
@@ -80,6 +82,23 @@
    this process with no process group and its validation loss held to the
    logged one within 1e-6; each path's ms a step with the card's name and
    power limit.
+4c. (Phase ``serving_mesh``, after ``dist``.)  Serving over a mesh with
+   NCCL at world size 1 (a file store): at the VAS width (24 layers,
+   bf16, int8 KV cache and weights, captured decode, batch 8) the
+   pipeline under ``data=1``, ``model=1`` (the tensor-parallel step:
+   the row-cut products' scale pass, MAX and SUM all-reduces recorded in
+   the captured program) and ``data=1,model=1`` (through
+   ``build_pipeline(mesh_spec=)``) against the meshless one: greedy and
+   same-seed sampled tokens bit for bit, specs and wavs equal; A, B, E
+   and the int8 product's kernels exactly counted (E 24 x 265 a
+   request); one speculative request (24-layer target, random 4-layer
+   draft, gamma 4) under ``data=1,model=1`` equal to the meshless one;
+   and ``torchrun --nproc_per_node 1 -m ...serve --mesh model=1
+   --init_random`` (SERVE_MESH_LAYERS layers, started with the phase)
+   answering two HTTP requests, then stopped by an interrupt of its rank
+   0 (exit code 0).  At world size 1 NCCL's in-place sums launch
+   nothing: scripts/torch_dist_check.py on four cards is where the
+   captured all-reduces run.
 5. Serves that checkpoint through the port's entry points, from the
    training tree: ``build_pipeline(experiment="smoke", resume="last")``
    (its bf16 params bit for bit the checkpoint's float32 ones, rounded),
@@ -788,6 +807,27 @@ def check_decode_attention(dev):
               f"{r['plain_write_ms']:.4f}), bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']})")
         res[bits] = r
+    # a serving mesh's rank holds a share of the heads or of the batch:
+    # with the whole batch's pairs as the split rule's (``split_pairs``)
+    # its rows are one card's bit for bit; without, 32 pairs split where
+    # 128 do not (printed)
+    k, ks, v, vs = cache(8, VAS_CAPS[-1], "int8")
+    q = torch.randn(8, 16, 64, generator=g, device=dev).bfloat16()
+    pos = at(VAS_CAPS[-1] - 1)
+    full = decode_attend_int8(q, k, v, ks, vs, 1, pos)
+    same = {}
+    for name, rows, heads in (("heads 4 of 16", slice(None), slice(4, 8)),
+                              ("batch 2 of 8", slice(2, 4), slice(None))):
+        part = [x[:, rows, heads].contiguous() for x in (k, v, ks, vs)]
+        qp = q[rows, heads].contiguous()
+        mine = decode_attend_int8(qp, *part, 1, pos, split_pairs=8 * 16)
+        check(torch.equal(mine, full[rows, heads]),
+              f"E on a mesh rank's {name}: not one card's rows")
+        same[name] = torch.equal(decode_attend_int8(qp, *part, 1, pos),
+                                 full[rows, heads])
+    print(f"  E on a mesh rank's share (heads 4 of 16, batch 2 of 8) with "
+          f"the whole batch's split rule: one card's rows bit for bit; "
+          f"with its own pairs' rule bit-equal too: {json.dumps(same)}")
     # batch 1 (speculative decoding), the shortest and the longest cache
     sweep = {}
     for t in (VAS_CAPS[0], VAS_CAPS[-1]):
@@ -855,9 +895,22 @@ def check_int8_linear(dev):
                 lin = IL.int8_linear(x.to(dev), wq_d, ws_d, bias.to(dev))
                 check(torch.equal(lin.cpu(), ref.to(dtype) + bias),
                       f"int8_linear {name} M={m} {dtype}: card != CPU")
+                # the tensor-parallel form: the scale pass alone, then the
+                # rows with given scales (a group of one reduces nothing)
+                xs_d = IL.row_scales(x.to(dev))
+                xq2, xs2 = IL.quantize_rows(x.to(dev), xs_d)
+                lin2 = IL.int8_linear(x.to(dev), wq_d, ws_d, bias.to(dev),
+                                      tp=_OneRank())
+                check(torch.equal(xs_d.cpu(), xs_ref)
+                      and torch.equal(xq2[:m].cpu(), xq_ref)
+                      and not bool(xq2[m:].any()) and xs2 is xs_d
+                      and torch.equal(lin2.cpu(), ref.to(dtype) + bias),
+                      f"row_scales / quantize_rows(xs) / int8_linear(tp) "
+                      f"{name} M={m} {dtype}: card != CPU")
     print("  int8 block product: 4 block shapes x M in (1, 8, 40) x "
-          "(bf16, f32): _int8_mm, quantize_rows and int8_linear on the card "
-          "bitwise equal to the CPU")
+          "(bf16, f32): _int8_mm, quantize_rows, row_scales, quantize_rows "
+          "with given scales and int8_linear (plain and row-cut form) on "
+          "the card bitwise equal to the CPU")
     x = torch.randn(8, 1024, generator=g).bfloat16().to(dev)
     wq_d, ws_d = w_dev["mlp_up"]["q"][0], w_dev["mlp_up"]["s"][0]
     bias = torch.randn(4096, generator=g).bfloat16().to(dev)
@@ -878,7 +931,12 @@ def check_int8_linear(dev):
             ("rescale_bias", "rescale_bias_kernel",
              lambda: IL.rescale_bias(acc, xs, ws_d, bias),
              lambda: IL.rescale_bias_xla(acc, xs, ws_d, bias),
-             (acc[:8], xs, ws_d, bias, out), 3 * out.numel())):
+             (acc[:8], xs, ws_d, bias, out), 3 * out.numel()),
+            # the row-cut products' scale pass at mlp_down's input under
+            # model=4 (8 rows of 1024 of the 4096 features)
+            ("row_scales", "quantize_rows_kernel",
+             lambda: IL.row_scales(x), lambda: IL.row_scales_xla(x),
+             (x, xs), 2 * x.numel())):
         r = {"max_abs_err": 0.0, "ms": cuda_ms(fn, reps=200),
              "device_ms": device_ms(fn, [kern], reps=100),
              "plain_ms": cuda_ms(plain, reps=200),
@@ -889,6 +947,14 @@ def check_int8_linear(dev):
               f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
         rows[name] = r
     return rows
+
+
+class _OneRank:
+    """A model group of one rank: the tensor-parallel form of the int8
+    product without a process group (its all-reduces change nothing)."""
+
+    def all_reduce_(self, t, axis, async_op=False, op="sum"):
+        return None
 
 
 def check_flash(dev):
@@ -2756,6 +2822,207 @@ def dist_check(dev, codes, batch, smi_line):
 
 
 # ---------------------------------------------------------------------------
+# 4c. serving over a mesh
+# ---------------------------------------------------------------------------
+
+
+SERVE_MESH_LAYERS = 6   # the torchrun serve --mesh process's GPT depth
+SERVE_MESH_LOG = Path("build") / "chip_smoke_serve_mesh.log"
+
+
+def start_serve_torchrun():
+    """``torchrun --standalone --nproc_per_node 1 -m ...serve --mesh
+    model=1 --init_random`` on a free port (SERVE_MESH_LAYERS layers, the
+    VAS width; no warm-up: the first request captures), its output in
+    SERVE_MESH_LOG.  Returns the process."""
+    SERVE_MESH_LOG.parent.mkdir(parents=True, exist_ok=True)
+    log = open(SERVE_MESH_LOG, "w")
+    env = dict(os.environ)
+    root = str(Path(__file__).resolve().parent)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "melspec_gpt_vqvae_tpu_torch.serve",
+           "--init_random", "--mesh", "model=1", "--port", "0",
+           "--no_warmup", "--device", "cuda", "--override",
+           f"n_layer={SERVE_MESH_LAYERS}"]
+    proc = subprocess.Popen(cmd, env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
+    log.close()
+    return proc
+
+
+def serve_torchrun_check(proc):
+    """The launcher's server (``start_serve_torchrun``): /healthz, a WAV
+    for ``GET /generate?class=3`` and a deterministic JSON batch of 8,
+    then SIGINT to its rank 0, which stops it and its launcher with exit
+    code 0."""
+    import signal
+    deadline = time.perf_counter() + 300
+    line = None
+    try:
+        while line is None:
+            check(proc.poll() is None and time.perf_counter() < deadline,
+                  "torchrun serve --mesh did not come up:\n"
+                  + SERVE_MESH_LOG.read_text()[-4000:])
+            line = next((ln for ln in SERVE_MESH_LOG.read_text().splitlines()
+                         if ln.startswith("serving on")), None)
+            if line is None:
+                time.sleep(0.5)
+        url = line.split()[2]
+        pid = int(line.rsplit("pid ", 1)[1].rstrip(")"))
+        health = json.loads(http(url + "/healthz"))
+        blob, t_get = wall(lambda: http(url + "/generate?class=3&seed=7"))
+        pcm, rate = read_pcm(blob)
+        body, t_post = wall(lambda: json.loads(http(url + "/generate", {
+            "classes": list(range(8)), "deterministic": True})))
+        os.kill(pid, signal.SIGINT)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = SERVE_MESH_LOG.read_text()
+    print(f"  torchrun serve --mesh model=1 ({SERVE_MESH_LAYERS} layers): "
+          f"{url}, /healthz batch {health['batch']} {health['platform']}; "
+          f"GET /generate?class=3 {t_get:.2f} s (the capture in it), "
+          f"{pcm.shape[0]} samples at {rate} Hz; POST 8 deterministic "
+          f"clips {t_post:.2f} s; exit code after SIGINT {rc}")
+    check(health["platform"] == "cuda" and health["batch"] == 8
+          and health["model"]["n_layer"] == SERVE_MESH_LAYERS,
+          f"serve --mesh /healthz {health}")
+    check(pcm.shape == (848 * 256,) and rate == 22050,
+          f"serve --mesh WAV {pcm.shape} at {rate} Hz")
+    check(len(body["clips"]) == 8, "serve --mesh JSON batch")
+    check(rc == 0 and "mesh: {'model': 1}" in text,
+          f"torchrun serve --mesh exited {rc}:\n{text[-4000:]}")
+
+
+def serving_mesh_check(dev, wrappers, zero, decode_launches):
+    """Phase serving_mesh (the docstring's 4c), with the launcher's
+    server started first and checked last.  Returns the launches of every
+    counted kernel on the phase's mesh paths, summed."""
+    server = start_serve_torchrun()
+    try:
+        total = _serving_meshes(dev, wrappers, zero, decode_launches)
+    except BaseException:
+        server.kill()
+        server.wait()
+        raise
+    serve_torchrun_check(server)
+    return total
+
+
+def _serving_meshes(dev, wrappers, zero, decode_launches):
+    """The in-process half of phase serving_mesh."""
+    import tempfile
+
+    from melspec_gpt_vqvae_tpu_torch.parallel import (make_mesh,
+                                                      maybe_init_distributed,
+                                                      parse_mesh,
+                                                      shutdown_distributed)
+    from melspec_gpt_vqvae_tpu_torch.pipeline import GenerationPipeline
+    from melspec_gpt_vqvae_tpu_torch.serving import build_pipeline
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    maybe_init_distributed(dev, init_method=f"file://{store}/store", rank=0,
+                           world_size=1)
+    steps, cls = 265, list(range(8))
+    total = {name: 0 for name in wrappers}
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def requests(pipe, title):
+        """A greedy and a sampled (top_k 100) batch of 8, then the greedy
+        one again, timed (no capture in it)."""
+        out = {"greedy": pipe.generate(cls, gen(5), sample=False),
+               "sampled": pipe.generate(cls, gen(6), top_k=100)}
+        _, secs = wall(lambda: pipe.generate(cls, gen(5), sample=False))
+        print(f"  {title}: request seconds (greedy batch 8, captured) "
+              f"{secs:.4f}; capture seconds "
+              f"{pipe.graphs.capture_seconds:.2f}")
+        return out
+
+    def add(c):
+        for name, n in c.items():
+            total[name] += n
+
+    try:
+        exp, plain = build_pipeline("vas", init_random=True, seed=783435,
+                                    device=dev)
+        zero()
+        ref = requests(plain, "no mesh")
+        b_ref = wrappers["vocoder_stack"].launches
+        for spec in ("data=1", "model=1", "data=1,model=1"):
+            if spec == "data=1,model=1":   # the entry point
+                _, pipe = build_pipeline("vas", init_random=True,
+                                         seed=783435, device=dev,
+                                         mesh_spec=spec)
+            else:
+                pipe = GenerationPipeline(
+                    exp, plain.gpt_params, plain.vq, plain.melgan,
+                    segments=plain.segments, chunk=plain.chunk,
+                    mesh=make_mesh(parse_mesh(spec), dev))
+            check(pipe.mesh is not None and pipe.mesh.active("data")
+                  == ("data" in spec), f"{spec}: the mesh {pipe.mesh}")
+            zero()
+            out = requests(pipe, f"mesh {spec}")
+            for mode in ("greedy", "sampled"):
+                for key in ("tokens", "specs", "wavs"):
+                    check(np.array_equal(out[mode][key], ref[mode][key]),
+                          f"serving {spec} {mode}: {key} differ from the "
+                          "meshless pipeline's")
+            c = decode_launches(pipe, f"serving {spec}",
+                                3 * steps * exp.model.n_layer,
+                                row_cut="model" in spec)
+            check(c["attention"] == 3 * exp.model.n_layer
+                  and c["vocoder_stack"] == b_ref,
+                  f"serving {spec}: A {c['attention']} (expected "
+                  f"{3 * exp.model.n_layer}), B {c['vocoder_stack']} "
+                  f"(expected {b_ref}, the meshless pipeline's)")
+            check("model" not in spec or c["row_scales"] > 0,
+                  f"serving {spec}: the scale pass did not run")
+            add(c)
+            del pipe
+        del plain
+        torch.cuda.empty_cache()
+
+        # one speculative request under data=1,model=1 against none
+        exp_s, spec_pipe = build_pipeline(
+            "vas", init_random=True, seed=783435, device=dev,
+            override=f"n_layer={SPEC_LAYERS}",
+            draft_random=f"n_layer={DRAFT_LAYERS}", gamma=4)
+        ref_s = spec_pipe.generate(cls, gen(9), top_k=100)
+        pipe = GenerationPipeline(
+            exp_s, spec_pipe.gpt_params, spec_pipe.vq, spec_pipe.melgan,
+            draft_params=spec_pipe.draft_params,
+            draft_cfg=spec_pipe.draft_cfg, gamma=4,
+            mesh=make_mesh({"data": 1, "model": 1}, dev))
+        zero()
+        out, secs = wall(lambda: pipe.generate(cls, gen(9), top_k=100))
+        st = out["spec_stats"]
+        check(np.array_equal(out["tokens"], ref_s["tokens"])
+              and st == ref_s["spec_stats"],
+              f"speculative under data=1,model=1: tokens or stats differ "
+              f"({st} against {ref_s['spec_stats']})")
+        products = st["rounds"] * 4 * (5 * DRAFT_LAYERS + SPEC_LAYERS)
+        c = decode_launches(pipe, "speculative data=1,model=1",
+                            st["rounds"] * 5 * (DRAFT_LAYERS + SPEC_LAYERS),
+                            products, row_cut=True)
+        print(f"  speculative under data=1,model=1 ({SPEC_LAYERS} + "
+              f"{DRAFT_LAYERS} layers, gamma 4, sampled batch 8, the "
+              f"capture in it): {secs:.2f} s, {json.dumps(st)}")
+        add(c)
+        del pipe, spec_pipe
+        torch.cuda.empty_cache()
+    finally:
+        shutdown_distributed()
+        shutil.rmtree(store, ignore_errors=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
 # 7. the GPT-VAE: kernels at its shapes, training, evaluation, step times
 # ---------------------------------------------------------------------------
 
@@ -4178,7 +4445,8 @@ def run(procs):
     from melspec_gpt_vqvae_tpu_torch.ops.decode_attention import \
         decode_attend_int8
     from melspec_gpt_vqvae_tpu_torch.ops.int8_linear import (quantize_rows,
-                                                            rescale_bias)
+                                                            rescale_bias,
+                                                            row_scales)
     from melspec_gpt_vqvae_tpu_torch.ops.mel_kernel import \
         waveform_to_mel_fused
     from melspec_gpt_vqvae_tpu_torch.ops.vocoder_stack import \
@@ -4232,7 +4500,8 @@ def run(procs):
     wrappers = {"attention": attend, "vocoder_stack": fused_resblock_stack,
                 "vq_nearest": vq_nearest_index, "mel": waveform_to_mel_fused,
                 "decode_attention": decode_attend_int8,
-                "quantize_rows": quantize_rows, "rescale_bias": rescale_bias}
+                "quantize_rows": quantize_rows, "rescale_bias": rescale_bias,
+                "row_scales": row_scales}
     steps, n_layer = 265, m.n_layer
 
     def zero():
@@ -4244,12 +4513,15 @@ def run(procs):
         print(f"  launches ({title}): {json.dumps(c)}")
         return c
 
-    def decode_launches(pipe, title, e_launches, products=None):
+    def decode_launches(pipe, title, e_launches, products=None,
+                        row_cut=False):
         """Check the decode kernels' counts of a path in their exact form:
         ``e_launches`` of kernel E and ``products`` int8 block products
         (None: four for each launch of E, as in a plain decode step; each
         is one launch of either product kernel; none where the weights are
-        not int8), plus what the warm-up runs before each capture
+        not int8), of which half (``attn_proj``, ``mlp_down``) launch the
+        scale pass ``row_scales`` too on a tensor-parallel path
+        (``row_cut``), plus what the warm-up runs before each capture
         launched, which the holder reports.  Returns the counts."""
         c = counts(title)
         warm = pipe.graphs.warmup_launches
@@ -4262,7 +4534,8 @@ def run(procs):
             products = 0
         for name, each in (("decode_attention", e_launches),
                            ("quantize_rows", products),
-                           ("rescale_bias", products)):
+                           ("rescale_bias", products),
+                           ("row_scales", products // 2 if row_cut else 0)):
             check(c[name] == each + warm.get(name, 0),
                   f"{title}: {name} launched {c[name]} times, expected "
                   f"{each} + {warm.get(name, 0)} in warm-up runs")
@@ -4290,7 +4563,10 @@ def run(procs):
           f"{pipe.block_weights.passes} times and captured "
           f"{pipe.graphs.captures} shapes: once, and two")
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the main path")
+        # the scale pass alone runs on the tensor-parallel path only
+        # (phase serving_mesh)
+        check(n > 0 or name == "row_scales",
+              f"kernel {name} was not launched by the main path")
     prof = {"captured": profile_decode_step(pipe, m, dev),
             "eager": profile_decode_step(pipe, m, dev, graph=False)}
 
@@ -4382,6 +4658,18 @@ def run(procs):
     results["attention"]["launches_by_path"]["dist_pipe1_m4_eval"] = dist_a
     launches["attention"] += dist_a
 
+    phase("serving_mesh", "serving over a mesh, NCCL at world size 1 (VAS "
+          "width, int8 KV cache and weights, captured decode, batch 8), "
+          "and torchrun serve --mesh:")
+    mesh_launches = serving_mesh_check(dev, wrappers, zero, decode_launches)
+    for name, n in mesh_launches.items():
+        if not n:
+            continue
+        by_path = results[name].setdefault("launches_by_path",
+                                           {"serving": launches[name]})
+        by_path["serving_mesh"] = n
+        launches[name] += n
+
     phase("served_checkpoint",
           "serving the trained checkpoint (HTTP, sample CLI, self-draft, "
           "kernels on against off):")
@@ -4471,7 +4759,8 @@ def run(procs):
             # no TPU kernel: the lines XLA fuses around the JAX package's
             # int8 dot
             "quantize_rows": ("int8_linear.cu", "../models/gpt.py:444"),
-            "rescale_bias": ("int8_linear.cu", "../models/gpt.py:450")}
+            "rescale_bias": ("int8_linear.cu", "../models/gpt.py:450"),
+            "row_scales": ("int8_linear.cu", "../models/gpt.py:444")}
     results["decode_attention"]["decode_step_profiles"] = prof
     kernels = [{"name": name, "route": "cuda",
                 "source": "melspec_gpt_vqvae_tpu_torch/csrc/" + src,

@@ -41,14 +41,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # an undeclared pointer would be passed as a 32-bit int and cut.
 SIGNATURES = {
     "msgv_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "msgv_decode_attention": [_P] * 9 + [_I] * 11 + [_P],
+    "msgv_decode_attention": [_P] * 9 + [_I] * 12 + [_P],
     "msgv_flash_attention_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
     "msgv_flash_attention_bwd": [_P] * 11 + [_I] * 4 + [_F, _P],
     "msgv_resblock_stack": [_P] * 3 + [_I] * 8 + [_P],
     "msgv_resblock_stack_bf16": [_P] * 4 + [_I] * 8 + [_P],
     "msgv_vq_nearest": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "msgv_mel": [_P] * 7 + [_I] * 7 + [_F] * 8 + [_P],
-    "msgv_quantize_rows": [_P] * 3 + [_I] * 4 + [_P],
+    "msgv_quantize_rows": [_P] * 3 + [_I] * 5 + [_P],
     "msgv_rescale_bias": [_P] * 5 + [_I] * 3 + [_P],
 }
 

@@ -50,7 +50,11 @@
 //     can need and shared memory at its largest share, and the kernel works
 //     out from pos how many ranks take rows (the rule of
 //     ops/decode_attention.py::choose_splits) and which; the ranks beyond
-//     have an empty share, which the merge passes over exactly;
+//     have an empty share, which the merge passes over exactly.  The rule
+//     reads ``split_bh`` (B * H of the whole batch and all heads), not the
+//     launch's own pairs: a rank of a serving mesh that holds a share of
+//     the batch or of the heads splits its rows as one card does, so its
+//     sums are one card's bit for bit;
 //   * with k_new / v_new the launch first quantises this step's key and value
 //     row (absmax over hd, true division, round half to even, the scale
 //     stored as bfloat16 but the values taken from the float32 scale, as
@@ -155,7 +159,8 @@ __global__ void __launch_bounds__(kThreads)
                             __nv_bfloat16* v_scale, float* __restrict__ o,
                             const long long* __restrict__ pos_ptr, int bh,
                             int heads, int t_cap, int layer, int pos_off,
-                            int row_stride, int per_cap, float scale) {
+                            int row_stride, int per_cap, int split_bh,
+                            float scale) {
   constexpr int kDPL = kInt4 ? 32 : 16;    // head dims per lane
   constexpr int kHd = kLPR * kDPL;
   constexpr int kRowBytes = kLPR * 16;
@@ -178,10 +183,10 @@ __global__ void __launch_bounds__(kThreads)
   const int row = blockIdx.x;                          // b * H + h
   const int pos = (pos_ptr ? static_cast<int>(*pos_ptr) : 0) + pos_off;
   const int n = pos + 1;                               // rows t <= pos
-  // how many ranks of the cluster take rows: choose_splits(bh, n)
+  // how many ranks of the cluster take rows: choose_splits(split_bh, n)
   int active = 1;
-  if (2 * bh < kSms) active = max(1, min(min(kMaxSplits, kSms / bh),
-                                         n / kMinShare));
+  if (2 * split_bh < kSms)
+    active = max(1, min(min(kMaxSplits, kSms / split_bh), n / kMinShare));
   active = min(active, static_cast<int>(gridDim.y));
   const int per = (max(n, 1) + active - 1) / active;
   // a position outside the cache, or a share the launch left no room for
@@ -352,7 +357,8 @@ struct Args {
   const void *q, *k_new, *v_new;
   void *k, *v, *k_scale, *v_scale, *o;
   const void* pos_ptr;
-  int bh, heads, t_cap, layer, pos_off, row_stride, splits, per_cap;
+  int bh, heads, t_cap, layer, pos_off, row_stride, splits, per_cap,
+      split_bh;
   cudaStream_t stream;
 };
 
@@ -391,7 +397,7 @@ int launch(const Args& a) {
       static_cast<__nv_bfloat16*>(a.k_scale),
       static_cast<__nv_bfloat16*>(a.v_scale), static_cast<float*>(a.o),
       static_cast<const long long*>(a.pos_ptr), a.bh, a.heads, a.t_cap,
-      a.layer, a.pos_off, a.row_stride, a.per_cap,
+      a.layer, a.pos_off, a.row_stride, a.per_cap, a.split_bh,
       1.0f / sqrtf(static_cast<float>(kHd)));
   return err != cudaSuccess ? err : cudaGetLastError();
 }
@@ -424,23 +430,26 @@ int launch_hd(int lanes, const Args& a) {
 // [0, t_cap) the launch writes NaN and touches no cache.  A cache row must
 // be 16, 32, 64 or 128 bytes.  ``splits`` (1..4) is the cluster's size, the
 // most CTAs a (b, h) can need at this capacity, and ``per_cap`` the largest
-// share of rows one of them can get.
+// share of rows one of them can get; ``split_bh`` (>= bh) the pairs the
+// split rule reads.
 MSGV_API int msgv_decode_attention(const void* q, const void* k_new,
                                    const void* v_new, void* k, void* v,
                                    void* k_scale, void* v_scale, void* o,
                                    const void* pos_ptr, int bh, int heads,
                                    int t_cap, int hd, int layer, int pos_off,
                                    int row_stride, int q_bf16, int int4,
-                                   int splits, int per_cap, void* stream) {
+                                   int splits, int per_cap, int split_bh,
+                                   void* stream) {
   const int row_bytes = int4 ? hd / 2 : hd;
   if (row_bytes % 16 || splits < 1 || splits > 4 || per_cap < 1 ||
+      split_bh < bh ||
       per_cap > t_cap || heads < 1 || bh % heads ||
       (k_new == nullptr) != (v_new == nullptr) ||
       (pos_ptr == nullptr && (pos_off < 0 || pos_off >= t_cap)))
     return cudaErrorInvalidValue;
   const Args a = {q, k_new, v_new, k, v, k_scale, v_scale, o, pos_ptr,
                   bh, heads, t_cap, layer, pos_off, row_stride, splits,
-                  per_cap, static_cast<cudaStream_t>(stream)};
+                  per_cap, split_bh, static_cast<cudaStream_t>(stream)};
   const int lanes = row_bytes / 16;
   if (q_bf16)
     return int4 ? launch_hd<__nv_bfloat16, true>(lanes, a)

@@ -13,6 +13,12 @@
 //     scale = max(absmax(row) / 127, 1e-8)   (true division)
 //     q     = clip(rint(x / scale), -127, 127)
 //     rows M .. Mpad - 1 are zero (cuBLASLt wants more than 16 rows)
+//     Three modes: both passes (0); the scales alone (1); the rows
+//     quantised with scales the caller gives (2).  Under tensor
+//     parallelism a row-cut product's input holds a slice of each row's
+//     features: the scale of the whole row is the MAX over the model
+//     group of the slices' scales (division and clamp are monotone), so
+//     the caller runs mode 1, all-reduces, then runs mode 2.
 //   rescale_bias: int32 (Mpad, out), xs (M,), ws (out,), bias (out,) ->
 //     (M, out) of the model dtype: ((acc * xs) * ws) rounded to the model
 //     dtype, then + bias in the model dtype.
@@ -28,7 +34,7 @@ constexpr int kThreads = 256;
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
-                         float* __restrict__ xs, int m, int width) {
+                         float* __restrict__ xs, int m, int width, int mode) {
   __shared__ float red[kThreads / 32];
   const int row = blockIdx.x, tid = threadIdx.x;
   int8_t* out = xq + static_cast<size_t>(row) * width;
@@ -37,22 +43,31 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
   const T* in = x + static_cast<size_t>(row) * width;
-  float amax = 0.f;
-  for (int i = tid; i < width; i += kThreads)
-    amax = fmaxf(amax, fabsf(msgv::to_f(in[i])));
-  amax = msgv::warp_max(amax);
-  if (tid % 32 == 0) red[tid / 32] = amax;
-  __syncthreads();
-  amax = red[0];
+  float scale;
+  if (mode == 2) {
+    scale = xs[row];
+  } else {
+    float amax = 0.f;
+    for (int i = tid; i < width; i += kThreads)
+      amax = fmaxf(amax, fabsf(msgv::to_f(in[i])));
+    amax = msgv::warp_max(amax);
+    if (tid % 32 == 0) red[tid / 32] = amax;
+    __syncthreads();
+    amax = red[0];
 #pragma unroll
-  for (int i = 1; i < kThreads / 32; ++i) amax = fmaxf(amax, red[i]);
-  const float scale = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
+    for (int i = 1; i < kThreads / 32; ++i) amax = fmaxf(amax, red[i]);
+    scale = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
+    if (mode == 1) {
+      if (tid == 0) xs[row] = scale;
+      return;
+    }
+  }
   for (int i = tid; i < width; i += kThreads) {
     const float q = rintf(__fdiv_rn(msgv::to_f(in[i]), scale));
     out[i] = static_cast<int8_t>(
         static_cast<int>(fminf(fmaxf(q, -127.f), 127.f)));
   }
-  if (tid == 0) xs[row] = scale;
+  if (tid == 0 && mode == 0) xs[row] = scale;
 }
 
 template <typename T>
@@ -76,20 +91,23 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // x (m, width) float32 (bf16 == 0) or bfloat16, contiguous; xq
-// (m_pad, width) int8; xs (m,) float32.
+// (m_pad, width) int8 (unused in mode 1: pass m_pad = m); xs (m,) float32,
+// written in modes 0 and 1, read in mode 2.
 MSGV_API int msgv_quantize_rows(const void* x, void* xq, void* xs, int m,
-                                int m_pad, int width, int bf16,
+                                int m_pad, int width, int bf16, int mode,
                                 void* stream) {
-  if (m < 1 || m_pad < m || width < 1) return cudaErrorInvalidValue;
+  if (m < 1 || m_pad < m || width < 1 || mode < 0 || mode > 2)
+    return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  const int rows = mode == 1 ? m : m_pad;
   if (bf16)
-    quantize_rows_kernel<<<m_pad, kThreads, 0, s>>>(
+    quantize_rows_kernel<<<rows, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq),
-        static_cast<float*>(xs), m, width);
+        static_cast<float*>(xs), m, width, mode);
   else
-    quantize_rows_kernel<<<m_pad, kThreads, 0, s>>>(
+    quantize_rows_kernel<<<rows, kThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<int8_t*>(xq),
-        static_cast<float*>(xs), m, width);
+        static_cast<float*>(xs), m, width, mode);
   return cudaGetLastError();
 }
 

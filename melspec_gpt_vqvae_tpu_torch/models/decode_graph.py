@@ -24,6 +24,12 @@ token and the decode step that follows it -- is recorded once in a
     real and count as such (``DecodeGraphs.warmup_launches`` says how many);
     a body built inside ``_build.kernels(False)`` is captured all the same,
     and its capture raises if it launched a counted kernel;
+  * a body that runs collectives (serving over a mesh: the model group's
+    all-reduces of tensor parallelism) is captured on the stream its
+    warm-up runs used, after one more small collective of every group
+    there (``collectives``): NCCL records a collective into a graph only
+    over a communicator that exists, and every rank of the mesh captures
+    the same program and replays it in step;
   * ``DecodeGraphs`` keeps the captured sessions (buffers + programs) of a
     few request shapes across requests, the oldest evicted first.  A
     session's buffers are shared by its replays, so it is not re-entrant:
@@ -58,6 +64,7 @@ def counted_wrappers() -> Dict[str, Callable]:
     now (each keeps its count in ``.launches``)."""
     return {"decode_attention": _da.decode_attend_int8,
             "quantize_rows": _il.quantize_rows,
+            "row_scales": _il.row_scales,
             "rescale_bias": _il.rescale_bias}
 
 
@@ -83,17 +90,21 @@ class Program:
     runs launched.  The body is built and captured inside the caller's
     ``_build.kernels`` scope, whose switch the capture bakes in (it is
     ``kernels``): with False, a counted kernel launched in the warm-up or
-    the capture raises."""
+    the capture raises.  ``collectives`` (the mesh's ``warm_collectives``
+    where the body runs collectives) runs on the capture stream just
+    before the capture."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device,
-                 reset: Optional[Callable[[], None]] = None, pool=None):
+                 reset: Optional[Callable[[], None]] = None, pool=None,
+                 collectives: Optional[Callable[[], None]] = None):
         self.fn = fn
         self.kernels = _build.kernel_setting()
         self.graph = None
         self.launches: Dict[str, int] = {}
         self.warmup_launches: Dict[str, int] = {}
         if device.type == "cuda":
-            self._capture(device, reset or (lambda: None), pool)
+            self._capture(device, reset or (lambda: None), pool,
+                          collectives)
         if self.kernels is False and (self.launches
                                       or any(self.warmup_launches.values())):
             raise RuntimeError(
@@ -101,7 +112,7 @@ class Program:
                 f"kernels: {self.warmup_launches} in warm-up, "
                 f"{self.launches} captured")
 
-    def _capture(self, device, reset, pool) -> None:
+    def _capture(self, device, reset, pool, collectives) -> None:
         before = launch_counts()
         with torch.cuda.device(device):
             side = torch.cuda.Stream()
@@ -111,10 +122,13 @@ class Program:
                     reset()
                     self.fn()
                 reset()
+                if collectives is not None:
+                    collectives()
             torch.cuda.current_stream().wait_stream(side)
             warm = launch_counts()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool):
+            kw = {} if collectives is None else {"stream": side}
+            with torch.cuda.graph(graph, pool=pool, **kw):
                 self.fn()
         held = launch_counts()
         self.warmup_launches = {n: warm[n] - before[n] for n in warm}
@@ -171,6 +185,10 @@ class DecodeGraphs:
         while len(self._sessions) > self.max_sessions:
             self._sessions.popitem(last=False)
         return sess
+
+    def clear(self) -> None:
+        """Drop every session (its buffers and captured programs)."""
+        self._sessions.clear()
 
     @property
     def last(self):

@@ -147,6 +147,22 @@ def _layer(blocks, l: int) -> Params:
                 else v[l]) for k, v in blocks.items()}
 
 
+def _tp(mesh):
+    """The mesh a decode runs tensor parallel over (one with a ``model``
+    axis), else None."""
+    return mesh if mesh is not None and mesh.has("model") else None
+
+
+def _sum_model(y: torch.Tensor, tp) -> torch.Tensor:
+    """A row-cut product's partial sums (a fresh tensor) summed in place
+    over the model group; ``y`` itself without ``tp``.  Inference only:
+    training goes through ``_FromModel``."""
+    if tp is not None:
+        y = y.contiguous()
+        tp.all_reduce_(y, "model")
+    return y
+
+
 def _mlp(h, p):
     m = F.gelu(h @ p["mlp_up"]["w"] + p["mlp_up"]["b"])   # exact erf
     return m @ p["mlp_down"]["w"] + p["mlp_down"]["b"]
@@ -200,13 +216,41 @@ def _qkv(x, p, cfg):
     return (_split_heads(a, cfg.n_head) for a in qkv.chunk(3, dim=-1))
 
 
-def _attn_block(x, p, cfg):
+def _attn_block(x, p, cfg, tp=None):
     """Pre-LN attention half of an inference block; returns (x', k, v)
-    with k, v of layout (B, H, T, hd)."""
+    with k, v of layout (B, H, T, hd).  Under ``tp`` (``p`` the full
+    layer, ``_full_layer``) the attention runs on this rank's heads, whose
+    outputs are all-gathered over the model group for the projection, and
+    k, v are this rank's heads."""
     q, k, v = _qkv(x, p, cfg)
+    if tp is not None:
+        h = cfg.n_head // tp.size("model")
+        q, k, v = (a[:, tp.coord("model") * h:][:, :h].contiguous()
+                   for a in (q, k, v))
     res = attend(q, k, v, cfg.n_unmasked)
+    if tp is not None:
+        res = torch.cat(tp.all_gather(res.contiguous(), "model"), dim=1)
     y = _merge_heads(res) @ p["attn_proj"]["w"] + p["attn_proj"]["b"]
     return x + y, k, v
+
+
+def _full_layer(blocks: Params, l: int, tp) -> Params:
+    """Layer ``l``'s full weights from this rank's Megatron shard: every
+    cut leaf all-gathered over the model group and joined
+    (parallel/mesh.py::tp_gather).  Only the prefill does this, once a
+    request, so that its float products have the single device's shapes
+    and hence its rounding (a row-parallel sum would not); the decode
+    steps stay cut."""
+    from ..parallel.mesh import tp_gather, tp_rule
+
+    def leaf(name, t):
+        t = t[l:l + 1]
+        if tp_rule(name) is None:
+            return t[0]
+        return tp_gather(name, tp.all_gather(t.contiguous(), "model"))[0]
+    return {k: ({kk: leaf(f"blocks/{k}/{kk}", vv) for kk, vv in v.items()}
+                if isinstance(v, dict) else v[l])
+            for k, v in blocks.items()}
 
 
 def _dropout(x, rate: float, generator: Optional[torch.Generator],
@@ -553,12 +597,13 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def init_kv_cache(cfg: GPTConfig, batch: int, max_len: Optional[int] = None,
-                  device=None) -> Dict:
+                  device=None, heads: Optional[int] = None) -> Dict:
     """Zeroed (L, B, H, T, hd) key and value caches: in the model dtype, or
     int8 values (uint8 (..., hd/2) for int4) with bfloat16 (L, B, H, T)
-    scales (gpt.py:302-325)."""
-    shape = (cfg.n_layer, batch, cfg.n_head, max_len or cfg.block_size,
-             cfg.head_dim)
+    scales (gpt.py:302-325).  ``heads``: H of a rank that holds a share of
+    the heads (tensor parallelism), else ``cfg.n_head``."""
+    shape = (cfg.n_layer, batch, heads or cfg.n_head,
+             max_len or cfg.block_size, cfg.head_dim)
     if cfg.cache_dtype in ("int8", "int4"):
         int4 = cfg.cache_dtype == "int4"
         vshape = shape[:-1] + (cfg.head_dim // 2,) if int4 else shape
@@ -611,16 +656,23 @@ def _write_kv(cache: Dict, cfg: GPTConfig, l: int, pos,
 
 def gpt_prefill(params: Params, cfg: GPTConfig, cache: Dict,
                 idx: Optional[torch.Tensor],
-                cond_emb: Optional[torch.Tensor] = None
+                cond_emb: Optional[torch.Tensor] = None, *, mesh=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """Run the prompt (cond + given tokens) once, writing its keys and
     values into ``cache``.  Returns (logits at the last position (B, out),
-    cache)."""
+    cache).  ``mesh`` with a ``model`` axis: ``params`` hold this rank's
+    heads and MLP columns (parallel/mesh.py::shard_gpt_for_serving) and
+    the cache its heads; each layer's weights are gathered for the
+    products (``_full_layer``) and the attention runs on this rank's
+    heads (``_attn_block``), so the logits and cache are the single
+    device's bit for bit."""
+    tp = _tp(mesh)
     x = _embed(params, cfg, idx, cond_emb)
     t0 = x.shape[1]
     for l in range(cfg.n_layer):
-        p = _layer(params["blocks"], l)
-        x, k, v = _attn_block(x, p, cfg)
+        p = (_layer(params["blocks"], l) if tp is None
+             else _full_layer(params["blocks"], l, tp))
+        x, k, v = _attn_block(x, p, cfg, tp)
         _write_kv(cache, cfg, l, 0, k, v)
         x = x + _mlp(_layer_norm(x, p["ln2_s"], p["ln2_b"]), p)
     cache["len"] = t0
@@ -643,33 +695,48 @@ def quantize_block_weights(blocks: Params) -> Dict:
             for name in ("attn_qkv", "attn_proj", "mlp_up", "mlp_down")}
 
 
-def _int8_mm(x: torch.Tensor, wq: torch.Tensor,
-             ws: torch.Tensor) -> torch.Tensor:
+def _int8_mm(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+             tp=None) -> torch.Tensor:
     """x (M, in) @ int8 weights (in, out) with per-row absmax activation
     quantisation and exact int32 accumulation, rescaled in float32 as
-    ``acc * xs * ws`` from left to right (gpt.py:441-450)."""
+    ``acc * xs * ws`` from left to right (gpt.py:441-450).  ``tp``: the
+    row-cut product of tensor parallelism, x this rank's slice of the
+    features -- the scales are all-reduced with MAX (the whole row's
+    absmax) before quantising and the int32 sums with SUM before the
+    rescale, which keeps it the single device's product bit for bit."""
     xf = x.float()
     xs = torch.clamp_min(_div(xf.abs().amax(-1), 127.0), 1e-8)
+    if tp is not None:
+        tp.all_reduce_(xs, "model", op="max")
     xq = torch.clamp(torch.round(xf / xs[:, None]), -127, 127)
     acc = int_matmul(xq.to(torch.int8), wq.t())
+    if tp is not None:
+        tp.all_reduce_(acc, "model")
     return acc.float() * xs[:, None] * ws[None, :]
 
 
+_ROW_CUT = ("attn_proj", "mlp_down")
+
+
 def _mm(a: torch.Tensor, p: Params, pw: Optional[Dict],
-        name: str, fused: bool = False) -> torch.Tensor:
+        name: str, fused: bool = False, tp=None) -> torch.Tensor:
     """One block matrix product with bias: in the model dtype, or through
     the int8 weights ``pw`` of this layer (gpt.py:484-494).  ``fused``
     takes the int8 product through ops/int8_linear.py (on the card two
     kernels around the cuBLASLt product, no row padding outside them;
     on the CPU, or with the kernels off, the lines below, bit for
-    bit)."""
+    bit).  Under ``tp`` the row-cut products (``attn_proj``, ``mlp_down``)
+    sum over the model group before their bias, the others are this
+    rank's columns."""
+    tp = tp if name in _ROW_CUT else None
     if pw is None:
-        return a @ p[name]["w"] + p[name]["b"]
+        return _sum_model(a @ p[name]["w"], tp) + p[name]["b"]
     a2 = a.reshape(-1, a.shape[-1])
     if fused:
-        out = _il.int8_linear(a2, pw[name]["q"], pw[name]["s"], p[name]["b"])
+        out = _il.int8_linear(a2, pw[name]["q"], pw[name]["s"], p[name]["b"],
+                              tp)
         return out.reshape(*a.shape[:-1], -1)
-    out = _int8_mm(a2, pw[name]["q"], pw[name]["s"])
+    out = _int8_mm(a2, pw[name]["q"], pw[name]["s"], tp)
     return out.reshape(*a.shape[:-1], -1).to(a.dtype) + p[name]["b"]
 
 
@@ -697,34 +764,44 @@ def _dense_attend(q: torch.Tensor, k_l: torch.Tensor, v_l: torch.Tensor,
 
 
 def _step_layers(params: Params, cfg: GPTConfig, x: torch.Tensor,
-                 wq: Optional[Dict], fused: bool, attend) -> torch.Tensor:
+                 wq: Optional[Dict], fused: bool, attend,
+                 tp=None) -> torch.Tensor:
     """The layer math of one decode step, the one copy of it that the eager
     loop, the captured program and the exported program share: x (B, D)
     -> logits (B, out).  ``attend(l, q, k, v)`` takes layer ``l``'s
     (B, H, 1, hd) query, key and value, puts the key and value into the
     cache as its caller keeps it, and returns the attention output
     (B, H, [1,] hd); ``fused`` routes the int8 products through
-    ops/int8_linear.py (``_mm``)."""
+    ops/int8_linear.py (``_mm``).  ``tp``: H is this rank's share of the
+    heads, and the row-cut products sum over the model group."""
     b = x.shape[0]
     for l in range(cfg.n_layer):
         p = _layer(params["blocks"], l)
         pw = None if wq is None else _layer(wq, l)
+        heads = _local_heads(p, cfg, tp)
         h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
-        q, k, v = (a.reshape(b, cfg.n_head, 1, cfg.head_dim)
+        q, k, v = (a.reshape(b, heads, 1, cfg.head_dim)
                    for a in _mm(h, p, pw, "attn_qkv", fused).chunk(3, -1))
         o = attend(l, q, k, v)
-        x = x + _mm(o.reshape(b, cfg.n_embd).to(x.dtype), p, pw, "attn_proj",
-                    fused)
+        x = x + _mm(o.reshape(b, heads * cfg.head_dim).to(x.dtype), p, pw,
+                    "attn_proj", fused, tp)
         h2 = _layer_norm(x, p["ln2_s"], p["ln2_b"])
         x = x + _mm(F.gelu(_mm(h2, p, pw, "mlp_up", fused)), p, pw,
-                    "mlp_down", fused)
+                    "mlp_down", fused, tp)
     x = _layer_norm(x, params["ln_f_s"], params["ln_f_b"])
     return x @ params["head"]["w"]
 
 
+def split_pairs(cfg: GPTConfig, b: int, mesh=None) -> Optional[int]:
+    """The (b, h) pairs of one device's decode over a mesh's global batch
+    and every head: what kernel E's split rule reads on every rank, so
+    that a rank's attention sums are one card's (None without a mesh)."""
+    return None if mesh is None else b * mesh.size("data") * cfg.n_head
+
+
 def gpt_decode_step(params: Params, cfg: GPTConfig, cache: Dict,
-                    token: torch.Tensor, wq: Optional[Dict] = None
-                    ) -> Tuple[torch.Tensor, Dict]:
+                    token: torch.Tensor, wq: Optional[Dict] = None, *,
+                    mesh=None) -> Tuple[torch.Tensor, Dict]:
     """One cached decode step.  token (B,) -> (logits (B, out), cache).
     Attention covers the positions up to the current one, as the JAX step
     masks the rest; ``wq`` are the int8 block weights of
@@ -742,7 +819,11 @@ def gpt_decode_step(params: Params, cfg: GPTConfig, cache: Dict,
     writes the slot itself before it attends, the int8 products go
     through ops/int8_linear.py, and the position is advanced in place.
     Both give the same logits and cache bit for bit, and the same as
-    ``gpt_decode_step_functional``: the three share ``_step_layers``."""
+    ``gpt_decode_step_functional``: the three share ``_step_layers``.
+
+    ``mesh`` with a ``model`` axis: this rank's heads (of ``params``,
+    ``wq`` and the cache), the row-cut products summed over the group
+    (``_mm``); the logits come out the same on every rank of the group."""
     pos = cache["len"]
     on_device = isinstance(pos, torch.Tensor)
     quantised = cfg.cache_dtype in ("int8", "int4")
@@ -751,18 +832,21 @@ def gpt_decode_step(params: Params, cfg: GPTConfig, cache: Dict,
         scale = 1.0 / cfg.head_dim ** 0.5
     qc = ([cache[n] for n in ("k", "v", "k_scale", "v_scale")]
           if quantised else None)
+    pairs = split_pairs(cfg, token.shape[0], mesh)
 
     def attend(l, q, k, v):
         if quantised and on_device:
             return _da.decode_attend_int8(q[:, :, 0], *qc, l, pos,
-                                          k_new=k[:, :, 0], v_new=v[:, :, 0])
+                                          k_new=k[:, :, 0], v_new=v[:, :, 0],
+                                          split_pairs=pairs)
         _write_kv(cache, cfg, l, pos, k, v)
         if quantised:
-            return _da.decode_attend_int8(q[:, :, 0], *qc, l, pos)
+            return _da.decode_attend_int8(q[:, :, 0], *qc, l, pos,
+                                          split_pairs=pairs)
         return _dense_attend(q, cache["k"][l], cache["v"][l], valid, scale)
 
     logits = _step_layers(params, cfg, _step_input(params, cfg, token, pos),
-                          wq, on_device, attend)
+                          wq, on_device, attend, _tp(mesh))
     if on_device:
         pos.add_(1)
     else:
@@ -816,6 +900,17 @@ def _grow_cache(cache: Dict, new_len: int) -> Dict:
         if name in cache:
             out[name] = F.pad(cache[name], (0, new_len - cur))
     return out
+
+
+def _check_full(params: Params, cfg: GPTConfig, mesh) -> None:
+    """Refuse to quantise a model-sharded block: a row-cut product's
+    per-channel scales are the absmax over all of its input rows, which
+    one rank does not hold (cut ``quantize_block_weights`` of the full
+    weights with parallel/mesh.py::shard_block_weights)."""
+    if local_heads(params, cfg, mesh) != cfg.n_head:
+        raise ValueError("int8 block weights of a model-sharded GPT: pass "
+                         "wq= cut from the full weights' "
+                         "(parallel.mesh.shard_block_weights)")
 
 
 class BlockWeightCache:
@@ -877,10 +972,11 @@ class _GenerateSession:
     must sum as the eager segmented loop does."""
 
     def __init__(self, params, cfg, wq, batch, total_len, caps, steps,
-                 sample, skw, device):
+                 sample, skw, device, mesh=None):
         self.device = device
         self.cache = init_kv_cache(cfg, batch, max_len=total_len,
-                                   device=device)
+                                   device=device,
+                                   heads=local_heads(params, cfg, mesh))
         self.pos = torch.zeros(1, dtype=torch.int64, device=device)
         self.cache["len"] = self.pos
         self.step = torch.zeros(1, dtype=torch.int64, device=device)
@@ -903,7 +999,8 @@ class _GenerateSession:
                 tok = sample_logits(None, self.logits, sample=sample, u=u,
                                     **skw)
                 self.tokens.index_copy_(1, self.step, tok[:, None])
-                logits, _ = gpt_decode_step(params, cfg, cache, tok, wq)
+                logits, _ = gpt_decode_step(params, cfg, cache, tok, wq,
+                                            mesh=mesh)
                 self.logits.copy_(logits)
                 self.step.add_(1)
             return run
@@ -919,7 +1016,8 @@ class _GenerateSession:
                 view["k"] = self.cache["k"][:, :, :, :cap]
                 view["v"] = self.cache["v"][:, :, :, :cap]
             self._by_cap[cap] = decode_graph.Program(
-                body(view), device, reset, pool)
+                body(view), device, reset, pool,
+                None if mesh is None else mesh.warm_collectives)
         self._any = None if not quantised else self._by_cap[total_len]
         self.programs = list(self._by_cap.values())
 
@@ -936,13 +1034,35 @@ class _GenerateSession:
         (self._any or self._by_cap[cap]).replay()
 
 
+def local_heads(params: Params, cfg: GPTConfig, mesh=None) -> int:
+    """The heads ``params`` hold: all of them, or under a ``model`` axis
+    this rank's share."""
+    return _local_heads(_layer(params["blocks"], 0), cfg, _tp(mesh))
+
+
+def draw_uniforms(generator: Optional[torch.Generator], n: int, b: int,
+                  width: int, device, mesh=None) -> torch.Tensor:
+    """(n, b, width) uniforms of this rank's ``b`` rows: drawn for the
+    global batch (``b`` times the mesh's data axis) and cut to this rank's
+    ``local_batch_slice``, so that a data-parallel decode samples the
+    tokens one device samples from the same generator state; the model
+    ranks of a data coordinate draw the same rows."""
+    d = 1 if mesh is None else mesh.size("data")
+    u = torch.rand((n, b * d, width), generator=generator, device=device)
+    if d == 1:
+        return u
+    i = mesh.coord("data")
+    return u[:, i * b:(i + 1) * b].contiguous()
+
+
 def _generate_on_device(params, cfg, generator, cond_emb, given, steps,
-                        segments, sample, skw, wq, holder):
+                        segments, sample, skw, wq, holder, mesh=None):
     """``gpt_generate`` through a session of ``holder``: one eager prefill
     into the session's cache, then one replay a token.  The session is
     keyed by the kernel switch of the enclosing scope, which its programs
     bake in: one captured with the kernels off is never replayed with them
-    on, nor the other way round."""
+    on, nor the other way round; and by the mesh, whose communicators the
+    programs record."""
     b, p = cond_emb.shape[0], cond_emb.shape[1]
     start = p + (0 if given is None else given.shape[1])
     plan = _segment_plan(start, steps, segments)
@@ -950,17 +1070,20 @@ def _generate_on_device(params, cfg, generator, cond_emb, given, steps,
     dev = cond_emb.device
     key = ("generate", decode_graph.tensors_token(params, wq), cfg, b,
            start + steps, caps, steps, sample, tuple(sorted(skw.items())),
-           str(dev), _build.kernel_setting())
+           str(dev), None if mesh is None else mesh.token,
+           _build.kernel_setting())
     sess = holder.session(key, lambda: _GenerateSession(
-        params, cfg, wq, b, start + steps, caps, steps, sample, skw, dev))
+        params, cfg, wq, b, start + steps, caps, steps, sample, skw, dev,
+        mesh))
     for name in ("k", "v", "k_scale", "v_scale"):
         if name in sess.cache:
             sess.cache[name].zero_()
     # the prefill writes at host positions and sets a host length: hand it
     # the session's tensors under a dict of its own
-    logits, _ = gpt_prefill(params, cfg, dict(sess.cache), given, cond_emb)
-    u = (torch.rand((steps,) + logits.shape, generator=generator,
-                    device=dev) if sample else None)
+    logits, _ = gpt_prefill(params, cfg, dict(sess.cache), given, cond_emb,
+                            mesh=mesh)
+    u = (draw_uniforms(generator, steps, b, logits.shape[-1], dev, mesh)
+         if sample else None)
     sess.begin(logits, u, start)
     for cap, seg in plan:
         for _ in range(seg):
@@ -969,24 +1092,27 @@ def _generate_on_device(params, cfg, generator, cond_emb, given, steps,
 
 
 def gpt_generate_eager(params, cfg, generator, cond_emb, given, steps,
-                       segments, sample, skw, wq):
+                       segments, sample, skw, wq, mesh=None):
     """``gpt_generate``'s eager loop: a Python loop of ``gpt_decode_step``
     at host positions over a cache that grows by segments.  Returns (the
     new tokens (B, steps), the cache as the last step left it)."""
     b, p = cond_emb.shape[0], cond_emb.shape[1]
     t0 = 0 if given is None else given.shape[1]
     plan = _segment_plan(p + t0, steps, segments)
-    cache = init_kv_cache(cfg, b, max_len=plan[0][0], device=cond_emb.device)
-    logits, cache = gpt_prefill(params, cfg, cache, given, cond_emb)
-    u = (torch.rand((steps,) + logits.shape, generator=generator,
-                    device=logits.device) if sample else None)
+    cache = init_kv_cache(cfg, b, max_len=plan[0][0], device=cond_emb.device,
+                          heads=local_heads(params, cfg, mesh))
+    logits, cache = gpt_prefill(params, cfg, cache, given, cond_emb,
+                                mesh=mesh)
+    u = (draw_uniforms(generator, steps, b, logits.shape[-1], logits.device,
+                       mesh) if sample else None)
     toks = []
     for cap, seg in plan:
         cache = _grow_cache(cache, cap)
         for _ in range(seg):
             tok = sample_logits(None, logits, sample=sample,
                                 u=None if u is None else u[len(toks)], **skw)
-            logits, cache = gpt_decode_step(params, cfg, cache, tok, wq)
+            logits, cache = gpt_decode_step(params, cfg, cache, tok, wq,
+                                            mesh=mesh)
             toks.append(tok)
     return torch.stack(toks, dim=1), cache
 
@@ -998,7 +1124,7 @@ def gpt_generate(params: Params, cfg: GPTConfig,
                  temperature: float = 1.0, top_k: Optional[int] = None,
                  top_p: Optional[float] = None, sample: bool = True,
                  segments: int = 1, wq: Optional[Dict] = None,
-                 graph=None) -> torch.Tensor:
+                 graph=None, mesh=None) -> torch.Tensor:
     """KV-cached autoregressive generation: one prefill, then ``steps``
     cached single-token steps (the reference re-runs the full forward per
     token, minGPT.py:331-358).
@@ -1029,11 +1155,21 @@ def gpt_generate(params: Params, cfg: GPTConfig,
     versions of kernels A and E and of the int8 product's kernels,
     captured on the card all the same; the capture is keyed by the scope's
     switch.
+
+    ``mesh`` (parallel/mesh.py) serves over ranks that step together:
+    ``cond_emb`` and ``given`` are this rank's rows of the global batch
+    (its ``local_batch_slice`` over ``data``), ``params`` and ``wq`` this
+    rank's heads over ``model`` (``shard_gpt_for_serving``,
+    ``shard_block_weights``: pass ``wq``, cut from the full weights'),
+    and the sampling uniforms are the global batch's rows of this rank
+    (``draw_uniforms``), so the tokens are the single device's.  A
+    captured program records the collectives.
     """
     b, p = cond_emb.shape[0], cond_emb.shape[1]
     t0 = 0 if given is None else given.shape[1]
     skw = dict(temperature=temperature, top_k=top_k, top_p=top_p)
     if wq is None and cfg.decode_weight_dtype == "int8":
+        _check_full(params, cfg, mesh)
         wq = quantize_block_weights(params["blocks"])
     if graph is None:
         graph = cond_emb.is_cuda
@@ -1043,10 +1179,10 @@ def gpt_generate(params: Params, cfg: GPTConfig,
         with torch.no_grad():
             out = _generate_on_device(params, cfg, generator, cond_emb,
                                       given, steps, segments, sample, skw,
-                                      wq, holder)
+                                      wq, holder, mesh)
     else:
         out, _ = gpt_generate_eager(params, cfg, generator, cond_emb, given,
-                                    steps, segments, sample, skw, wq)
+                                    steps, segments, sample, skw, wq, mesh)
     if t0 > 0:
         out = torch.cat([given.long(), out], dim=1)
     return out

@@ -18,6 +18,12 @@ three equivalences (tests/test_torch_port_speculative.py):
 The batch advances by the minimum acceptance count over its lanes each
 round; lanes that accepted more keep their accepted token at the cut.
 The round loop runs on the host, which reads that count once a round.
+
+Over a mesh (``mesh=``: the target and the draft cut over ``model``, the
+batch over ``data``) every rank runs the same rounds: the minimum is
+all-reduced over the data group each round, and every uniform is drawn
+for the global batch and cut to this rank's rows, so the tokens, rounds
+and acceptance are the single device's.
 """
 
 from __future__ import annotations
@@ -33,14 +39,15 @@ from ..configs import GPTConfig
 from ..ops import decode_attention as _da
 from ..ops.sampling import categorical, filtered_log_probs, sample_logits
 from . import decode_graph
-from .gpt import (Params, _layer, _layer_norm, _mm, _write_kv,
-                  gpt_decode_step, gpt_prefill, init_kv_cache,
-                  quantize_block_weights)
+from .gpt import (Params, _check_full, _layer, _layer_norm, _local_heads,
+                  _mm, _tp, _write_kv, draw_uniforms, gpt_decode_step,
+                  gpt_prefill, init_kv_cache, local_heads,
+                  quantize_block_weights, split_pairs)
 
 
 def gpt_decode_chunk(params: Params, cfg: GPTConfig, cache: Dict,
-                     tokens: torch.Tensor, wq: Optional[Dict] = None
-                     ) -> Tuple[torch.Tensor, Dict]:
+                     tokens: torch.Tensor, wq: Optional[Dict] = None, *,
+                     mesh=None) -> Tuple[torch.Tensor, Dict]:
     """Cached forward over a chunk of c tokens at positions ``cache['len']
     .. len + c - 1``, causal within the chunk and over the cached prefix
     (speculative.py:48-174).  tokens (B, c) -> (logits (B, c, out), cache
@@ -50,11 +57,13 @@ def gpt_decode_chunk(params: Params, cfg: GPTConfig, cache: Dict,
     c positions, which keeps greedy speculative decoding exact there too.
     The attention math is the JAX chunk's either way.  ``cache["len"]`` is
     a Python int or, for a captured program, a one-element int64 tensor
-    that is advanced in place, as in ``gpt_decode_step``."""
+    that is advanced in place, as in ``gpt_decode_step``, whose ``mesh``
+    this takes too (this rank's heads, the row-cut products summed)."""
     pos = cache["len"]
     on_device = isinstance(pos, torch.Tensor)
     b, c = tokens.shape
-    hd, nh = cfg.head_dim, cfg.n_head
+    tp = _tp(mesh)
+    hd = cfg.head_dim
     # positions past the block clamp, as the JAX chunk's do
     pidx = torch.clamp(pos + torch.arange(c, device=tokens.device), 0,
                        params["pos_emb"].shape[0] - 1)
@@ -66,9 +75,11 @@ def gpt_decode_chunk(params: Params, cfg: GPTConfig, cache: Dict,
         scale = 1.0 / hd ** 0.5
     qc = [cache[n] for n in ("k", "v", "k_scale", "v_scale")] \
         if quantised else None
+    pairs = split_pairs(cfg, b, mesh)
     for l in range(cfg.n_layer):
         p = _layer(params["blocks"], l)
         pw = None if wq is None else _layer(wq, l)
+        nh = _local_heads(p, cfg, tp)
         h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
         q, k, v = (a.reshape(b, c, nh, hd).transpose(1, 2)        # (B,H,c,hd)
                    for a in _mm(h, p, pw, "attn_qkv", on_device).chunk(3, -1))
@@ -81,22 +92,23 @@ def gpt_decode_chunk(params: Params, cfg: GPTConfig, cache: Dict,
         if quantised and on_device:
             o = torch.stack([_da.decode_attend_int8(
                 q[:, :, j], *qc, l, pos, k_new=k[:, :, j], v_new=v[:, :, j],
-                pos_offset=j) for j in range(c)], dim=2)
+                pos_offset=j, split_pairs=pairs) for j in range(c)], dim=2)
         elif quantised:
             _write_kv(cache, cfg, l, pos, k, v)
             o = torch.stack([_da.decode_attend_int8(
-                q[:, :, j], *qc, l, pos + j) for j in range(c)], dim=2)
+                q[:, :, j], *qc, l, pos + j, split_pairs=pairs)
+                for j in range(c)], dim=2)
         else:
             _write_kv(cache, cfg, l, pos, k, v)
             k_l, v_l = cache["k"][l], cache["v"][l]
             scores = (q.float() @ k_l.float().transpose(-1, -2)) * scale
             probs = torch.softmax(torch.where(valid, scores, -1e30), dim=-1)
             o = probs.to(v_l.dtype).float() @ v_l.float()
-        o = o.to(x.dtype).transpose(1, 2).reshape(b, c, cfg.n_embd)
-        x = x + _mm(o, p, pw, "attn_proj", on_device)
+        o = o.to(x.dtype).transpose(1, 2).reshape(b, c, nh * hd)
+        x = x + _mm(o, p, pw, "attn_proj", on_device, tp)
         h2 = _layer_norm(x, p["ln2_s"], p["ln2_b"])
         x = x + _mm(F.gelu(_mm(h2, p, pw, "mlp_up", on_device)),
-                    p, pw, "mlp_down", on_device)
+                    p, pw, "mlp_down", on_device, tp)
     if on_device:
         pos.add_(c)
     else:
@@ -111,20 +123,24 @@ class _EagerRounds:
     target, at host positions."""
 
     def __init__(self, params, cfg, wq, draft_params, draft_cfg, dwq, batch,
-                 max_len, device):
+                 max_len, device, mesh=None):
         self.target = (params, cfg, wq)
         self.draft = (draft_params, draft_cfg, dwq)
+        self.mesh = mesh
         self.t_cache = init_kv_cache(cfg, batch, max_len=max_len,
-                                     device=device)
-        self.d_cache = init_kv_cache(draft_cfg, batch, max_len=max_len,
-                                     device=device)
+                                     device=device,
+                                     heads=local_heads(params, cfg, mesh))
+        self.d_cache = init_kv_cache(
+            draft_cfg, batch, max_len=max_len, device=device,
+            heads=local_heads(draft_params, draft_cfg, mesh))
 
     def prefill(self, given, cond_emb, draft_cond_emb):
         params, cfg, _ = self.target
         t_logits, self.t_cache = gpt_prefill(params, cfg, self.t_cache,
-                                             given, cond_emb)
+                                             given, cond_emb, mesh=self.mesh)
         _, self.d_cache = gpt_prefill(self.draft[0], self.draft[1],
-                                      self.d_cache, given, draft_cond_emb)
+                                      self.d_cache, given, draft_cond_emb,
+                                      mesh=self.mesh)
         return t_logits
 
     def begin(self, u_pos, start):
@@ -139,19 +155,20 @@ class _EagerRounds:
         tok, xs, q_lps = y_prev, [], []
         for i in range(gamma):
             logits, self.d_cache = gpt_decode_step(params, cfg, self.d_cache,
-                                                   tok, wq)
+                                                   tok, wq, mesh=self.mesh)
             tok = draw(logits, produced + i)
             xs.append(tok)
             q_lps.append(filtered_log_probs(logits.float(), **skw))
         # catch-up: when every proposal is accepted the rewound draft cache
         # must also hold x_gamma's keys and values
-        _, self.d_cache = gpt_decode_step(params, cfg, self.d_cache, tok, wq)
+        _, self.d_cache = gpt_decode_step(params, cfg, self.d_cache, tok, wq,
+                                          mesh=self.mesh)
         return torch.stack(xs, dim=1), torch.stack(q_lps, dim=1)
 
     def verify(self, chunk):
         params, cfg, wq = self.target
         logits_c, self.t_cache = gpt_decode_chunk(params, cfg, self.t_cache,
-                                                  chunk, wq)
+                                                  chunk, wq, mesh=self.mesh)
         return logits_c
 
     def rewind(self, length):
@@ -167,17 +184,20 @@ class _SpeculativeSession:
     accept / reject arithmetic stays eager and rewinds them."""
 
     def __init__(self, params, cfg, wq, draft_params, draft_cfg, dwq, batch,
-                 max_len, steps, gamma, sample, skw, device):
+                 max_len, steps, gamma, sample, skw, device, mesh=None):
         self.device = device
         self.target = (params, cfg, wq)
         self.draft = (draft_params, draft_cfg, dwq)
         self.held = (params, wq, draft_params, dwq)
+        self.mesh = mesh
 
-        def cache_of(c):
-            cache = init_kv_cache(c, batch, max_len=max_len, device=device)
+        def cache_of(p, c):
+            cache = init_kv_cache(c, batch, max_len=max_len, device=device,
+                                  heads=local_heads(p, c, mesh))
             cache["len"] = torch.zeros(1, dtype=torch.int64, device=device)
             return cache
-        self.t_cache, self.d_cache = cache_of(cfg), cache_of(draft_cfg)
+        self.t_cache = cache_of(params, cfg)
+        self.d_cache = cache_of(draft_params, draft_cfg)
         head = params["head"]["w"]
         vocab = head.shape[1]
 
@@ -194,7 +214,8 @@ class _SpeculativeSession:
 
         def draft_step():
             logits, _ = gpt_decode_step(draft_params, draft_cfg,
-                                        self.d_cache, self.tok, dwq)
+                                        self.d_cache, self.tok, dwq,
+                                        mesh=mesh)
             u = (None if self.u_pos is None else self.u_pos.index_select(
                 0, self.idx.clamp(max=steps - 1))[0])
             tok = sample_logits(None, logits, sample=sample, u=u, **skw)
@@ -212,15 +233,16 @@ class _SpeculativeSession:
 
         def chunk_pass():
             logits_c, _ = gpt_decode_chunk(params, cfg, self.t_cache,
-                                           self.chunk, wq)
+                                           self.chunk, wq, mesh=mesh)
             self.logits_c.copy_(logits_c)
 
         pool = (torch.cuda.graph_pool_handle() if device.type == "cuda"
                 else None)
+        warm = None if mesh is None else mesh.warm_collectives
         self.draft_program = decode_graph.Program(
-            draft_step, device, reset_draft, pool)
+            draft_step, device, reset_draft, pool, warm)
         self.chunk_program = decode_graph.Program(
-            chunk_pass, device, self.t_cache["len"].zero_, pool)
+            chunk_pass, device, self.t_cache["len"].zero_, pool, warm)
         self.programs = [self.draft_program, self.chunk_program]
 
     def prefill(self, given, cond_emb, draft_cond_emb):
@@ -231,9 +253,10 @@ class _SpeculativeSession:
         # the prefill writes at host positions and sets a host length:
         # hand it the session's tensors under a dict of its own
         t_logits, _ = gpt_prefill(self.target[0], self.target[1],
-                                  dict(self.t_cache), given, cond_emb)
+                                  dict(self.t_cache), given, cond_emb,
+                                  mesh=self.mesh)
         gpt_prefill(self.draft[0], self.draft[1], dict(self.d_cache), given,
-                    draft_cond_emb)
+                    draft_cond_emb, mesh=self.mesh)
         return t_logits
 
     def begin(self, u_pos, start):
@@ -270,7 +293,7 @@ def gpt_speculative_generate(
         temperature: float = 1.0, top_k: Optional[int] = None,
         top_p: Optional[float] = None, sample: bool = True,
         wq: Optional[Dict] = None, draft_wq: Optional[Dict] = None,
-        graph=None) -> Tuple[torch.Tensor, Dict[str, int]]:
+        graph=None, mesh=None) -> Tuple[torch.Tensor, Dict[str, int]]:
     """KV-cached speculative generation (speculative.py:177-344).  Returns
     ``(tokens (B, T0 + steps) int64, stats)``, the tokens distributed
     exactly as ``gpt_generate(params, cfg, ...)``'s, stats = {"rounds",
@@ -291,6 +314,11 @@ def gpt_speculative_generate(
     reads one number a round on the host.  The kernel switch is the
     enclosing ``_build.kernels`` scope's, for both models' passes; the
     captured session is keyed by it.
+
+    ``mesh``: as ``gpt_generate``'s -- this rank's rows of the batch, both
+    models' heads over ``model`` (pass ``wq`` / ``draft_wq`` cut from the
+    full weights') -- with the round advance all-reduced (MIN) over
+    ``data`` each round.
     """
     b, p_len = cond_emb.shape[0], cond_emb.shape[1]
     t0 = 0 if given is None else given.shape[1]
@@ -298,8 +326,10 @@ def gpt_speculative_generate(
     dev = cond_emb.device
     max_len = p_len + t0 + steps + gamma + 1
     if wq is None and cfg.decode_weight_dtype == "int8":
+        _check_full(params, cfg, mesh)
         wq = quantize_block_weights(params["blocks"])
     if draft_wq is None and draft_cfg.decode_weight_dtype == "int8":
+        _check_full(draft_params, draft_cfg, mesh)
         draft_wq = quantize_block_weights(draft_params["blocks"])
     skw = dict(temperature=temperature, top_k=top_k, top_p=top_p)
     models = (params, cfg, wq, draft_params, draft_cfg, draft_wq)
@@ -311,22 +341,22 @@ def gpt_speculative_generate(
         key = ("speculative", decode_graph.tensors_token(
             params, wq, draft_params, draft_wq), cfg, draft_cfg, b, max_len,
             steps, gamma, sample, tuple(sorted(skw.items())), str(dev),
-            _build.kernel_setting())
+            None if mesh is None else mesh.token, _build.kernel_setting())
         rounds_of = holder.session(key, lambda: _SpeculativeSession(
-            *models, b, max_len, steps, gamma, sample, skw, dev))
+            *models, b, max_len, steps, gamma, sample, skw, dev, mesh))
     else:
-        rounds_of = _EagerRounds(*models, b, max_len, dev)
+        rounds_of = _EagerRounds(*models, b, max_len, dev, mesh)
     with torch.no_grad():
         toks, stats = _speculative_rounds(
             rounds_of, generator, cond_emb, draft_cond_emb, given, steps,
-            gamma, sample, skw)
+            gamma, sample, skw, mesh)
     if t0 > 0:
         toks = torch.cat([given.long(), toks], dim=1)
     return toks, stats
 
 
 def _speculative_rounds(model, generator, cond_emb, draft_cond_emb, given,
-                        steps, gamma, sample, skw):
+                        steps, gamma, sample, skw, mesh=None):
     """The round loop over ``model``'s passes (``_EagerRounds`` or
     ``_SpeculativeSession``): (tokens (B, steps), stats)."""
     b, dev = cond_emb.shape[0], cond_emb.device
@@ -335,12 +365,9 @@ def _speculative_rounds(model, generator, cond_emb, draft_cond_emb, given,
     u_pos = u_acc = u_res = None
     if sample:
         vocab = t_logits.shape[-1]
-        u_pos = torch.rand((steps, b, vocab), generator=generator,
-                           device=dev)
-        u_acc = torch.rand((steps, b, gamma), generator=generator,
-                           device=dev)
-        u_res = torch.rand((steps, b, vocab), generator=generator,
-                           device=dev)
+        u_pos = draw_uniforms(generator, steps, b, vocab, dev, mesh)
+        u_acc = draw_uniforms(generator, steps, b, gamma, dev, mesh)
+        u_res = draw_uniforms(generator, steps, b, vocab, dev, mesh)
     model.begin(u_pos, t_len)
 
     def draw(logits, i):
@@ -370,7 +397,10 @@ def _speculative_rounds(model, generator, cond_emb, draft_cond_emb, given,
         else:
             accepts = xs == torch.argmax(p_lps[:, :gamma], dim=-1)
         a_lane = torch.cumprod(accepts.long(), dim=1).sum(dim=1)   # (B,)
-        n = int(a_lane.min())                            # round advance
+        a_min = a_lane.min().reshape(1)                  # round advance
+        if mesh is not None:   # the global batch's minimum
+            mesh.all_reduce_(a_min, "data", op="min")
+        n = int(a_min)
 
         # next token at the cut: lanes that accepted x_{n+1} keep it,
         # lanes that rejected there draw from the residual max(p - q, 0),

@@ -220,8 +220,8 @@ def _rows(x: torch.Tensor, hd: int):
 def decode_attend_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        k_scale: torch.Tensor, v_scale: torch.Tensor,
                        layer: int, pos, *, k_new: torch.Tensor = None,
-                       v_new: torch.Tensor = None,
-                       pos_offset: int = 0) -> torch.Tensor:
+                       v_new: torch.Tensor = None, pos_offset: int = 0,
+                       split_pairs: int = None) -> torch.Tensor:
     """Decode attention over the quantised cache at position ``pos +
     pos_offset``: kernel E on CUDA tensors, the plain versions on CPU
     tensors or with the kernels off (``write_kv_rows`` then
@@ -236,7 +236,10 @@ def decode_attend_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in the stacked cache, which must be contiguous (it is never copied);
     scales are bfloat16 as the cache stores them.  The cluster is launched
     at ``choose_splits`` of the capacity; the kernel works out from the
-    position how many of its CTAs take rows."""
+    position how many of its CTAs take rows.  ``split_pairs`` (None: B * H
+    of q) is the (b, h) count that rule reads: a rank of a serving mesh
+    passes the whole batch's and all heads', so that it splits its rows
+    as one card does and its sums are one card's."""
     if (k_new is None) != (v_new is None):
         raise ValueError("pass both k_new and v_new, or neither")
     tensors = [q, k, v, k_scale, v_scale]
@@ -297,13 +300,16 @@ def decode_attend_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q, k_new, v_new = (a.contiguous() for a in (q, k_new, v_new))
         new_ptrs = (k_new.data_ptr(), v_new.data_ptr())
     o = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
-    cluster = choose_splits(b * h, t)
+    pairs = b * h if split_pairs is None else int(split_pairs)
+    if pairs < b * h:
+        raise ValueError(f"split_pairs {pairs} < the launch's {b * h} pairs")
+    cluster = choose_splits(pairs, t)
     _build.launch("msgv_decode_attention", q.device, q.data_ptr(), *new_ptrs,
                   k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
                   v_scale.data_ptr(), o.data_ptr(), pos_ptr, b * h, h, t, hd,
                   int(layer), pos_host, q.stride(0),
                   int(q.dtype == torch.bfloat16), int(int4),
-                  cluster, max_share(b * h, t, cluster))
+                  cluster, max_share(pairs, t, cluster), pairs)
     decode_attend_int8.launches += 1
     return o
 

@@ -17,7 +17,15 @@ cuBLASLt product:
     (no pad rows: the CPU's product takes any M);
   * ``rescale_bias`` -- int32 (Mpad, out), xs, ws, bias -> (M, out) of the
     model dtype; ``rescale_bias_xla`` the plain version;
-  * ``int8_linear`` -- the three in a row; with the kernels off
+  * ``row_scales`` -- the scales (M,) alone (the kernel's scale pass);
+    ``quantize_rows(x, xs)`` quantises with scales the caller gives.
+    Under tensor parallelism the row-cut products (``attn_proj``,
+    ``mlp_down``) see a slice of each row's features: their scale is the
+    MAX over the model group of the slices' scales (the division and the
+    clamp are monotone, so that is the whole row's scale bit for bit), and
+    their int32 sums are summed over the group before ``rescale_bias``;
+  * ``int8_linear`` -- the three in a row (``tp``: the row-cut form, four
+    with the two all-reduces); with the kernels off
     (``_build.kernels(False)``) the plain versions around the same product
     on either device.
 
@@ -39,31 +47,67 @@ def pad_rows(m: int) -> int:
     return max(32, -(-m // 8) * 8)
 
 
-def quantize_rows_xla(x: torch.Tensor):
+def row_scales_xla(x: torch.Tensor) -> torch.Tensor:
+    """x (M, in) -> float32 absmax scales (M,): ``max(absmax / 127,
+    1e-8)``."""
+    return torch.clamp_min(true_div(x.float().abs().amax(-1), 127.0), 1e-8)
+
+
+def quantize_rows_xla(x: torch.Tensor, xs: torch.Tensor = None):
     """x (M, in) -> (int8 (M, in), float32 absmax scales (M,)); rounds half
-    to even."""
+    to even.  ``xs`` given: the rows are quantised with it."""
     xf = x.float()
-    xs = torch.clamp_min(true_div(xf.abs().amax(-1), 127.0), 1e-8)
+    if xs is None:
+        xs = row_scales_xla(x)
     xq = torch.clamp(torch.round(xf / xs[:, None]), -127, 127)
     return xq.to(torch.int8), xs
 
 
-def quantize_rows(x: torch.Tensor):
+def _check_rows(name: str, x: torch.Tensor) -> torch.Tensor:
+    if x.ndim != 2 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes a float32 or bfloat16 matrix, "
+                        f"got {x.dtype} {tuple(x.shape)}")
+    return x.contiguous()
+
+
+def row_scales(x: torch.Tensor) -> torch.Tensor:
+    """``row_scales_xla`` on CPU tensors or with the kernels off; on CUDA
+    tensors the quantising kernel's scale pass alone."""
+    if not _build.use_kernel(x):
+        return row_scales_xla(x)
+    x = _check_rows("row_scales", x)
+    m, width = x.shape
+    xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    _build.launch("msgv_quantize_rows", x.device, x.data_ptr(), None,
+                  xs.data_ptr(), m, m, width,
+                  int(x.dtype == torch.bfloat16), 1)
+    row_scales.launches += 1
+    return xs
+
+
+row_scales.launches = 0
+
+
+def quantize_rows(x: torch.Tensor, xs: torch.Tensor = None):
     """``quantize_rows_xla`` on CPU tensors or with the kernels off;
     on CUDA tensors the kernel, whose int8 result has ``pad_rows(M)`` rows,
-    the ones past M zero."""
+    the ones past M zero.  With ``xs`` (float32 (M,)) the rows are
+    quantised with those scales, which come back as given."""
     if not _build.use_kernel(x):
-        return quantize_rows_xla(x)
-    if x.ndim != 2 or x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"quantize_rows takes a float32 or bfloat16 matrix, "
-                        f"got {x.dtype} {tuple(x.shape)}")
-    x = x.contiguous()
+        return quantize_rows_xla(x, xs)
+    x = _check_rows("quantize_rows", x)
     m, width = x.shape
     xq = torch.empty((pad_rows(m), width), dtype=torch.int8, device=x.device)
-    xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    mode = 0 if xs is None else 2
+    if xs is None:
+        xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    elif xs.dtype != torch.float32 or xs.shape != (m,) or not xs.is_cuda:
+        raise TypeError(f"quantize_rows: scales float32 ({m},) on the card, "
+                        f"got {xs.dtype} {tuple(xs.shape)}")
+    xs = xs.contiguous()
     _build.launch("msgv_quantize_rows", x.device, x.data_ptr(),
                   xq.data_ptr(), xs.data_ptr(), m, xq.shape[0], width,
-                  int(x.dtype == torch.bfloat16))
+                  int(x.dtype == torch.bfloat16), mode)
     quantize_rows.launches += 1
     return xq, xs
 
@@ -110,12 +154,26 @@ rescale_bias.launches = 0
 
 
 def int8_linear(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
-                bias: torch.Tensor) -> torch.Tensor:
+                bias: torch.Tensor, tp=None) -> torch.Tensor:
     """x (M, in) of the model dtype @ int8 weights (in, out) with scales
     (out,), plus bias -> (M, out) of the model dtype.  With the kernels off
     on the card, the plain quantised rows are zero-padded to ``pad_rows``
-    for cuBLASLt, as the kernel pads them."""
-    xq, xs = quantize_rows(x)
+    for cuBLASLt, as the kernel pads them.
+
+    ``tp`` (a mesh with a ``model`` axis, parallel/mesh.py): the row-cut
+    form, x holding this rank's slice of the input features and ``wq``
+    its rows.  The scales are all-reduced with MAX and the int32 sums with
+    SUM over the model group, and only then rescaled, so the result is the
+    single device's bit for bit."""
+    if tp is None:
+        xq, xs = quantize_rows(x)
+    else:
+        xs = row_scales(x)
+        tp.all_reduce_(xs, "model", op="max")
+        xq, xs = quantize_rows(x, xs)
     if xq.is_cuda and xq.shape[0] < pad_rows(xs.shape[0]):
         xq = F.pad(xq, (0, 0, 0, pad_rows(xs.shape[0]) - xq.shape[0]))
-    return rescale_bias(torch._int_mm(xq, wq), xs, ws, bias)
+    acc = torch._int_mm(xq, wq)
+    if tp is not None:
+        tp.all_reduce_(acc, "model")
+    return rescale_bias(acc, xs, ws, bias)

@@ -1,5 +1,6 @@
-"""Distribution of the port's training over processes: the mesh and its
-sharding rules (``mesh``), cross-process metric reduction (``reduce``) and
+"""Distribution of the port's training and serving over processes: the
+mesh and its sharding rules, the served shards and the gather of a served
+batch (``mesh``), cross-process metric reduction (``reduce``) and
 the GPipe schedule (``pipeline``, imported from its module: it builds on
 models/gpt.py)."""
 
@@ -10,8 +11,10 @@ from .mesh import (  # noqa: F401
     PIPE_AXIS,
     Mesh,
     as_mesh,
+    broadcast_object,
     data_coordinate,
     data_size,
+    gather_rows,
     gather_tree,
     is_primary,
     local_batch_slice,
@@ -20,6 +23,8 @@ from .mesh import (  # noqa: F401
     parse_mesh,
     process_count,
     process_index,
+    shard_block_weights,
+    shard_gpt_for_serving,
     shard_tree,
     shutdown_distributed,
 )

@@ -32,6 +32,7 @@ and logs.
 
 from __future__ import annotations
 
+import gc
 import math
 import os
 from datetime import timedelta
@@ -80,8 +81,14 @@ def maybe_init_distributed(device="cuda",
 
 
 def shutdown_distributed() -> None:
-    """Leave the process group, if one was joined."""
+    """Leave the process group, if one was joined.  Unreachable objects
+    are collected first: a captured decode program that recorded NCCL
+    collectives (serving over a mesh) holds its communicator, whose
+    destruction waits for the graph's."""
     if dist.is_initialized():
+        gc.collect()
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
         dist.destroy_process_group()
 
 
@@ -174,12 +181,39 @@ class Mesh:
         axis of more than one rank)."""
         return self.size(MODEL_AXIS) > 1 or self.size(PIPE_AXIS) > 1
 
+    @property
+    def token(self) -> tuple:
+        """What a captured decode program bakes in of the mesh: its shape,
+        this rank, and the object (its process groups' communicators)."""
+        return (tuple(self.shape.items()), self.rank, id(self))
+
     def all_reduce_(self, t: torch.Tensor, axis: str,
-                    async_op: bool = False):
-        """Sum ``t`` in place over the axis (nothing without its group)."""
+                    async_op: bool = False, op: str = "sum"):
+        """Reduce ``t`` in place over the axis, ``op`` "sum", "max" or
+        "min" (nothing without its group)."""
         if not self.active(axis):
             return None
-        return dist.all_reduce(t, group=self.group(axis), async_op=async_op)
+        return dist.all_reduce(t, op=_OPS[op], group=self.group(axis),
+                               async_op=async_op)
+
+    def all_gather(self, t: torch.Tensor, axis: str) -> List[torch.Tensor]:
+        """Every rank's ``t`` on the axis, in coordinate order (``[t]``
+        without its group)."""
+        if not self.active(axis):
+            return [t]
+        parts = [torch.empty_like(t) for _ in range(self.size(axis))]
+        dist.all_gather(parts, t, group=self.group(axis))
+        return parts
+
+    def warm_collectives(self) -> None:
+        """One small all-reduce on every axis group of this rank, on the
+        current stream: joins the communicators before a CUDA graph
+        records collectives over them (NCCL cannot set one up inside a
+        capture)."""
+        for axis in self.names:
+            if self.active(axis):
+                t = torch.zeros(1, device=self.device)
+                dist.all_reduce(t, group=self.group(axis))
 
     def mean_(self, tensors: List[torch.Tensor], axis: str) -> None:
         """Average each tensor in place over the axis, all in flight at
@@ -199,6 +233,10 @@ class Mesh:
             n = float(self.size(axis))
             for t in tensors:
                 t.div_(n)
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN}
 
 
 def _unravel(r: int, sizes) -> Tuple[int, ...]:
@@ -482,3 +520,71 @@ def gather_tree(mesh: Optional[Mesh], tree, prefix: str = "",
         return tree
     full = _walk(tree, lambda n, t: gather_leaf(mesh, n, t, device), prefix)
     return full if is_primary() else None
+
+
+# ---------------------------------------------------------------------------
+# Serving over a mesh: the shards a served pipeline holds, and its outputs
+# gathered to rank 0 (the JAX package's pipeline.py:73-95, 119-122, 213-215
+# under GSPMD)
+# ---------------------------------------------------------------------------
+
+
+def shard_gpt_for_serving(mesh: Optional[Mesh], params):
+    """This rank's copy of a served GPT tree (the full leaves): the
+    Megatron cut of ``tp_shard`` over ``model`` -- the qkv head-aligned,
+    ``attn_proj`` and ``mlp_down`` by rows, ``mlp_up`` by columns; the
+    embeddings, layer norms, the row-cut products' biases and the head
+    whole -- each leaf a contiguous tensor of its own (a view would keep
+    the full leaf alive).  Replicated over ``data``."""
+    if mesh is None or mesh.size(MODEL_AXIS) == 1:
+        return params
+    m, r = mesh.size(MODEL_AXIS), mesh.coord(MODEL_AXIS)
+    return _walk(params, lambda n, t: tp_shard(n, t, r, m).contiguous()
+                 .clone() if tp_rule(n) is not None else t)
+
+
+def _column_major(q: torch.Tensor) -> torch.Tensor:
+    """(L, in, out) with each layer's ``in`` axis contiguous, the layout
+    models/gpt.py::quantize_block_weights stores and the int8 product
+    takes."""
+    return q.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def shard_block_weights(mesh: Optional[Mesh], wq: Dict) -> Dict:
+    """This rank's part of ``quantize_block_weights`` of the FULL block
+    matrices (``{name: {"q": (L, in, out) int8, "s": (L, out)}}``): ``q``
+    cut as its float matrix is; ``s`` cut with the columns of a column-cut
+    product (``attn_qkv``, ``mlp_up``) and whole for a row-cut one
+    (``attn_proj``, ``mlp_down``, whose output columns every rank holds),
+    so that every scale is the single device's."""
+    if mesh is None or mesh.size(MODEL_AXIS) == 1:
+        return wq
+    m, r = mesh.size(MODEL_AXIS), mesh.coord(MODEL_AXIS)
+    out = {}
+    for name, leaf in wq.items():
+        path = f"blocks/{name}/w"
+        q = _column_major(tp_shard(path, leaf["q"], r, m))
+        s = (leaf["s"] if tp_rule(path) == 1
+             else tp_shard(path, leaf["s"], r, m).contiguous())
+        out[name] = {"q": q, "s": s}
+    return out
+
+
+def gather_rows(mesh: Optional[Mesh], local: torch.Tensor
+                ) -> Optional[torch.Tensor]:
+    """The data ranks' rows (each rank's ``local_batch_slice`` of a global
+    batch, in order) concatenated on global rank 0; None on every other
+    rank.  Only the ranks of rank 0's data group (model coordinate 0) take
+    part: the model ranks of a data coordinate hold the same rows.
+    Without a mesh, ``local``."""
+    if mesh is None:
+        return local
+    if not mesh.active(DATA_AXIS):
+        return local if is_primary() else None
+    if 0 not in mesh.ranks[DATA_AXIS]:
+        return None
+    local = local.contiguous()
+    parts = ([torch.empty_like(local) for _ in range(mesh.size(DATA_AXIS))]
+             if is_primary() else None)
+    dist.gather(local, parts, dst=0, group=mesh.group(DATA_AXIS))
+    return torch.cat(parts) if is_primary() else None

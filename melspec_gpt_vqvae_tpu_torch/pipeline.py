@@ -12,7 +12,10 @@ loop's body: on the card a token's sampling and decode step are one
 captured CUDA graph (models/decode_graph.py), made at the first request
 of a shape and replayed from then on.  With ``int8_decode`` the VQ decode
 and vocoder stages run the calibrated int8 convolutions of
-models/quantized.py, as the JAX pipeline's int8 decode stage does.
+models/quantized.py, as the JAX pipeline's int8 decode stage does.  Over a
+mesh (``mesh=``) one process a GPU serves: every rank decodes its share
+of the batch or of the heads in step with the others, and rank 0 gathers
+the clips.
 """
 
 from __future__ import annotations
@@ -31,11 +34,13 @@ from .configs import ExperimentConfig, MelConfig
 
 from .models import quantized as qz
 from .models.decode_graph import DecodeGraphs
-from .models.gpt import BlockWeightCache, class_embed, gpt_generate
+from .models.gpt import (BlockWeightCache, class_embed, gpt_generate,
+                         quantize_block_weights)
 from .models.speculative import gpt_speculative_generate
 from .models.vocoder import MelGANGenerator
 from .models.vqvae import VQModel
 from .ops.mel_kernel import waveform_to_mel_fused
+from .parallel import mesh as pm
 
 
 def _chunked(fn, x: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -64,6 +69,18 @@ class GenerationPipeline:
     The captured programs share static buffers, so ``generate_tokens`` is
     not re-entrant: a lock serialises callers.
 
+    ``mesh`` (parallel/mesh.py, over ranks that all build this pipeline
+    from the same full weights and call ``generate`` with the same
+    arguments; the JAX pipeline's pipeline.py:73-122, 213-215): the GPT
+    and the draft are cut over ``model`` (``shard_gpt_for_serving``) and
+    replicated over ``data``, their int8 block weights quantised once from
+    the full weights and cut (``shard_block_weights``), the class batch
+    sliced over ``data`` (``local_batch_slice``; the data axis must divide
+    it).  Each data rank of model coordinate 0 decodes and vocodes its
+    slice through the replicated VQ-VAE and MelGAN (or the int8 stage's
+    replicated state); rank 0's ``generate`` returns the whole batch,
+    gathered, and every other rank's None.
+
     ``use_kernels`` is the counterpart of the JAX pipeline's
     ``use_pallas``, and the one place the port's kernel switch is set:
     each stage runs inside ``_build.kernels(use_kernels)``, which every
@@ -86,10 +103,28 @@ class GenerationPipeline:
                  chunk: int = 128, bf16: Optional[bool] = None,
                  draft_params=None, draft_cfg=None, gamma: int = 4,
                  graph: bool = True, use_kernels: Optional[bool] = None,
-                 int8_decode: bool = False):
+                 int8_decode: bool = False, mesh=None):
         if (draft_params is None) != (draft_cfg is None):
             raise ValueError("pass both draft_params and draft_cfg, or "
                              "neither")
+        self.mesh = mesh
+        self._mesh_wq = {}
+        if mesh is not None:
+            if mesh.has(pm.PIPE_AXIS):
+                raise ValueError("serving takes data and model axes, not "
+                                 "pipe")
+            models = {"gpt": (gpt_params, exp.model),
+                      "draft": (draft_params, draft_cfg)}
+            for name, (params, cfg) in models.items():
+                if params is None:
+                    continue
+                pm.check_divisible(mesh, cfg)
+                if cfg.decode_weight_dtype == "int8":
+                    self._mesh_wq[name] = pm.shard_block_weights(
+                        mesh, quantize_block_weights(params["blocks"]))
+            gpt_params = pm.shard_gpt_for_serving(mesh, gpt_params)
+            if draft_params is not None:
+                draft_params = pm.shard_gpt_for_serving(mesh, draft_params)
         self.exp = exp
         self.gcfg = exp.model
         self.vcfg = exp.vqvae
@@ -122,9 +157,11 @@ class GenerationPipeline:
                                               n_calib=32, batch=16)
             self.calibrate_seconds = time.perf_counter() - t0
 
-    def _wq(self, cache: BlockWeightCache, params, cfg):
+    def _wq(self, cache: BlockWeightCache, params, cfg, name):
         if cfg.decode_weight_dtype != "int8":
             return None
+        if self.mesh is not None:   # cut from the full weights' once
+            return self._mesh_wq[name]
         return cache.get(params["blocks"])
 
     @torch.inference_mode()
@@ -136,18 +173,27 @@ class GenerationPipeline:
         """classes (N,) -> ((N, code_h * code_w) GPT-order tokens,
         speculative stats ({} without a draft)).  Not re-entrant (the
         captured programs replay over shared buffers): concurrent callers
-        wait for each other on the pipeline's lock."""
+        wait for each other on the pipeline's lock.  Over a mesh: the
+        tokens of this rank's rows (``local_batch_slice``) of the global
+        batch ``classes``."""
         cls = torch.as_tensor(np.asarray(classes), dtype=torch.int64,
                               device=self.device)
+        if self.mesh is not None:
+            d = pm.data_size(self.mesh)
+            if len(cls) % d:
+                raise ValueError(f"the mesh data axis ({d}) must divide "
+                                 f"the batch ({len(cls)})")
+            cls = cls[pm.local_batch_slice(len(cls), self.mesh)]
         cond = class_embed(self.gpt_params, cls)
         # captured programs on the card, the eager loop on the CPU (None)
         graph = False if not self.graph else (
             self.graphs if self.device.type == "cuda" else None)
         kw = dict(steps=self.vcfg.code_h * self.vcfg.code_w,
                   temperature=temperature, top_k=top_k, top_p=top_p,
-                  sample=sample, graph=graph)
+                  sample=sample, graph=graph, mesh=self.mesh)
         with self._decode_lock, _build.kernels(self.use_kernels):
-            wq = self._wq(self.block_weights, self.gpt_params, self.gcfg)
+            wq = self._wq(self.block_weights, self.gpt_params, self.gcfg,
+                          "gpt")
             if self.draft_params is None:
                 return gpt_generate(self.gpt_params, self.gcfg, generator,
                                     cond, segments=self.segments, wq=wq,
@@ -157,7 +203,8 @@ class GenerationPipeline:
                 self.draft_cfg, generator, cond,
                 class_embed(self.draft_params, cls), gamma=self.gamma,
                 wq=wq, draft_wq=self._wq(self.draft_block_weights,
-                                         self.draft_params, self.draft_cfg),
+                                         self.draft_params, self.draft_cfg,
+                                         "draft"),
                 **kw)
 
     def decode_chunk(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -204,15 +251,25 @@ class GenerationPipeline:
     def generate(self, classes, generator: Optional[torch.Generator], *,
                  temperature: float = 1.0, top_k: Optional[int] = 100,
                  top_p: Optional[float] = None,
-                 sample: bool = True) -> Dict[str, np.ndarray]:
+                 sample: bool = True) -> Optional[Dict[str, np.ndarray]]:
         """classes (N,) -> dict(tokens (N, S) int32, specs (N, H, W),
         wavs (N, samples)) as host numpy arrays, plus ``spec_stats``
-        (rounds, drafted, accepted, accept_rate) with a draft."""
+        (rounds, drafted, accepted, accept_rate) with a draft.  Over a
+        mesh every rank calls it with the same arguments (the generator
+        seeded alike); rank 0 gets the whole batch, the others None."""
         toks, stats = self.generate_tokens(
             classes, generator, temperature=temperature, top_k=top_k,
             top_p=top_p, sample=sample)
+        mesh = self.mesh
+        if mesh is not None and mesh.coord(pm.MODEL_AXIS) != 0:
+            return None   # a replica of its model group's rank 0 rows
         specs = self.decode_specs(toks)
         wavs = self.vocode(specs)
+        if mesh is not None:
+            toks, specs, wavs = (pm.gather_rows(mesh, t)
+                                 for t in (toks, specs, wavs))
+            if not pm.is_primary():
+                return None
         out = {"tokens": toks.to(torch.int32).cpu().numpy(),
                "specs": specs.float().cpu().numpy(),
                "wavs": wavs.float().cpu().numpy()}

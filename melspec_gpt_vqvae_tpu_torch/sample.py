@@ -9,8 +9,12 @@ clips from a GPT run checkpoint, written as WAV files.
         --classes 0,3 --out_dir /tmp/smoke      # random weights
 
 The counterpart of the repository's ``sample.py``, with its flags minus
-the JAX-only ``--mesh`` and ``--platform`` and plus ``--device`` (the card
-unless ``--device cpu``).  The GPT checkpoint is the port's own
+the JAX-only ``--platform`` and plus ``--device`` (the card unless
+``--device cpu``).  ``--mesh data=2,model=2`` samples over one process a
+GPU under ``torchrun --nproc_per_node 4 -m
+melspec_gpt_vqvae_tpu_torch.sample ...`` (gloo with ``--device cpu``):
+a tail batch is padded to the data axis and only its real clips are
+written, by rank 0 alone.  The GPT checkpoint is the port's own
 (``train_gpt``'s ``lightning_logs/{experiment}-{dataset}``; an orbax run
 of the JAX package converts with ``scripts/torch_convert_orbax.py``).
 Each batch of clips is sampled from a ``torch.Generator`` seeded by one
@@ -73,6 +77,11 @@ def parse_args(argv=None):
                    help="calibrated int8 VQ-decoder + vocoder convs (an "
                         "experiment, as in the JAX package; replaces "
                         "kernel B)")
+    p.add_argument("--mesh", type=str, default="",
+                   help="sample over one process a GPU under torchrun, "
+                        "e.g. 'data=4' (batch sharded) or 'data=2,model=2' "
+                        "(Megatron-TP GPT weights + head-sharded KV "
+                        "cache); default: one device")
     p.add_argument("--override", type=str, default="",
                    help="comma k=v preset overrides, e.g. "
                         "'n_layer=2,n_embd=32'; repeat the run's own")
@@ -102,27 +111,45 @@ def pipeline_from_args(args):
         vocoder_ckpt=args.vocoder_ckpt, override=args.override,
         seed=args.seed, segments=args.segments, chunk=args.chunk,
         kv_cache=args.kv_cache, int8_weights=args.int8_weights,
-        device=args.device, draft_experiment=args.draft_experiment,
+        device=args.device, mesh_spec=args.mesh,
+        draft_experiment=args.draft_experiment,
         draft_resume=args.draft_resume, draft_override=args.draft_override,
         draft_random=args.draft_random, gamma=args.gamma,
         int8_decode=args.int8_decode)
 
 
 def main(argv=None):
-    """Run the CLI; returns the summary it prints last."""
+    """Run the CLI; returns the summary it prints last (None off rank 0 of
+    a mesh).  A process group that ``--mesh`` joined is left at the end;
+    one the caller had joined is kept."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import shutdown_distributed
+    joined = dist.is_initialized()
+    try:
+        return _sample(parse_args(argv))
+    finally:
+        if not joined:
+            shutdown_distributed()
+
+
+def _sample(args):
     import numpy as np
     import torch
 
+    from .parallel.mesh import data_size, is_primary
     from .pipeline import write_wav
 
-    args = parse_args(argv)
     exp, pipe = pipeline_from_args(args)
+    dp = data_size(pipe.mesh)
+    primary = is_primary()
     if args.classes == "all":
         classes = list(range(exp.model.class_size))
     else:
         classes = [int(c) for c in args.classes.split(",")]
     requests = np.repeat(np.asarray(classes, np.int32), args.num)
-    os.makedirs(args.out_dir, exist_ok=True)
+    if primary:
+        os.makedirs(args.out_dir, exist_ok=True)
     seeds = torch.Generator().manual_seed(args.seed)
     t0 = time.time()
     written = 0
@@ -130,6 +157,10 @@ def main(argv=None):
     counters = {}
     for start in range(0, len(requests), args.batch):
         batch_cls = requests[start:start + args.batch]
+        n_real = len(batch_cls)
+        if n_real % dp:   # pad the tail to the data axis; not written
+            batch_cls = np.concatenate(
+                [batch_cls, np.repeat(batch_cls[-1:], dp - n_real % dp)])
         s = int(torch.randint(2 ** 62, (1,), generator=seeds))
         gen = torch.Generator(device=pipe.device).manual_seed(s)
         out = pipe.generate(batch_cls, gen, temperature=args.temperature,
@@ -137,6 +168,9 @@ def main(argv=None):
                             top_p=(args.top_p
                                    if 0.0 < args.top_p < 1.0 else None),
                             sample=not args.deterministic)
+        if out is None:   # another rank of the mesh: rank 0 writes
+            continue
+        batch_cls = batch_cls[:n_real]
         for f in spec_agg:   # run-level stats, not the last batch's
             spec_agg[f] += out.get("spec_stats", {}).get(f, 0)
         for j, c in enumerate(batch_cls):
@@ -149,6 +183,8 @@ def main(argv=None):
             if args.save_spec:
                 np.save(stem + "_mel.npy", out["specs"][j])
             written += 1
+    if not primary:
+        return None
     dt = time.time() - t0
     summary = {"written": written, "out_dir": args.out_dir,
                "seconds": round(dt, 2),

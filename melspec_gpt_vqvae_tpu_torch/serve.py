@@ -15,8 +15,12 @@ API (the JAX package's, serving.py there; JSON in, WAV or JSON out):
        -> {"clips": [{"class": 0, "wav_base64": ...}, ...], ...}
 
 The counterpart of the repository's ``serve.py``, with its flags minus
-``--mesh`` and ``--platform`` and plus ``--device`` (the card unless
-``--device cpu``).  Requests are padded to the fixed ``--batch``; the
+``--platform`` and plus ``--device`` (the card unless ``--device cpu``).
+``--mesh data=2,model=2`` serves over one process a GPU, launched by
+``torchrun --nproc_per_node 4 -m melspec_gpt_vqvae_tpu_torch.serve ...``
+(gloo with ``--device cpu``): rank 0 binds the HTTP server and leads, the
+other ranks follow it (serving.py); an interrupt of rank 0 (SIGINT) stops
+them all.  Requests are padded to the fixed ``--batch``; the
 first request of a sampling shape captures its decode program, which the
 start-up warm-up does for the default knobs.  ``--artifact`` serves a
 ``torch.export`` artifact of scripts/torch_export_serving.py instead: its
@@ -28,7 +32,9 @@ warm-up runs the one baked mode.
 from __future__ import annotations
 
 import argparse
+import os
 
+from .parallel.mesh import is_primary, shutdown_distributed
 from .sample import pipeline_from_args
 
 
@@ -57,6 +63,11 @@ def parse_args(argv=None):
                    help="calibrated int8 VQ-decoder + vocoder convs (an "
                         "experiment, as in the JAX package; replaces "
                         "kernel B)")
+    p.add_argument("--mesh", type=str, default="",
+                   help="serve over one process a GPU under torchrun, e.g. "
+                        "'data=4' (batch sharded) or 'data=2,model=2' "
+                        "(Megatron-TP GPT weights + head-sharded KV cache); "
+                        "default: one device")
     p.add_argument("--override", type=str, default="")
     p.add_argument("--draft_experiment", type=str, default=None,
                    help="speculative decoding: run name of a smaller GPT "
@@ -88,14 +99,17 @@ def parse_args(argv=None):
 def start(argv=None):
     """Build the pipeline and the service, warm up and bind the server;
     returns the ``ThreadingHTTPServer`` (``main`` serves it until
-    interrupted)."""
+    interrupted).  Over a mesh only rank 0 binds one: every other rank
+    follows rank 0's batches here until it stops them, and then gets
+    None."""
     from .serving import GenerationService, serve
 
     args = parse_args(argv)
-    if args.artifact and (args.draft_experiment or args.draft_random
-                          or args.int8_decode):
-        # refused before build_pipeline: these would build (a draft, the
-        # int8 calibration) what the artifact then leaves unused
+    if args.artifact and (args.mesh or args.draft_experiment
+                          or args.draft_random or args.int8_decode):
+        # refused before build_pipeline: these would build (a mesh, a
+        # draft, the int8 calibration) what the artifact then leaves
+        # unused
         raise SystemExit("--artifact is single-device, no draft, no "
                          "--int8_decode (export.py contract)")
     exp, pipe = pipeline_from_args(args)
@@ -118,23 +132,39 @@ def start(argv=None):
             temperature=args.temperature, top_k=args.top_k,
             top_p=args.top_p if 0.0 < args.top_p < 1.0 else None,
             max_queue=args.max_queue)
+    if svc.mesh is not None and not is_primary():
+        print(f"rank {svc.mesh.rank}: following rank 0", flush=True)
+        svc.follow()
+        return None
     if not args.no_warmup:
         svc.warmup()
     httpd = serve(svc, args.host, args.port)
     host, port = httpd.server_address[:2]
     print(f"serving on http://{host}:{port} (batch {svc.batch}, "
-          f"{pipe.device})", flush=True)
+          f"{pipe.device}, pid {os.getpid()})", flush=True)
     return httpd
 
 
 def main(argv=None):
-    httpd = start(argv)
+    import torch.distributed as dist
+    joined = dist.is_initialized()
     try:
-        httpd.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        httpd = start(argv)
+        if httpd is None:   # a follower, stopped by rank 0
+            return
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            httpd.server_close()
+            httpd.service.stop_followers()
+            graphs = getattr(httpd.service.pipe, "graphs", None)
+            if graphs is not None:   # before the group they recorded goes
+                graphs.clear()
     finally:
-        httpd.server_close()
+        if not joined:   # the group --mesh joined, not the caller's
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -16,11 +16,16 @@ optionally with the calibrated int8 decode stage (``int8_decode``).
 generation with a lock, sheds load past a bounded queue, seeds each
 request's ``torch.Generator`` and sums the speculative stats of a request.
 ``serve`` puts the service behind a standard-library HTTP server with the
-JAX package's routes and bodies (serving.py:300-413 there).
+JAX package's routes and bodies (serving.py:300-413 there).  export.py
+serves a ``torch.export`` artifact of the pipeline through the same
+service (``ArtifactPipeline``).
 
-Not ported yet, and refused with NotImplementedError (ROADMAP queue A):
-mesh serving (A12).  export.py serves a ``torch.export`` artifact of the
-pipeline through the same service (``ArtifactPipeline``).
+Over a mesh (``build_pipeline(mesh_spec=...)``, one process a GPU under
+``torchrun``) rank 0 takes the requests: before each batch it broadcasts
+what the batch is (classes, sampling knobs, seed) and every rank generates
+it together; the other ranks run ``GenerationService.follow``, a loop that
+waits for the next batch and returns when rank 0 sends the stop message
+(``stop_followers``).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from .configs import ExperimentConfig, load_preset, parse_overrides
 from .models.gpt import DTYPES, gpt_param_template, init_gpt_params, tree_to
 from .models.vocoder import MelGANGenerator
 from .models.vqvae import VQModel
+from .parallel import mesh as pm
 from .pipeline import GenerationPipeline, wav_bytes
 from .training.checkpoint import CheckpointManager
 from .utils import convert
@@ -125,12 +131,16 @@ def build_pipeline(dataset: str = "vas", *, experiment: Optional[str] = None,
     ``use_kernels`` is the pipeline's kernel switch (False: no kernel of
     the port runs); ``int8_decode`` calibrates the int8 decode stage and
     runs the VQ decode and the vocoder through it (in place of kernel B).
+    ``mesh_spec`` ("data=2,model=2"; the product is the world size) serves
+    over the ranks of a process group, joined here
+    (``parallel.mesh.maybe_init_distributed``: the group ``torchrun``
+    describes, NCCL on the card -- this rank's ``cuda:LOCAL_RANK`` -- and
+    gloo only with ``device="cpu"``; or the group the caller joined):
+    every rank builds the same pipeline and keeps its shard
+    (``GenerationPipeline(mesh=)``, ``pipe.mesh``).
     Prints where each set of weights came from, as the JAX loader does.
     Returns ``(exp, pipe)``.
     """
-    if mesh_spec:
-        raise NotImplementedError("mesh serving is not ported yet "
-                                  "(ROADMAP A12)")
     if (experiment is not None) + bool(init_random) + (params is not None) \
             != 1:
         raise ValueError("pass exactly one of experiment=, "
@@ -140,6 +150,11 @@ def build_pipeline(dataset: str = "vas", *, experiment: Optional[str] = None,
         raise RuntimeError('build_pipeline: no CUDA card is visible; the '
                            'port serves on the card unless the caller asks '
                            'for the CPU with device="cpu"')
+    mesh = None
+    if mesh_spec:
+        device = pm.maybe_init_distributed(device)
+        mesh = pm.make_mesh(pm.parse_mesh(mesh_spec), device)
+        print(f"mesh: {mesh.shape} (rank {mesh.rank}, {device})")
     on_card = device.type == "cuda"
     kv = kv_cache or ("int8" if on_card else "auto")
     if kv not in ("auto", "int8", "int4"):
@@ -227,7 +242,7 @@ def build_pipeline(dataset: str = "vas", *, experiment: Optional[str] = None,
                               chunk=chunk, draft_params=draft,
                               draft_cfg=draft_cfg, gamma=gamma, graph=graph,
                               use_kernels=use_kernels,
-                              int8_decode=int8_decode)
+                              int8_decode=int8_decode, mesh=mesh)
     if int8_decode:
         print(f"int8 decode stage: calibrated in "
               f"{pipe.calibrate_seconds:.2f} s")
@@ -240,7 +255,9 @@ class ServiceOverloaded(RuntimeError):
 
 
 class GenerationService:
-    """Thread-safe, fixed-batch wrapper around a GenerationPipeline."""
+    """Thread-safe, fixed-batch wrapper around a GenerationPipeline.  Over
+    a mesh (``pipe.mesh``) the data axis must divide the batch; rank 0's
+    service takes the requests and the others ``follow`` it."""
 
     def __init__(self, exp: ExperimentConfig, pipe: GenerationPipeline, *,
                  batch: int = 8, seed: int = 783435,
@@ -249,6 +266,11 @@ class GenerationService:
         self.exp = exp
         self.pipe = pipe
         self.batch = max(1, int(batch))
+        self.mesh = getattr(pipe, "mesh", None)
+        dp = pm.data_size(self.mesh)
+        if self.batch % dp:
+            raise SystemExit(f"the mesh data axis ({dp}) must divide "
+                             f"--batch ({batch})")
         self.defaults = {"temperature": temperature,
                          "top_k": top_k or None,   # 0 disables, like top_p
                          "top_p": top_p}
@@ -305,9 +327,11 @@ class GenerationService:
                         [part, np.repeat(part[-1:], self.batch - n)])
                 s = ((int(seed) + i) & 0xFFFFFFFF if seed is not None else
                      int(torch.randint(2 ** 62, (1,), generator=self._seeds)))
-                gen = torch.Generator(device=self.pipe.device).manual_seed(s)
-                out = self.pipe.generate(part, gen, temperature=t, top_k=k,
-                                         top_p=p, sample=sample)
+                job = {"classes": part, "temperature": t, "top_k": k,
+                       "top_p": p, "sample": sample, "seed": s}
+                if self._leads():
+                    pm.broadcast_object(job)
+                out = self._run(job)
                 wavs.append(out["wavs"][:n])
                 toks.append(out["tokens"][:n])
                 specs.append(out["specs"][:n])
@@ -321,6 +345,42 @@ class GenerationService:
             agg["accept_rate"] = round(agg["accepted"] / agg["drafted"], 4)
             res["spec_stats"] = agg
         return res
+
+    def _leads(self) -> bool:
+        """True on rank 0 of a mesh of more than one process."""
+        return self.mesh is not None and pm.process_count() > 1
+
+    def _run(self, job) -> Optional[Dict[str, np.ndarray]]:
+        """One batch (``job``: what rank 0 broadcasts) through the
+        pipeline; None off rank 0 of a mesh."""
+        gen = torch.Generator(device=self.pipe.device).manual_seed(
+            job["seed"])
+        return self.pipe.generate(job["classes"], gen,
+                                  temperature=job["temperature"],
+                                  top_k=job["top_k"], top_p=job["top_p"],
+                                  sample=job["sample"])
+
+    def follow(self) -> int:
+        """The loop of a rank other than 0 of a mesh: receive each batch
+        rank 0 broadcasts and generate it with the others, until the stop
+        message, then drop the pipeline's captured programs (they hold the
+        group's communicators).  Returns the batches generated."""
+        n = 0
+        while True:
+            job = pm.broadcast_object(None)
+            if job is None:
+                graphs = getattr(self.pipe, "graphs", None)
+                if graphs is not None:
+                    graphs.clear()
+                return n
+            self._run(job)
+            n += 1
+
+    def stop_followers(self) -> None:
+        """Rank 0 of a mesh: send the followers the stop message."""
+        if self._leads():
+            with self._lock:
+                pm.broadcast_object(None)
 
     def warmup(self):
         """Run one request in each sample mode the pipeline serves before

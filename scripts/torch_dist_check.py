@@ -1,12 +1,16 @@
 #!/usr/bin/env python
-"""The port's distributed training on several cards against one card.
+"""The port's distributed training and serving on several cards against
+one card.
 
 Run under ``torchrun`` with one process a card, e.g. on four:
 
     torchrun --standalone --nproc_per_node 4 scripts/torch_dist_check.py
 
 (``--device cpu --override n_layer=4,n_embd=32,n_head=4`` rehearses it
-with gloo on the CPU at a narrow width.)
+with gloo on the CPU at a narrow width.)  ``--part training`` or ``--part
+serving`` runs one half; ``--serve_meshes`` names the serving meshes
+(default: ``data=N``, ``model=N`` and ``data=2,model=N/2``) and
+``--serve_variants`` the configurations (default: all three below).
 
 The class GPT at the VAS preset's full width (24 layers, 16 heads, 1024
 wide, kernel F, mixed precision unless ``--override
@@ -30,9 +34,24 @@ add up over 24 layers. Then each mesh's ms a step (5 steps, the last 3
 timed) and NCCL's device ms a step (``torch.profiler``). Rank 0 prints
 one JSON line a mesh and, last, ``{"ok": ..., "world": N, "card":
 ...}``; the exit code is 1 when a bound fails.
+
+Serving: the VAS GPT preset at its full width (random weights, seed
+783435) behind the VQ-VAE and MelGAN serves a seeded greedy batch of 8
+classes through ``GenerationPipeline(mesh=)`` under each serving mesh --
+the card's default (bfloat16, int8 KV cache, int8 block weights, the
+captured decode program, whose tensor-parallel step records NCCL
+all-reduces), then bfloat16 and float32 with the model-dtype cache --
+against the same weights on one card (rank 0, no mesh).  The int8
+tokens must equal one card's exactly (the row-cut int8 products reduce
+the activation scale with MAX and the int32 sums with SUM: the
+arithmetic is the single card's); for bfloat16 and float32, whose
+row-parallel sums take another order, the share of equal tokens is
+reported.  Beside them: each rank's peak memory and the request's
+seconds (the second request of the shape, after its capture).
 """
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -112,11 +131,119 @@ def _ms(task, state, batch, gen, dev):
     return 1e3 * float(np.mean(times[2:]))
 
 
+SERVE_VARIANTS = {"int8": ("bfloat16", "int8", "int8"),
+                  "bf16": ("bfloat16", "auto", "auto"),
+                  "float32": ("float32", "auto", "auto")}
+
+
+def _request(pipe, dev, gen_fn):
+    """(tokens of the whole batch on rank 0 (None elsewhere), seconds):
+    the full request (tokens, spectrograms, waveforms) on the card, the
+    tokens alone on the CPU (its conv stages at the preset's width would
+    take minutes)."""
+    from melspec_gpt_vqvae_tpu_torch.parallel import gather_rows, is_primary
+    cls = list(range(8))
+    _sync(dev)
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        out = pipe.generate(cls, gen_fn(), sample=False)
+        toks = None if out is None else out["tokens"]
+    else:
+        toks, _ = pipe.generate_tokens(cls, gen_fn(), sample=False)
+        if pipe.mesh is not None:
+            toks = (gather_rows(pipe.mesh, toks)
+                    if pipe.mesh.coord("model") == 0 else None)
+        toks = toks.numpy() if toks is not None and is_primary() else None
+    _sync(dev)
+    return toks, time.perf_counter() - t0
+
+
+def serving_check(dev, override, meshes, variants):
+    """The serving half (see the module's docstring); returns ok."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from melspec_gpt_vqvae_tpu_torch.configs import (load_preset,
+                                                     parse_overrides)
+    from melspec_gpt_vqvae_tpu_torch.models.gpt import DTYPES, tree_to
+    from melspec_gpt_vqvae_tpu_torch.parallel import (is_primary, make_mesh,
+                                                      parse_mesh)
+    from melspec_gpt_vqvae_tpu_torch.pipeline import GenerationPipeline
+    from melspec_gpt_vqvae_tpu_torch.serving import random_weights
+
+    base = load_preset("GPT", "vas", **parse_overrides(override))
+    gpt, vq, voc = random_weights(base, 783435)   # float32, on the host
+
+    def pipeline(variant, mesh):
+        dtype, cache, weights = SERVE_VARIANTS[variant]
+        exp = dataclasses.replace(base, model=base.model.replace(
+            dtype=dtype, cache_dtype=cache, decode_weight_dtype=weights))
+        return GenerationPipeline(
+            exp, tree_to(gpt, device=dev, dtype=DTYPES[dtype]), vq, voc,
+            mesh=mesh)
+
+    def gen_fn():
+        return torch.Generator(device=dev).manual_seed(5)
+
+    def peak_reset():
+        if dev.type == "cuda":
+            gc.collect()   # the last pipeline's graphs hold it in a cycle
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak():
+        return (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                if dev.type == "cuda" else None)
+
+    ok = True
+    ref = {}
+    if is_primary():
+        for variant in variants:
+            peak_reset()
+            pipe = pipeline(variant, None)
+            toks, first = _request(pipe, dev, gen_fn)
+            _, secs = _request(pipe, dev, gen_fn)
+            ref[variant] = toks
+            print(json.dumps({"serving": "one card", "variant": variant,
+                              "first_request_s": first, "request_s": secs,
+                              "peak_gib": peak()}), flush=True)
+            del pipe
+    for spec in meshes:
+        mesh = make_mesh(parse_mesh(spec), dev)
+        for variant in variants:
+            peak_reset()
+            pipe = pipeline(variant, mesh)
+            toks, first = _request(pipe, dev, gen_fn)
+            _, secs = _request(pipe, dev, gen_fn)
+            peaks = [None] * mesh.size("data") * mesh.size("model")
+            dist.all_gather_object(peaks, peak())
+            del pipe
+            if not is_primary():
+                continue
+            match = float((toks == ref[variant]).mean())
+            row = {"serving": spec, "variant": variant,
+                   "token_match": match, "first_request_s": first,
+                   "request_s": secs, "peak_gib_by_rank": peaks}
+            if variant == "int8":
+                row["ok"] = match == 1.0
+                ok = ok and row["ok"]
+            print(json.dumps(row), flush=True)
+    return ok
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--override", default="",
                     help="more preset overrides, e.g. a narrow width")
+    ap.add_argument("--part", default="all",
+                    choices=["all", "training", "serving"])
+    ap.add_argument("--serve_meshes", default="",
+                    help="';'-separated serving meshes (default: data=N; "
+                         "model=N; data=2,model=N/2)")
+    ap.add_argument("--serve_variants", default=",".join(SERVE_VARIANTS),
+                    help="comma-separated, of " + ", ".join(SERVE_VARIANTS))
     args = ap.parse_args()
     from melspec_gpt_vqvae_tpu_torch.configs import (load_preset,
                                                      parse_overrides)
@@ -134,6 +261,15 @@ def main():
     if dev.type == "cpu":
         torch.set_num_threads(1)
     n = process_count()
+    ok = True
+    if args.part in ("all", "serving"):
+        meshes = ([m for m in args.serve_meshes.split(";") if m]
+                  or [f"data={n}", f"model={n}", f"data=2,model={n // 2}"])
+        with torch.no_grad():
+            ok = serving_check(dev, args.override, meshes,
+                               args.serve_variants.split(","))
+    if args.part == "serving":
+        return _finish(ok, n, dev)
     exp = load_preset("GPT", "vas", **{
         "use_flash_train": True, "mixed_precision": True,
         "embd_pdrop": 0.0, "attn_pdrop": 0.0, "resid_pdrop": 0.0,
@@ -169,7 +305,6 @@ def main():
     meshes = [(f"data={n}", 0), (f"model={n}", 0),
               (f"data=2,model={n // 2}", 0), (f"pipe={n}", 2),
               (f"data=2,pipe={n // 2}", 2)]
-    ok = True
     for spec, micro in meshes:
         task = GPTTask(exp, dev, spec, pp_micro=micro)
         state = task.init_state(7)
@@ -203,6 +338,12 @@ def main():
             ok = ok and row["ok"]
             print(json.dumps(row), flush=True)
         del task, state, grads, params
+    _finish(ok, n, dev)
+
+
+def _finish(ok, n, dev):
+    from melspec_gpt_vqvae_tpu_torch.parallel import (is_primary,
+                                                      shutdown_distributed)
     if is_primary():
         card = "cpu"
         if dev.type == "cuda":

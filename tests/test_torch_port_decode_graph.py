@@ -463,12 +463,13 @@ def test_holder_launch_accounting(gpt, monkeypatch):
                         counting(TD.decode_attend_int8))
     monkeypatch.setattr(TL, "quantize_rows", counting(TL.quantize_rows))
     monkeypatch.setattr(TL, "rescale_bias", counting(TL.rescale_bias))
+    monkeypatch.setattr(TL, "row_scales", counting(TL.row_scales))
     assert DG.launch_counts() == {"decode_attention": 0, "quantize_rows": 0,
-                                  "rescale_bias": 0}
+                                  "row_scales": 0, "rescale_bias": 0}
     TG.gpt_generate(tp, cfg, None, ct, steps=STEPS, sample=False, graph=True)
     n = STEPS * cfg.n_layer
     assert DG.launch_counts() == {"decode_attention": n,
-                                  "quantize_rows": 4 * n,
+                                  "quantize_rows": 4 * n, "row_scales": 0,
                                   "rescale_bias": 4 * n}
     # the eager loop's steps launch E as often (its int8 products run the
     # plain chain)
@@ -482,7 +483,7 @@ def test_holder_launch_accounting(gpt, monkeypatch):
     for _ in range(3):
         prog.replay()
     assert DG.launch_counts() == {"decode_attention": 2 * n + 6,
-                                  "quantize_rows": 4 * n,
+                                  "quantize_rows": 4 * n, "row_scales": 0,
                                   "rescale_bias": 4 * n + 24}
 
 

@@ -101,7 +101,10 @@ PORT_MODULES = [
 # is no package)
 PORT_SCRIPTS = ["scripts/torch_quality_proof.py",
                 "scripts/torch_int8_quality.py",
-                "scripts/torch_dryrun_multiprocess.py"]
+                "scripts/torch_dryrun_multiprocess.py",
+                "scripts/torch_quality_vae.py",
+                "scripts/torch_spec_acceptance.py",
+                "scripts/torch_dist_check.py"]
 
 
 def test_port_never_imports_jax():

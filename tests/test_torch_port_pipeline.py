@@ -160,12 +160,13 @@ def test_service_sheds_load_past_the_queue_bound(pipes):
     assert svc.shed == 1
 
 
-# the int8 decode stage is ported (tests/test_torch_port_quantized.py);
-# mesh serving, data- or model-parallel, is not
+# the int8 decode stage is ported (tests/test_torch_port_quantized.py) and
+# so is mesh serving (tests/test_torch_port_serving_mesh.py); a mesh that
+# is not the world's, here one process without a launcher, is refused
 @pytest.mark.parametrize("kw", [{"mesh_spec": "data=2"},
                                 {"mesh_spec": "model=2"}])
 def test_build_pipeline_refuses_what_is_not_ported(kw):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="world size is 1"):
         build_on_cpu("vas", init_random=True, **kw)
 
 

@@ -314,8 +314,134 @@ def world_reduce(inp, out):
         np.zeros((1, 2), np.float64), mesh).dtype)
 
 
+def _key(shape):
+    return ",".join(f"{k}={v}" for k, v in shape.items())
+
+
+def _serving(params, cfg, mesh):
+    """This rank's served GPT shard and int8 block weights (cut from the
+    full weights' quantisation), as GenerationPipeline(mesh=) keeps
+    them."""
+    from melspec_gpt_vqvae_tpu_torch.models import gpt as G
+    from melspec_gpt_vqvae_tpu_torch.parallel import (shard_block_weights,
+                                                      shard_gpt_for_serving)
+    wq = (shard_block_weights(mesh, G.quantize_block_weights(
+        params["blocks"])) if cfg.decode_weight_dtype == "int8" else None)
+    return shard_gpt_for_serving(mesh, params), wq
+
+
+def _tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() if hasattr(tree, "numel") \
+        else 0
+
+
+def _forced_logits(params, cfg, wq, cond, forced, mesh=None):
+    """The logits of a prefill and then of a decode step on each row of
+    ``forced`` (steps, B), at host positions (the eager loop's step) and
+    at a device position (the captured program's, run eagerly here)."""
+    from melspec_gpt_vqvae_tpu_torch.models import gpt as G
+    out = []
+    for device_pos in (False, True):
+        cache = G.init_kv_cache(cfg, cond.shape[0],
+                                max_len=1 + forced.shape[0],
+                                heads=G.local_heads(params, cfg, mesh))
+        logits, cache = G.gpt_prefill(params, cfg, cache, None, cond,
+                                      mesh=mesh)
+        out.append(logits)
+        if device_pos:
+            cache["len"] = G.torch.tensor([cache["len"]])
+        for tok in forced:
+            logits, cache = G.gpt_decode_step(params, cfg, cache, tok, wq,
+                                              mesh=mesh)
+            out.append(logits)
+    return G.torch.stack(out)
+
+
+def world_serve(inp, out):
+    """Serving over a mesh: greedy decode (float32; int8 cache and int8
+    weights), both loops, the prefill forward, per-rank bytes, and the
+    pipeline; over 4 ranks (``inp["meshes"]``) or, for sampled tokens, 2."""
+    import torch
+
+    from melspec_gpt_vqvae_tpu_torch.models import gpt as G
+    from melspec_gpt_vqvae_tpu_torch.pipeline import GenerationPipeline
+
+    params, cond, x = inp["params"], inp["cond"], inp["x"]
+    for shape in inp["meshes"]:
+        mesh = _mesh(shape)
+        key = _key(shape)
+        for name, cfg in inp["cfgs"].items():
+            local, wq = _serving(params, cfg, mesh)
+            kw = dict(steps=inp["steps"], wq=wq, mesh=mesh)
+            for graph in (False, True):
+                out[f"greedy/{key}/{name}/{graph}"] = G.gpt_generate(
+                    local, cfg, None, _rows(cond, mesh), sample=False,
+                    graph=graph, **kw)
+            out[f"sampled/{key}/{name}"] = G.gpt_generate(
+                local, cfg, torch.Generator().manual_seed(inp["seed"]),
+                _rows(cond, mesh), top_k=inp["top_k"], graph=True, **kw)
+            if "forced" in inp:
+                out[f"logits/{key}/{name}"] = _forced_logits(
+                    local, cfg, wq, _rows(cond, mesh),
+                    _rows(inp["forced"].T, mesh).T, mesh)
+            if name == "f32":
+                rows = _rows(x, mesh)
+                cache = G.init_kv_cache(
+                    cfg, rows.shape[0], max_len=rows.shape[1],
+                    heads=G.local_heads(local, cfg, mesh))
+                out[f"prefill/{key}"] = G.gpt_prefill(local, cfg, cache,
+                                                      rows, mesh=mesh)[0]
+                cache = G.init_kv_cache(
+                    cfg, cond.shape[0] // mesh.size("data"),
+                    max_len=1 + inp["steps"],
+                    heads=G.local_heads(local, cfg, mesh))
+                out[f"bytes/{key}"] = _tree_bytes(local) + _tree_bytes(
+                    {k: v for k, v in cache.items() if k != "len"})
+    for shape in inp.get("pipe_meshes", ()):
+        mesh = _mesh(shape)
+        pipe = GenerationPipeline(inp["pipe_exp"], inp["pipe_gpt"],
+                                  inp["pipe_vq"], inp["pipe_melgan"],
+                                  segments=2, chunk=0, bf16=False, mesh=mesh,
+                                  **inp.get("pipe_draft", {}))
+        out[f"pipe/{_key(shape)}"] = pipe.generate(inp["pipe_cls"], None,
+                                                   sample=False)
+
+
+def world_spec(inp, out):
+    """Speculative decoding over a mesh: target and draft over ``model``,
+    the batch over ``data``; greedy (model-dtype and int8 caches) and
+    sampled, both loops."""
+    import torch
+
+    from melspec_gpt_vqvae_tpu_torch.models import gpt as G
+    from melspec_gpt_vqvae_tpu_torch.models.speculative import \
+        gpt_speculative_generate
+
+    for shape in inp["meshes"]:
+        mesh = _mesh(shape)
+        key = _key(shape)
+        for name, (cfg, dcfg) in inp["cfgs"].items():
+            local, wq = _serving(inp["params"], cfg, mesh)
+            dlocal, dwq = _serving(inp["drafts"][name], dcfg, mesh)
+            for sample in (False, True):
+                gen = torch.Generator().manual_seed(inp["seed"])
+                for graph in (False, True):
+                    toks, stats = gpt_speculative_generate(
+                        local, cfg, dlocal, dcfg, gen if sample else None,
+                        _rows(inp["cond"], mesh),
+                        G.class_embed(dlocal, _rows(inp["cls"], mesh)),
+                        steps=inp["steps"], gamma=inp["gamma"],
+                        sample=sample, top_k=inp["top_k"], wq=wq,
+                        draft_wq=dwq, graph=graph, mesh=mesh)
+                    gen = torch.Generator().manual_seed(inp["seed"])
+                    out[f"{key}/{name}/{sample}/{graph}"] = (toks, stats)
+    world_serve(inp["serve"], out)
+
+
 WORLDS = {"tp": world_tp, "dp": world_dp, "pp": world_pp,
-          "reduce": world_reduce}
+          "reduce": world_reduce, "serve": world_serve, "spec": world_spec}
 
 
 def main(world: str, rank: int, size: int, folder: str) -> None:
