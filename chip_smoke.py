@@ -87,8 +87,11 @@
    bf16, int8 KV cache and weights, captured decode, batch 8) the
    pipeline under ``data=1``, ``model=1`` (the tensor-parallel step:
    the row-cut products' scale pass, MAX and SUM all-reduces recorded in
-   the captured program) and ``data=1,model=1`` (through
-   ``build_pipeline(mesh_spec=)``) against the meshless one: greedy and
+   the captured program) and ``data=1,model=1`` (the last two through
+   ``build_pipeline(mesh_spec=)``, built from the host tree: the block
+   weights quantised on the host, which must equal the card's
+   quantisation of the same weights bit for bit, and only the rank's
+   parts moved to the card) against the meshless one: greedy and
    same-seed sampled tokens bit for bit, specs and wavs equal; A, B, E
    and the int8 product's kernels exactly counted (E 24 x 265 a
    request); one speculative request (24-layer target, random 4-layer
@@ -99,6 +102,26 @@
    0 (exit code 0).  At world size 1 NCCL's in-place sums launch
    nothing: scripts/torch_dist_check.py on four cards is where the
    captured all-reduces run.
+4d. (Phase ``xl``, after ``serving_mesh``.)  The XL decoder: the
+   ``GPT_VAE_vggsound`` decoder at its full width (1472 wide, 23 heads of
+   64, vocab 1024) and XL_LAYERS of its 40 layers, bf16 with the int8
+   cache and int8 weights, seeded random weights.  Kernel E at 23 heads
+   against its plain version at each capacity of an 8-segment decode
+   (batch 8 and 1, with and without the slot's write), kernel A at T = 1
+   over 23 heads, the int8 product at widths 1472 / 4416 / 5888 bit for
+   bit the CPU's; then the prior's greedy ``vae_decode`` (8 segments,
+   the captured program) twice with the kernels (E, A and the int8
+   product's kernels exactly counted) and twice without (no launch).
+   With int8 weights the two runs part where E's rounding moves an
+   activation across a quantisation boundary (the share of equal tokens
+   printed); from the same state the first layer's new cache slot must
+   be the same bits at every step, and the logits, step for step and
+   run free, stay within the configuration's own quantisation error (the
+   plain run's distance from float32 weights and cache), recorded on
+   E's row as ``xl_int8_weights_on_off``.  With float32 weights over the int8
+   cache (E and A the only kernels) the greedy tokens with the kernels
+   must equal those without, and the teacher-forced logits agree within
+   1e-3.
 5. Serves that checkpoint through the port's entry points, from the
    training tree: ``build_pipeline(experiment="smoke", resume="last")``
    (its bf16 params bit for bit the checkpoint's float32 ones, rounded),
@@ -225,6 +248,7 @@ import time
 import urllib.request
 import wave
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -676,16 +700,17 @@ def check_mel(dev, wav, mel_cfg):
 VAS_CAPS = (34, 67, 100, 133, 167, 200, 233, 266)
 
 
-def quantised_cache(g, dev, b, t, bits):
-    """A 2-layer stacked cache (16 heads of 64) of quantised unit-normal
-    latents, as the decode step writes it: [k, k_scale, v, v_scale], the
-    scales bfloat16."""
+def quantised_cache(g, dev, b, t, bits, heads=16):
+    """A 2-layer stacked cache (``heads`` heads of 64) of quantised
+    unit-normal latents, as the decode step writes it: [k, k_scale, v,
+    v_scale], the scales bfloat16."""
     from melspec_gpt_vqvae_tpu_torch.models.gpt import (_quantize_kv,
                                                         _quantize_kv4)
     quant = _quantize_kv if bits == "int8" else _quantize_kv4
     out = []
     for _ in range(2):
-        q, s = quant(torch.randn(2, b, 16, t, 64, generator=g, device=dev))
+        q, s = quant(torch.randn(2, b, heads, t, 64, generator=g,
+                                 device=dev))
         out += [q, s.to(torch.bfloat16)]
     return out
 
@@ -2954,11 +2979,20 @@ def _serving_meshes(dev, wrappers, zero, decode_launches):
         zero()
         ref = requests(plain, "no mesh")
         b_ref = wrappers["vocoder_stack"].launches
+        card_wq = plain.block_weights.get(plain.gpt_params["blocks"])
         for spec in ("data=1", "model=1", "data=1,model=1"):
-            if spec == "data=1,model=1":   # the entry point
-                _, pipe = build_pipeline("vas", init_random=True,
-                                         seed=783435, device=dev,
-                                         mesh_spec=spec)
+            if spec != "data=1":   # the entry point, from the host tree
+                (_, pipe), secs = wall(lambda: build_pipeline(
+                    "vas", init_random=True, seed=783435, device=dev,
+                    mesh_spec=spec))
+                print(f"  build_pipeline(mesh_spec={spec!r}) from the host "
+                      f"tree: {secs:.2f} s")
+                host_wq = pipe._mesh_wq["gpt"]
+                for name, leaf in card_wq.items():
+                    for f in ("q", "s"):
+                        check(torch.equal(host_wq[name][f], leaf[f]),
+                              f"serving {spec}: the host's int8 {name}.{f} "
+                              "differs from the card's quantisation")
             else:
                 pipe = GenerationPipeline(
                     exp, plain.gpt_params, plain.vq, plain.melgan,
@@ -2985,7 +3019,9 @@ def _serving_meshes(dev, wrappers, zero, decode_launches):
                   f"serving {spec}: the scale pass did not run")
             add(c)
             del pipe
-        del plain
+        print("  the host's int8 block weights (VAS GPT, bf16, quantised "
+              "leaf by leaf) equal the card's bit for bit")
+        del plain, card_wq
         torch.cuda.empty_cache()
 
         # one speculative request under data=1,model=1 against none
@@ -3020,6 +3056,227 @@ def _serving_meshes(dev, wrappers, zero, decode_launches):
         shutdown_distributed()
         shutil.rmtree(store, ignore_errors=True)
     return total
+
+
+# ---------------------------------------------------------------------------
+# 4d. the XL decoder: the VGGSound GPT-VAE's decoder, cut in depth
+# ---------------------------------------------------------------------------
+
+
+XL_LAYERS, XL_BATCH, XL_SEGMENTS = 4, 8, 8
+
+
+def xl_config():
+    """The ``GPT_VAE_vggsound`` decoder's configs (1472 wide, 23 heads of
+    64, vocab 1024, block 266) at XL_LAYERS of its 40 layers, bf16 with
+    the int8 cache and int8 block weights."""
+    from melspec_gpt_vqvae_tpu_torch.configs import load_preset
+    from melspec_gpt_vqvae_tpu_torch.models.gpt_vae import make_vae_configs
+    exp = load_preset("GPT_VAE", "vggsound")
+    m = exp.model
+    check((m.n_layer, m.n_head, m.n_embd, m.vocab_size)
+          == (40, 23, 1472, 1024), f"the XL preset moved: {m}")
+    base = m.replace(n_layer=XL_LAYERS, dtype="bfloat16", cache_dtype="int8",
+                     decode_weight_dtype="int8")
+    return make_vae_configs(base, exp.vae)
+
+
+def check_xl_kernels(dev, cfg):
+    """Kernels E and A at 23 heads against their plain versions, and the
+    int8 block product at the XL widths against the CPU bit for bit:
+    E over the int8 cache at each capacity of an 8-segment decode (batch
+    8: 184 (b, h) pairs, one CTA each; batch 1: 23 pairs, split), with and
+    without the new slot's write, at the JAX package's bound; A at T = 1,
+    bf16 (the prefill of the latent token) at 1e-2 of max |out|; the
+    products 1472 -> 4416, 1472 -> 1472, 1472 -> 5888, 5888 -> 1472 at M
+    = 8 through ``_int8_mm`` and through the two kernels around
+    ``_int_mm``.  Returns E's and A's worst errors."""
+    from melspec_gpt_vqvae_tpu_torch.models.gpt import (
+        _int8_mm, _segment_plan, quantize_block_weights)
+    from melspec_gpt_vqvae_tpu_torch.ops import decode_attention as DA
+    from melspec_gpt_vqvae_tpu_torch.ops import int8_linear as IL
+    from melspec_gpt_vqvae_tpu_torch.ops.attention import attend, attend_xla
+    g = torch.Generator(device=dev).manual_seed(23)
+    h = cfg.n_head
+    caps = [c for c, _ in _segment_plan(1, 265, XL_SEGMENTS)]
+    worst_e, splits = 0.0, set()
+    for b in (XL_BATCH, 1):
+        for t in caps:
+            k, ks, v, vs = quantised_cache(g, dev, b, t, "int8", heads=h)
+            for pos in sorted({0, t // 2, t - 1}):
+                case = f"xl decode attention B={b} H={h} T={t} pos={pos}"
+                q, k_new, v_new = (torch.randn(b, h, 64, generator=g,
+                                               device=dev).bfloat16()
+                                   for _ in range(3))
+                at = torch.tensor([pos], dtype=torch.int64, device=dev)
+                out = DA.decode_attend_int8(q, k, v, ks, vs, 1, at)
+                ref = DA.decode_attend_int8_xla(q, k, v, ks, vs, 1, pos)
+                mine = [a.clone() for a in (k, v, ks, vs)]
+                plain = [a.clone() for a in (k, v, ks, vs)]
+                DA.write_kv_rows(*plain, 1, pos, k_new, v_new)
+                out_w = DA.decode_attend_int8(q, *mine, 1, at, k_new=k_new,
+                                              v_new=v_new)
+                ref_w = DA.decode_attend_int8_xla(q, *plain, 1, pos)
+                for o, r, label in ((out, ref, ""), (out_w, ref_w,
+                                                     ", with the write")):
+                    err = (o.float() - r.float()).abs()
+                    check(bool((err <= 1e-4 + 1e-4 * r.float().abs()).all()),
+                          f"{case}{label}: max|err| {err.max().item():.3g}")
+                    worst_e = max(worst_e, err.max().item())
+                check(all(torch.equal(a, c) for a, c in zip(mine, plain)),
+                      f"{case}: the written slot differs from the plain "
+                      "write")
+                splits.add(DA.choose_splits(b * h, pos + 1))
+    worst_a = 0.0
+    for b in (XL_BATCH, 64):
+        q, k, v = (torch.randn(b, h, 1, 64, generator=g, device=dev)
+                   .bfloat16() for _ in range(3))
+        ref = attend_xla(q, k, v, 0)
+        err = max_err(attend(q, k, v, 0), ref)
+        tol = 1e-2 * ref.float().abs().max().item()
+        check(err <= tol, f"xl attention B={b} H={h} T=1: max|err| {err:.3g}"
+              f" (tol {tol:.3g})")
+        worst_a = max(worst_a, err)
+    d = cfg.n_embd
+    gc = torch.Generator().manual_seed(5)
+    shapes = {"attn_qkv": (d, 3 * d), "attn_proj": (d, d),
+              "mlp_up": (d, 4 * d), "mlp_down": (4 * d, d)}
+    w_cpu = quantize_block_weights({n: {"w": 0.02 * torch.randn(
+        1, *kn, generator=gc)} for n, kn in shapes.items()})
+    for name, (kk, nn) in shapes.items():
+        x = torch.randn(XL_BATCH, kk, generator=gc).bfloat16()
+        bias = torch.randn(nn, generator=gc).bfloat16()
+        wq, ws = w_cpu[name]["q"][0], w_cpu[name]["s"][0]
+        ref = _int8_mm(x, wq, ws)
+        check(torch.equal(_int8_mm(x.to(dev), wq.to(dev), ws.to(dev)).cpu(),
+                          ref), f"xl _int8_mm {name} {kk}x{nn}: card != CPU")
+        lin = IL.int8_linear(x.to(dev), wq.to(dev), ws.to(dev),
+                             bias.to(dev))
+        check(torch.equal(lin.cpu(), ref.to(x.dtype) + bias),
+              f"xl int8_linear {name} {kk}x{nn}: card != CPU")
+    print(f"  E at H={h} (caps {caps}, batch {XL_BATCH} and 1, splits "
+          f"{sorted(splits)}): max|err| {worst_e:.3g}; A at T=1 H={h} "
+          f"bf16: max|err| {worst_a:.3g}; the int8 products at widths "
+          f"{d} / {3 * d} / {4 * d} bit for bit the CPU's")
+    return worst_e, worst_a
+
+
+def xl_decode(params, cfgs, z, switch, holder):
+    """Greedy ``vae_decode`` of the prior's ``z`` (XL_SEGMENTS segments,
+    the captured program kept in ``holder``) inside
+    ``_build.kernels(switch)``, twice: (tokens, seconds with the
+    capture, seconds again)."""
+    from melspec_gpt_vqvae_tpu_torch import _build
+    from melspec_gpt_vqvae_tpu_torch.models.gpt_vae import vae_decode
+    with _build.kernels(switch):
+        toks, first = wall(lambda: vae_decode(
+            params, cfgs, z, "greedy", segments=XL_SEGMENTS, graph=holder))
+        again, secs = wall(lambda: vae_decode(
+            params, cfgs, z, "greedy", segments=XL_SEGMENTS, graph=holder))
+    check(torch.equal(toks, again), "xl: two greedy decodes differ")
+    return toks, first, secs
+
+
+def xl_check(dev, wrappers, zero, decode_launches):
+    """Phase xl (the docstring's 4d).  Returns (the counted kernels'
+    launches of the deployment configuration's decode with the kernels,
+    (E's and A's worst errors), that configuration's logits with the
+    kernels against without and the bound that holds them)."""
+    from melspec_gpt_vqvae_tpu_torch.models.decode_graph import DecodeGraphs
+    from melspec_gpt_vqvae_tpu_torch.models.gpt import (init_gpt_params,
+                                                        tree_to)
+    from melspec_gpt_vqvae_tpu_torch.models.gpt_vae import sample_from_prior
+    cfgs = xl_config()
+    dec = cfgs.decoder
+    errs = check_xl_kernels(dev, dec)
+    gen = torch.Generator(device=dev)
+    params = {"decoder": init_gpt_params(dec, gen.manual_seed(0), dev)}
+    z = sample_from_prior(cfgs, XL_BATCH, gen.manual_seed(1))
+    steps = cfgs.encoder.block_size
+    cond = z[:, None, :]
+
+    # the deployment configuration: bf16, int8 cache and int8 weights
+    runs, launches = {}, None
+    for name, switch in (("kernels", None), ("plain", False)):
+        holder = DecodeGraphs()
+        zero()
+        toks, first, secs = xl_decode(params, cfgs, z, switch, holder)
+        check(toks.shape == (XL_BATCH, steps) and int(toks.min()) >= 0
+              and int(toks.max()) < dec.vocab_size, f"xl tokens {toks.shape}")
+        print(f"  XL decoder ({XL_LAYERS} of 40 layers, batch {XL_BATCH}, "
+              f"bf16, int8 cache and weights, greedy, {XL_SEGMENTS} "
+              f"segments, {name}): {first:.3f} s with the capture, "
+              f"{secs:.3f} s again")
+        if switch is None:
+            launches = decode_launches(
+                SimpleNamespace(graphs=holder, gcfg=dec), "xl",
+                2 * steps * XL_LAYERS)
+            check(launches["attention"] == 2 * XL_LAYERS,
+                  f"xl: A launched {launches['attention']} times, expected "
+                  f"{2 * XL_LAYERS} (the prefill, a layer and call)")
+        else:
+            c = {k: w.launches for k, w in wrappers.items()}
+            check(not any(c.values()), f"xl, kernels off: launches {c}")
+        runs[name] = toks
+    # with int8 weights every product re-quantises its activations, and
+    # E's float rounding moves some across a rounding boundary: the
+    # greedy runs part (their share printed); from the same state the
+    # first layer's new slot is the same bits at every step (the int8
+    # product's kernels and E's write equal their plain versions bit
+    # for bit), and the logits, step for step and run free, stay within
+    # the configuration's own quantisation error (below), as in
+    # ``kernels_on_off_f32``
+    step_err, differ, l_on8 = lockstep_on_off(params["decoder"], dec, cond,
+                                              runs["kernels"])
+    l_off8 = free_running(params["decoder"], dec, cond, runs["kernels"],
+                          False)
+    share = (runs["kernels"] == runs["plain"]).float().mean().item()
+    print(f"  bf16 / int8 weights, kernels against plain: greedy tokens "
+          f"{share:.4f} equal; from the same state, logits within "
+          f"{step_err:.3g} and the first layer's slot differing at "
+          f"{differ} steps")
+    check(differ == 0, "xl: the first layer's new cache slot differs "
+          "between the kernels and the plain versions")
+
+    # float32 weights over the int8 cache: E and A the only kernels, the
+    # products the same cuBLAS calls either way
+    dec32 = dec.replace(dtype="float32", decode_weight_dtype="auto")
+    cfgs32 = cfgs._replace(decoder=dec32)
+    params32 = {"decoder": tree_to(params["decoder"], dtype=torch.float32)}
+    toks32 = {name: xl_decode(params32, cfgs32, z, switch,
+                              DecodeGraphs())[0]
+              for name, switch in (("kernels", None), ("plain", False))}
+    l_on = free_running(params32["decoder"], dec32, cond,
+                        toks32["kernels"], None)
+    l_off = free_running(params32["decoder"], dec32, cond,
+                         toks32["kernels"], False)
+    err32 = max_err(l_on, l_off)
+    equal32 = torch.equal(toks32["kernels"], toks32["plain"])
+    print(f"  float32 weights, int8 cache: greedy tokens with the kernels "
+          f"equal to those without: {equal32}; teacher-forced logits "
+          f"within {err32:.3g}")
+    check(equal32, "xl: greedy tokens with the kernels differ from those "
+          "without (float32 weights, int8 cache)")
+    check(err32 <= 1e-3, "xl: teacher-forced logits, kernels against "
+          "plain (float32 weights, int8 cache)")
+
+    # the deployment configuration's quantisation error: its plain run's
+    # distance from float32 weights and a float32 cache (no margin),
+    # which the kernels do not touch
+    l_f32 = free_running(params32["decoder"], dec32.replace(
+        cache_dtype="auto"), cond, runs["kernels"], None)
+    int8 = {"stepwise_logits": step_err,
+            "free_running_logits": max_err(l_on8, l_off8),
+            "bound_quantisation_error": max_err(l_off8, l_f32),
+            "greedy_token_agreement": share}
+    print(f"  bf16 / int8 weights, kernels against plain: {json.dumps(int8)}")
+    check(max(step_err, int8["free_running_logits"])
+          <= int8["bound_quantisation_error"],
+          "xl, bf16 / int8 weights: kernels against plain beyond the "
+          "quantisation error")
+    del params, params32
+    torch.cuda.empty_cache()
+    return launches, errs, int8
 
 
 # ---------------------------------------------------------------------------
@@ -4668,6 +4925,24 @@ def run(procs):
         by_path = results[name].setdefault("launches_by_path",
                                            {"serving": launches[name]})
         by_path["serving_mesh"] = n
+        launches[name] += n
+
+    phase("xl", f"the XL decoder (GPT_VAE_vggsound: 1472 wide, 23 heads, "
+          f"vocab 1024; {XL_LAYERS} of 40 layers, batch {XL_BATCH}, bf16, "
+          "int8 KV cache and weights, random weights):")
+    xl_launches, (xl_e, xl_a), xl_int8 = xl_check(dev, wrappers, zero,
+                                                  decode_launches)
+    results["decode_attention"]["xl_int8_weights_on_off"] = xl_int8
+    for name, err in (("decode_attention", xl_e), ("attention", xl_a)):
+        results[name]["max_abs_err_xl_h23"] = err
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           err)
+    for name, n in xl_launches.items():
+        if not n:
+            continue
+        by_path = results[name].setdefault("launches_by_path",
+                                           {"serving": launches[name]})
+        by_path["xl"] = n
         launches[name] += n
 
     phase("served_checkpoint",

@@ -16,8 +16,12 @@ token and the decode step that follows it -- is recorded once in a
   * ``Program`` captures a callable by the documented recipe: a few eager
     runs on a side stream first (cuBLASLt's workspaces, cuDNN's plans and
     the kernels' ``cudaFuncSetAttribute`` calls happen there), then
-    ``torch.cuda.graph``.  A failed capture raises: nothing falls back to
-    the eager loop;
+    ``torch.cuda.graph``.  Every capture on a device uses the same side
+    stream (``capture_stream``): cuBLAS keeps a workspace for each stream
+    it has run on until the process ends, 32 MiB on this card, so a
+    stream a capture would leave that much allocated behind every
+    program, long after the program is gone.  A failed capture raises:
+    nothing falls back to the eager loop;
   * under replay no wrapper runs, so ``Program`` notes how many launches of
     each counted kernel one run of the body holds and adds them to the
     wrappers' ``launches`` on every replay.  The warm-up runs launch for
@@ -57,6 +61,18 @@ from ..ops import int8_linear as _il
 
 WARMUP_RUNS = 3
 MAX_SESSIONS = 4
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The side stream every capture on ``device`` warms up on (and
+    records collectives on), made on first use."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
 
 
 def counted_wrappers() -> Dict[str, Callable]:
@@ -115,7 +131,7 @@ class Program:
     def _capture(self, device, reset, pool, collectives) -> None:
         before = launch_counts()
         with torch.cuda.device(device):
-            side = torch.cuda.Stream()
+            side = capture_stream(device)
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 for _ in range(WARMUP_RUNS):

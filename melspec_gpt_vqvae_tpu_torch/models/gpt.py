@@ -680,19 +680,27 @@ def gpt_prefill(params: Params, cfg: GPTConfig, cache: Dict,
     return x @ params["head"]["w"], cache
 
 
+BLOCK_MATRICES = ("attn_qkv", "attn_proj", "mlp_up", "mlp_down")
+
+
+def quantize_block_weight(w: torch.Tensor) -> Dict:
+    """One stacked block matrix (L, in, out) -> ``{"q": (L, in, out) int8,
+    "s": (L, out) float32}``, per-output-channel absmax over the whole
+    ``in`` axis (gpt.py:426-438), computed where ``w`` lies.  Each layer's
+    ``q`` is stored column-major (its ``in`` axis contiguous), the layout
+    the card's int8 product takes."""
+    w = w.float()
+    scale = torch.clamp_min(_div(w.abs().amax(1), 127.0), 1e-8)
+    wq = torch.clamp(torch.round(w / scale[:, None, :]), -127, 127)
+    wq = wq.to(torch.int8).transpose(1, 2).contiguous().transpose(1, 2)
+    return {"q": wq, "s": scale}
+
+
 def quantize_block_weights(blocks: Params) -> Dict:
-    """Per-output-channel absmax int8 quantisation of the four block
-    matrices (gpt.py:426-438): ``{name: {"q": (L, in, out) int8, "s":
-    (L, out) float32}}``.  Each layer's ``q`` is stored column-major (its
-    ``in`` axis contiguous), the layout the card's int8 product takes."""
-    def q(w):
-        w = w.float()
-        scale = torch.clamp_min(_div(w.abs().amax(1), 127.0), 1e-8)
-        wq = torch.clamp(torch.round(w / scale[:, None, :]), -127, 127)
-        wq = wq.to(torch.int8).transpose(1, 2).contiguous().transpose(1, 2)
-        return {"q": wq, "s": scale}
-    return {name: q(blocks[name]["w"])
-            for name in ("attn_qkv", "attn_proj", "mlp_up", "mlp_down")}
+    """``quantize_block_weight`` of the four block matrices: ``{name:
+    {"q", "s"}}``."""
+    return {name: quantize_block_weight(blocks[name]["w"])
+            for name in BLOCK_MATRICES}
 
 
 def _int8_mm(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
@@ -921,14 +929,12 @@ class BlockWeightCache:
     confused by a reused address.  A write through ``.data`` moves no
     version: call ``drop`` after one."""
 
-    NAMES = ("attn_qkv", "attn_proj", "mlp_up", "mlp_down")
-
     def __init__(self):
         self._held = None   # (matrices, their marks, quantised)
         self.passes = 0     # times the weights were quantised
 
     def get(self, blocks: Params) -> Dict:
-        mats = [blocks[n]["w"] for n in self.NAMES]
+        mats = [blocks[n]["w"] for n in BLOCK_MATRICES]
         marks = [(m._version, m.dtype, m.device) for m in mats]
         hit = self._held
         if hit is None or hit[1] != marks \

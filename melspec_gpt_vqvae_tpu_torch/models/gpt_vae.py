@@ -183,24 +183,28 @@ def log_probability(params: Params, cfgs: VAEConfigs, x: torch.Tensor,
 def vae_decode(params: Params, cfgs: VAEConfigs, z: torch.Tensor,
                strategy: str = "greedy", top_k: Optional[int] = None,
                temperature: Optional[float] = None,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               segments: int = DECODE_SEGMENTS, *, graph=None,
+               wq: Optional[Dict] = None) -> torch.Tensor:
     """Token sequences (B, block_size) from z (B, nz) or (B, ns, nz), its
     first sample the decoder's prompt, through ``gpt_generate`` in
-    DECODE_SEGMENTS cache segments (the captured decode program on the
+    ``segments`` cache segments (the captured decode program on the
     card).  "greedy" and "sample" are argmax; "beam" is top-k sampling
     (top_k 100 unless given), as in the reference
-    (Lit_GPT_VAE.py:108-143)."""
+    (Lit_GPT_VAE.py:108-143).  ``graph`` and ``wq`` go to
+    ``gpt_generate``: a ``decode_graph.DecodeGraphs`` keeps the captures,
+    and the decoder's int8 block weights can be passed in, for a caller
+    that decodes the same shape again."""
     cond = z[:, 0:1, :] if z.ndim == 3 else z[:, None, :]
     steps = cfgs.encoder.block_size
+    kw = dict(steps=steps, segments=segments, graph=graph, wq=wq)
     if strategy == "beam":
         return gpt_generate(params["decoder"], cfgs.decoder, generator, cond,
-                            None, steps=steps, sample=True,
+                            None, sample=True,
                             top_k=top_k if top_k is not None else 100,
-                            temperature=temperature or 1.0,
-                            segments=DECODE_SEGMENTS)
+                            temperature=temperature or 1.0, **kw)
     return gpt_generate(params["decoder"], cfgs.decoder, generator, cond,
-                        None, steps=steps, sample=False,
-                        segments=DECODE_SEGMENTS)
+                        None, sample=False, **kw)
 
 
 def reconstruct(params: Params, cfgs: VAEConfigs, x: torch.Tensor,

@@ -23,6 +23,7 @@ from .mesh import (  # noqa: F401
     parse_mesh,
     process_count,
     process_index,
+    shard_block_weight,
     shard_block_weights,
     shard_gpt_for_serving,
     shard_tree,

@@ -529,18 +529,32 @@ def gather_tree(mesh: Optional[Mesh], tree, prefix: str = "",
 # ---------------------------------------------------------------------------
 
 
-def shard_gpt_for_serving(mesh: Optional[Mesh], params):
+def _model_cut(mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """(model axis size, this rank's coordinate on it)."""
+    if mesh is None:
+        return 1, 0
+    return mesh.size(MODEL_AXIS), mesh.coord(MODEL_AXIS)
+
+
+def shard_gpt_for_serving(mesh: Optional[Mesh], params, device=None):
     """This rank's copy of a served GPT tree (the full leaves): the
     Megatron cut of ``tp_shard`` over ``model`` -- the qkv head-aligned,
     ``attn_proj`` and ``mlp_down`` by rows, ``mlp_up`` by columns; the
     embeddings, layer norms, the row-cut products' biases and the head
-    whole -- each leaf a contiguous tensor of its own (a view would keep
-    the full leaf alive).  Replicated over ``data``."""
-    if mesh is None or mesh.size(MODEL_AXIS) == 1:
-        return params
-    m, r = mesh.size(MODEL_AXIS), mesh.coord(MODEL_AXIS)
-    return _walk(params, lambda n, t: tp_shard(n, t, r, m).contiguous()
-                 .clone() if tp_rule(n) is not None else t)
+    whole -- each cut leaf a contiguous tensor of its own (a view would
+    keep the full leaf alive).  Replicated over ``data``.  Each leaf is
+    cut where it lies (the host, for a tree ``build_pipeline`` restored)
+    and only this rank's part moves to ``device`` (None: the leaves stay
+    where they are), one leaf at a time, so no full block leaf reaches
+    the device."""
+    m, r = _model_cut(mesh)
+
+    def one(name, t):
+        if m > 1 and tp_rule(name) is not None:
+            t = tp_shard(name, t, r, m).clone(
+                memory_format=torch.contiguous_format)
+        return t if device is None else t.to(device)
+    return _walk(params, one)
 
 
 def _column_major(q: torch.Tensor) -> torch.Tensor:
@@ -550,24 +564,33 @@ def _column_major(q: torch.Tensor) -> torch.Tensor:
     return q.transpose(1, 2).contiguous().transpose(1, 2)
 
 
-def shard_block_weights(mesh: Optional[Mesh], wq: Dict) -> Dict:
-    """This rank's part of ``quantize_block_weights`` of the FULL block
-    matrices (``{name: {"q": (L, in, out) int8, "s": (L, out)}}``): ``q``
-    cut as its float matrix is; ``s`` cut with the columns of a column-cut
-    product (``attn_qkv``, ``mlp_up``) and whole for a row-cut one
-    (``attn_proj``, ``mlp_down``, whose output columns every rank holds),
-    so that every scale is the single device's."""
-    if mesh is None or mesh.size(MODEL_AXIS) == 1:
-        return wq
-    m, r = mesh.size(MODEL_AXIS), mesh.coord(MODEL_AXIS)
-    out = {}
-    for name, leaf in wq.items():
+def shard_block_weight(mesh: Optional[Mesh], name: str, leaf: Dict,
+                       device=None) -> Dict:
+    """This rank's part of one block matrix's int8 copy, quantised from
+    the FULL matrix (models/gpt.py::quantize_block_weight: ``{"q": (L,
+    in, out) int8, "s": (L, out)}``): ``q`` cut as its float matrix is;
+    ``s`` cut with the columns of a column-cut product (``attn_qkv``,
+    ``mlp_up``) and whole for a row-cut one (``attn_proj``, ``mlp_down``,
+    whose output columns every rank holds), so that every scale is the
+    single device's.  The parts move to ``device`` (None: where the leaf
+    lies)."""
+    m, r = _model_cut(mesh)
+    q, s = leaf["q"], leaf["s"]
+    if m > 1:
         path = f"blocks/{name}/w"
-        q = _column_major(tp_shard(path, leaf["q"], r, m))
-        s = (leaf["s"] if tp_rule(path) == 1
-             else tp_shard(path, leaf["s"], r, m).contiguous())
-        out[name] = {"q": q, "s": s}
-    return out
+        q = _column_major(tp_shard(path, q, r, m))
+        if tp_rule(path) != 1:
+            s = tp_shard(path, s, r, m).contiguous()
+    if device is not None:
+        q, s = q.to(device), s.to(device)
+    return {"q": q, "s": s}
+
+
+def shard_block_weights(mesh: Optional[Mesh], wq: Dict) -> Dict:
+    """``shard_block_weight`` of every matrix of a
+    ``quantize_block_weights`` copy."""
+    return {name: shard_block_weight(mesh, name, leaf)
+            for name, leaf in wq.items()}
 
 
 def gather_rows(mesh: Optional[Mesh], local: torch.Tensor

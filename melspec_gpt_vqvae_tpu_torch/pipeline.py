@@ -34,8 +34,8 @@ from .configs import ExperimentConfig, MelConfig
 
 from .models import quantized as qz
 from .models.decode_graph import DecodeGraphs
-from .models.gpt import (BlockWeightCache, class_embed, gpt_generate,
-                         quantize_block_weights)
+from .models.gpt import (BLOCK_MATRICES, BlockWeightCache, class_embed,
+                         gpt_generate, quantize_block_weight, tree_to)
 from .models.speculative import gpt_speculative_generate
 from .models.vocoder import MelGANGenerator
 from .models.vqvae import VQModel
@@ -47,6 +47,34 @@ def _chunked(fn, x: torch.Tensor, chunk: int) -> torch.Tensor:
     if not chunk or x.shape[0] <= chunk:
         return fn(x)
     return torch.cat([fn(x[i:i + chunk]) for i in range(0, x.shape[0], chunk)])
+
+
+def _served_device(mesh, device) -> torch.device:
+    """Where a served rank places its weights: ``device``, else the
+    mesh's own (the card under NCCL) -- never inferred from a tree that
+    lies on the host.  A device of another kind than the mesh's is
+    refused."""
+    device = mesh.device if device is None else torch.device(device)
+    if device.type != mesh.device.type:
+        raise ValueError(f"device {device} is not of the mesh's kind "
+                         f"({mesh.device})")
+    return device
+
+
+def _served_weights(mesh, params, cfg, device):
+    """(this rank's parts of a served GPT tree, of its int8 block copy or
+    None) on ``device``, cut from the full leaves where they lie (the
+    host, for the trees ``build_pipeline`` holds) one leaf at a time:
+    each block matrix is quantised over its whole ``in`` axis (a row-cut
+    product's scales are the whole column's), cut with its scales and
+    placed before the next is quantised, so no full block leaf, float or
+    int8, reaches the device."""
+    wq = None
+    if cfg.decode_weight_dtype == "int8":
+        wq = {name: pm.shard_block_weight(
+            mesh, name, quantize_block_weight(params["blocks"][name]["w"]),
+            device) for name in BLOCK_MATRICES}
+    return pm.shard_gpt_for_serving(mesh, params, device), wq
 
 
 class GenerationPipeline:
@@ -69,12 +97,18 @@ class GenerationPipeline:
     The captured programs share static buffers, so ``generate_tokens`` is
     not re-entrant: a lock serialises callers.
 
+    ``device``: where the pipeline runs (None: over a mesh, the mesh's
+    device; else where ``gpt_params`` lie); the trees are moved there.
+    Pass it when they lie on the host and there is no mesh.
+
     ``mesh`` (parallel/mesh.py, over ranks that all build this pipeline
     from the same full weights and call ``generate`` with the same
     arguments; the JAX pipeline's pipeline.py:73-122, 213-215): the GPT
     and the draft are cut over ``model`` (``shard_gpt_for_serving``) and
     replicated over ``data``, their int8 block weights quantised once from
-    the full weights and cut (``shard_block_weights``), the class batch
+    the full weights and cut (``shard_block_weight``) -- where the trees
+    lie, one leaf at a time, only this rank's parts moved to ``device``
+    (``_served_weights``) -- the class batch
     sliced over ``data`` (``local_batch_slice``; the data axis must divide
     it).  Each data rank of model coordinate 0 decodes and vocodes its
     slice through the replicated VQ-VAE and MelGAN (or the int8 stage's
@@ -103,7 +137,7 @@ class GenerationPipeline:
                  chunk: int = 128, bf16: Optional[bool] = None,
                  draft_params=None, draft_cfg=None, gamma: int = 4,
                  graph: bool = True, use_kernels: Optional[bool] = None,
-                 int8_decode: bool = False, mesh=None):
+                 int8_decode: bool = False, mesh=None, device=None):
         if (draft_params is None) != (draft_cfg is None):
             raise ValueError("pass both draft_params and draft_cfg, or "
                              "neither")
@@ -113,18 +147,18 @@ class GenerationPipeline:
             if mesh.has(pm.PIPE_AXIS):
                 raise ValueError("serving takes data and model axes, not "
                                  "pipe")
-            models = {"gpt": (gpt_params, exp.model),
-                      "draft": (draft_params, draft_cfg)}
-            for name, (params, cfg) in models.items():
-                if params is None:
-                    continue
-                pm.check_divisible(mesh, cfg)
-                if cfg.decode_weight_dtype == "int8":
-                    self._mesh_wq[name] = pm.shard_block_weights(
-                        mesh, quantize_block_weights(params["blocks"]))
-            gpt_params = pm.shard_gpt_for_serving(mesh, gpt_params)
+            device = _served_device(mesh, device)
+            pm.check_divisible(mesh, exp.model)
+            gpt_params, self._mesh_wq["gpt"] = _served_weights(
+                mesh, gpt_params, exp.model, device)
             if draft_params is not None:
-                draft_params = pm.shard_gpt_for_serving(mesh, draft_params)
+                pm.check_divisible(mesh, draft_cfg)
+                draft_params, self._mesh_wq["draft"] = _served_weights(
+                    mesh, draft_params, draft_cfg, device)
+        elif device is not None:
+            gpt_params = tree_to(gpt_params, device=device)
+            if draft_params is not None:
+                draft_params = tree_to(draft_params, device=device)
         self.exp = exp
         self.gcfg = exp.model
         self.vcfg = exp.vqvae

@@ -137,7 +137,9 @@ def build_pipeline(dataset: str = "vas", *, experiment: Optional[str] = None,
     describes, NCCL on the card -- this rank's ``cuda:LOCAL_RANK`` -- and
     gloo only with ``device="cpu"``; or the group the caller joined):
     every rank builds the same pipeline and keeps its shard
-    (``GenerationPipeline(mesh=)``, ``pipe.mesh``).
+    (``GenerationPipeline(mesh=)``, ``pipe.mesh``): the GPT and draft
+    trees stay on the host, where each rank cuts them leaf by leaf and
+    moves its parts alone to its card.
     Prints where each set of weights came from, as the JAX loader does.
     Returns ``(exp, pipe)``.
     """
@@ -178,7 +180,9 @@ def build_pipeline(dataset: str = "vas", *, experiment: Optional[str] = None,
     else:
         gpt, epoch = _restore_gpt_params(exp, dataset, experiment, resume)
         print(f"GPT: restored {resume} (epoch {epoch})")
-    gpt = tree_to(gpt, device=device, dtype=DTYPES[exp.model.dtype])
+    # the trees stay on the host: the pipeline places them (over a mesh,
+    # cut leaf by leaf, this rank's parts alone)
+    gpt = tree_to(gpt, dtype=DTYPES[exp.model.dtype])
 
     # --- optional speculative draft ----------------------------------------
     draft, draft_cfg = None, None
@@ -215,7 +219,7 @@ def build_pipeline(dataset: str = "vas", *, experiment: Optional[str] = None,
                                     torch.Generator().manual_seed(seed + 1))
             print(f"draft GPT: random init ({draft_cfg.n_layer}L, "
                   f"gamma={gamma})")
-        draft = tree_to(draft, device=device, dtype=DTYPES[draft_cfg.dtype])
+        draft = tree_to(draft, dtype=DTYPES[draft_cfg.dtype])
 
     # --- frozen decoders -------------------------------------------------
     if experiment is not None and not (vqvae_ckpt and vocoder_ckpt):
@@ -242,7 +246,8 @@ def build_pipeline(dataset: str = "vas", *, experiment: Optional[str] = None,
                               chunk=chunk, draft_params=draft,
                               draft_cfg=draft_cfg, gamma=gamma, graph=graph,
                               use_kernels=use_kernels,
-                              int8_decode=int8_decode, mesh=mesh)
+                              int8_decode=int8_decode, mesh=mesh,
+                              device=device)
     if int8_decode:
         print(f"int8 decode stage: calibrated in "
               f"{pipe.calibrate_seconds:.2f} s")

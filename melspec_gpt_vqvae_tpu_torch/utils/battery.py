@@ -1,12 +1,13 @@
 """The deterministic stimulus batteries: the code-parity check's and the
-learning proof's.
+learning proofs'.
 
 The port's own copies of ``make_battery`` in the repository's
 ``parity_check.py`` (numpy only: 48 clips of tones, chirps, harmonic
-stacks, AM tones and seeded noise mixes) and of ``make_tone_battery`` and
+stacks, AM tones and seeded noise mixes), of ``make_tone_battery`` and
 ``wavs_to_training_mels`` in ``scripts/quality_proof.py`` (64 clips of 4
-frequency-band classes, and their mels as the codec trains on them), bit
-for bit the same waveforms.
+frequency-band classes, and their mels as the codec trains on them) and
+of ``make_hard_battery`` in ``scripts/spec_measured.py`` (64 clips of 4
+classes of varied audio), bit for bit the same waveforms.
 """
 
 from __future__ import annotations
@@ -68,6 +69,62 @@ def make_tone_battery(mcfg):
             base_freqs.append(f)
     return (np.stack(wavs).astype(np.float32), np.asarray(labels, np.int32),
             np.asarray(base_freqs))
+
+
+def make_hard_battery(mcfg, seed=11):
+    """64 clips, 4 classes of structured but varied audio, each clip with
+    its own random parameters (the token corpus has real conditional
+    entropy; a draft cannot memorise it):
+
+      0: band-limited noise bursts (random band and attack envelope)
+      1: linear chirps (random start / end frequencies in a class band)
+      2: AM tones (random carrier and modulation rate) over a noise floor
+      3: two-tone chords with click transients
+
+    Returns (wavs (64, clip_samples) float32, labels (64,) int32, None)."""
+    sr = SR
+    rng = np.random.default_rng(seed)
+    t = np.arange(mcfg.clip_samples, dtype=np.float64) / sr
+    wavs, labels = [], []
+    per_class = 16
+    for c in range(N_CLASSES):
+        for _ in range(per_class):
+            if c == 0:
+                lo = rng.uniform(200, 1200)
+                hi = lo * rng.uniform(1.3, 2.0)
+                x = rng.standard_normal(len(t))
+                spec = np.fft.rfft(x)
+                f = np.fft.rfftfreq(len(t), 1.0 / sr)
+                spec[(f < lo) | (f > hi)] = 0.0
+                w = np.fft.irfft(spec, len(t))
+                w *= 1.0 - np.exp(-t / rng.uniform(0.05, 0.5))
+                w = 0.3 * w / (np.abs(w).max() + 1e-9)
+            elif c == 1:
+                f0 = rng.uniform(300, 800)
+                f1 = f0 * rng.uniform(1.5, 4.0)
+                ph = 2 * np.pi * (f0 * t + (f1 - f0) * t ** 2 / (2 * t[-1]))
+                w = 0.3 * np.sin(ph + rng.uniform(0, 2 * np.pi))
+            elif c == 2:
+                fc = rng.uniform(800, 2500)
+                fm = rng.uniform(2.0, 20.0)
+                depth = rng.uniform(0.4, 1.0)
+                w = (1 + depth * np.sin(2 * np.pi * fm * t)) / 2
+                w = 0.25 * w * np.sin(2 * np.pi * fc * t)
+                w += 0.02 * rng.standard_normal(len(t))
+            else:
+                fa = rng.uniform(400, 1000)
+                fb = fa * rng.choice([1.25, 1.5, 2.0])
+                w = 0.15 * (np.sin(2 * np.pi * fa * t)
+                            + np.sin(2 * np.pi * fb * t))
+                for _ in range(rng.integers(3, 9)):
+                    i = rng.integers(0, len(t) - 200)
+                    w[i:i + 200] += 0.3 * np.hanning(200) \
+                        * rng.choice([-1.0, 1.0])
+            w += 0.01 * rng.standard_normal(len(t))
+            wavs.append(w)
+            labels.append(c)
+    return (np.stack(wavs).astype(np.float32),
+            np.asarray(labels, np.int32), None)
 
 
 def wavs_to_training_mels(wavs, mcfg, device):

@@ -46,8 +46,12 @@ tokens must equal one card's exactly (the row-cut int8 products reduce
 the activation scale with MAX and the int32 sums with SUM: the
 arithmetic is the single card's); for bfloat16 and float32, whose
 row-parallel sums take another order, the share of equal tokens is
-reported.  Beside them: each rank's peak memory and the request's
-seconds (the second request of the shape, after its capture).
+reported.  Beside them: each rank's peak memory, reset before the
+pipeline is built, so that it includes the construction (a mesh's
+pipeline is built from the host tree, each rank moving its own parts
+alone to its card), what each rank held when the peak was reset
+(nothing of an earlier pipeline may remain), and the request's seconds
+(the second request of the shape, after its capture).
 """
 
 import argparse
@@ -176,12 +180,17 @@ def serving_check(dev, override, meshes, variants):
     gpt, vq, voc = random_weights(base, 783435)   # float32, on the host
 
     def pipeline(variant, mesh):
+        """One card: the tree moved whole.  A mesh: the host tree, which
+        each rank cuts leaf by leaf, moving its parts alone to its card
+        (as ``build_pipeline(mesh_spec=)`` does)."""
         dtype, cache, weights = SERVE_VARIANTS[variant]
         exp = dataclasses.replace(base, model=base.model.replace(
             dtype=dtype, cache_dtype=cache, decode_weight_dtype=weights))
-        return GenerationPipeline(
-            exp, tree_to(gpt, device=dev, dtype=DTYPES[dtype]), vq, voc,
-            mesh=mesh)
+        if mesh is None:
+            return GenerationPipeline(
+                exp, tree_to(gpt, device=dev, dtype=DTYPES[dtype]), vq, voc)
+        return GenerationPipeline(exp, tree_to(gpt, dtype=DTYPES[dtype]), vq,
+                                  voc, mesh=mesh, device=dev)
 
     def gen_fn():
         return torch.Generator(device=dev).manual_seed(5)
@@ -196,35 +205,47 @@ def serving_check(dev, override, meshes, variants):
         return (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                 if dev.type == "cuda" else None)
 
+    def held():
+        """What the rank holds when the peak is reset, before the
+        pipeline is built: nothing of an earlier pipeline may remain."""
+        return (torch.cuda.memory_allocated(dev) / 2 ** 30
+                if dev.type == "cuda" else None)
+
     ok = True
     ref = {}
     if is_primary():
         for variant in variants:
             peak_reset()
+            before = held()
             pipe = pipeline(variant, None)
             toks, first = _request(pipe, dev, gen_fn)
             _, secs = _request(pipe, dev, gen_fn)
             ref[variant] = toks
             print(json.dumps({"serving": "one card", "variant": variant,
                               "first_request_s": first, "request_s": secs,
-                              "peak_gib": peak()}), flush=True)
+                              "peak_gib": peak(), "held_gib": before}),
+                  flush=True)
             del pipe
     for spec in meshes:
         mesh = make_mesh(parse_mesh(spec), dev)
         for variant in variants:
             peak_reset()
+            before = held()
             pipe = pipeline(variant, mesh)
             toks, first = _request(pipe, dev, gen_fn)
             _, secs = _request(pipe, dev, gen_fn)
             peaks = [None] * mesh.size("data") * mesh.size("model")
             dist.all_gather_object(peaks, peak())
+            helds = [None] * len(peaks)
+            dist.all_gather_object(helds, before)
             del pipe
             if not is_primary():
                 continue
             match = float((toks == ref[variant]).mean())
             row = {"serving": spec, "variant": variant,
                    "token_match": match, "first_request_s": first,
-                   "request_s": secs, "peak_gib_by_rank": peaks}
+                   "request_s": secs, "peak_gib_by_rank": peaks,
+                   "held_gib_by_rank": helds}
             if variant == "int8":
                 row["ok"] = match == 1.0
                 ok = ok and row["ok"]

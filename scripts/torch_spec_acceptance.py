@@ -19,9 +19,10 @@ script) measures:
     on a trained pair).
 
 Writes SPEC_ACCEPTANCE_TORCH.json with SPEC_ACCEPTANCE.json's keys (the
-TPU's record, not touched) except ``measured_e2e`` (scripts/
-spec_measured.py's, not ported: ROADMAP A14), plus the card.  Tones are
-easy data: the acceptance is an optimistic indication, not a VAS number.
+TPU's record, not touched), plus the card; ``measured_e2e`` and
+``measured_e2e_hard`` are scripts/torch_spec_measured.py's and are kept
+as the file holds them.  Tones are easy data: the acceptance is an
+optimistic indication, not a VAS number.
 The ``SA_*`` environment knobs are the JAX script's.
 
 Usage, on a machine with the card: python3 scripts/torch_spec_acceptance.py
@@ -63,6 +64,7 @@ GAMMAS = (2, 4, 8)
 STEPS = 265
 SAMPLING = {"temperature": 0.9, "top_k": 16}
 OUT = os.path.join(ROOT, "SPEC_ACCEPTANCE_TORCH.json")
+MEASURED = ("measured_e2e", "measured_e2e_hard")
 CAVEAT = ("tone battery = easy data; acceptance is an optimistic "
           "indication, not a VAS deployment number")
 
@@ -193,6 +195,10 @@ def main(device=None):
     out["sampling"] = dict(SAMPLING)
     out["device"] = (card_info(device) if device.type == "cuda"
                      else {"platform": device.type})
+    if os.path.isfile(OUT):   # the wall-clock runs' keys stay
+        with open(OUT) as f:
+            kept = json.load(f)
+        out.update({k: kept[k] for k in MEASURED if k in kept})
     with open(OUT, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))

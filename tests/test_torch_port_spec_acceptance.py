@@ -3,9 +3,11 @@
 
 The measurement runs on the card; here ``main`` runs on the CPU with its
 module globals cut to a few steps (16 clips of the battery, a 1-layer
-and a 2-layer 16-wide GPT, gamma 2, 2 samples a class) and the JSON it
-writes is held to the keys of SPEC_ACCEPTANCE.json (the TPU's record)
-but ``measured_e2e`` (scripts/spec_measured.py's, not ported).
+and a 2-layer 16-wide GPT, gamma 2, 2 samples a class), writing over a
+copy of the committed SPEC_ACCEPTANCE_TORCH.json, and the JSON it writes
+is held to the keys of SPEC_ACCEPTANCE.json (the TPU's record), the
+wall-clock runs' ``measured_e2e`` / ``measured_e2e_hard``
+(scripts/torch_spec_measured.py's) kept as the file held them.
 """
 
 import importlib.util
@@ -46,6 +48,8 @@ def test_toy_run_writes_the_jax_records_keys(sa, monkeypatch, tmp_path):
             learning_rate=3e-4, epochs=1, batch_size=4),
             data=DataConfig(batch_size=4))
     out_path = tmp_path / "SPEC_ACCEPTANCE_TORCH.json"
+    committed = json.loads((ROOT / "SPEC_ACCEPTANCE_TORCH.json").read_text())
+    out_path.write_text(json.dumps(committed))
     for name, value in (("make_tone_battery", battery16), ("VQ_STEPS", 2),
                         ("GPT_STEPS", 2), ("SAMPLES", 2), ("GAMMAS", (2,)),
                         ("gpt_experiment", tiny), ("OUT", str(out_path))):
@@ -54,7 +58,9 @@ def test_toy_run_writes_the_jax_records_keys(sa, monkeypatch, tmp_path):
     out = json.loads(out_path.read_text())
     assert out == json.loads(json.dumps(ret))
     want = json.loads((ROOT / "SPEC_ACCEPTANCE.json").read_text())
-    assert set(want) - {"measured_e2e", "measured_e2e_hard"} <= set(out)
+    assert set(want) <= set(out), set(want) - set(out)
+    for key in ("measured_e2e", "measured_e2e_hard"):
+        assert out[key] == committed[key]
     assert set(out["gammas"]) == {"2"}
     assert set(out["gammas"]["2"]) == set(want["gammas"]["2"])
     for v in out["gammas"]["2"].values():

@@ -440,8 +440,63 @@ def world_spec(inp, out):
     world_serve(inp["serve"], out)
 
 
+def placement_recorder():
+    """(a ``TorchFunctionMode``, the list it fills): inside the mode every
+    move of a tensor to a named device -- ``Tensor.to`` with a device
+    (``Module.to`` included) or ``Tensor.cuda`` -- is recorded as the
+    (shape, dtype) it lands with, whichever module makes the call, and on
+    the CPU too, where such a move is a no-op.  Tensors made where they
+    are needed (a host generator's draws) are no moves."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    placed = []
+
+    def targets_device(func, args, kwargs):
+        if func is torch.Tensor.cuda:
+            return True
+        return func is torch.Tensor.to and (
+            kwargs.get("device") is not None
+            or any(isinstance(a, (str, torch.device, torch.Tensor))
+                   for a in args[1:]))
+
+    class Placements(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            res = func(*args, **kwargs)
+            if isinstance(res, torch.Tensor) and targets_device(
+                    func, args, kwargs):
+                placed.append((tuple(res.shape), str(res.dtype)))
+            return res
+
+    return Placements(), placed
+
+
+def world_served_placement(inp, out):
+    """``build_pipeline(mesh_spec=)`` from host trees under
+    ``placement_recorder``: what the construction moved, then the greedy
+    tokens of the rank's rows, float32 and int8 (cache and weights)."""
+    import torch
+
+    from melspec_gpt_vqvae_tpu_torch import serving as S
+
+    for name, kw in inp["variants"].items():
+        mode, placed = placement_recorder()
+        with mode:
+            _, pipe = S.build_pipeline(
+                "vas", init_random=True, override=inp["override"],
+                seed=inp["seed"], device="cpu", mesh_spec=inp["mesh_spec"],
+                **kw)
+        out[f"placed/{name}"] = placed
+        with torch.no_grad():
+            out[f"tokens/{name}"] = pipe.generate_tokens(
+                inp["cls"], None, sample=False)[0]
+        out[f"device/{name}"] = str(pipe.device)
+
+
 WORLDS = {"tp": world_tp, "dp": world_dp, "pp": world_pp,
-          "reduce": world_reduce, "serve": world_serve, "spec": world_spec}
+          "reduce": world_reduce, "serve": world_serve, "spec": world_spec,
+          "served_placement": world_served_placement}
 
 
 def main(world: str, rank: int, size: int, folder: str) -> None:
