@@ -224,30 +224,36 @@ def _attn_block(x, p, cfg, tp=None):
     k, v are this rank's heads."""
     q, k, v = _qkv(x, p, cfg)
     if tp is not None:
-        h = cfg.n_head // tp.size("model")
-        q, k, v = (a[:, tp.coord("model") * h:][:, :h].contiguous()
-                   for a in (q, k, v))
+        lo, h = _head_range(cfg, tp)
+        q, k, v = (a[:, lo:lo + h].contiguous() for a in (q, k, v))
     res = attend(q, k, v, cfg.n_unmasked)
     if tp is not None:
-        res = torch.cat(tp.all_gather(res.contiguous(), "model"), dim=1)
+        from ..parallel.mesh import head_counts
+        res = torch.cat(tp.all_gather(
+            res, "model", head_counts(cfg.n_head, tp.size("model")), dim=1),
+            dim=1)
     y = _merge_heads(res) @ p["attn_proj"]["w"] + p["attn_proj"]["b"]
     return x + y, k, v
 
 
-def _full_layer(blocks: Params, l: int, tp) -> Params:
+def _full_layer(blocks: Params, l: int, cfg: GPTConfig, tp) -> Params:
     """Layer ``l``'s full weights from this rank's Megatron shard: every
-    cut leaf all-gathered over the model group and joined
-    (parallel/mesh.py::tp_gather).  Only the prefill does this, once a
-    request, so that its float products have the single device's shapes
-    and hence its rounding (a row-parallel sum would not); the decode
-    steps stay cut."""
-    from ..parallel.mesh import tp_gather, tp_rule
+    cut leaf all-gathered over the model group (the parts of a head cut
+    as large as each rank's heads) and joined (parallel/mesh.py::
+    tp_gather).  Only the prefill does this, once a request, so that its
+    float products have the single device's shapes and hence its rounding
+    (a row-parallel sum would not); the decode steps stay cut."""
+    from ..parallel.mesh import cut_dim, tp_gather, tp_rule, tp_sizes
+    m, r = tp.size("model"), tp.coord("model")
 
     def leaf(name, t):
         t = t[l:l + 1]
-        if tp_rule(name) is None:
+        rule = tp_rule(name)
+        if rule is None:
             return t[0]
-        return tp_gather(name, tp.all_gather(t.contiguous(), "model"))[0]
+        sizes = tp_sizes(name, t, cfg.n_head, m, r)
+        return tp_gather(name, tp.all_gather(t, "model", sizes,
+                                             cut_dim(rule)))[0]
     return {k: ({kk: leaf(f"blocks/{k}/{kk}", vv) for kk, vv in v.items()}
                 if isinstance(v, dict) else v[l])
             for k, v in blocks.items()}
@@ -306,6 +312,14 @@ def _dot(a: torch.Tensor, w: torch.Tensor, mixed: bool) -> torch.Tensor:
     return a.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
 
 
+def _head_range(cfg: GPTConfig, tp) -> Tuple[int, int]:
+    """(first head, head count) of this rank over the model axis
+    (parallel/mesh.py::head_range: uneven where the axis does not divide
+    the heads)."""
+    from ..parallel.mesh import head_range
+    return head_range(cfg.n_head, tp.size("model"), tp.coord("model"))
+
+
 def _local_heads(p, cfg: GPTConfig, tp) -> int:
     """The heads a block's weights hold: all of them, or under tensor
     parallelism this rank's share, read off the local ``attn_qkv``."""
@@ -328,7 +342,7 @@ def _head_keep(generator: Optional[torch.Generator], rate: float, shape,
         return None
     b, h, t, s = shape
     keep = bernoulli_u8(generator, 1.0 - rate, (b, cfg.n_head, t, s))
-    lo = tp.coord("model") * h if tp is not None else 0
+    lo = _head_range(cfg, tp)[0] if tp is not None else 0
     return keep[:, lo:lo + h].contiguous()
 
 
@@ -671,7 +685,7 @@ def gpt_prefill(params: Params, cfg: GPTConfig, cache: Dict,
     t0 = x.shape[1]
     for l in range(cfg.n_layer):
         p = (_layer(params["blocks"], l) if tp is None
-             else _full_layer(params["blocks"], l, tp))
+             else _full_layer(params["blocks"], l, cfg, tp))
         x, k, v = _attn_block(x, p, cfg, tp)
         _write_kv(cache, cfg, l, 0, k, v)
         x = x + _mlp(_layer_norm(x, p["ln2_s"], p["ln2_b"]), p)

@@ -185,7 +185,7 @@ def vae_decode(params: Params, cfgs: VAEConfigs, z: torch.Tensor,
                temperature: Optional[float] = None,
                generator: Optional[torch.Generator] = None,
                segments: int = DECODE_SEGMENTS, *, graph=None,
-               wq: Optional[Dict] = None) -> torch.Tensor:
+               wq: Optional[Dict] = None, mesh=None) -> torch.Tensor:
     """Token sequences (B, block_size) from z (B, nz) or (B, ns, nz), its
     first sample the decoder's prompt, through ``gpt_generate`` in
     ``segments`` cache segments (the captured decode program on the
@@ -194,10 +194,12 @@ def vae_decode(params: Params, cfgs: VAEConfigs, z: torch.Tensor,
     (Lit_GPT_VAE.py:108-143).  ``graph`` and ``wq`` go to
     ``gpt_generate``: a ``decode_graph.DecodeGraphs`` keeps the captures,
     and the decoder's int8 block weights can be passed in, for a caller
-    that decodes the same shape again."""
+    that decodes the same shape again.  ``mesh``: ``gpt_generate``'s (the
+    decoder cut over ``model`` by parallel/mesh.py::shard_gpt_for_serving,
+    ``wq`` by ``shard_block_weights``; ``z`` this rank's rows)."""
     cond = z[:, 0:1, :] if z.ndim == 3 else z[:, None, :]
     steps = cfgs.encoder.block_size
-    kw = dict(steps=steps, segments=segments, graph=graph, wq=wq)
+    kw = dict(steps=steps, segments=segments, graph=graph, wq=wq, mesh=mesh)
     if strategy == "beam":
         return gpt_generate(params["decoder"], cfgs.decoder, generator, cond,
                             None, sample=True,

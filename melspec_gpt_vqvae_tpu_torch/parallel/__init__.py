@@ -16,6 +16,8 @@ from .mesh import (  # noqa: F401
     data_size,
     gather_rows,
     gather_tree,
+    head_counts,
+    head_range,
     is_primary,
     local_batch_slice,
     make_mesh,

@@ -196,13 +196,21 @@ class Mesh:
         return dist.all_reduce(t, op=_OPS[op], group=self.group(axis),
                                async_op=async_op)
 
-    def all_gather(self, t: torch.Tensor, axis: str) -> List[torch.Tensor]:
+    def all_gather(self, t: torch.Tensor, axis: str,
+                   sizes: Optional[List[int]] = None,
+                   dim: int = 0) -> List[torch.Tensor]:
         """Every rank's ``t`` on the axis, in coordinate order (``[t]``
-        without its group)."""
+        without its group).  ``sizes``: each rank's extent along ``dim``
+        where the parts differ (an uneven head cut): each part is padded
+        with zeros to the largest, gathered, and trimmed back (NCCL's and
+        gloo's all-gather take parts of one shape)."""
         if not self.active(axis):
             return [t]
+        t = _pad_to(t.contiguous(), dim, max(sizes) if sizes else None)
         parts = [torch.empty_like(t) for _ in range(self.size(axis))]
         dist.all_gather(parts, t, group=self.group(axis))
+        if sizes:
+            parts = [p.narrow(dim, 0, n) for p, n in zip(parts, sizes)]
         return parts
 
     def warm_collectives(self) -> None:
@@ -237,6 +245,16 @@ class Mesh:
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
+
+
+def _pad_to(t: torch.Tensor, dim: int, n: Optional[int]) -> torch.Tensor:
+    """``t`` zero-padded along ``dim`` to extent ``n`` (itself when it has
+    it, or for ``n`` None)."""
+    if n is None or t.shape[dim] == n:
+        return t
+    shape = list(t.shape)
+    shape[dim] = n - t.shape[dim]
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
 
 
 def _unravel(r: int, sizes) -> Tuple[int, ...]:
@@ -380,16 +398,17 @@ def mean_over_data(mesh: Optional[Mesh], values: List[torch.Tensor]
 # ---------------------------------------------------------------------------
 
 _TP_RULES = (("attn_qkv/w", "qkv"), ("attn_qkv/b", "qkv"),
-             ("attn_proj/w", 1), ("mlp_up/w", -1), ("mlp_up/b", -1),
+             ("attn_proj/w", "heads"), ("mlp_up/w", -1), ("mlp_up/b", -1),
              ("mlp_down/w", 1))
 
 
 def tp_rule(name: str):
     """How a leaf is cut over ``model``: "qkv" (the fused projection's
-    columns, head slice r of each of q, k and v), an axis (``-1`` the
-    output columns of ``mlp_up``; ``1`` the input rows of ``attn_proj`` and
-    ``mlp_down``), or None (replicated: embeddings, layer norms, the
-    row-parallel biases, the head)."""
+    columns, this rank's heads of each of q, k and v), "heads" (the input
+    rows of ``attn_proj``, this rank's heads), an axis (``-1`` the output
+    columns of ``mlp_up``; ``1`` the input rows of ``mlp_down``), or None
+    (replicated: embeddings, layer norms, the row-parallel biases, the
+    head)."""
     if "blocks" not in name:
         return None
     for suffix, rule in _TP_RULES:
@@ -398,24 +417,71 @@ def tp_rule(name: str):
     return None
 
 
-def tp_shard(name: str, full: torch.Tensor, r: int, m: int) -> torch.Tensor:
+def row_cut(rule) -> bool:
+    """True for a rule that cuts a product's input rows (``attn_proj``,
+    ``mlp_down``: each rank's product is a partial sum)."""
+    return rule in ("heads", 1)
+
+
+def cut_dim(rule) -> int:
+    """The axis of a stacked (L, in, out) or (L, out) leaf a rule cuts."""
+    return 1 if row_cut(rule) else -1
+
+
+def head_range(n_head: int, m: int, r: int) -> Tuple[int, int]:
+    """(first head, head count) of model rank ``r`` of ``m``: the first
+    ``n_head % m`` ranks hold ``ceil(n_head / m)`` heads and the rest
+    ``floor``, in order (23 heads over 4 ranks: 6, 6, 6, 5).  The one
+    place the partition is computed."""
+    q, extra = divmod(n_head, m)
+    return r * q + min(r, extra), q + (r < extra)
+
+
+def head_counts(n_head: int, m: int) -> List[int]:
+    """Every model rank's head count, in coordinate order."""
+    return [head_range(n_head, m, r)[1] for r in range(m)]
+
+
+def tp_sizes(name: str, local: torch.Tensor, n_head: int, m: int,
+             r: int) -> Optional[List[int]]:
+    """Each model rank's extent of the leaf ``name`` along its cut axis,
+    from this rank's part ``local`` (rank ``r``): by heads for the qkv and
+    ``attn_proj`` cuts, None for the even MLP cuts."""
+    rule = tp_rule(name)
+    if rule not in ("qkv", "heads"):
+        return None
+    per_head = local.shape[cut_dim(rule)] // head_range(n_head, m, r)[1]
+    return [per_head * c for c in head_counts(n_head, m)]
+
+
+def tp_shard(name: str, full: torch.Tensor, r: int, m: int,
+             n_head: int) -> torch.Tensor:
     """Rank ``r`` of ``m``'s part of the full leaf ``name``.  The fused
-    ``attn_qkv`` is cut head-aligned: ``[q_r | k_r | v_r]``, not the
-    contiguous column blocks JAX's ``P(None, None, "model")`` names (XLA
-    keeps the semantics whatever the cut; an explicit shard must hold
-    whole heads)."""
+    ``attn_qkv`` is cut head-aligned, ``[q_r | k_r | v_r]``, and
+    ``attn_proj``'s rows by the same heads (``head_range``: an uneven cut
+    where ``m`` does not divide ``n_head``), not the contiguous blocks
+    JAX's ``P(None, None, "model")`` names (XLA keeps the semantics
+    whatever the cut; an explicit shard must hold whole heads) of the
+    GPT's ``n_head``; the MLP's cuts are even."""
     rule = tp_rule(name)
     if rule is None or m == 1:
         return full
-    if rule == "qkv":
-        return torch.cat([c.chunk(m, dim=-1)[r]
-                          for c in full.chunk(3, dim=-1)], dim=-1)
+    if rule in ("qkv", "heads"):
+        lo, count = head_range(n_head, m, r)
+        if rule == "heads":
+            hd = full.shape[1] // n_head
+            return full.narrow(1, lo * hd, count * hd)
+        thirds = full.chunk(3, dim=-1)
+        hd = thirds[0].shape[-1] // n_head
+        return torch.cat([c.narrow(-1, lo * hd, count * hd)
+                          for c in thirds], dim=-1)
     return full.chunk(m, dim=rule)[r]
 
 
 def tp_gather(name: str, parts: List[torch.Tensor]) -> torch.Tensor:
-    """The full leaf from every model rank's part (``tp_shard``'s
-    inverse)."""
+    """The full leaf from every model rank's part, in coordinate order
+    (``tp_shard``'s inverse; the parts of a head cut may differ in
+    size)."""
     rule = tp_rule(name)
     if rule is None or len(parts) == 1:
         return parts[0]
@@ -423,7 +489,7 @@ def tp_gather(name: str, parts: List[torch.Tensor]) -> torch.Tensor:
         thirds = [p.chunk(3, dim=-1) for p in parts]
         return torch.cat([torch.cat([t[i] for t in thirds], dim=-1)
                           for i in range(3)], dim=-1)
-    return torch.cat(parts, dim=rule)
+    return torch.cat(parts, dim=cut_dim(rule))
 
 
 def pp_shard(name: str, full: torch.Tensor, s: int, n: int) -> torch.Tensor:
@@ -447,22 +513,27 @@ def split_axis(mesh: Optional[Mesh], name: str) -> Optional[str]:
     return None
 
 
-def shard_leaf(mesh: Optional[Mesh], name: str,
-               full: torch.Tensor) -> torch.Tensor:
-    """This rank's part of the full leaf ``name`` under the mesh."""
+def shard_leaf(mesh: Optional[Mesh], name: str, full: torch.Tensor,
+               n_head: int) -> torch.Tensor:
+    """This rank's part of the full leaf ``name`` under the mesh
+    (``n_head``: the GPT's, for the head cuts)."""
     if mesh is None:
         return full
-    full = tp_shard(name, full, mesh.coord(MODEL_AXIS), mesh.size(MODEL_AXIS))
+    full = tp_shard(name, full, mesh.coord(MODEL_AXIS), mesh.size(MODEL_AXIS),
+                    n_head)
     return pp_shard(name, full, mesh.coord(PIPE_AXIS), mesh.size(PIPE_AXIS))
 
 
 def gather_leaf(mesh: Optional[Mesh], name: str, local: torch.Tensor,
-                device="cpu") -> Optional[torch.Tensor]:
+                n_head: int, device="cpu") -> Optional[torch.Tensor]:
     """The full leaf ``name`` on global rank 0, a copy on ``device``; None
     on every other rank.  A leaf cut over an axis is gathered from the
     parts of rank 0's group of that axis (``dist.gather``: each of those
     ranks sends its part once, the others take no part); a whole leaf is
-    rank 0's own.  Without a mesh, ``local`` itself."""
+    rank 0's own.  Parts of unequal size (the heads of the GPT's
+    ``n_head`` cut unevenly over ``model``, sized by ``tp_sizes``) go
+    padded with zeros to the largest and are trimmed on rank 0.  Without
+    a mesh, ``local`` itself."""
     if mesh is None:
         return local
     axis = split_axis(mesh, name)
@@ -472,25 +543,38 @@ def gather_leaf(mesh: Optional[Mesh], name: str, local: torch.Tensor,
         return local.to(device, copy=True) if primary else None
     if 0 not in mesh.ranks[axis]:
         return None
-    local = local.contiguous()
+    dim, sizes = 0, None
+    if axis == MODEL_AXIS:
+        dim = cut_dim(tp_rule(name)) % local.ndim
+        sizes = tp_sizes(name, local, n_head, mesh.size(MODEL_AXIS),
+                         mesh.coord(MODEL_AXIS))
+    local = _pad_to(local.contiguous(), dim, max(sizes) if sizes else None)
     parts = ([torch.empty_like(local) for _ in range(mesh.size(axis))]
              if primary else None)
     dist.gather(local, parts, dst=0, group=mesh.group(axis))
     if not primary:
         return None
+    if sizes:
+        parts = [p.narrow(dim, 0, n) for p, n in zip(parts, sizes)]
     full = (tp_gather(name, parts) if axis == MODEL_AXIS
             else torch.cat(parts, dim=0))
     return full.to(device)
 
 
 def check_divisible(mesh: Optional[Mesh], cfg) -> None:
-    """Raise where a GPT config does not split over the mesh: heads over
-    ``model``, layers over ``pipe``."""
+    """Raise where a GPT config does not split over the mesh: a model axis
+    wider than the heads (a rank would hold none; the heads themselves
+    may split unevenly, ``head_range``), an MLP width ``4 * n_embd`` the
+    model axis does not divide (its cut is even), layers over ``pipe``."""
     if mesh is None:
         return
     m, s = mesh.size(MODEL_AXIS), mesh.size(PIPE_AXIS)
-    if cfg.n_head % m:
-        raise ValueError(f"n_head {cfg.n_head} not divisible by model={m}")
+    if m > cfg.n_head:
+        raise ValueError(f"model={m} exceeds n_head {cfg.n_head}: a model "
+                         "rank would hold no head")
+    if (4 * cfg.n_embd) % m:
+        raise ValueError(f"the MLP width 4 * n_embd = {4 * cfg.n_embd} is "
+                         f"not divisible by model={m}")
     if cfg.n_layer % s:
         raise ValueError(f"n_layer {cfg.n_layer} not divisible by pipe={s}")
 
@@ -502,23 +586,25 @@ def _walk(tree, fn, prefix: str = ""):
     return fn(prefix, tree)
 
 
-def shard_tree(mesh: Optional[Mesh], tree, prefix: str = ""):
-    """A nested dict of full leaves -> this rank's parts (by each leaf's
-    path, ``prefix`` before it)."""
+def shard_tree(mesh: Optional[Mesh], tree, n_head: int, prefix: str = ""):
+    """A nested dict of full leaves of a GPT of ``n_head`` heads -> this
+    rank's parts (by each leaf's path, ``prefix`` before it)."""
     if mesh is None:
         return tree
-    return _walk(tree, lambda n, t: shard_leaf(mesh, n, t), prefix)
+    return _walk(tree, lambda n, t: shard_leaf(mesh, n, t, n_head), prefix)
 
 
-def gather_tree(mesh: Optional[Mesh], tree, prefix: str = "",
+def gather_tree(mesh: Optional[Mesh], tree, n_head: int, prefix: str = "",
                 device="cpu"):
-    """This rank's nested dict of parts -> the full leaves on global rank
+    """This rank's nested dict of parts of a GPT of ``n_head`` heads ->
+    the full leaves on global rank
     0, one leaf at a time, each moved to ``device`` (the host by default)
     before the next is gathered (``gather_leaf``); None on every other
     rank.  Without a mesh, ``tree`` itself."""
     if mesh is None:
         return tree
-    full = _walk(tree, lambda n, t: gather_leaf(mesh, n, t, device), prefix)
+    full = _walk(tree, lambda n, t: gather_leaf(mesh, n, t, n_head, device),
+                 prefix)
     return full if is_primary() else None
 
 
@@ -536,10 +622,12 @@ def _model_cut(mesh: Optional[Mesh]) -> Tuple[int, int]:
     return mesh.size(MODEL_AXIS), mesh.coord(MODEL_AXIS)
 
 
-def shard_gpt_for_serving(mesh: Optional[Mesh], params, device=None):
+def shard_gpt_for_serving(mesh: Optional[Mesh], params, n_head: int,
+                          device=None):
     """This rank's copy of a served GPT tree (the full leaves): the
-    Megatron cut of ``tp_shard`` over ``model`` -- the qkv head-aligned,
-    ``attn_proj`` and ``mlp_down`` by rows, ``mlp_up`` by columns; the
+    Megatron cut of ``tp_shard`` over ``model`` -- the qkv and
+    ``attn_proj``'s rows by this rank's heads of ``n_head``
+    (``head_range``), ``mlp_down`` by rows, ``mlp_up`` by columns; the
     embeddings, layer norms, the row-cut products' biases and the head
     whole -- each cut leaf a contiguous tensor of its own (a view would
     keep the full leaf alive).  Replicated over ``data``.  Each leaf is
@@ -551,7 +639,7 @@ def shard_gpt_for_serving(mesh: Optional[Mesh], params, device=None):
 
     def one(name, t):
         if m > 1 and tp_rule(name) is not None:
-            t = tp_shard(name, t, r, m).clone(
+            t = tp_shard(name, t, r, m, n_head).clone(
                 memory_format=torch.contiguous_format)
         return t if device is None else t.to(device)
     return _walk(params, one)
@@ -565,31 +653,31 @@ def _column_major(q: torch.Tensor) -> torch.Tensor:
 
 
 def shard_block_weight(mesh: Optional[Mesh], name: str, leaf: Dict,
-                       device=None) -> Dict:
+                       n_head: int, device=None) -> Dict:
     """This rank's part of one block matrix's int8 copy, quantised from
     the FULL matrix (models/gpt.py::quantize_block_weight: ``{"q": (L,
     in, out) int8, "s": (L, out)}``): ``q`` cut as its float matrix is;
     ``s`` cut with the columns of a column-cut product (``attn_qkv``,
     ``mlp_up``) and whole for a row-cut one (``attn_proj``, ``mlp_down``,
     whose output columns every rank holds), so that every scale is the
-    single device's.  The parts move to ``device`` (None: where the leaf
-    lies)."""
+    single device's; the head cuts by ``n_head``'s ranges.  The parts move
+    to ``device`` (None: where the leaf lies)."""
     m, r = _model_cut(mesh)
     q, s = leaf["q"], leaf["s"]
     if m > 1:
         path = f"blocks/{name}/w"
-        q = _column_major(tp_shard(path, q, r, m))
-        if tp_rule(path) != 1:
-            s = tp_shard(path, s, r, m).contiguous()
+        q = _column_major(tp_shard(path, q, r, m, n_head))
+        if not row_cut(tp_rule(path)):
+            s = tp_shard(path, s, r, m, n_head).contiguous()
     if device is not None:
         q, s = q.to(device), s.to(device)
     return {"q": q, "s": s}
 
 
-def shard_block_weights(mesh: Optional[Mesh], wq: Dict) -> Dict:
+def shard_block_weights(mesh: Optional[Mesh], wq: Dict, n_head: int) -> Dict:
     """``shard_block_weight`` of every matrix of a
     ``quantize_block_weights`` copy."""
-    return {name: shard_block_weight(mesh, name, leaf)
+    return {name: shard_block_weight(mesh, name, leaf, n_head)
             for name, leaf in wq.items()}
 
 

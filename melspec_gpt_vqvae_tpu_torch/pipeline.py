@@ -73,8 +73,8 @@ def _served_weights(mesh, params, cfg, device):
     if cfg.decode_weight_dtype == "int8":
         wq = {name: pm.shard_block_weight(
             mesh, name, quantize_block_weight(params["blocks"][name]["w"]),
-            device) for name in BLOCK_MATRICES}
-    return pm.shard_gpt_for_serving(mesh, params, device), wq
+            cfg.n_head, device) for name in BLOCK_MATRICES}
+    return pm.shard_gpt_for_serving(mesh, params, cfg.n_head, device), wq
 
 
 class GenerationPipeline:

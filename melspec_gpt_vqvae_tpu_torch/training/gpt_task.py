@@ -75,42 +75,43 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def _opt_leaves(mesh, opt_tree, fn):
+def _opt_leaves(mesh, opt_tree, fn, *args):
     """A non-Adam optimizer's per-leaf state (``{leaf: {key: value}}``)
-    with ``fn(mesh, leaf, tensor)`` applied to its tensors of a leaf's
-    shape (momentum); 0-d entries (steps) pass."""
-    return {name: {k: (fn(mesh, name, v) if torch.is_tensor(v) and v.ndim
-                       else v) for k, v in st.items()}
+    with ``fn(mesh, leaf, tensor, *args)`` applied to its tensors of a
+    leaf's shape (momentum); 0-d entries (steps) pass."""
+    return {name: {k: (fn(mesh, name, v, *args) if torch.is_tensor(v)
+                       and v.ndim else v) for k, v in st.items()}
             for name, st in opt_tree.items()}
 
 
-def gather_state_tree(mesh, tree: Dict) -> Optional[Dict]:
-    """A ``state_tree`` dict of this rank's parts -> full leaves on global
-    rank 0's host, one leaf at a time, and None on every other rank (a
-    collective of rank 0's model or pipe group); ``tree`` itself unless
-    the mesh splits parameters."""
+def gather_state_tree(mesh, tree: Dict, n_head: int) -> Optional[Dict]:
+    """A ``state_tree`` dict of this rank's parts of a GPT of ``n_head``
+    heads -> full leaves on global rank 0's host, one leaf at a time, and
+    None on every other rank (a collective of rank 0's model or pipe
+    group); ``tree`` itself unless the mesh splits parameters."""
     if mesh is None or not mesh.sharded:
         return tree
     out = dict(tree)
     for part in ("params", "mu", "nu"):
         if part in tree:
-            out[part] = gather_tree(mesh, tree[part])
+            out[part] = gather_tree(mesh, tree[part], n_head)
     if "opt" in tree:
-        out["opt"] = _opt_leaves(mesh, tree["opt"], gather_leaf)
+        out["opt"] = _opt_leaves(mesh, tree["opt"], gather_leaf, n_head)
     return out if is_primary() else None
 
 
-def shard_state_tree(mesh, tree: Dict) -> Dict:
+def shard_state_tree(mesh, tree: Dict, n_head: int) -> Dict:
     """``gather_state_tree``'s inverse: full leaves -> this rank's parts
-    (views; the task copies them onto its device)."""
+    (views; the task copies them onto its device) of a GPT of ``n_head``
+    heads."""
     if mesh is None:
         return tree
     out = dict(tree)
     for part in ("params", "mu", "nu"):
         if part in tree:
-            out[part] = shard_tree(mesh, tree[part])
+            out[part] = shard_tree(mesh, tree[part], n_head)
     if "opt" in tree:
-        out["opt"] = _opt_leaves(mesh, tree["opt"], shard_leaf)
+        out["opt"] = _opt_leaves(mesh, tree["opt"], shard_leaf, n_head)
     return out
 
 
@@ -148,8 +149,9 @@ class GPTTask:
         the same weights on every device; under a mesh the full tree, of
         which this rank keeps its shard), a fresh AdamW, step 0."""
         full = init_gpt_params(self.cfg, torch.Generator().manual_seed(seed))
-        params = _map(shard_tree(self.mesh, full), lambda t: t.to(
-            self.device, copy=True).requires_grad_(True))
+        params = _map(shard_tree(self.mesh, full, self.cfg.n_head),
+                      lambda t: t.to(self.device, copy=True)
+                      .requires_grad_(True))
         return {"params": params, "optimizer": self._optimizer(params),
                 "step": 0}
 
@@ -173,14 +175,14 @@ class GPTTask:
         return gather_state_tree(self.mesh, {
             "params": _map(state["params"], lambda t: t.detach()),
             **optimizer_state_tree(opt, state["params"]),
-            "lr": get_lr(opt), "step": int(state["step"])})
+            "lr": get_lr(opt), "step": int(state["step"])}, self.cfg.n_head)
 
     def load_state(self, tree: Dict) -> TrainState:
         """A train state on this task's device from a ``state_tree``-shaped
         dict (a checkpoint's, or bridge.train_state_from_jax's): parameters
         and moments are copied exactly, in the model dtype; under a mesh
         this rank's shard of them."""
-        tree = shard_state_tree(self.mesh, tree)
+        tree = shard_state_tree(self.mesh, tree, self.cfg.n_head)
         dtype = DTYPES[self.cfg.dtype]
         params = _map(tree["params"], lambda t: torch.as_tensor(t).to(
             self.device, dtype, copy=True).requires_grad_(True))
@@ -237,7 +239,8 @@ class GPTTask:
         JAX loggers do)."""
         if not cross_process_sharded(self.mesh):
             return state
-        params = gather_tree(self.mesh, state["params"], device=self.device)
+        params = gather_tree(self.mesh, state["params"], self.cfg.n_head,
+                             device=self.device)
         return dict(state, params=params) if is_primary() else None
 
     @torch.no_grad()

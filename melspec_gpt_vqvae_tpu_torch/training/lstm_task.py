@@ -116,7 +116,8 @@ class LSTMVAETask:
             out.update(mu=params, nu=params, count=0)
         return out
 
-    state_tree = VAETask.state_tree
+    # a data axis holds every parameter whole: the local tree is the state
+    state_tree = VAETask._local_tree
 
     def load_state(self, tree: Dict) -> TrainState:
         params = _map(tree["params"], lambda t: torch.as_tensor(t).to(

@@ -80,8 +80,9 @@ class VAETask:
         rank's shard of the full tree."""
         full = V.init_vae_params(self.cfgs,
                                  torch.Generator().manual_seed(seed))
-        params = _map(shard_tree(self.mesh, full), lambda t: t.to(
-            self.device, copy=True).requires_grad_(True))
+        params = _map(shard_tree(self.mesh, full, self.cfgs.encoder.n_head),
+                      lambda t: t.to(self.device, copy=True)
+                      .requires_grad_(True))
         return {"params": params, "optimizer": self._optimizer(params),
                 "step": 0, "kl_weight": torch.tensor(
                     float(self.exp.vae.kl_start), device=self.device)}
@@ -106,18 +107,23 @@ class VAETask:
         tensors, detached (under a mesh that splits parameters, the full
         leaves on rank 0's host and None on the other ranks: a
         collective)."""
+        return gather_state_tree(self.mesh, self._local_tree(state),
+                                 self.cfgs.encoder.n_head)
+
+    def _local_tree(self, state: TrainState) -> Dict:
+        """``state_tree``'s dict of this rank's live tensors, detached."""
         opt = state["optimizer"]
-        return gather_state_tree(self.mesh, {
-            "params": _map(state["params"], lambda t: t.detach()),
-            **optimizer_state_tree(opt, state["params"]),
-            "lr": get_lr(opt), "step": int(state["step"]),
-            "kl_weight": state["kl_weight"].detach()})
+        return {"params": _map(state["params"], lambda t: t.detach()),
+                **optimizer_state_tree(opt, state["params"]),
+                "lr": get_lr(opt), "step": int(state["step"]),
+                "kl_weight": state["kl_weight"].detach()}
 
     def load_state(self, tree: Dict) -> TrainState:
         """A train state on this task's device from a ``state_tree``-shaped
         dict; every tensor copied exactly (under a mesh, this rank's
         shard)."""
-        tree = shard_state_tree(self.mesh, tree)
+        tree = shard_state_tree(self.mesh, tree,
+                                self.cfgs.encoder.n_head)
         dtype = DTYPES[self.cfgs.encoder.dtype]
         params = _map(tree["params"], lambda t: torch.as_tensor(t).to(
             self.device, dtype, copy=True).requires_grad_(True))

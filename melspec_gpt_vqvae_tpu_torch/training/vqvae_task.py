@@ -158,13 +158,20 @@ class VQVAETask:
         (Lightning alternates optimizer_idx 0 / 1; reference
         training_step: big_model_attn_gan.py:742-766).  Updates the state in
         place; returns it with the JAX task's log keys as floats."""
-        cfg = self.cfg
         x = self.batch_images(batch)
+        logs = self.generator_phase(state, x)
+        logs.update(self.discriminator_phase(state, x))
+        return state, _floats(logs)
+
+    def generator_phase(self, state: TrainState, x: torch.Tensor
+                        ) -> Dict[str, torch.Tensor]:
+        """The autoencoder's update (the JAX task's ``generator_step``):
+        the discriminator's weights take no gradient and its statistic
+        updates are not kept (update_stats off).  Updates the state in
+        place; returns its log values as 0-d tensors."""
+        cfg = self.cfg
         model, disc = state["model"], state["disc"]
         disc_factor = self._disc_factor(state["step"])
-
-        # generator phase: the discriminator's weights take no gradient and
-        # its statistic updates are not kept (update_stats off)
         disc.requires_grad_(False)
         try:
             qloss, recon, rec_loss, perp, _ = self._ae_losses(model, x)
@@ -184,13 +191,20 @@ class VQVAETask:
             opt_ae.step()
         finally:
             disc.requires_grad_(True)
-        logs = {"train/aeloss": loss, "train/quant_loss": qloss,
+        return {"train/aeloss": loss, "train/quant_loss": qloss,
                 "train/rec_loss": rec_loss, "train/d_weight": d_weight,
                 "train/g_loss": g_loss, "train/perplexity": perp,
                 "train/disc_factor": torch.tensor(disc_factor,
                                                   device=x.device)}
 
-        # discriminator phase, on the autoencoder the generator phase left
+    def discriminator_phase(self, state: TrainState, x: torch.Tensor
+                            ) -> Dict[str, torch.Tensor]:
+        """The discriminator's update (the JAX task's
+        ``discriminator_step``), on the autoencoder the state holds; then
+        ``step`` advances.  Updates the state in place; returns its log
+        values as 0-d tensors."""
+        model, disc = state["model"], state["disc"]
+        disc_factor = self._disc_factor(state["step"])
         with torch.no_grad():
             recon = model(x)[1]
         logits_real = disc(x, update_stats=True)
@@ -201,10 +215,9 @@ class VQVAETask:
         d_loss.backward()
         opt_disc.step()
         state["step"] += 1
-        logs.update({"train/disc_loss": d_loss,
-                     "train/logits_real": torch.mean(logits_real),
-                     "train/logits_fake": torch.mean(logits_fake)})
-        return state, _floats(logs)
+        return {"train/disc_loss": d_loss,
+                "train/logits_real": torch.mean(logits_real),
+                "train/logits_fake": torch.mean(logits_fake)}
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch):

@@ -52,6 +52,23 @@ pipeline is built from the host tree, each rank moving its own parts
 alone to its card), what each rank held when the peak was reset
 (nothing of an earlier pipeline may remain), and the request's seconds
 (the second request of the shape, after its capture).
+
+XL (``--part xl``): the ``GPT_VAE_vggsound`` preset, whose 23 heads no
+model axis above 1 divides (the ranks hold 12, 11 or 6, 6, 6, 5 heads,
+``parallel/mesh.py::head_range``).  Its decoder
+(scripts/torch_xl_decode_bench.py: bfloat16, int8 KV cache and weights,
+top-k 100 from the prior, 8 segments) decodes batches of 64 and 256 on
+one card (rank 0) and over ``model=N``: the sampled tokens must equal one
+card's exactly (the int8 arithmetic is the single card's); beside them
+each rank's peak GiB and the seconds a decode.  Then its train step
+(``VAETask``, 2.09B parameters, AdamW, mixed precision, remat ``attn``,
+kernel F, the preset's batch of 1; scripts/torch_train_probe.py) on one
+card and over ``model=N``, held to the bounds above of its precision
+(``--override mixed_precision=False`` for float32; the loss, which sums
+the 265 tokens' cross entropy where the class GPT's averages it, a token
+at a time: the difference over 265), with ms a step and each rank's peak
+GiB.  ``--part xl_train`` runs the train step alone.  Launch
+``--nproc_per_node 2`` for ``model=2``, 4 for ``model=4``.
 """
 
 import argparse
@@ -64,6 +81,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -253,13 +271,143 @@ def serving_check(dev, override, meshes, variants):
     return ok
 
 
+def _reset_peak(dev):
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak(dev):
+    """The peak GiB since the last reset (None on the CPU)."""
+    if dev.type != "cuda":
+        return None
+    return round(torch.cuda.max_memory_allocated(dev) / 2 ** 30, 2)
+
+
+def _rank_peaks(mesh, dev):
+    """Every rank's peak GiB since the last reset, on every rank."""
+    import torch.distributed as dist
+    peaks = [None] * mesh.size("model")
+    dist.all_gather_object(peaks, _peak(dev), group=mesh.group("model"))
+    return peaks
+
+
+def xl_check(dev, n, override="", decode=True):
+    """The XL part (see the module's docstring; ``override``: preset
+    overrides, a narrow rehearsal on the CPU or float32; ``decode``
+    False: the train step alone); returns ok."""
+    from melspec_gpt_vqvae_tpu_torch.parallel import make_mesh
+
+    ok = True
+    mesh = make_mesh({"model": n}, dev)
+    if decode:
+        ok = _xl_decode(dev, n, mesh, override)
+    return _xl_train(dev, n, mesh, override) and ok
+
+
+def _xl_decode(dev, n, mesh, override):
+    """The XL decoder over ``mesh`` against one card; returns ok."""
+    from torch_xl_decode_bench import decode_bench, xl_decoder
+
+    from melspec_gpt_vqvae_tpu_torch.parallel import is_primary
+    from melspec_gpt_vqvae_tpu_torch.parallel.mesh import barrier
+    ok = True
+    cfgs, host = xl_decoder(dev, override)
+    with torch.no_grad():
+        for batch in (64, 256):
+            one = None
+            if is_primary():
+                row, one = decode_bench(cfgs, host, dev, batch=batch)
+                print(json.dumps({"xl_decode": "one card", **row}),
+                      flush=True)
+            barrier()
+            row, toks = decode_bench(cfgs, host, dev, mesh, batch=batch)
+            if is_primary():
+                row["tokens_equal"] = bool(torch.equal(toks, one))
+                ok = ok and row["tokens_equal"]
+                print(json.dumps({"xl_decode": f"model={n}", **row}),
+                      flush=True)
+            del toks, one
+    return ok
+
+
+def _xl_train(dev, n, mesh, override):
+    """The XL train step over ``mesh`` against one card; returns ok."""
+    from torch_train_probe import xl_vae_task
+
+    from melspec_gpt_vqvae_tpu_torch.parallel import is_primary
+    from melspec_gpt_vqvae_tpu_torch.parallel.mesh import (barrier,
+                                                           gather_tree)
+    from melspec_gpt_vqvae_tpu_torch.training.runner import step_generator
+
+    def gen(i):
+        return step_generator(1, 0, i, dev)
+
+    ref = None
+    if is_primary():
+        _reset_peak(dev)
+        task, batch = xl_vae_task(dev, override=override)
+        st = task.init_state(7)
+        before = {k: v.detach().to("cpu", copy=True) for k, v in
+                  _flat(st["params"])}
+        st, loss = task.train_step(st, batch, gen(0))[:2]
+        ref = {"loss": loss.item(), "before": before,
+               "params": {k: v.detach().to("cpu", copy=True) for k, v in
+                          _flat(st["params"])},
+               "grads": {k: v.to("cpu", copy=True)
+                         for k, v in _flat(_grads(st["params"]))}}
+        ref["ms"] = _ms(task, st, batch, gen, dev)
+        print(json.dumps({"xl_train": "one card", "loss": ref["loss"],
+                          "ms": ref["ms"], "peak_gib": _peak(dev)}),
+              flush=True)
+        del task, st
+        _reset_peak(dev)
+    barrier()
+    _reset_peak(dev)
+    task, batch = xl_vae_task(dev, mesh, override)
+    state = task.init_state(7)
+    state, loss = task.train_step(state, batch, gen(0))[:2]
+    grads = gather_tree(task.mesh, _grads(state["params"]),
+                        task.cfgs.encoder.n_head)
+    tree = task.state_tree(state)
+    params = (None if not is_primary() else
+              {k: v.to("cpu", copy=True) for k, v in _flat(tree["params"])})
+    del tree
+    ms = _ms(task, state, batch, gen, dev)
+    peaks = _rank_peaks(mesh, dev)
+    if is_primary():
+        errs = {k: (g.float().cpu() - ref["grads"][k].float()).abs().max()
+                .item() / ref["grads"][k].abs().max().clamp_min(1e-30).item()
+                for k, g in _flat(grads)}
+        worst = max(errs, key=errs.get)
+        g_err = errs[worst]
+        u_err, share = _update_err(ref["before"], ref["params"],
+                                   ref["grads"], params, dict(_flat(grads)))
+        tokens = task.cfgs.encoder.block_size
+        mixed = task.cfgs.encoder.mixed_precision
+        loss_bound, grad_bound = (2e-4, 1e-2) if mixed else (1e-5, 1e-3)
+        row = {"xl_train": f"model={n}", "mixed_precision": mixed,
+               "loss": loss.item(),
+               "loss_diff": abs(loss.item() - ref["loss"]),
+               "grad_rel_err": g_err, "grad_worst_leaf": worst,
+               "update_err": u_err, "update_share": share, "ms": ms,
+               "one_card_ms": ref["ms"], "peak_gib_by_rank": peaks}
+        row["ok"] = (row["loss_diff"] / tokens <= loss_bound
+                     and g_err <= grad_bound and u_err <= 5e-2)
+        print(json.dumps(row), flush=True)
+        return row["ok"]
+    return True
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--override", default="",
                     help="more preset overrides, e.g. a narrow width")
     ap.add_argument("--part", default="all",
-                    choices=["all", "training", "serving"])
+                    choices=["all", "training", "serving", "xl",
+                             "xl_train"])
     ap.add_argument("--serve_meshes", default="",
                     help="';'-separated serving meshes (default: data=N; "
                          "model=N; data=2,model=N/2)")
@@ -283,6 +431,9 @@ def main():
         torch.set_num_threads(1)
     n = process_count()
     ok = True
+    if args.part in ("xl", "xl_train"):
+        return _finish(xl_check(dev, n, args.override, args.part == "xl"),
+                       n, dev)
     if args.part in ("all", "serving"):
         meshes = ([m for m in args.serve_meshes.split(";") if m]
                   or [f"data={n}", f"model={n}", f"data=2,model={n // 2}"])
@@ -333,7 +484,8 @@ def main():
         local = {k: v[rows] for k, v in batch.items()}
         state, loss = task.train_step(state, local, gen(0))
         # the full leaves on rank 0, None on the other ranks
-        grads = gather_tree(task.mesh, _grads(state["params"]))
+        grads = gather_tree(task.mesh, _grads(state["params"]),
+                            task.cfg.n_head)
         tree = task.state_tree(state)
         params = (None if not is_primary() else
                   {k: v.to("cpu", copy=True) for k, v in

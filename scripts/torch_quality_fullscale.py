@@ -27,13 +27,24 @@ finite.
 Writes QUALITY_FULLSCALE_TORCH.json (QUALITY_FULLSCALE.json's keys, plus
 the card, the TF32 switches as the run left them -- torch's defaults, as
 the port's training CLIs leave them -- and the launches of kernels A and
-F), then exits non-zero if a gate failed.  QUALITY_FULLSCALE.json is the
-TPU's record and is not touched.
+F), then exits non-zero if a gate failed.  cuDNN runs its deterministic
+algorithms throughout, so the codec, and with it the code grids the GPT
+learns (their SHA-1 is recorded), are the same in every run; the default
+convolution backward passes gave another codec, and another step-0
+loss, run to run.  ``--seed`` draws the GPT's initial weights from
+another seed (the codec, batch order and dropout stream stay).  Every
+run is appended to the record's ``runs`` (its UTC time, seed, switches,
+code SHA-1, gates, milestones, minutes), and the top-level keys stay the
+latest default-seed run's.  QUALITY_FULLSCALE.json is the TPU's record
+and is not touched.
 
-Usage, on a machine with the card: python3 scripts/torch_quality_fullscale.py
+Usage, on a machine with the card:
+python3 scripts/torch_quality_fullscale.py [--seed N]
 """
 
+import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import sys
@@ -79,6 +90,24 @@ def tf32_state():
             "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
 
 
+def record_run(path, out, run, default: bool):
+    """Write the record at ``path``: ``run`` (this run's seed, switches,
+    gates and figures), stamped with its UTC time, is appended to the
+    record's ``runs``, which keeps every earlier run; the top-level keys
+    are ``out`` for the default run and stay the file's own for any other.
+    Returns the record."""
+    old = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            old = json.load(f)
+    run = {"at": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()), **run}
+    top = out if default else {k: v for k, v in old.items() if k != "runs"}
+    rec = {**top, "runs": old.get("runs", []) + [run]}
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1)
+    return rec
+
+
 def fullscale_gates(vals, tl):
     """quality_fullscale.py's gates on the validation milestones ``vals``
     (the first at step 0) and the train losses ``tl``.  The val set is 8
@@ -98,13 +127,26 @@ def fullscale_gates(vals, tl):
     }
 
 
-def main(device=None):
+def main(device=None, seed=None):
+    """``seed``: the GPT's initial draw (None: the preset's ``train.seed``,
+    the committed record's); the codec, the batch order and the dropout
+    stream stay as they are (cuDNN deterministic for the run, the
+    caller's switch restored)."""
     if device is None:
         if not torch.cuda.is_available():
             raise SystemExit("torch_quality_fullscale: no CUDA device; the "
                              "full-scale proof runs on the card")
         device = torch.device("cuda", 0)
     device = torch.device(device)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _run(device, seed)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _run(device, seed):
     t_start = time.time()
     mcfg = MelConfig()
     wavs, labels, _ = make_tone_battery(mcfg)
@@ -118,6 +160,7 @@ def main(device=None):
     vstate, _ = train_codec(vq_task, vq_task.init_state(0), x_all, VQ_STEPS,
                             rng, every=100)
     grids = encode_grids(vstate["model"], x_all, device)
+    codes_sha1 = hashlib.sha1(np.ascontiguousarray(grids)).hexdigest()
     del vq_task, vstate
 
     # --- held-out split: 2 clips a class -----------------------------------
@@ -133,7 +176,9 @@ def main(device=None):
         exp, train=dataclasses.replace(exp.train, learning_rate=LR))
     bs = exp.train.batch_size                      # 8, the reference's
     task = GPTTask(exp, device)
-    state = task.init_state(exp.train.seed)
+    default = seed is None or seed == exp.train.seed
+    seed = exp.train.seed if seed is None else seed
+    state = task.init_state(seed)
     n_params = sum(p.numel() for p in _leaves(state["params"]))
     print(f"VAS preset GPT: {n_params / 1e6:.1f}M params, bs {bs}, lr {LR}",
           flush=True)
@@ -174,6 +219,7 @@ def main(device=None):
     tl = torch.stack(train_losses).float().cpu().numpy().tolist()
     vals = [v for _, v in milestones]
     gates = fullscale_gates(vals, tl)
+    minutes = round((time.time() - t_start) / 60, 1)
     out = {
         "geometry": "24L/16H/1024d block 266 (VAS preset, "
                     "reference config_GPT_vas.py:4-6)",
@@ -185,18 +231,25 @@ def main(device=None):
         # each step's wall clock between two synchronizes, host included
         "wall_s_per_step_upper_bound": round(t_train / max(t_steps, 1), 4),
         "gates": gates,
-        "minutes": round((time.time() - t_start) / 60, 1),
+        "minutes": minutes,
         "passed": all(gates.values()),
         "dtype": exp.model.dtype,
         "use_flash_train": exp.model.use_flash_train,
         "tf32": tf32_state(),
+        "cudnn_deterministic": torch.backends.cudnn.deterministic,
+        "codes_sha1": codes_sha1,
         "kernel_launches": {k: w.launches for k, w in KERNELS.items()},
         "device": (card_info(device) if device.type == "cuda"
                    else {"platform": device.type}),
     }
-    with open(OUT, "w") as f:
-        json.dump(out, f, indent=1)
-    print(json.dumps(out))
+    run = {"seed": seed, "tf32": tf32_state(),
+           "cudnn_deterministic": torch.backends.cudnn.deterministic,
+           "codes_sha1": codes_sha1, "gates": gates,
+           "passed": all(gates.values()),
+           "val_loss_milestones": out["val_loss_milestones"],
+           "minutes": minutes}
+    record_run(OUT, out, run, default)
+    print(json.dumps(out if default else run))
     failed = [k for k, ok in gates.items() if not ok]
     if failed:
         raise SystemExit(f"torch_quality_fullscale: gates failed: {failed}")
@@ -218,4 +271,8 @@ def _sync(device):
 
 
 if __name__ == "__main__":
-    main()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=None,
+                    help="the GPT's initial draw (default: the preset's "
+                         "train.seed, the committed record's run)")
+    main(seed=ap.parse_args().seed)

@@ -28,13 +28,20 @@ everything finite.
 Writes QUALITY_VQGAN_TORCH.json (QUALITY_VQGAN.json's keys, plus the card,
 the TF32 switches as the run left them -- torch's defaults, as the port's
 training CLIs leave them -- and kernel C's launches), then exits non-zero
-if a gate failed.  QUALITY_VQGAN.json is the TPU's record and is not
+if a gate failed.  ``--seed`` draws both nets' initial weights from
+another seed (the batch order stays); ``--tf32 off`` turns cuDNN's TF32
+convolutions off for the run (``torch.backends.cudnn.allow_tf32``) and
+restores the switch after it.  Every run is appended to the record's
+``runs`` (its UTC time, seed, switches, gates, eval and train
+reconstruction, d_weight, minutes); the top-level keys stay the latest
+default run's (seed 0, TF32 as torch leaves it).  QUALITY_VQGAN.json is the TPU's record and is not
 touched.
 
 Usage, on a machine with the card:
-python3 scripts/torch_quality_vqgan_fullscale.py
+python3 scripts/torch_quality_vqgan_fullscale.py [--seed N] [--tf32 off]
 """
 
+import argparse
 import json
 import os
 import sys
@@ -47,7 +54,7 @@ sys.path.insert(0, os.path.join(ROOT, "scripts"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from torch_quality_fullscale import tf32_state  # noqa: E402
+from torch_quality_fullscale import record_run, tf32_state  # noqa: E402
 from torch_quality_proof import card_info  # noqa: E402
 
 from melspec_gpt_vqvae_tpu_torch.configs import (MelConfig,  # noqa: E402
@@ -63,6 +70,7 @@ GAN_STEPS = 200
 BS = 4
 N_EVAL = 16
 OUT = os.path.join(ROOT, "QUALITY_VQGAN_TORCH.json")
+DEFAULT_SEED = 0
 
 
 def vqgan_gates(vcfg, rec_first, rec_pre_gan, disc_factor_last, d_first,
@@ -85,7 +93,9 @@ def vqgan_gates(vcfg, rec_first, rec_pre_gan, disc_factor_last, d_first,
     }
 
 
-def main(device=None):
+def main(device=None, seed=DEFAULT_SEED, tf32=True):
+    """``seed``: both nets' initial draw; ``tf32`` False runs the
+    convolutions without cuDNN's TF32 (the caller's switch restored)."""
     if device is None:
         if not torch.cuda.is_available():
             raise SystemExit("torch_quality_vqgan_fullscale: no CUDA device; "
@@ -93,14 +103,18 @@ def main(device=None):
         device = torch.device("cuda", 0)
     device = torch.device(device)
     deterministic = torch.backends.cudnn.deterministic
+    allow_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.deterministic = True
+    if not tf32:
+        torch.backends.cudnn.allow_tf32 = False
     try:
-        return _run(device)
+        return _run(device, seed, seed == DEFAULT_SEED and tf32)
     finally:
         torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.allow_tf32 = allow_tf32
 
 
-def _run(device):
+def _run(device, seed, default):
     t_start = time.time()
     mcfg = MelConfig()
     wavs, _, _ = make_tone_battery(mcfg)
@@ -117,7 +131,7 @@ def _run(device):
         == (128, (1, 1, 2, 2, 4), 2, 256, 64, 3), \
         "preset drifted from reference scale"
     task = VQVAETask(vcfg, device)
-    state = task.init_state(0)
+    state = task.init_state(seed)
     n_params = sum(p.numel() for p in state["model"].parameters())
     print(f"VQ-GAN preset: {n_params / 1e6:.1f}M AE params, bs {BS}, "
           f"lr {vcfg.learning_rate}", flush=True)
@@ -168,6 +182,7 @@ def _run(device):
     gates = vqgan_gates(vcfg, rec_first, rec_pre_gan,
                         gan_logs[-1]["train/disc_factor"], d_first, d_last5,
                         margin_last5, dw, eval_pre, eval_post, scalars)
+    minutes = round((time.time() - t_start) / 60, 1)
     out = {
         "geometry": "ch128 mult(1,1,2,2,4) res2 attn(53,) z256 ndf64 "
                     "(VQVAEConfig preset, reference "
@@ -187,7 +202,7 @@ def _run(device):
                      "max": round(float(dw.max()), 5),
                      "final": round(float(dw[-1]), 5)},
         "gates": gates,
-        "minutes": round((time.time() - t_start) / 60, 1),
+        "minutes": minutes,
         "passed": all(gates.values()),
         "tf32": tf32_state(),
         "cudnn_deterministic": torch.backends.cudnn.deterministic,
@@ -195,9 +210,14 @@ def _run(device):
         "device": (card_info(device) if device.type == "cuda"
                    else {"platform": device.type}),
     }
-    with open(OUT, "w") as f:
-        json.dump(out, f, indent=1)
-    print(json.dumps(out))
+    run = {"seed": seed, "tf32": tf32_state(),
+           "cudnn_deterministic": torch.backends.cudnn.deterministic,
+           "gates": gates,
+           "passed": all(gates.values()), "rec_loss": out["rec_loss"],
+           "eval_rec_loss": out["eval_rec_loss"], "d_weight": out["d_weight"],
+           "minutes": minutes}
+    record_run(OUT, out, run, default)
+    print(json.dumps(out if default else run))
     failed = [k for k, ok in gates.items() if not ok]
     if failed:
         raise SystemExit(f"torch_quality_vqgan_fullscale: gates failed: "
@@ -207,4 +227,11 @@ def _run(device):
 
 
 if __name__ == "__main__":
-    main()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=DEFAULT_SEED,
+                    help="both nets' initial draw (default 0, the committed "
+                         "record's run)")
+    ap.add_argument("--tf32", choices=("on", "off"), default="on",
+                    help="off: cuDNN's TF32 convolutions off for the run")
+    args = ap.parse_args()
+    main(seed=args.seed, tf32=args.tf32 == "on")

@@ -3,9 +3,14 @@
 whole smoke run.
 
     python3 scripts/torch_train_probe.py [--skip_vae]
+    python3 scripts/torch_train_probe.py --dataset vggsound
 
 From the repository root on a machine with an NVIDIA card.  TF32 off, as
-in chip_smoke.py.  Prints:
+in chip_smoke.py.  ``--dataset vggsound`` measures the XL GPT-VAE's train
+step alone (``GPT_VAE_vggsound``: 40 layers, 23 heads, 1472 wide, 2.09B
+parameters, AdamW, the preset's mixed precision and remat ``attn``, its
+batch of 1, kernel F): ms a step (steps 3-6 of 6), tokens/s, peak GiB and
+the launches of kernel F a step.  The VAS presets (default) print:
 
 1. one (24 x 265) x 1,024 x 4,096 product in float32, in bfloat16 with a
    float32 result (``torch.mm(..., out_dtype=torch.float32)``, the mixed-
@@ -79,9 +84,57 @@ def gpt_steps(dev):
                           t.cfg.n_layer)
 
 
+XL_STEPS = 6
+
+
+def xl_vae_task(dev, mesh=None, override=""):
+    """``VAETask`` of the ``GPT_VAE_vggsound`` preset with kernel F, over
+    ``mesh`` (None: one card), and a seeded batch of the preset's size.
+    ``override``: preset overrides (a narrow rehearsal on the CPU)."""
+    from melspec_gpt_vqvae_tpu_torch.configs import (load_preset,
+                                                     parse_overrides)
+    from melspec_gpt_vqvae_tpu_torch.training.vae_task import VAETask
+    exp = load_preset("GPT_VAE", "vggsound", **{
+        "use_flash_train": True, **parse_overrides(override)})
+    rng = np.random.default_rng(0)
+    batch = {"codes": rng.integers(0, exp.model.vocab_size, (
+        exp.train.batch_size, 5, 53)).astype(np.int64)}
+    return VAETask(exp, 1, dev, mesh), batch
+
+
+def xl_steps(dev):
+    """The XL GPT-VAE's train step on one card (see the docstring)."""
+    from melspec_gpt_vqvae_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    task, batch = xl_vae_task(dev)
+    cfg = task.cfgs.encoder
+    state = task.init_state(7)
+    n = sum(t.numel() for t in _leaves(state["params"]))
+    flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+    losses, ms, mem = cs.timed_steps(task, state, batch, XL_STEPS)
+    b = len(batch["codes"])
+    print(f"  XL GPT-VAE step ({cfg.n_layer} L / {cfg.n_head} H / "
+          f"{cfg.n_embd} d, {n / 1e9:.3f}B parameters, batch {b}, mixed "
+          f"precision {cfg.mixed_precision}, remat {cfg.remat_policy}): "
+          f"{ms:.1f} ms, {b * 265 / (ms / 1e3):.0f} tokens/s, peak "
+          f"{mem / 2 ** 30:.2f} GiB; F launches a step "
+          f"{flash_attention_fwd.launches // XL_STEPS} / "
+          f"{flash_attention_bwd.launches // XL_STEPS}; losses "
+          f"{[round(x, 4) for x in losses]}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--skip_vae", action="store_true")
+    p.add_argument("--dataset", default="vas", choices=["vas", "vggsound"])
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_train_probe: no CUDA device")
@@ -94,6 +147,9 @@ def main():
                          text=True, timeout=60)
     print(f"card: {smi.stdout.strip()}; torch {torch.__version__}")
     _build.load()
+    if args.dataset == "vggsound":
+        xl_steps(dev)
+        return
     gemm_probe(dev)
     cs.check_vae_kernels(dev)
     gpt_steps(dev)

@@ -83,6 +83,7 @@ def test_fullscale_toy_run_writes_the_jax_records_keys(qf, monkeypatch,
                         ("STEPS", 4), ("EVAL_EVERY", 2),
                         ("OUT", str(tmp_path / "QF.json"))):
         monkeypatch.setattr(qf, name, value)
+    deterministic = torch.backends.cudnn.deterministic
     out = _run(qf)
     want = json.loads((ROOT / "QUALITY_FULLSCALE.json").read_text())
     assert set(want) <= set(out), set(want) - set(out)
@@ -98,6 +99,11 @@ def test_fullscale_toy_run_writes_the_jax_records_keys(qf, monkeypatch,
                                            "flash_attention_bwd"}
     assert out["device"] == {"platform": "cpu"}
     assert np.isfinite(out["train_loss"]["last20_mean"])
+    # the codec's grids, fingerprinted; cuDNN deterministic for the run,
+    # the caller's switch restored
+    assert len(out["codes_sha1"]) == 40 and out["cudnn_deterministic"]
+    assert out["runs"][-1]["codes_sha1"] == out["codes_sha1"]
+    assert torch.backends.cudnn.deterministic == deterministic
 
 
 def test_fullscale_gates_on_the_tpu_records_numbers(qf):
@@ -152,6 +158,48 @@ def test_vqgan_fullscale_toy_run_writes_the_jax_records_keys(qvf,
     # kernel C's count: its plain version on the CPU counts no launch
     assert set(out["kernel_launches"]) == {"vq_nearest"}
     assert out["device"] == {"platform": "cpu"}
+
+
+def test_proof_runs_join_the_record_under_runs(qvf, monkeypatch, tmp_path):
+    """A run at another seed or with ``tf32`` off is appended to the
+    record's ``runs`` and leaves the top-level keys the default run's; a
+    second run of the same seed and switches is appended beside the first
+    (no run is dropped), each stamped with its time; cuDNN's TF32 switch
+    is the caller's again after the run."""
+    _battery16(qvf, monkeypatch)
+    task = qvf.VQVAETask
+    seeds = []
+
+    def narrow_task(cfg, device):
+        t = task(dataclasses.replace(
+            cfg, ch=8, ch_mult=(1, 1, 1, 1, 1), num_res_blocks=1,
+            z_channels=8, embedding_dim=8, disc_ndf=8), device)
+        init = t.init_state
+        t.init_state = lambda seed: (seeds.append(seed), init(seed))[1]
+        return t
+    for name, value in (("VQVAETask", narrow_task), ("RECON_STEPS", 1),
+                        ("GAN_STEPS", 5), ("BS", 2),
+                        ("OUT", str(tmp_path / "QV.json"))):
+        monkeypatch.setattr(qvf, name, value)
+    before = torch.backends.cudnn.allow_tf32
+    first = _run(qvf)
+    for kw in (dict(seed=1), dict(seed=1, tf32=False), dict(seed=1)):
+        try:
+            qvf.main("cpu", **kw)
+        except SystemExit as e:
+            assert "gates failed" in str(e)
+        assert torch.backends.cudnn.allow_tf32 == before
+    rec = json.loads(Path(qvf.OUT).read_text())
+    assert seeds == [0, 1, 1, 1]
+    assert {k: v for k, v in rec.items() if k != "runs"} == {
+        k: v for k, v in first.items() if k != "runs"}
+    assert [(r["seed"], r["tf32"]["cudnn_allow_tf32"]) for r in
+            rec["runs"]] == [(0, before), (1, before), (1, False),
+                             (1, before)]
+    for r in rec["runs"]:
+        assert set(r["gates"]) == set(first["gates"])
+        assert {"at", "eval_rec_loss", "d_weight", "minutes", "passed",
+                "cudnn_deterministic"} <= set(r)
 
 
 def test_vqgan_gates_on_the_tpu_records_numbers(qvf):

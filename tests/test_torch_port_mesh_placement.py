@@ -124,7 +124,7 @@ def test_host_quantised_then_cut_equals_the_cut_of_the_full_copy(rank):
     mesh.coords = {"model": rank}
     local, wq = TP._served_weights(mesh, params, cfg, torch.device("cpu"))
     ref = TM.shard_block_weights(mesh, TG.quantize_block_weights(
-        params["blocks"]))
+        params["blocks"]), cfg.n_head)
     assert set(wq) == set(ref) == set(TG.BLOCK_MATRICES)
     for name in TG.BLOCK_MATRICES:
         for f in ("q", "s"):
@@ -132,7 +132,8 @@ def test_host_quantised_then_cut_equals_the_cut_of_the_full_copy(rank):
             assert torch.equal(wq[name][f], ref[name][f]), (name, f)
         assert wq[name]["q"].transpose(1, 2).is_contiguous()
     got = dict(_leaves(local))
-    for name, t in _leaves(TM.shard_gpt_for_serving(mesh, params)):
+    for name, t in _leaves(TM.shard_gpt_for_serving(mesh, params,
+                                                    cfg.n_head)):
         assert torch.equal(got.pop(name), t), name
     assert not got
 

@@ -213,7 +213,7 @@ def test_pp_param_axes_and_single_process_pipe():
     microbatches do not divide is refused."""
     cfg = bridge.config_from_jax(CFG)
     params = TG.init_gpt_params(cfg, torch.Generator().manual_seed(0))
-    stage = shard_tree(Mesh({"pipe": 2}, "cpu"), params)
+    stage = shard_tree(Mesh({"pipe": 2}, "cpu"), params, cfg.n_head)
     half = cfg.n_layer // 2
     assert torch.equal(stage["blocks"]["attn_qkv"]["w"],
                        params["blocks"]["attn_qkv"]["w"][:half])

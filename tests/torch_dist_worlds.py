@@ -105,15 +105,16 @@ def _mesh(shape, n_micro=0):
     return make_mesh(shape, "cpu", n_micro)
 
 
-def _local(params, mesh):
+def _local(params, mesh, n_head):
     from melspec_gpt_vqvae_tpu_torch.parallel import shard_tree
     from melspec_gpt_vqvae_tpu_torch.training.gpt_task import _map
-    return _map(shard_tree(mesh, params), lambda t: t.clone())
+    return _map(shard_tree(mesh, params, n_head), lambda t: t.clone())
 
 
 def world_tp(inp, out):
     """Tensor parallelism: forwards, shards, tasks, dropout, clipping and
-    checkpoints over 4 ranks."""
+    checkpoints over 4 ranks (at ``inp["cfg"]``'s head count, even or
+    not over the model axis)."""
     import torch
 
     from melspec_gpt_vqvae_tpu_torch.models import gpt as G
@@ -130,9 +131,9 @@ def world_tp(inp, out):
     for shape in ({"model": 4}, {"data": 2, "model": 2}):
         mesh = _mesh(shape)
         key = ",".join(f"{k}={v}" for k, v in shape.items())
-        local = _local(params, mesh)
+        local = _local(params, mesh, cfg.n_head)
         out[f"shard/{key}"] = local
-        out[f"round_trip/{key}"] = gather_tree(mesh, local)
+        out[f"round_trip/{key}"] = gather_tree(mesh, local, cfg.n_head)
         with torch.no_grad():
             out[f"forward/{key}"] = G.gpt_apply(local, cfg, x, mesh=mesh)
 
@@ -142,17 +143,19 @@ def world_tp(inp, out):
     gen = step_generator(5, 0, 0, torch.device("cpu"),
                          mesh.coord("data"))
     with torch.no_grad():
-        out["dropout"] = G.gpt_apply(_local(params, mesh), dcfg, x,
-                                     train=True, generator=gen, mesh=mesh)
+        out["dropout"] = G.gpt_apply(_local(params, mesh, cfg.n_head), dcfg,
+                                     x, train=True, generator=gen, mesh=mesh)
 
     # the global gradient norm over model shards
     mesh = _mesh({"model": 4})
-    local = _map(_local(params, mesh), lambda t: t.requires_grad_(True))
+    local = _map(_local(params, mesh, cfg.n_head),
+                 lambda t: t.requires_grad_(True))
     gpt_loss_fn(local, cfg, inp["tokens"], inp["classes"],
                 mesh=mesh).backward()
     O.clip_by_global_norm_(list(O.named_leaves(local)), inp["max_norm"],
                            mesh)
-    out["clipped_grads"] = gather_tree(mesh, _map(local, lambda t: t.grad))
+    out["clipped_grads"] = gather_tree(mesh, _map(local, lambda t: t.grad),
+                                        cfg.n_head)
 
     # the tasks at data=2, model=2 from a JAX state, one step
     for name, make in (
@@ -234,7 +237,7 @@ def world_pp(inp, out):
     for shape, micro in inp["forwards"]:
         mesh = _mesh(shape, micro)
         key = ",".join(f"{k}={v}" for k, v in shape.items())
-        local = _local(params, mesh)
+        local = _local(params, mesh, cfg.n_head)
         with torch.no_grad():
             out[f"forward/{key}"] = gpt_apply_pp(
                 local, cfg, _rows(x, mesh),
@@ -246,19 +249,19 @@ def world_pp(inp, out):
     mesh = _mesh({"data": 2, "pipe": 2}, 2)
     for name, c in (("plain", cfg),
                     ("remat", cfg.replace(remat=True, remat_policy="attn"))):
-        local = _map(_local(params, mesh), lambda t: t.requires_grad_(True))
+        local = _map(_local(params, mesh, cfg.n_head), lambda t: t.requires_grad_(True))
         loss = gpt_pp_loss_fn(local, c, _rows(inp["tokens"], mesh),
                               _rows(cond_c, mesh), mesh)
         loss_backward(loss, mesh)
         reduce_gradients(mesh, O.named_leaves(local))
         out[f"loss/{name}"] = float(loss)
         grads = _map(local, lambda t: t.grad)
-        out[f"grads/{name}"] = gather_tree(mesh, grads)   # None off rank 0
+        out[f"grads/{name}"] = gather_tree(mesh, grads, cfg.n_head)  # None off rank 0
         out[f"local_grads/{name}"] = grads
 
     # dropout: the same rows on both data ranks
     dcfg = cfg.replace(embd_pdrop=0.0, attn_pdrop=0.5, resid_pdrop=0.5)
-    local = _local(params, mesh)
+    local = _local(params, mesh, cfg.n_head)
     gen = step_generator(9, 0, 0, torch.device("cpu"), mesh.coord("data"))
     with torch.no_grad():
         out["dropout"] = gpt_apply_pp(local, dcfg, x[:4],
@@ -271,7 +274,7 @@ def world_pp(inp, out):
                 inp["exp"], model=inp["exp"].model.replace(n_layer=6)),
                 "cpu", _mesh({"pipe": 4}))),
             ("micro", lambda: gpt_apply_pp(
-                _local(params, _mesh({"pipe": 4}, 3)), cfg, x[:8],
+                _local(params, _mesh({"pipe": 4}, 3), cfg.n_head), cfg, x[:8],
                 mesh=_mesh({"pipe": 4}, 3)))):
         try:
             run()
@@ -326,8 +329,9 @@ def _serving(params, cfg, mesh):
     from melspec_gpt_vqvae_tpu_torch.parallel import (shard_block_weights,
                                                       shard_gpt_for_serving)
     wq = (shard_block_weights(mesh, G.quantize_block_weights(
-        params["blocks"])) if cfg.decode_weight_dtype == "int8" else None)
-    return shard_gpt_for_serving(mesh, params), wq
+        params["blocks"]), cfg.n_head) if cfg.decode_weight_dtype == "int8"
+        else None)
+    return shard_gpt_for_serving(mesh, params, cfg.n_head), wq
 
 
 def _tree_bytes(tree):
