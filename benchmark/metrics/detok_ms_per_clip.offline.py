@@ -1,0 +1,8 @@
+"""The pipeline's detok (``decode_specs`` + ``vocode``) milliseconds a
+clip: the benchmark's synchronised span over the batch's clips."""
+
+from harness import readers
+
+
+def read(ctx):
+    return readers.span_ms_per(ctx, "detok", ctx.traffic["batch"])

@@ -1,0 +1,13 @@
+"""The whole round trip's share of the card's bfloat16 dense peak: the
+operations of a clip (the GPT's products, the VQ-VAE decoder's and
+MelGAN's convolutions, from shapes) times the window's clips a second."""
+
+from harness import readers
+
+
+def read(ctx):
+    c = ctx.counters
+    if not c.get("window_s"):
+        return None
+    rate = c["clips"] / c["window_s"]
+    return readers.share_of_peak(readers.clip_flops(ctx.config) * rate)
