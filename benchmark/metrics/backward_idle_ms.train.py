@@ -1,0 +1,10 @@
+"""The device's idle milliseconds a traced train step while the host was
+in its backward phase: the idle gaps of the traced window whose midpoint
+lies innermost in the program's span ``train.backward``, over the traced
+steps."""
+
+from harness import spans
+
+
+def read(ctx):
+    return spans.idle_ms_per(ctx, "train.backward", "train.forward")

@@ -59,6 +59,7 @@ from ..ops.decode_attention import unpack4 as _unpack4  # noqa: F401
 from ..ops.flash_attention import flash_attention
 from ..ops.quant import int_matmul
 from ..ops.sampling import sample_logits
+from ..utils import profiling
 from . import decode_graph
 
 Params = Dict[str, object]
@@ -1102,13 +1103,14 @@ def _generate_on_device(params, cfg, generator, cond_emb, given, steps,
     # the session's tensors under a dict of its own
     logits, _ = gpt_prefill(params, cfg, dict(sess.cache), given, cond_emb,
                             mesh=mesh)
-    u = (draw_uniforms(generator, steps, b, logits.shape[-1], dev, mesh)
-         if sample else None)
-    sess.begin(logits, u, start)
-    for cap, seg in plan:
-        for _ in range(seg):
-            sess.replay(cap)
-    return sess.tokens.clone()
+    with profiling.span("gpt.decode"):
+        u = (draw_uniforms(generator, steps, b, logits.shape[-1], dev, mesh)
+             if sample else None)
+        sess.begin(logits, u, start)
+        for cap, seg in plan:
+            for _ in range(seg):
+                sess.replay(cap)
+        return sess.tokens.clone()
 
 
 def gpt_generate_eager(params, cfg, generator, cond_emb, given, steps,
@@ -1123,18 +1125,20 @@ def gpt_generate_eager(params, cfg, generator, cond_emb, given, steps,
                           heads=local_heads(params, cfg, mesh))
     logits, cache = gpt_prefill(params, cfg, cache, given, cond_emb,
                                 mesh=mesh)
-    u = (draw_uniforms(generator, steps, b, logits.shape[-1], logits.device,
-                       mesh) if sample else None)
-    toks = []
-    for cap, seg in plan:
-        cache = _grow_cache(cache, cap)
-        for _ in range(seg):
-            tok = sample_logits(None, logits, sample=sample,
-                                u=None if u is None else u[len(toks)], **skw)
-            logits, cache = gpt_decode_step(params, cfg, cache, tok, wq,
-                                            mesh=mesh)
-            toks.append(tok)
-    return torch.stack(toks, dim=1), cache
+    with profiling.span("gpt.decode"):
+        u = (draw_uniforms(generator, steps, b, logits.shape[-1],
+                           logits.device, mesh) if sample else None)
+        toks = []
+        for cap, seg in plan:
+            cache = _grow_cache(cache, cap)
+            for _ in range(seg):
+                tok = sample_logits(None, logits, sample=sample,
+                                    u=None if u is None else u[len(toks)],
+                                    **skw)
+                logits, cache = gpt_decode_step(params, cfg, cache, tok, wq,
+                                                mesh=mesh)
+                toks.append(tok)
+        return torch.stack(toks, dim=1), cache
 
 
 def gpt_generate(params: Params, cfg: GPTConfig,

@@ -7,10 +7,12 @@ callbacks/GPT_callbacks.py:93-111).  As there: KV-cached segmented decode,
 the conv stages chunked so their activations do not cap the decode batch,
 and the conv stacks in bfloat16 on the card while every codebook argmin
 stays float32 (ops/vq.py).  PyTorch runs eagerly; the stages are methods a
-caller can time one by one.  The one program that is kept is the decode
-loop's body: on the card a token's sampling and decode step are one
-captured CUDA graph (models/decode_graph.py), made at the first request
-of a shape and replayed from then on.  With ``int8_decode`` the VQ decode
+caller can time one by one, and each is a span of utils/profiling.py
+(``pipeline.<stage>``, with the device's time between its two events).
+The one program that is kept is the decode loop's body: on the card a
+token's sampling and decode step are one captured CUDA graph
+(models/decode_graph.py), made at the first request of a shape and
+replayed from then on.  With ``int8_decode`` the VQ decode
 and vocoder stages run the calibrated int8 convolutions of
 models/quantized.py, as the JAX pipeline's int8 decode stage does.  Over a
 mesh (``mesh=``) one process a GPU serves: every rank decodes its share
@@ -41,6 +43,7 @@ from .models.vocoder import MelGANGenerator
 from .models.vqvae import VQModel
 from .ops.mel_kernel import waveform_to_mel_fused
 from .parallel import mesh as pm
+from .utils import profiling
 
 
 def _chunked(fn, x: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -225,7 +228,8 @@ class GenerationPipeline:
         kw = dict(steps=self.vcfg.code_h * self.vcfg.code_w,
                   temperature=temperature, top_k=top_k, top_p=top_p,
                   sample=sample, graph=graph, mesh=self.mesh)
-        with self._decode_lock, _build.kernels(self.use_kernels):
+        with profiling.span("pipeline.generate_tokens", device=self.device), \
+                self._decode_lock, _build.kernels(self.use_kernels):
             wq = self._wq(self.block_weights, self.gpt_params, self.gcfg,
                           "gpt")
             if self.draft_params is None:
@@ -266,13 +270,15 @@ class GenerationPipeline:
     @torch.inference_mode()
     def decode_specs(self, tokens: torch.Tensor) -> torch.Tensor:
         """GPT-order tokens (N, S) -> spectrograms (N, H, W) in [-1, 1]."""
-        with _build.kernels(self.use_kernels):
+        with profiling.span("pipeline.decode_specs", device=self.device), \
+                _build.kernels(self.use_kernels):
             return _chunked(self.decode_chunk, tokens, self.chunk)
 
     @torch.inference_mode()
     def vocode(self, specs: torch.Tensor) -> torch.Tensor:
         """Spectrograms (N, H, W) in [-1, 1] -> waveforms (N, W * hop)."""
-        with _build.kernels(self.use_kernels):
+        with profiling.span("pipeline.vocode", device=self.device), \
+                _build.kernels(self.use_kernels):
             return _chunked(self.vocode_chunk, specs, self.chunk)
 
     def tokenize(self, wav: torch.Tensor,
@@ -304,9 +310,10 @@ class GenerationPipeline:
                                  for t in (toks, specs, wavs))
             if not pm.is_primary():
                 return None
-        out = {"tokens": toks.to(torch.int32).cpu().numpy(),
-               "specs": specs.float().cpu().numpy(),
-               "wavs": wavs.float().cpu().numpy()}
+        with profiling.span("pipeline.to_host"):
+            out = {"tokens": toks.to(torch.int32).cpu().numpy(),
+                   "specs": specs.float().cpu().numpy(),
+                   "wavs": wavs.float().cpu().numpy()}
         if stats:
             drafted = max(1, stats["drafted"])
             out["spec_stats"] = {**stats, "drafted": drafted,

@@ -31,6 +31,7 @@ waits for the next batch and returns when rank 0 sends the stop message
 from __future__ import annotations
 
 import base64
+import contextlib
 import dataclasses
 import json
 import os
@@ -51,7 +52,7 @@ from .models.vqvae import VQModel
 from .parallel import mesh as pm
 from .pipeline import GenerationPipeline, wav_bytes
 from .training.checkpoint import CheckpointManager
-from .utils import convert
+from .utils import convert, profiling
 
 
 def random_weights(exp: ExperimentConfig, seed: int):
@@ -292,8 +293,15 @@ class GenerationService:
                  sample: bool = True,
                  seed: Optional[int] = None) -> Dict[str, np.ndarray]:
         """One clip per entry of ``classes`` (padded to the serving batch,
-        split when longer)."""
+        split when longer).  Recorded as the span ``service.request``, the
+        root of the request's spans."""
         cs = np.asarray(classes, np.int32)
+        with profiling.span("service.request", request=True, clips=cs.size,
+                            sample=sample):
+            return self._generate(cs, temperature, top_k, top_p, sample,
+                                  seed)
+
+    def _generate(self, cs, temperature, top_k, top_p, sample, seed):
         if cs.ndim != 1 or len(cs) == 0:
             raise ValueError("classes must be a non-empty 1-D list")
         if (cs < 0).any() or (cs >= self.exp.model.class_size).any():
@@ -320,10 +328,21 @@ class GenerationService:
             with self._pending_lock:
                 self._pending -= 1
 
+    @contextlib.contextmanager
+    def _locked(self):
+        """Hold the service's lock; the wait for it is the span
+        ``service.wait``."""
+        with profiling.span("service.wait"):
+            self._lock.acquire()
+        try:
+            yield
+        finally:
+            self._lock.release()
+
     def _generate_locked(self, cs, t, k, p, sample, seed):
         wavs, toks, specs = [], [], []
         agg = {"rounds": 0, "drafted": 0, "accepted": 0}
-        with self._lock:
+        with self._locked():
             for i in range(0, len(cs), self.batch):
                 part = cs[i:i + self.batch]
                 n = len(part)

@@ -42,6 +42,7 @@ from ..parallel.mesh import (MODEL_AXIS, PIPE_AXIS, as_mesh,
                              reduce_gradients, shard_leaf, shard_tree)
 from ..parallel.pipeline import gpt_pp_loss_fn, loss_backward
 from ..parallel.reduce import cross_process_sharded
+from ..utils import profiling
 from ..utils.profiling import StepTimer, gpt_fwd_flops, peak_flops
 from .optim import (get_lr, gpt_adamw, load_optimizer_state, named_leaves,
                     optimizer_state_tree, with_lr)
@@ -208,10 +209,13 @@ class GPTTask:
         x, c = self.batch_tensors(batch)
         opt = state["optimizer"]
         opt.zero_grad(set_to_none=True)
-        loss = self.loss(state["params"], x, c, generator, train=True)
-        loss_backward(loss, self.mesh)
-        reduce_gradients(self.mesh, named_leaves(state["params"]))
-        opt.step()
+        with profiling.span("train.forward"):
+            loss = self.loss(state["params"], x, c, generator, train=True)
+        with profiling.span("train.backward"):
+            loss_backward(loss, self.mesh)
+            reduce_gradients(self.mesh, named_leaves(state["params"]))
+        with profiling.span("train.optimizer"):
+            opt.step()
         state["step"] += 1
         return state, mean_over_data(self.mesh, [loss.detach()])[0]
 

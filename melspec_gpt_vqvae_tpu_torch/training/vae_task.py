@@ -40,6 +40,7 @@ from ..parallel.mesh import (as_mesh, check_divisible, data_coordinate,
                              shard_tree)
 from ..parallel.pipeline import loss_backward
 from ..parallel.reduce import cross_process_sum
+from ..utils import profiling
 from ..utils.profiling import StepTimer, gpt_fwd_flops, peak_flops
 from .gpt_task import (GPTTask, _map, _split, gather_state_tree,
                        shard_state_tree, tokens_from_batch)
@@ -161,21 +162,24 @@ class VAETask:
                                         1.0)
         opt = state["optimizer"]
         opt.zero_grad(set_to_none=True)
-        loss, aux = V.training_loss(state["params"], self.cfgs, x, kl_weight,
-                                    nsamples=vae.nsamples, train=True,
-                                    generator=generator, eps=eps,
-                                    mesh=self.mesh)
-        loss_backward(loss, self.mesh)
-        reduce_gradients(self.mesh, named_leaves(state["params"]))
+        with profiling.span("train.forward"):
+            loss, aux = V.training_loss(state["params"], self.cfgs, x,
+                                        kl_weight, nsamples=vae.nsamples,
+                                        train=True, generator=generator,
+                                        eps=eps, mesh=self.mesh)
+        with profiling.span("train.backward"):
+            loss_backward(loss, self.mesh)
+            reduce_gradients(self.mesh, named_leaves(state["params"]))
         frozen = vae.freeze_epoch >= 0 and epoch >= vae.freeze_epoch
-        if frozen:
-            enc = [t for _, t in named_leaves(state["params"]["encoder"])]
-            before = [t.detach().clone() for t in enc]
-        opt.step()
-        if frozen:
-            with torch.no_grad():
-                for t, b in zip(enc, before):
-                    t.copy_(b)
+        with profiling.span("train.optimizer"):
+            if frozen:
+                enc = [t for _, t in named_leaves(state["params"]["encoder"])]
+                before = [t.detach().clone() for t in enc]
+            opt.step()
+            if frozen:
+                with torch.no_grad():
+                    for t, b in zip(enc, before):
+                        t.copy_(b)
         state["step"] += 1
         state["kl_weight"] = kl_weight.detach()
         b = x.shape[0]
