@@ -13,10 +13,12 @@
    device memory, with and without the new slot's quantise-and-write; at
    batch 1 the rows of one (b, h) are split over up to 4 CTAs); and the
    int8 block product bit for bit against the CPU: the plain chain
-   (``_int8_mm``, cuBLASLt) and the two kernels around the same product
+   (``_int8_mm``, cuBLASLt), the two kernels around the same product
    (``quantize_rows``, ``rescale_bias``), with the quantising kernel's
    scale pass alone (``row_scales``) and its pass with given scales,
-   which tensor parallelism's row-cut products take.  Each kernel is
+   which tensor parallelism's row-cut products take, and the one-launch
+   product at small M (``int8_linear_splitk``) at the VAS and XL block
+   shapes, timed against the chain it replaces.  Each kernel is
    timed at the main path's shape: ``ms`` with its wrapper (CUDA events),
    ``device_ms`` the kernel alone (``torch.profiler``), ``plain_ms`` its
    plain version, ``library_ms`` the one PyTorch call that computes the
@@ -41,6 +43,9 @@
      greedy tokens and cache bytes on the int8, int4 and bf16 caches,
      equal sampled tokens for one seed, equal tokens and stats under
      speculative decoding at batch 1 and 8 (6- and 4-layer copies);
+   - a captured batch-8 greedy decode (24 layers) with the one-launch
+     int8 product against the same decode through the chain: equal
+     tokens, cache bytes and 16 steps' logits;
    - the bf16 KV cache with bf16 weights (batch-8 requests);
    - the int4 KV cache (batch-8 requests, sampled top-p);
    - speculative decoding with the 24-layer target and a random 4-layer
@@ -402,6 +407,36 @@ def device_ms(fn, names, reps=20):
               f"instead")
         return events_ms
     return ms
+
+
+def kernels_ms(fn, names, reps=100):
+    """Mean milliseconds a call of ``fn`` spends in the kernels named in
+    ``names`` (each launched once a call), from a ``torch.profiler`` window
+    of ``reps`` calls that holds their launches.  No CUDA-event cross-check
+    as ``device_ms`` makes: for a chain of launches the events time the
+    host's enqueue between them too."""
+    from torch.profiler import DeviceType
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    def tally(avgs):
+        us, calls = 0.0, 0
+        for ev in avgs:
+            if ev.device_type == DeviceType.CUDA and "at::" not in ev.key \
+                    and any(n in ev.key for n in names):
+                t = getattr(ev, "self_device_time_total", None)
+                us += t if t is not None else ev.self_cuda_time_total
+                calls += ev.count
+        return us, calls
+
+    avgs, _ = profiled(run, lambda a: tally(a)[1] >= (reps - 1) * len(names))
+    us, calls = tally(avgs)
+    return us / 1e3 / calls * len(names)
 
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W)
@@ -880,23 +915,30 @@ def check_decode_attention(dev):
 
 def check_int8_linear(dev):
     """The int8 block product on the card against the CPU's, bit for bit:
-    the plain chain (``_int8_mm``: cuBLASLt ``_int_mm``, rows padded) and
-    the two kernels around the same product (``quantize_rows``,
-    ``rescale_bias``: ops/int8_linear.py).  The int32 sums are exact and
-    the quantisers round alike, so nothing may differ.  Returns the two
-    kernels' rows, timed at the decode step's widest product (batch 8,
-    1024 -> 4096)."""
-    from melspec_gpt_vqvae_tpu_torch.models.gpt import (_int8_mm,
-                                                        quantize_block_weights)
+    the plain chain (``_int8_mm``: cuBLASLt ``_int_mm``, rows padded), the
+    two kernels around the same product (``quantize_rows``,
+    ``rescale_bias``: ops/int8_linear.py), and the one-launch product
+    (``int8_linear_splitk``) at the VAS GPT's four block shapes and the
+    XL decoder's widths.  The int32 sums are exact and the quantisers round
+    alike, so nothing may differ.  Returns the kernels' rows: the chain's
+    two timed at the decode step's widest product (batch 8, 1024 -> 4096),
+    the one-launch product at each VAS shape at batch 8 against the chain
+    it replaces (``library_ms``: quantize_rows, cuBLASLt's GEMM and
+    rescale_bias, device time), the weights read cold (copies over more
+    than the 50 MB L2, one a call), as a decode step reads them."""
+    from melspec_gpt_vqvae_tpu_torch.models.gpt import (
+        _int8_mm, quantize_block_weight, quantize_block_weights)
     from melspec_gpt_vqvae_tpu_torch.ops import int8_linear as IL
     g = torch.Generator().manual_seed(4)
     shapes = {"attn_qkv": (1024, 3072), "attn_proj": (1024, 1024),
               "mlp_up": (1024, 4096), "mlp_down": (4096, 1024)}
+    xl_shapes = {"xl_qkv": (1472, 4416), "xl_proj": (1472, 1472),
+                 "xl_up": (1472, 5888), "xl_down": (5888, 1472)}
     blocks = {n: {"w": 0.02 * torch.randn(1, *kn, generator=g)}
-              for n, kn in shapes.items()}
-    w_cpu = quantize_block_weights(blocks)
-    w_dev = quantize_block_weights({n: {"w": b["w"].to(dev)}
-                                    for n, b in blocks.items()})
+              for n, kn in {**shapes, **xl_shapes}.items()}
+    w_cpu = {n: quantize_block_weight(b["w"]) for n, b in blocks.items()}
+    w_dev = quantize_block_weights({n: {"w": blocks[n]["w"].to(dev)}
+                                    for n in shapes})
     for name, (kk, nn) in shapes.items():
         for f in ("q", "s"):
             check(torch.equal(w_dev[name][f].cpu(), w_cpu[name][f]),
@@ -917,9 +959,10 @@ def check_int8_linear(dev):
                       and not bool(xq[m:].any())
                       and torch.equal(xs.cpu(), xs_ref),
                       f"quantize_rows {name} M={m} {dtype}: card != CPU")
-                lin = IL.int8_linear(x.to(dev), wq_d, ws_d, bias.to(dev))
-                check(torch.equal(lin.cpu(), ref.to(dtype) + bias),
-                      f"int8_linear {name} M={m} {dtype}: card != CPU")
+                for fn in (IL.int8_linear, IL.int8_linear_chain):
+                    lin = fn(x.to(dev), wq_d, ws_d, bias.to(dev))
+                    check(torch.equal(lin.cpu(), ref.to(dtype) + bias),
+                          f"{fn.__name__} {name} M={m} {dtype}: card != CPU")
                 # the tensor-parallel form: the scale pass alone, then the
                 # rows with given scales (a group of one reduces nothing)
                 xs_d = IL.row_scales(x.to(dev))
@@ -934,8 +977,31 @@ def check_int8_linear(dev):
                       f"{name} M={m} {dtype}: card != CPU")
     print("  int8 block product: 4 block shapes x M in (1, 8, 40) x "
           "(bf16, f32): _int8_mm, quantize_rows, row_scales, quantize_rows "
-          "with given scales and int8_linear (plain and row-cut form) on "
-          "the card bitwise equal to the CPU")
+          "with given scales, int8_linear (by shape, and the row-cut form) "
+          "and the three-kernel chain on the card bitwise equal to the CPU")
+    # the one-launch product at every shape it serves, against the CPU's
+    # plain chain
+    n_checked = 0
+    for name, (kk, nn) in {**shapes, **xl_shapes}.items():
+        q, s_ = w_cpu[name]["q"][0], w_cpu[name]["s"][0]
+        q_d = torch.empty_strided(q.shape, q.stride(), dtype=q.dtype,
+                                  device=dev).copy_(q)
+        for m in (1, 8, 16):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = (3.0 * torch.randn(m, kk, generator=g)).to(dtype)
+                x[0, :4] = torch.tensor([127.0, 2.5, -3.5, 0.5])
+                bias = torch.randn(nn, generator=g).to(dtype)
+                out = IL.int8_linear_splitk(x.to(dev), q_d, s_.to(dev),
+                                            bias.to(dev))
+                check(torch.equal(out.cpu(),
+                                  IL.int8_linear_splitk_xla(x, q, s_, bias)),
+                      f"int8_linear_splitk {name} ({kk} -> {nn}) M={m} "
+                      f"{dtype}: card != CPU")
+                n_checked += 1
+    print(f"  one-launch int8 product: {n_checked} launches (VAS and XL "
+          f"shapes, M in (1, 8, 16), bf16 and f32) bitwise equal to the "
+          f"CPU's plain chain")
+
     x = torch.randn(8, 1024, generator=g).bfloat16().to(dev)
     wq_d, ws_d = w_dev["mlp_up"]["q"][0], w_dev["mlp_up"]["s"][0]
     bias = torch.randn(4096, generator=g).bfloat16().to(dev)
@@ -944,7 +1010,8 @@ def check_int8_linear(dev):
     out = IL.rescale_bias(acc, xs, ws_d, bias)
     chain = cuda_ms(lambda: _int8_mm(x, wq_d, ws_d).to(x.dtype) + bias,
                     reps=200)
-    fused = cuda_ms(lambda: IL.int8_linear(x, wq_d, ws_d, bias), reps=200)
+    fused = cuda_ms(lambda: IL.int8_linear_chain(x, wq_d, ws_d, bias),
+                    reps=200)
     print(f"  int8 product M=8 (1024 -> 4096) with bias: plain chain "
           f"{chain:.4f} ms, quantize_rows + _int_mm + rescale_bias "
           f"{fused:.4f} ms")
@@ -971,7 +1038,58 @@ def check_int8_linear(dev):
               f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
         rows[name] = r
+    rows["int8_linear_splitk"] = time_splitk(dev, w_dev, shapes, g)
     return rows
+
+
+def time_splitk(dev, w_dev, shapes, g):
+    """The one-launch product at batch 8 (bf16) at each VAS block shape,
+    against the three-kernel chain it replaces; the weights read from
+    copies over more than the L2 cache, one a call, as the 24 layers of a
+    decode step read theirs.  Returns the kernel's row: the widest shape
+    (``mlp_up``) at the top level, every shape under ``shapes``."""
+    from melspec_gpt_vqvae_tpu_torch.ops import int8_linear as IL
+    rows = {}
+    for name, (kk, nn) in shapes.items():
+        q, ws_d = w_dev[name]["q"][0], w_dev[name]["s"][0]
+        copies = -(-160 * 2 ** 20 // (kk * nn))
+        qs = [torch.empty_strided(q.shape, q.stride(), dtype=q.dtype,
+                                  device=dev).copy_(q) for _ in range(copies)]
+        x = torch.randn(8, kk, generator=g).bfloat16().to(dev)
+        bias = torch.randn(nn, generator=g).bfloat16().to(dev)
+        turn = [0]
+
+        def rotating(fn):
+            def call():
+                turn[0] = (turn[0] + 1) % copies
+                return fn(x, qs[turn[0]], ws_d, bias)
+            return call
+        kernel = rotating(IL.int8_linear_splitk)
+        chain = rotating(IL.int8_linear_chain)
+        plain = rotating(IL.int8_linear_splitk_xla)
+        out = kernel()
+        r = {"max_abs_err": 0.0, "ms": cuda_ms(kernel, reps=200),
+             "device_ms": device_ms(kernel, ["int8_splitk_kernel"],
+                                    reps=100),
+             "plain_ms": cuda_ms(plain, reps=200),
+             # bytes bound it: 16 int8 operations a weight byte take the
+             # tensor cores well under a hundredth of the bytes' time
+             **bound(nbytes(x, q, ws_d, bias, out), 0, "f32"),
+             "library_ms": kernels_ms(chain, ["quantize_rows_kernel",
+                                              "gemm", "rescale_bias_kernel"]),
+             "library_call": "quantize_rows + torch._int_mm (cuBLASLt) + "
+                             "rescale_bias, device time",
+             "groups_a_cta": IL.splitk_plan(8, kk, nn)}
+        r["roofline_pct"] = 100 * r["bound_ms"] / r["device_ms"]
+        print(f"  int8_linear_splitk M=8 {name} ({kk} -> {nn}): kernel "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.5f}), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"(bytes; {r['roofline_pct']:.1f}% of it), the chain "
+              f"{r['library_ms']:.5f} ms device: "
+              f"{r['device_ms'] / r['library_ms']:.3f} of it")
+        rows[name] = r
+        del qs
+    return {**rows["mlp_up"], "shapes": rows}
 
 
 class _OneRank:
@@ -1457,6 +1575,68 @@ def profile_decode_step(pipe, cfg, dev, given=132, warm=4, steps=8,
           f"{json.dumps(res)}")
     check(launches > 0 and busy_us > 0, "profiler saw no device activity")
     return res
+
+
+def splitk_vs_chain(dev, pipe, seed):
+    """The one-launch int8 product against the three-kernel chain in the
+    decode it serves, on the card: a captured batch-8 greedy decode of 265
+    steps at the VAS widths (24 layers, bf16, int8 cache and weights) run
+    twice, the second with ``SPLITK_MAX_ROWS`` 0 so that every product
+    takes the chain; tokens and the caches must be equal byte for byte, and
+    the logits of 16 device-position steps after a prefill bit for bit."""
+    from melspec_gpt_vqvae_tpu_torch.models import decode_graph
+    from melspec_gpt_vqvae_tpu_torch.models import gpt as G
+    from melspec_gpt_vqvae_tpu_torch.ops import int8_linear as IL
+    cfg = pipe.gcfg
+    params = G.init_gpt_params(cfg, torch.Generator().manual_seed(seed),
+                               device=dev)
+    wq = G.quantize_block_weights(params["blocks"])
+    cond = G.class_embed(params, torch.arange(8, device=dev))
+
+    def decode():
+        holder = decode_graph.DecodeGraphs()
+        toks = G.gpt_generate(params, cfg, None, cond, steps=265,
+                              segments=8, sample=False, wq=wq, graph=holder)
+        cache = holder.last.cache
+        steps_logits = []
+        step_cache = G.init_kv_cache(cfg, 8, max_len=cfg.block_size,
+                                     device=dev)
+        logits, step_cache = G.gpt_prefill(params, cfg, step_cache, None,
+                                           cond)
+        step_cache["len"] = torch.tensor([step_cache["len"]], device=dev)
+        for _ in range(16):
+            logits, step_cache = G.gpt_decode_step(
+                params, cfg, step_cache, logits.argmax(-1), wq)
+            steps_logits.append(logits.float().cpu())
+        return (toks.cpu(), {k: v.clone() for k, v in cache.items()
+                             if k != "len"}, torch.stack(steps_logits))
+
+    with torch.inference_mode():
+        before = IL.int8_linear_splitk.launches
+        toks, cache, logits = decode()
+        one = IL.int8_linear_splitk.launches - before
+        limit = IL.SPLITK_MAX_ROWS
+        IL.SPLITK_MAX_ROWS = 0
+        try:
+            before = IL.int8_linear_splitk.launches
+            toks_c, cache_c, logits_c = decode()
+            chained = IL.int8_linear_splitk.launches - before
+        finally:
+            IL.SPLITK_MAX_ROWS = limit
+    same = {k: bool(torch.equal(cache[k], cache_c[k])) for k in cache}
+    res = {"tokens_equal": bool(torch.equal(toks, toks_c)),
+           "cache_bytes_equal": same,
+           "logits_equal_16_steps": bool(torch.equal(logits, logits_c)),
+           "one_launch_products": one, "chain_run_one_launch_products":
+           chained}
+    print(f"  one-launch product against the chain, captured batch-8 greedy "
+          f"decode, 24 layers: {json.dumps(res)}")
+    check(one > 0 and chained == 0, "splitk_vs_chain: the runs did not "
+          "take the paths they name")
+    check(res["tokens_equal"] and all(same.values())
+          and res["logits_equal_16_steps"],
+          "splitk_vs_chain: the one-launch product's decode differs from the "
+          "chain's")
 
 
 def captured_vs_eager(dev, pipe, seed):
@@ -3043,9 +3223,12 @@ def _serving_meshes(dev, wrappers, zero, decode_launches):
               f"speculative under data=1,model=1: tokens or stats differ "
               f"({st} against {ref_s['spec_stats']})")
         products = st["rounds"] * 4 * (5 * DRAFT_LAYERS + SPEC_LAYERS)
+        # the draft's steps (8 rows) take the one launch in their
+        # column-cut half; the target's chunk (8 x 5 rows) the chain
         c = decode_launches(pipe, "speculative data=1,model=1",
                             st["rounds"] * 5 * (DRAFT_LAYERS + SPEC_LAYERS),
-                            products, row_cut=True)
+                            products, row_cut=True,
+                            one_launch=st["rounds"] * 5 * DRAFT_LAYERS * 2)
         print(f"  speculative under data=1,model=1 ({SPEC_LAYERS} + "
               f"{DRAFT_LAYERS} layers, gamma 4, sampled batch 8, the "
               f"capture in it): {secs:.2f} s, {json.dumps(st)}")
@@ -4701,9 +4884,8 @@ def run(procs):
     from melspec_gpt_vqvae_tpu_torch.ops.attention import attend
     from melspec_gpt_vqvae_tpu_torch.ops.decode_attention import \
         decode_attend_int8
-    from melspec_gpt_vqvae_tpu_torch.ops.int8_linear import (quantize_rows,
-                                                            rescale_bias,
-                                                            row_scales)
+    from melspec_gpt_vqvae_tpu_torch.ops.int8_linear import (
+        int8_linear_splitk, quantize_rows, rescale_bias, row_scales)
     from melspec_gpt_vqvae_tpu_torch.ops.mel_kernel import \
         waveform_to_mel_fused
     from melspec_gpt_vqvae_tpu_torch.ops.vocoder_stack import \
@@ -4758,7 +4940,8 @@ def run(procs):
                 "vq_nearest": vq_nearest_index, "mel": waveform_to_mel_fused,
                 "decode_attention": decode_attend_int8,
                 "quantize_rows": quantize_rows, "rescale_bias": rescale_bias,
-                "row_scales": row_scales}
+                "row_scales": row_scales,
+                "int8_linear_splitk": int8_linear_splitk}
     steps, n_layer = 265, m.n_layer
 
     def zero():
@@ -4771,15 +4954,20 @@ def run(procs):
         return c
 
     def decode_launches(pipe, title, e_launches, products=None,
-                        row_cut=False):
+                        row_cut=False, one_launch=None):
         """Check the decode kernels' counts of a path in their exact form:
         ``e_launches`` of kernel E and ``products`` int8 block products
-        (None: four for each launch of E, as in a plain decode step; each
-        is one launch of either product kernel; none where the weights are
-        not int8), of which half (``attn_proj``, ``mlp_down``) launch the
-        scale pass ``row_scales`` too on a tensor-parallel path
-        (``row_cut``), plus what the warm-up runs before each capture
-        launched, which the holder reports.  Returns the counts."""
+        (None: four for each launch of E, as in a plain decode step; none
+        where the weights are not int8), plus what the warm-up runs before
+        each capture launched, which the holder reports.  A product is one
+        launch of ``int8_linear_splitk`` (at most SPLITK_MAX_ROWS rows) or
+        one of ``quantize_rows`` and one of ``rescale_bias`` (more rows, or
+        the row-cut half, ``attn_proj`` and ``mlp_down``, of a
+        tensor-parallel path (``row_cut``), which launches the scale pass
+        ``row_scales`` too).  ``one_launch``: how many took the one launch
+        (None: every product that is not row-cut, as at the served batches;
+        "any": a path of several batch sizes, only the sum checked).
+        Returns the counts."""
         c = counts(title)
         warm = pipe.graphs.warmup_launches
         print(f"  of these the warm-up runs before {pipe.graphs.captures} "
@@ -4789,11 +4977,17 @@ def run(procs):
             products = 4 * e_launches
         if pipe.gcfg.decode_weight_dtype != "int8":
             products = 0
+        ran = {name: c[name] - warm.get(name, 0) for name in c}
+        if one_launch == "any":
+            one_launch = ran["int8_linear_splitk"]
+        elif one_launch is None:
+            one_launch = products - (products // 2 if row_cut else 0)
         for name, each in (("decode_attention", e_launches),
-                           ("quantize_rows", products),
-                           ("rescale_bias", products),
+                           ("quantize_rows", products - one_launch),
+                           ("rescale_bias", products - one_launch),
+                           ("int8_linear_splitk", one_launch),
                            ("row_scales", products // 2 if row_cut else 0)):
-            check(c[name] == each + warm.get(name, 0),
+            check(ran[name] == each,
                   f"{title}: {name} launched {c[name]} times, expected "
                   f"{each} + {warm.get(name, 0)} in warm-up runs")
         return c
@@ -4821,8 +5015,10 @@ def run(procs):
           f"{pipe.graphs.captures} shapes: once, and two")
     for name, n in launches.items():
         # the scale pass alone runs on the tensor-parallel path only
-        # (phase serving_mesh)
-        check(n > 0 or name == "row_scales",
+        # (phase serving_mesh); at batch 8 every int8 product is one launch
+        # of int8_linear_splitk, the chain's two kernels run at more rows
+        check(n > 0 or name in ("row_scales", "quantize_rows",
+                                "rescale_bias"),
               f"kernel {name} was not launched by the main path")
     prof = {"captured": profile_decode_step(pipe, m, dev),
             "eager": profile_decode_step(pipe, m, dev, graph=False)}
@@ -4830,6 +5026,7 @@ def run(procs):
     phase("captured_vs_eager",
           "captured decode programs against the eager loop on the card:")
     captured_vs_eager(dev, pipe, seed=11)
+    splitk_vs_chain(dev, pipe, seed=12)
     del pipe
 
     phase("bf16_cache",
@@ -4871,7 +5068,8 @@ def run(procs):
     # products once a layer for all its positions
     c = decode_launches(pipe, "speculative",
                         rounds * 5 * (DRAFT_LAYERS + SPEC_LAYERS),
-                        rounds * 4 * (5 * DRAFT_LAYERS + SPEC_LAYERS))
+                        rounds * 4 * (5 * DRAFT_LAYERS + SPEC_LAYERS),
+                        one_launch="any")
     check(c["attention"] > 0 and c["vocoder_stack"] > 0,
           "speculative path kernels")
     del pipe
@@ -5035,7 +5233,9 @@ def run(procs):
             # int8 dot
             "quantize_rows": ("int8_linear.cu", "../models/gpt.py:444"),
             "rescale_bias": ("int8_linear.cu", "../models/gpt.py:450"),
-            "row_scales": ("int8_linear.cu", "../models/gpt.py:444")}
+            "row_scales": ("int8_linear.cu", "../models/gpt.py:444"),
+            "int8_linear_splitk": ("int8_linear.cu",
+                                   "../models/gpt.py:441")}
     results["decode_attention"]["decode_step_profiles"] = prof
     kernels = [{"name": name, "route": "cuda",
                 "source": "melspec_gpt_vqvae_tpu_torch/csrc/" + src,

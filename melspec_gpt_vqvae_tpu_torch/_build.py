@@ -50,6 +50,7 @@ SIGNATURES = {
     "msgv_mel": [_P] * 7 + [_I] * 7 + [_F] * 8 + [_P],
     "msgv_quantize_rows": [_P] * 3 + [_I] * 5 + [_P],
     "msgv_rescale_bias": [_P] * 5 + [_I] * 3 + [_P],
+    "msgv_int8_linear_splitk": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

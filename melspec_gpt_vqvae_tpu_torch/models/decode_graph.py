@@ -81,7 +81,8 @@ def counted_wrappers() -> Dict[str, Callable]:
     return {"decode_attention": _da.decode_attend_int8,
             "quantize_rows": _il.quantize_rows,
             "row_scales": _il.row_scales,
-            "rescale_bias": _il.rescale_bias}
+            "rescale_bias": _il.rescale_bias,
+            "int8_linear_splitk": _il.int8_linear_splitk}
 
 
 def launch_counts() -> Dict[str, int]:

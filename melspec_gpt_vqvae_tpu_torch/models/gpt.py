@@ -36,7 +36,8 @@ attention is kernel E over a quantised cache (ops/decode_attention.py) and
 plain torch over a model-dtype cache, as the JAX step's is XLA einsums
 (gpt.py:545-551).  ``decode_weight_dtype="int8"`` streams per-channel int8
 block weights through an int8 x int8 -> int32 product (``_int8_mm``; on
-the card ops/int8_linear.py's kernels around cuBLASLt's product).
+the card ops/int8_linear.py's kernels: one launch at small M, else two
+kernels around cuBLASLt's product).
 """
 
 from __future__ import annotations
@@ -745,12 +746,13 @@ def _mm(a: torch.Tensor, p: Params, pw: Optional[Dict],
         name: str, fused: bool = False, tp=None) -> torch.Tensor:
     """One block matrix product with bias: in the model dtype, or through
     the int8 weights ``pw`` of this layer (gpt.py:484-494).  ``fused``
-    takes the int8 product through ops/int8_linear.py (on the card two
-    kernels around the cuBLASLt product, no row padding outside them;
-    on the CPU, or with the kernels off, the lines below, bit for
-    bit).  Under ``tp`` the row-cut products (``attn_proj``, ``mlp_down``)
-    sum over the model group before their bias, the others are this
-    rank's columns."""
+    takes the int8 product through ops/int8_linear.py::int8_linear (on
+    the card one launch of ``int8_linear_splitk`` at most
+    ``SPLITK_MAX_ROWS`` rows, else two kernels around the cuBLASLt
+    product; on the CPU, or with the kernels off, the lines below, bit
+    for bit).  Under ``tp`` the row-cut products (``attn_proj``,
+    ``mlp_down``) sum over the model group before their bias (always the
+    chain), the others are this rank's columns."""
     tp = tp if name in _ROW_CUT else None
     if pw is None:
         return _sum_model(a @ p[name]["w"], tp) + p[name]["b"]

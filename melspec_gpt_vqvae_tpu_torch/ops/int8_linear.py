@@ -1,5 +1,5 @@
 """The int8 block product of the decode step: quantise the activation rows,
-``torch._int_mm``, rescale and add the bias.
+take the int8 product, rescale and add the bias.
 
 The product is models/gpt.py::_int8_mm's (melspec_gpt_vqvae_tpu/models/
 gpt.py:441-450, 484-494): per-row absmax int8 activations times
@@ -7,30 +7,41 @@ per-channel int8 weights with exact int32 sums, rescaled in float32 as
 ``acc * xs * ws`` from left to right, cast to the model dtype, plus the
 bias in the model dtype.  The JAX package has no kernel here: XLA fuses
 what surrounds its int8 dot.  PyTorch runs those lines as some fifteen
-small launches a product, 96 products a decode step, so on the card two
-hand-written kernels (csrc/int8_linear.cu) take their place around the
-cuBLASLt product:
+small launches a product, 96 products a decode step, so on the card
+hand-written kernels (csrc/int8_linear.cu) take their place.  Which runs
+when (``int8_linear`` chooses by shape; nothing else chooses):
 
-  * ``quantize_rows`` -- x (M, in) -> int8 (Mpad, in) with zero pad rows
-    (cuBLASLt needs more than 16 rows: Mpad = max(32, M rounded up to 8))
-    and float32 scales (M,); ``quantize_rows_xla`` is the plain version
-    (no pad rows: the CPU's product takes any M);
-  * ``rescale_bias`` -- int32 (Mpad, out), xs, ws, bias -> (M, out) of the
-    model dtype; ``rescale_bias_xla`` the plain version;
-  * ``row_scales`` -- the scales (M,) alone (the kernel's scale pass);
-    ``quantize_rows(x, xs)`` quantises with scales the caller gives.
-    Under tensor parallelism the row-cut products (``attn_proj``,
-    ``mlp_down``) see a slice of each row's features: their scale is the
-    MAX over the model group of the slices' scales (the division and the
-    clamp are monotone, so that is the whole row's scale bit for bit), and
-    their int32 sums are summed over the group before ``rescale_bias``;
-  * ``int8_linear`` -- the three in a row (``tp``: the row-cut form, four
-    with the two all-reduces); with the kernels off
-    (``_build.kernels(False)``) the plain versions around the same product
-    on either device.
+  * ``int8_linear_splitk`` -- at most ``SPLITK_MAX_ROWS`` rows, K a
+    multiple of 64, and not the row-cut form of tensor parallelism (the
+    served decode at batch 8, batch-1 decodes, speculative drafts and
+    verify chunks of at most 16 rows, a served mesh's column-cut
+    products): ONE kernel that quantises the rows, streams the int8
+    weights over every SM (a CTA an SM, each taking a run of 8-column
+    groups, ``splitk_plan``; K split over its warps) and rescales;
+    ``int8_linear_splitk_xla`` is the plain version (the chain below);
+  * otherwise (the offline decode at M = 512 and its prefill, the row-cut
+    ``attn_proj`` / ``mlp_down`` under a model axis) three launches around
+    cuBLASLt's int8 GEMM (``int8_linear_chain``):
 
-The plain versions are the lines of ``_int8_mm`` / ``_mm`` themselves, and
-the kernels' results equal them bit for bit.
+    - ``quantize_rows`` -- x (M, in) -> int8 (Mpad, in) with zero pad rows
+      (cuBLASLt needs more than 16 rows: Mpad = max(32, M rounded up to
+      8)) and float32 scales (M,); ``quantize_rows_xla`` is the plain
+      version (no pad rows: the CPU's product takes any M);
+    - ``rescale_bias`` -- int32 (Mpad, out), xs, ws, bias -> (M, out) of
+      the model dtype; ``rescale_bias_xla`` the plain version;
+    - ``row_scales`` -- the scales (M,) alone (the kernel's scale pass);
+      ``quantize_rows(x, xs)`` quantises with scales the caller gives.
+      Under tensor parallelism the row-cut products (``attn_proj``,
+      ``mlp_down``) see a slice of each row's features: their scale is the
+      MAX over the model group of the slices' scales (the division and the
+      clamp are monotone, so that is the whole row's scale bit for bit),
+      and their int32 sums are summed over the group before
+      ``rescale_bias``.
+
+With the kernels off (``_build.kernels(False)``) each wrapper takes its
+plain version on either device.  The plain versions are the lines of
+``_int8_mm`` / ``_mm`` themselves, and the kernels' results equal them bit
+for bit: integer sums are exact in any order.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from .decode_attention import true_div
+from .quant import int_matmul
 
 
 def pad_rows(m: int) -> int:
@@ -153,12 +165,103 @@ def rescale_bias(acc: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
 rescale_bias.launches = 0
 
 
-def int8_linear(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
-                bias: torch.Tensor, tp=None) -> torch.Tensor:
+# The most rows the one-launch kernel takes: past it the three-kernel chain
+# is as fast or faster on an H100 (PERF.md, section 6).
+SPLITK_MAX_ROWS = 16
+# SMs of an H100, the grid's size where the device's own count is not at
+# hand (a plan made on the CPU)
+_SMS = 132
+_SMEM_MAX = 227 * 1024
+
+
+def splitk_plan(m: int, k: int, n: int, sms: int = _SMS):
+    """The column groups of 8 that a CTA of ``int8_splitk_kernel`` takes for
+    an (m, k) @ (k, n) product, chosen from the shape: as few as spread the
+    groups over the SMs, ceil(groups / sms); None where the kernel does not
+    take the shape (more than ``SPLITK_MAX_ROWS`` rows, K not a multiple
+    of 64, or the quantised rows and a CTA's weight tiles too large for
+    shared memory)."""
+    if not 1 <= m <= SPLITK_MAX_ROWS or k < 64 or k % 64 or n < 1:
+        return None
+    cap = -(-(-(-n // 8)) // sms)
+    if _splitk_smem(cap, m, k) > _SMEM_MAX:
+        return None
+    return cap
+
+
+def _splitk_smem(cap: int, m: int, k: int) -> int:
+    """Shared memory of one CTA (csrc/int8_linear.cu::splitk_smem)."""
+    rows = 8 if m <= 8 else 16
+    return k * (rows + 8 * cap) + 4 * rows * cap * 8 + 4 * 128
+
+
+_SM_COUNT: dict = {}
+
+
+def _sms(device: torch.device) -> int:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SM_COUNT[index]
+
+
+def int8_linear_splitk_xla(x: torch.Tensor, wq: torch.Tensor,
+                           ws: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """The one-launch product's plain version: the chain's plain versions
+    in a row (``quantize_rows_xla``, ``int_matmul``, ``rescale_bias_xla``).
+    """
+    xq, xs = quantize_rows_xla(x)
+    return rescale_bias_xla(int_matmul(xq, wq.t()), xs, ws, bias)
+
+
+def int8_linear_splitk(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                       bias: torch.Tensor) -> torch.Tensor:
     """x (M, in) of the model dtype @ int8 weights (in, out) with scales
-    (out,), plus bias -> (M, out) of the model dtype.  With the kernels off
-    on the card, the plain quantised rows are zero-padded to ``pad_rows``
-    for cuBLASLt, as the kernel pads them.
+    (out,), plus bias -> (M, out) of the model dtype, in one launch of
+    ``int8_splitk_kernel`` on CUDA tensors (``int8_linear_splitk_xla`` on
+    CPU tensors or with the kernels off).  ``wq`` is column-major, as
+    ``quantize_block_weight`` stores it."""
+    if not _build.use_kernel(x, wq, ws, bias):
+        return int8_linear_splitk_xla(x, wq, ws, bias)
+    x = _check_rows("int8_linear_splitk", x)
+    if x.data_ptr() % 16:
+        x = x.clone()
+    m, k = x.shape
+    n = wq.shape[1]
+    cap = splitk_plan(m, k, n, _sms(x.device))
+    if cap is None or wq.shape[0] != k or wq.dtype != torch.int8:
+        raise TypeError(f"int8_linear_splitk: no tile for ({m}, {k}) @ "
+                        f"{wq.dtype} {tuple(wq.shape)}")
+    if wq.stride(0) != 1 or wq.stride(1) % 16 or wq.data_ptr() % 16:
+        raise TypeError("int8_linear_splitk: the weights must be "
+                        "column-major, 16-byte aligned columns, got strides "
+                        f"{wq.stride()}")
+    if ws.dtype != torch.float32 or ws.shape != (n,) \
+            or bias.dtype != x.dtype or bias.shape != (n,):
+        raise TypeError("int8_linear_splitk: float32 scales (out,) and a "
+                        "bias (out,) of the rows' dtype")
+    ws, bias = ws.contiguous(), bias.contiguous()
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    _build.launch("msgv_int8_linear_splitk", x.device, x.data_ptr(),
+                  wq.data_ptr(), ws.data_ptr(), bias.data_ptr(),
+                  out.data_ptr(), m, k, n, wq.stride(1), cap,
+                  int(x.dtype == torch.bfloat16))
+    int8_linear_splitk.launches += 1
+    return out
+
+
+int8_linear_splitk.launches = 0
+
+
+def int8_linear_chain(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                      bias: torch.Tensor, tp=None) -> torch.Tensor:
+    """The product as three launches: ``quantize_rows``, cuBLASLt's
+    ``torch._int_mm``, ``rescale_bias``.  With the kernels off on the card,
+    the plain quantised rows are zero-padded to ``pad_rows`` for cuBLASLt,
+    as the kernel pads them.
 
     ``tp`` (a mesh with a ``model`` axis, parallel/mesh.py): the row-cut
     form, x holding this rank's slice of the input features and ``wq``
@@ -177,3 +280,17 @@ def int8_linear(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
     if tp is not None:
         tp.all_reduce_(acc, "model")
     return rescale_bias(acc, xs, ws, bias)
+
+
+def int8_linear(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                bias: torch.Tensor, tp=None) -> torch.Tensor:
+    """x (M, in) of the model dtype @ int8 weights (in, out) with scales
+    (out,), plus bias -> (M, out) of the model dtype: one launch of
+    ``int8_linear_splitk`` where ``splitk_plan`` takes the shape and the
+    product is not row-cut (``tp`` None), else ``int8_linear_chain``.
+    Both equal ``_int8_mm(...).to(dtype) + bias`` bit for bit."""
+    sms = _sms(x.device) if x.is_cuda else _SMS
+    if tp is None and x.dtype == bias.dtype and splitk_plan(
+            x.shape[0], x.shape[1], wq.shape[1], sms) is not None:
+        return int8_linear_splitk(x, wq, ws, bias)
+    return int8_linear_chain(x, wq, ws, bias, tp)

@@ -73,7 +73,8 @@ from melspec_gpt_vqvae_tpu_torch.parallel import mesh as pm  # noqa: E402
 KERNELS = {"A": attend, "E": decode_attend_int8,
            "quantize_rows": int8_linear.quantize_rows,
            "rescale_bias": int8_linear.rescale_bias,
-           "row_scales": int8_linear.row_scales}
+           "row_scales": int8_linear.row_scales,
+           "int8_linear_splitk": int8_linear.int8_linear_splitk}
 B = int(os.environ.get("XL_BATCH", "64"))
 SEGMENTS = int(os.environ.get("XL_SEGMENTS", "8"))
 ITERS = 3

@@ -16,6 +16,7 @@ Beside it: the plain version of kernel E's fused write against
 bitwise, the cached int8 weights, and the holder's launch accounting.
 """
 
+import functools
 import itertools
 
 import jax
@@ -436,6 +437,100 @@ def test_int8_linear_plain_versions_equal_int8_mm_bitwise(gpt, dtype):
                 np.testing.assert_array_equal(want.numpy(), np.asarray(ref))
 
 
+# the VAS GPT's four block matrices (in, out), and stand-ins at the XL
+# decoder's widths (1472 wide, 5888 in the MLP)
+SPLITK_SHAPES = {"attn_qkv": (1024, 3072), "attn_proj": (1024, 1024),
+                 "mlp_up": (1024, 4096), "mlp_down": (4096, 1024),
+                 "xl_qkv": (1472, 4416), "xl_down": (5888, 1472)}
+
+
+@functools.lru_cache(maxsize=None)
+def _block_weight(k, n):
+    """One layer's int8 weights (in, out) and scales, from a fixed draw."""
+    g = torch.Generator().manual_seed(k * 7 + n)
+    w = TG.quantize_block_weight(torch.randn(1, k, n, generator=g) / k ** 0.5)
+    return w["q"][0], w["s"][0]
+
+
+@pytest.mark.parametrize("name", list(SPLITK_SHAPES))
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_int8_linear_splitk_plain_version_equals_int8_mm_bitwise(name, m,
+                                                                 dtype):
+    """The one-launch product's plain version (what the CPU runs, and what
+    the card's kernel is held to) is the three-kernel chain and ``_mm``'s
+    own lines, bit for bit, at the widths the kernel serves."""
+    k, n = SPLITK_SHAPES[name]
+    q, s = _block_weight(k, n)
+    g = torch.Generator().manual_seed(m * 31 + k)
+    x = torch.randn(m, k, generator=g) * 3.0
+    x[0, :4] = torch.tensor([127.0, 2.5, -3.5, 0.5])   # .5 at scale 1
+    x = x.to(dtype)
+    bias = torch.randn(n, generator=g).to(dtype)
+    want = TG._int8_mm(x, q, s).to(dtype) + bias
+    got = TL.int8_linear_splitk_xla(x, q, s, bias)
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(got, want)
+    assert torch.equal(TL.int8_linear_splitk(x, q, s, bias), want)
+    assert torch.equal(TL.int8_linear_chain(x, q, s, bias), want)
+    assert torch.equal(TL.int8_linear(x, q, s, bias), want)
+    assert TL.splitk_plan(m, k, n) == -(-n // 8 // 132)
+
+
+class _StandInModelGroup:
+    """A model group of one rank: the row-cut form without a process
+    group (its all-reduces change nothing)."""
+
+    def all_reduce_(self, t, axis, async_op=False, op="sum"):
+        return None
+
+
+@pytest.mark.parametrize("rows,name,tp,taken", [
+    (8, "attn_qkv", False, "splitk"), (8, "mlp_down", False, "splitk"),
+    (1, "mlp_up", False, "splitk"),
+    (TL.SPLITK_MAX_ROWS, "attn_proj", False, "splitk"),
+    (TL.SPLITK_MAX_ROWS + 1, "attn_proj", False, "chain"),
+    (512, "mlp_up", False, "chain"), (512, "mlp_down", False, "chain"),
+    (8, "attn_proj", True, "chain"), (8, "mlp_down", True, "chain"),
+    (8, "attn_qkv", True, "splitk"), (8, "mlp_up", True, "splitk")])
+def test_fused_mm_takes_the_one_launch_product_at_small_m(
+        gpt, monkeypatch, rows, name, tp, taken):
+    """``_mm`` with ``fused`` takes the one-launch product at small M and
+    the three-kernel chain at large M and for a row-cut product under a
+    model axis (a column-cut one under the axis takes the one launch); the
+    result is ``_mm``'s unfused one either way."""
+    _, tparams = gpt
+    p = TG._layer(tparams["blocks"], 0)
+    pw = TG._layer(TG.quantize_block_weights(tparams["blocks"]), 0)
+    calls = []
+    for kind, attr in (("splitk", "int8_linear_splitk"),
+                       ("chain", "int8_linear_chain")):
+        def wrapped(*a, _fn=getattr(TL, attr), _kind=kind, **kw):
+            calls.append(_kind)
+            return _fn(*a, **kw)
+        monkeypatch.setattr(TL, attr, wrapped)
+    k = pw[name]["q"].shape[0]
+    a = torch.randn(rows, k, generator=torch.Generator().manual_seed(rows))
+    group = _StandInModelGroup() if tp else None
+    got = TG._mm(a, p, pw, name, fused=True, tp=group)
+    assert calls == [taken]
+    assert torch.equal(got, TG._mm(a, p, pw, name, tp=group))
+
+
+def test_splitk_plan_refuses_what_the_kernel_does_not_take():
+    assert TL.splitk_plan(TL.SPLITK_MAX_ROWS + 1, 1024, 1024) is None
+    assert TL.splitk_plan(8, 1024 + 32, 1024) is None
+    assert TL.splitk_plan(8, 32, 64) is None
+    assert TL.splitk_plan(0, 1024, 1024) is None
+    # the quantised rows and the weight tiles outgrow shared memory
+    assert TL.splitk_plan(16, 32768, 1024) is None
+    # the fewest 8-column groups a CTA that spread the groups over the SMs
+    assert TL.splitk_plan(8, 1024, 3072) == 3
+    assert TL.splitk_plan(8, 4096, 1024) == 1
+    assert TL.splitk_plan(8, 1024, 40, sms=4) == 2
+
+
 def test_pad_rows_is_a_multiple_of_eight_and_at_least_32():
     assert [TL.pad_rows(m) for m in (1, 8, 32, 33, 40, 41)] == \
         [32, 32, 32, 40, 40, 48]
@@ -443,15 +538,20 @@ def test_pad_rows_is_a_multiple_of_eight_and_at_least_32():
 
 # ------------------- (h) launch accounting ------------------------------------
 
-def test_holder_launch_accounting(gpt, monkeypatch):
+@pytest.mark.parametrize("batch", ["small", "large"])
+def test_holder_launch_accounting(gpt, monkeypatch, batch):
     """With counting stand-ins for the wrappers (the plain versions, as on
     the CPU, plus a count), n replays of the decode program read what n
-    eager steps read: E once a layer, each int8 product kernel four times
-    a layer; and a captured program's bookkeeping adds what one run of the
+    eager steps read: E once a layer, and four int8 products a layer --
+    each one launch of the one-launch product at a small batch, each a
+    ``quantize_rows`` and a ``rescale_bias`` past ``SPLITK_MAX_ROWS``
+    rows; and a captured program's bookkeeping adds what one run of the
     body held on every replay."""
     _, tp = gpt
     cfg = _cfg("int8", "int8")
-    ct = _cond(*gpt)[1]
+    cls = CLS if batch == "small" else \
+        np.arange(TL.SPLITK_MAX_ROWS + 1) % GPT.class_size
+    ct = _cond(*gpt, cls=cls)[1]
 
     def counting(fn):
         def wrapped(*a, **kw):
@@ -461,30 +561,34 @@ def test_holder_launch_accounting(gpt, monkeypatch):
         return wrapped
     monkeypatch.setattr(TD, "decode_attend_int8",
                         counting(TD.decode_attend_int8))
-    monkeypatch.setattr(TL, "quantize_rows", counting(TL.quantize_rows))
-    monkeypatch.setattr(TL, "rescale_bias", counting(TL.rescale_bias))
-    monkeypatch.setattr(TL, "row_scales", counting(TL.row_scales))
-    assert DG.launch_counts() == {"decode_attention": 0, "quantize_rows": 0,
-                                  "row_scales": 0, "rescale_bias": 0}
+    for name in ("quantize_rows", "rescale_bias", "row_scales",
+                 "int8_linear_splitk"):
+        monkeypatch.setattr(TL, name, counting(getattr(TL, name)))
+    zero = {"decode_attention": 0, "quantize_rows": 0, "row_scales": 0,
+            "rescale_bias": 0, "int8_linear_splitk": 0}
+    assert DG.launch_counts() == zero
     TG.gpt_generate(tp, cfg, None, ct, steps=STEPS, sample=False, graph=True)
     n = STEPS * cfg.n_layer
-    assert DG.launch_counts() == {"decode_attention": n,
-                                  "quantize_rows": 4 * n, "row_scales": 0,
-                                  "rescale_bias": 4 * n}
+    chain, one = (0, 4 * n) if batch == "small" else (4 * n, 0)
+    want = {"decode_attention": n, "quantize_rows": chain, "row_scales": 0,
+            "rescale_bias": chain, "int8_linear_splitk": one}
+    assert DG.launch_counts() == want
     # the eager loop's steps launch E as often (its int8 products run the
     # plain chain)
     TG.gpt_generate(tp, cfg, None, ct, steps=STEPS, sample=False, graph=False)
-    assert DG.launch_counts()["decode_attention"] == 2 * n
-    assert DG.launch_counts()["quantize_rows"] == 4 * n
+    want["decode_attention"] += n
+    assert DG.launch_counts() == want
     # what a replay of a captured program adds
     prog = DG.Program(lambda: None, torch.device("cpu"))
-    prog.launches = {"decode_attention": 2, "rescale_bias": 8}
+    prog.launches = {"decode_attention": 2, "rescale_bias": 8,
+                     "int8_linear_splitk": 4}
     prog.graph = type("G", (), {"replay": lambda self: None})()
     for _ in range(3):
         prog.replay()
-    assert DG.launch_counts() == {"decode_attention": 2 * n + 6,
-                                  "quantize_rows": 4 * n, "row_scales": 0,
-                                  "rescale_bias": 4 * n + 24}
+    want["decode_attention"] += 6
+    want["rescale_bias"] += 24
+    want["int8_linear_splitk"] += 12
+    assert DG.launch_counts() == want
 
 
 def test_tensors_token_names_every_address():

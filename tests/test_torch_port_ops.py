@@ -23,6 +23,7 @@ from melspec_gpt_vqvae_tpu.ops import sampling as JS
 from melspec_gpt_vqvae_tpu.ops import vq as JV
 from melspec_gpt_vqvae_tpu_torch.ops import attention as TA
 from melspec_gpt_vqvae_tpu_torch.ops import decode_attention as TDA
+from melspec_gpt_vqvae_tpu_torch.ops import int8_linear as TL
 from melspec_gpt_vqvae_tpu_torch.ops import mel as TM
 from melspec_gpt_vqvae_tpu_torch.ops import mel_kernel as TMK
 from melspec_gpt_vqvae_tpu_torch.ops import sampling as TS
@@ -248,6 +249,11 @@ def _wrapper_cases():
         np.int8))
     ks = torch.from_numpy(rng.random((2, 1, 2, 6)).astype(np.float32)).to(
         torch.bfloat16)
+    x64 = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
+    wq = torch.from_numpy(rng.integers(-127, 128, (8, 64)).astype(
+        np.int8)).t()
+    ws, bias = (torch.from_numpy(rng.random(8).astype(np.float32))
+                for _ in range(2))
     return {
         "decode_attend_int8": (TDA.decode_attend_int8,
                                (q[:, :, 0], kq, kq, ks, ks, 1, 3),
@@ -259,13 +265,16 @@ def _wrapper_cases():
                                   TM.waveform_to_mel),
         "fused_resblock_stack": (TVS.fused_resblock_stack, (h, blocks),
                                  TVS.resblock_stack),
+        "int8_linear_splitk": (TL.int8_linear_splitk, (x64, wq, ws, bias),
+                               TL.int8_linear_splitk_xla),
     }
 
 
 @pytest.mark.parametrize("name", ["attend", "decode_attend_int8",
                                   "vq_nearest_index",
                                   "waveform_to_mel_fused",
-                                  "fused_resblock_stack"])
+                                  "fused_resblock_stack",
+                                  "int8_linear_splitk"])
 def test_wrapper_takes_plain_version_on_cpu(name):
     """On CPU tensors a kernel wrapper returns exactly its plain version's
     result and does not count a launch."""

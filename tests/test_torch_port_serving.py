@@ -314,6 +314,8 @@ def _wrapper_calls():
     acc = torch._int_mm(torch.nn.functional.pad(xq, (0, 0, 0, 29)),
                         torch.randint(-5, 5, (16, 8), generator=g,
                                       dtype=torch.int8))
+    x64, wq64 = r(3, 64), torch.randint(-5, 5, (8, 64), generator=g,
+                                        dtype=torch.int8).t()
 
     def decode():
         # a fresh cache a call: the write goes into it in place
@@ -334,6 +336,8 @@ def _wrapper_calls():
         "decode_attend_int8": decode,
         "quantize_rows": lambda: TL.quantize_rows(x_rows),
         "rescale_bias": lambda: TL.rescale_bias(acc, xs, ws, bias),
+        "int8_linear_splitk": lambda: TL.int8_linear_splitk(x64, wq64, ws,
+                                                            bias),
     }.items()}
 
 
