@@ -112,9 +112,11 @@
    64, vocab 1024) and XL_LAYERS of its 40 layers, bf16 with the int8
    cache and int8 weights, seeded random weights.  Kernel E at 23 heads
    against its plain version at each capacity of an 8-segment decode
-   (batch 8 and 1, with and without the slot's write), kernel A at T = 1
-   over 23 heads, the int8 product at widths 1472 / 4416 / 5888 bit for
-   bit the CPU's; then the prior's greedy ``vae_decode`` (8 segments,
+   (batch 8, 1 and 256, the benchmark prior cell's batch, with and
+   without the slot's write), kernel A at T = 1 over 23 heads, the int8
+   product at widths 1472 / 4416 / 5888 and M = 8 and 256 (the M = 256
+   chain: ``quantize_rows``, ``int8_linear_chain``) bit for bit the
+   CPU's; then the prior's greedy ``vae_decode`` (8 segments,
    the captured program) twice with the kernels (E, A and the int8
    product's kernels exactly counted) and twice without (no launch).
    With int8 weights the two runs part where E's rounding moves an
@@ -3247,6 +3249,8 @@ def _serving_meshes(dev, wrappers, zero, decode_launches):
 
 
 XL_LAYERS, XL_BATCH, XL_SEGMENTS = 4, 8, 8
+# the prior's bulk batch (the benchmark's vggsound_gpt_vae_xl.prior_b256)
+XL_PRIOR_BATCH = 256
 
 
 def xl_config():
@@ -3268,12 +3272,15 @@ def check_xl_kernels(dev, cfg):
     """Kernels E and A at 23 heads against their plain versions, and the
     int8 block product at the XL widths against the CPU bit for bit:
     E over the int8 cache at each capacity of an 8-segment decode (batch
-    8: 184 (b, h) pairs, one CTA each; batch 1: 23 pairs, split), with and
-    without the new slot's write, at the JAX package's bound; A at T = 1,
-    bf16 (the prefill of the latent token) at 1e-2 of max |out|; the
-    products 1472 -> 4416, 1472 -> 1472, 1472 -> 5888, 5888 -> 1472 at M
-    = 8 through ``_int8_mm`` and through the two kernels around
-    ``_int_mm``.  Returns E's and A's worst errors."""
+    8: 184 (b, h) pairs, one CTA each; batch 1: 23 pairs, split; batch
+    256, the prior's bulk batch: 5,888 pairs), with and without the new
+    slot's write, at the JAX package's bound; A at T = 1, bf16 (the
+    prefill of the latent token) at 1e-2 of max |out|; the products 1472
+    -> 4416, 1472 -> 1472, 1472 -> 5888, 5888 -> 1472 at M = 8 (the
+    one-launch product) and M = 256 (the prior batch's chain): ``_int8_mm``,
+    ``quantize_rows`` against ``quantize_rows_xla``, ``int8_linear`` by
+    shape and ``int8_linear_chain`` (``quantize_rows`` -> ``_int_mm`` ->
+    ``rescale_bias``).  Returns E's and A's worst errors."""
     from melspec_gpt_vqvae_tpu_torch.models.gpt import (
         _int8_mm, _segment_plan, quantize_block_weights)
     from melspec_gpt_vqvae_tpu_torch.ops import decode_attention as DA
@@ -3283,7 +3290,7 @@ def check_xl_kernels(dev, cfg):
     h = cfg.n_head
     caps = [c for c, _ in _segment_plan(1, 265, XL_SEGMENTS)]
     worst_e, splits = 0.0, set()
-    for b in (XL_BATCH, 1):
+    for b in (XL_BATCH, 1, XL_PRIOR_BATCH):
         for t in caps:
             k, ks, v, vs = quantised_cache(g, dev, b, t, "int8", heads=h)
             for pos in sorted({0, t // 2, t - 1}):
@@ -3327,20 +3334,32 @@ def check_xl_kernels(dev, cfg):
     w_cpu = quantize_block_weights({n: {"w": 0.02 * torch.randn(
         1, *kn, generator=gc)} for n, kn in shapes.items()})
     for name, (kk, nn) in shapes.items():
-        x = torch.randn(XL_BATCH, kk, generator=gc).bfloat16()
-        bias = torch.randn(nn, generator=gc).bfloat16()
         wq, ws = w_cpu[name]["q"][0], w_cpu[name]["s"][0]
-        ref = _int8_mm(x, wq, ws)
-        check(torch.equal(_int8_mm(x.to(dev), wq.to(dev), ws.to(dev)).cpu(),
-                          ref), f"xl _int8_mm {name} {kk}x{nn}: card != CPU")
-        lin = IL.int8_linear(x.to(dev), wq.to(dev), ws.to(dev),
-                             bias.to(dev))
-        check(torch.equal(lin.cpu(), ref.to(x.dtype) + bias),
-              f"xl int8_linear {name} {kk}x{nn}: card != CPU")
-    print(f"  E at H={h} (caps {caps}, batch {XL_BATCH} and 1, splits "
-          f"{sorted(splits)}): max|err| {worst_e:.3g}; A at T=1 H={h} "
-          f"bf16: max|err| {worst_a:.3g}; the int8 products at widths "
-          f"{d} / {3 * d} / {4 * d} bit for bit the CPU's")
+        wq_d, ws_d = wq.to(dev), ws.to(dev)
+        for m in (XL_BATCH, XL_PRIOR_BATCH):
+            case = f"{name} {kk}x{nn} M={m}"
+            x = torch.randn(m, kk, generator=gc).bfloat16()
+            bias = torch.randn(nn, generator=gc).bfloat16()
+            ref = _int8_mm(x, wq, ws)
+            check(torch.equal(_int8_mm(x.to(dev), wq_d, ws_d).cpu(), ref),
+                  f"xl _int8_mm {case}: card != CPU")
+            xq, xs = IL.quantize_rows(x.to(dev))
+            xq_ref, xs_ref = IL.quantize_rows_xla(x)
+            check(xq.shape[0] == IL.pad_rows(m)
+                  and torch.equal(xq[:m].cpu(), xq_ref)
+                  and not bool(xq[m:].any())
+                  and torch.equal(xs.cpu(), xs_ref),
+                  f"xl quantize_rows {case}: card != CPU")
+            for fn in (IL.int8_linear, IL.int8_linear_chain):
+                lin = fn(x.to(dev), wq_d, ws_d, bias.to(dev))
+                check(torch.equal(lin.cpu(), ref.to(x.dtype) + bias),
+                      f"xl {fn.__name__} {case}: card != CPU")
+    print(f"  E at H={h} (caps {caps}, batch {XL_BATCH}, 1 and "
+          f"{XL_PRIOR_BATCH}, splits {sorted(splits)}): max|err| "
+          f"{worst_e:.3g}; A at T=1 H={h} bf16: max|err| {worst_a:.3g}; "
+          f"the int8 products at widths {d} / {3 * d} / {4 * d}, M = "
+          f"{XL_BATCH} and {XL_PRIOR_BATCH} (_int8_mm, quantize_rows, "
+          f"int8_linear, int8_linear_chain) bit for bit the CPU's")
     return worst_e, worst_a
 
 

@@ -1,5 +1,6 @@
-"""Batched generation pipeline: class-conditional GPT sampling -> VQ-VAE
-decode -> MelGAN vocoder -> waveforms, plus the tokenize stage in front.
+"""Batched generation pipeline: class-conditional GPT sampling (or a
+GPT-VAE decoder sampling its prior) -> VQ-VAE decode -> MelGAN vocoder ->
+waveforms, plus the tokenize stage in front.
 
 Counterpart of melspec_gpt_vqvae_tpu/pipeline.py (the reference runs this
 flow only inside its logging callbacks, transformer/minGPT.py:530-612 and
@@ -84,7 +85,18 @@ class GenerationPipeline:
     """Class ids -> tokens, spectrograms and waveforms on one device.
 
     ``gpt_params`` is the nested dict of models/gpt.py, already in the model
-    dtype; ``vq`` and ``melgan`` are the port's modules.  With ``bf16``
+    dtype; ``vq`` and ``melgan`` are the port's modules.
+
+    The prompt is a class id (``prompt == "class"``) where ``exp.model``
+    has a ``class_size``.  Without one the GPT is a GPT-VAE's decoder
+    (``exp.model`` is ``make_vae_configs(base, exp.vae).decoder``,
+    ``gpt_params`` its tree) and the prompt is a latent (``"latent"``):
+    a request names a count of clips, and ``generate_tokens`` draws their
+    latents from the prior with the request's generator
+    (``sample_from_prior``, on the device, before the sampling uniforms)
+    and hands them to ``gpt_generate`` as the one-position conditioning,
+    through the same captured programs, int8 weights and lock as a class
+    batch (Lit_GPT_VAE.py:611-617's sample-from-prior path).  With ``bf16``
     (default: on CUDA) the conv modules are cast to bfloat16.  With
     ``draft_params`` and ``draft_cfg`` the tokens come from speculative
     decoding (models/speculative.py), ``gamma`` proposals a round, and
@@ -133,6 +145,9 @@ class GenerationPipeline:
     ``vocode`` through its int8 convolutions, which take the place of
     kernel B, as the JAX pipeline's int8 stage takes that of its fused
     vocoder (pipeline.py:104-107, 166-195 there).
+
+    Counters: ``class_rows`` and ``latent_rows``, the prompt rows this
+    pipeline has decoded (this rank's, over a mesh).
     """
 
     def __init__(self, exp: ExperimentConfig, gpt_params, vq: VQModel,
@@ -144,6 +159,16 @@ class GenerationPipeline:
         if (draft_params is None) != (draft_cfg is None):
             raise ValueError("pass both draft_params and draft_cfg, or "
                              "neither")
+        self.prompt = "latent" if exp.model.class_size is None else "class"
+        if self.prompt == "latent":
+            if draft_params is not None:
+                raise ValueError("speculative decoding is for class "
+                                 "prompts: a GPT-VAE's prior takes no "
+                                 "draft")
+            if exp.vae.nz != exp.model.n_embd:
+                raise ValueError(f"the latent (nz {exp.vae.nz}) is the "
+                                 "decoder's one-position prompt: nz must "
+                                 f"be n_embd ({exp.model.n_embd})")
         self.mesh = mesh
         self._mesh_wq = {}
         if mesh is not None:
@@ -181,6 +206,8 @@ class GenerationPipeline:
         self.graph = graph
         self.use_kernels = use_kernels
         self.graphs = DecodeGraphs()
+        self.class_rows = 0
+        self.latent_rows = 0
         self.block_weights = BlockWeightCache()
         self.draft_block_weights = BlockWeightCache()
         self._decode_lock = threading.Lock()
@@ -201,6 +228,39 @@ class GenerationPipeline:
             return self._mesh_wq[name]
         return cache.get(params["blocks"])
 
+    def _local_rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of ``n``."""
+        if self.mesh is None:
+            return slice(0, n)
+        d = pm.data_size(self.mesh)
+        if n % d:
+            raise ValueError(f"the mesh data axis ({d}) must divide "
+                             f"the batch ({n})")
+        return pm.local_batch_slice(n, self.mesh)
+
+    def _prompt(self, classes, generator):
+        """(the conditioning embedding (B, 1, D) of this rank's rows, the
+        prompt's tensor: class ids, or the latents (B, nz) float32)."""
+        if self.prompt == "class":
+            cls = torch.as_tensor(np.asarray(classes), dtype=torch.int64,
+                                  device=self.device)
+            cls = cls[self._local_rows(len(cls))]
+            self.class_rows += len(cls)
+            return class_embed(self.gpt_params, cls), cls
+        n = int(classes)
+        rows = self._local_rows(n)
+        nz = self.exp.vae.nz
+        # the global batch's latents from the request's generator, before
+        # its sampling uniforms (``sample_from_prior``'s draw), then this
+        # rank's rows
+        with profiling.span("pipeline.prior_latents", rows=n, nz=nz):
+            dev = self.device if generator is None else generator.device
+            z = torch.randn((n, nz), generator=generator,
+                            device=dev).to(self.device)
+        z = z[rows]
+        self.latent_rows += len(z)
+        return z[:, None, :], z
+
     @torch.inference_mode()
     def generate_tokens(self, classes, generator: Optional[torch.Generator],
                         *, temperature: float = 1.0,
@@ -208,42 +268,40 @@ class GenerationPipeline:
                         top_p: Optional[float] = None,
                         sample: bool = True) -> Tuple[torch.Tensor, Dict]:
         """classes (N,) -> ((N, code_h * code_w) GPT-order tokens,
-        speculative stats ({} without a draft)).  Not re-entrant (the
-        captured programs replay over shared buffers): concurrent callers
-        wait for each other on the pipeline's lock.  Over a mesh: the
-        tokens of this rank's rows (``local_batch_slice``) of the global
-        batch ``classes``."""
-        cls = torch.as_tensor(np.asarray(classes), dtype=torch.int64,
-                              device=self.device)
-        if self.mesh is not None:
-            d = pm.data_size(self.mesh)
-            if len(cls) % d:
-                raise ValueError(f"the mesh data axis ({d}) must divide "
-                                 f"the batch ({len(cls)})")
-            cls = cls[pm.local_batch_slice(len(cls), self.mesh)]
-        cond = class_embed(self.gpt_params, cls)
+        speculative stats ({} without a draft)).  A latent-prompt pipeline
+        takes the count of clips N in place of ``classes`` and returns
+        ``{"latents": (N, nz) float32}``, the prior draws the tokens were
+        decoded from, in place of the stats.  Not re-entrant (the captured
+        programs replay over shared buffers): concurrent callers wait for
+        each other on the pipeline's lock.  Over a mesh: the tokens (and
+        latents) of this rank's rows (``local_batch_slice``) of the global
+        batch."""
         # captured programs on the card, the eager loop on the CPU (None)
         graph = False if not self.graph else (
             self.graphs if self.device.type == "cuda" else None)
         kw = dict(steps=self.vcfg.code_h * self.vcfg.code_w,
                   temperature=temperature, top_k=top_k, top_p=top_p,
                   sample=sample, graph=graph, mesh=self.mesh)
-        with profiling.span("pipeline.generate_tokens", device=self.device), \
-                self._decode_lock, _build.kernels(self.use_kernels):
-            wq = self._wq(self.block_weights, self.gpt_params, self.gcfg,
-                          "gpt")
-            if self.draft_params is None:
-                return gpt_generate(self.gpt_params, self.gcfg, generator,
-                                    cond, segments=self.segments, wq=wq,
-                                    **kw), {}
-            return gpt_speculative_generate(
-                self.gpt_params, self.gcfg, self.draft_params,
-                self.draft_cfg, generator, cond,
-                class_embed(self.draft_params, cls), gamma=self.gamma,
-                wq=wq, draft_wq=self._wq(self.draft_block_weights,
-                                         self.draft_params, self.draft_cfg,
-                                         "draft"),
-                **kw)
+        with profiling.span("pipeline.generate_tokens", device=self.device,
+                            prompt=self.prompt):
+            cond, given = self._prompt(classes, generator)
+            with self._decode_lock, _build.kernels(self.use_kernels):
+                wq = self._wq(self.block_weights, self.gpt_params,
+                              self.gcfg, "gpt")
+                if self.draft_params is None:
+                    toks = gpt_generate(self.gpt_params, self.gcfg,
+                                        generator, cond,
+                                        segments=self.segments, wq=wq, **kw)
+                    return toks, ({"latents": given}
+                                  if self.prompt == "latent" else {})
+                return gpt_speculative_generate(
+                    self.gpt_params, self.gcfg, self.draft_params,
+                    self.draft_cfg, generator, cond,
+                    class_embed(self.draft_params, given), gamma=self.gamma,
+                    wq=wq, draft_wq=self._wq(self.draft_block_weights,
+                                             self.draft_params,
+                                             self.draft_cfg, "draft"),
+                    **kw)
 
     def decode_chunk(self, tokens: torch.Tensor) -> torch.Tensor:
         """``decode_specs`` of one chunk, in the caller's kernel scope."""
@@ -294,10 +352,12 @@ class GenerationPipeline:
                  sample: bool = True) -> Optional[Dict[str, np.ndarray]]:
         """classes (N,) -> dict(tokens (N, S) int32, specs (N, H, W),
         wavs (N, samples)) as host numpy arrays, plus ``spec_stats``
-        (rounds, drafted, accepted, accept_rate) with a draft.  Over a
-        mesh every rank calls it with the same arguments (the generator
-        seeded alike); rank 0 gets the whole batch, the others None."""
-        toks, stats = self.generate_tokens(
+        (rounds, drafted, accepted, accept_rate) with a draft; a
+        latent-prompt pipeline takes the count N and adds ``latents`` (N,
+        nz) float32.  Over a mesh every rank calls it with the same
+        arguments (the generator seeded alike); rank 0 gets the whole
+        batch, the others None."""
+        toks, extra = self.generate_tokens(
             classes, generator, temperature=temperature, top_k=top_k,
             top_p=top_p, sample=sample)
         mesh = self.mesh
@@ -305,20 +365,21 @@ class GenerationPipeline:
             return None   # a replica of its model group's rank 0 rows
         specs = self.decode_specs(toks)
         wavs = self.vocode(specs)
+        rows = {"tokens": toks, "specs": specs, "wavs": wavs}
+        if "latents" in extra:
+            rows["latents"] = extra.pop("latents")
         if mesh is not None:
-            toks, specs, wavs = (pm.gather_rows(mesh, t)
-                                 for t in (toks, specs, wavs))
+            rows = {k: pm.gather_rows(mesh, t) for k, t in rows.items()}
             if not pm.is_primary():
                 return None
         with profiling.span("pipeline.to_host"):
-            out = {"tokens": toks.to(torch.int32).cpu().numpy(),
-                   "specs": specs.float().cpu().numpy(),
-                   "wavs": wavs.float().cpu().numpy()}
-        if stats:
-            drafted = max(1, stats["drafted"])
-            out["spec_stats"] = {**stats, "drafted": drafted,
+            out = {"tokens": rows.pop("tokens").to(torch.int32).cpu().numpy()}
+            out.update((k, t.float().cpu().numpy()) for k, t in rows.items())
+        if extra:
+            drafted = max(1, extra["drafted"])
+            out["spec_stats"] = {**extra, "drafted": drafted,
                                  "accept_rate": round(
-                                     stats["accepted"] / drafted, 4)}
+                                     extra["accepted"] / drafted, 4)}
         return out
 
 

@@ -1,5 +1,6 @@
 """Batch generation CLI of the PyTorch port: class-conditional 10-second
-clips from a GPT run checkpoint, written as WAV files.
+clips from a GPT run checkpoint, or clips sampled from a GPT-VAE's prior,
+written as WAV files.
 
     python -m melspec_gpt_vqvae_tpu_torch.sample --dataset vas \\
         --experiment myrun --resume best --classes all --num 4 \\
@@ -7,6 +8,14 @@ clips from a GPT run checkpoint, written as WAV files.
         [--vocoder_ckpt vocoder/logs/vggsound]
     python -m melspec_gpt_vqvae_tpu_torch.sample --init_random --num 1 \\
         --classes 0,3 --out_dir /tmp/smoke      # random weights
+    python -m melspec_gpt_vqvae_tpu_torch.sample --model GPT_VAE \\
+        --dataset vggsound --init_random --num 256 --batch 256 \\
+        --out_dir /tmp/prior    # the XL GPT-VAE's prior, random weights
+
+``--model GPT_VAE`` (``--dataset vas`` or ``vggsound``) samples ``--num``
+clips from the prior of a ``train_gpt_vae`` run's decoder (or random
+weights): each batch draws its latents z ~ N(0, I) and decodes from them
+(``--classes`` does not apply); the clips are ``prior_MMM.wav``.
 
 The counterpart of the repository's ``sample.py``, with its flags minus
 the JAX-only ``--platform`` and plus ``--device`` (the card unless
@@ -34,8 +43,14 @@ import time
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--dataset", type=str, default="vas", choices=["vas"],
-                   help="class-conditional GPT presets exist for VAS only")
+    p.add_argument("--model", type=str, default="GPT",
+                   choices=["GPT", "GPT_VAE"],
+                   help="GPT: class-conditional; GPT_VAE: clips from a "
+                        "GPT-VAE's prior")
+    p.add_argument("--dataset", type=str, default="vas",
+                   choices=["vas", "vggsound"],
+                   help="the class-conditional GPT has a VAS preset only; "
+                        "the GPT-VAE both")
     p.add_argument("--experiment", type=str, default=None,
                    help="run name: the checkpoint is read from "
                         "lightning_logs/{experiment}-{dataset}/checkpoints")
@@ -51,7 +66,8 @@ def parse_args(argv=None):
                         "init if omitted")
     p.add_argument("--classes", type=str, default="all",
                    help="'all' or comma-separated class indices")
-    p.add_argument("--num", type=int, default=4, help="clips per class")
+    p.add_argument("--num", type=int, default=4,
+                   help="clips per class (GPT_VAE: clips in all)")
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--top_k", type=int, default=100)
@@ -105,8 +121,12 @@ def pipeline_from_args(args):
     """``build_pipeline`` with the flags the serve and sample CLIs share;
     ``--device cuda`` without a card raises there."""
     from .serving import build_pipeline
+    if args.model == "GPT" and args.dataset != "vas":
+        raise SystemExit(f"--model GPT has no {args.dataset} preset (the "
+                         "class-conditional GPT is VAS only)")
     return build_pipeline(
-        args.dataset, experiment=args.experiment, resume=args.resume,
+        args.dataset, model=args.model, experiment=args.experiment,
+        resume=args.resume,
         init_random=args.init_random, vqvae_ckpt=args.vqvae_ckpt,
         vocoder_ckpt=args.vocoder_ckpt, override=args.override,
         seed=args.seed, segments=args.segments, chunk=args.chunk,
@@ -143,40 +163,48 @@ def _sample(args):
     exp, pipe = pipeline_from_args(args)
     dp = data_size(pipe.mesh)
     primary = is_primary()
-    if args.classes == "all":
-        classes = list(range(exp.model.class_size))
+    prior = pipe.prompt == "latent"
+    if prior:   # the pipeline draws each clip's latent
+        names = [f"prior_{i:03d}" for i in range(args.num)]
     else:
-        classes = [int(c) for c in args.classes.split(",")]
-    requests = np.repeat(np.asarray(classes, np.int32), args.num)
+        if args.classes == "all":
+            classes = list(range(exp.model.class_size))
+        else:
+            classes = [int(c) for c in args.classes.split(",")]
+        requests = np.repeat(np.asarray(classes, np.int32), args.num)
+        counters, names = {}, []
+        for c in requests:
+            i = counters.get(int(c), 0)
+            counters[int(c)] = i + 1
+            names.append(f"class{int(c):02d}_{i:03d}")
     if primary:
         os.makedirs(args.out_dir, exist_ok=True)
     seeds = torch.Generator().manual_seed(args.seed)
     t0 = time.time()
     written = 0
     spec_agg = {"rounds": 0, "drafted": 0, "accepted": 0}
-    counters = {}
-    for start in range(0, len(requests), args.batch):
-        batch_cls = requests[start:start + args.batch]
-        n_real = len(batch_cls)
-        if n_real % dp:   # pad the tail to the data axis; not written
-            batch_cls = np.concatenate(
-                [batch_cls, np.repeat(batch_cls[-1:], dp - n_real % dp)])
+    for start in range(0, len(names), args.batch):
+        batch_names = names[start:start + args.batch]
+        n_real = len(batch_names)
+        pad = -n_real % dp   # pad the tail to the data axis; not written
+        if prior:
+            prompt = n_real + pad
+        else:
+            prompt = requests[start:start + n_real]
+            prompt = np.concatenate([prompt, np.repeat(prompt[-1:], pad)])
         s = int(torch.randint(2 ** 62, (1,), generator=seeds))
         gen = torch.Generator(device=pipe.device).manual_seed(s)
-        out = pipe.generate(batch_cls, gen, temperature=args.temperature,
+        out = pipe.generate(prompt, gen, temperature=args.temperature,
                             top_k=args.top_k or None,   # 0 disables
                             top_p=(args.top_p
                                    if 0.0 < args.top_p < 1.0 else None),
                             sample=not args.deterministic)
         if out is None:   # another rank of the mesh: rank 0 writes
             continue
-        batch_cls = batch_cls[:n_real]
         for f in spec_agg:   # run-level stats, not the last batch's
             spec_agg[f] += out.get("spec_stats", {}).get(f, 0)
-        for j, c in enumerate(batch_cls):
-            i = counters.get(int(c), 0)
-            counters[int(c)] = i + 1
-            stem = os.path.join(args.out_dir, f"class{int(c):02d}_{i:03d}")
+        for j, name in enumerate(batch_names):
+            stem = os.path.join(args.out_dir, name)
             write_wav(stem + ".wav", out["wavs"][j], exp.data.sample_rate)
             if args.save_codes:
                 np.save(stem + "_codes.npy", out["tokens"][j])

@@ -1,10 +1,13 @@
 """Online serving CLI of the PyTorch port: an HTTP endpoint for
-class-conditional clip generation.
+class-conditional clip generation, or for clips from a GPT-VAE's prior.
 
     python -m melspec_gpt_vqvae_tpu_torch.serve --dataset vas \\
         --experiment myrun --resume best --batch 8 --port 8000 \\
         [--vqvae_ckpt vqvae.ckpt] [--vocoder_ckpt vocoder/logs/vggsound]
     curl -o clip.wav 'localhost:8000/generate?class=3&top_p=0.9'
+    python -m melspec_gpt_vqvae_tpu_torch.serve --model GPT_VAE \\
+        --dataset vggsound --init_random --batch 8 --port 8000
+    curl -o clip.wav 'localhost:8000/generate'      # one prior clip
 
 API (the JAX package's, serving.py there; JSON in, WAV or JSON out):
   GET  /healthz                 -> {"status": "ok", platform, model, ...}
@@ -13,6 +16,9 @@ API (the JAX package's, serving.py there; JSON in, WAV or JSON out):
                   "top_k": 100, "top_p": 0.9, "deterministic": false,
                   "seed": 7, "format": "json"}
        -> {"clips": [{"class": 0, "wav_base64": ...}, ...], ...}
+  With --model GPT_VAE a request is ``num`` clips from the prior (its
+  latents drawn from the request's seed; "class" and "classes" do not
+  apply) and each clip of the JSON body has ``wav_base64`` alone.
 
 The counterpart of the repository's ``serve.py``, with its flags minus
 ``--platform`` and plus ``--device`` (the card unless ``--device cpu``).
@@ -40,7 +46,12 @@ from .sample import pipeline_from_args
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--dataset", type=str, default="vas", choices=["vas"])
+    p.add_argument("--model", type=str, default="GPT",
+                   choices=["GPT", "GPT_VAE"],
+                   help="GPT: class-conditional; GPT_VAE: clips from a "
+                        "GPT-VAE's prior")
+    p.add_argument("--dataset", type=str, default="vas",
+                   choices=["vas", "vggsound"])
     p.add_argument("--experiment", type=str, default=None)
     p.add_argument("--resume", type=str, default="best")
     p.add_argument("--init_random", action="store_true",

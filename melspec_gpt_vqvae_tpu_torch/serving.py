@@ -5,7 +5,9 @@ Counterpart of melspec_gpt_vqvae_tpu/serving.py.  ``build_pipeline`` makes
 the pipeline from a GPT run checkpoint of the port's own ``train_gpt``
 (``lightning_logs/{experiment}-{dataset}/checkpoints/version_*``), from
 random weights (seeded) or from JAX parameter trees carried across by
-bridge.py; the frozen VQ-VAE and MelGAN come from reference-format files
+bridge.py; with ``model="GPT_VAE"`` the pipeline samples a GPT-VAE's prior
+through its decoder (a ``train_gpt_vae`` run's, random, or carried).  The
+frozen VQ-VAE and MelGAN come from reference-format files
 (utils/convert.py) or from random weights.  It takes the JAX package's
 defaults: on the card (the default device) the bfloat16 model dtype, an
 int8 KV cache and int8 streamed block weights (serving.py:95-102); on the
@@ -47,6 +49,7 @@ import torch
 from . import bridge
 from .configs import ExperimentConfig, load_preset, parse_overrides
 from .models.gpt import DTYPES, gpt_param_template, init_gpt_params, tree_to
+from .models.gpt_vae import make_vae_configs
 from .models.vocoder import MelGANGenerator
 from .models.vqvae import VQModel
 from .parallel import mesh as pm
@@ -67,15 +70,18 @@ def random_weights(exp: ExperimentConfig, seed: int):
 
 
 def _restore_gpt_params(exp: ExperimentConfig, dataset: str,
-                        experiment: str, resume: str):
+                        experiment: str, resume: str,
+                        part: Optional[str] = None):
     """(GPT params, epoch) of a run checkpoint of the port
     (``lightning_logs/{experiment}-{dataset}/checkpoints/version_*``, the
     newest version first, ``CheckpointManager``'s fallback to earlier
     ones kept).  ``resume`` is 'best', 'last' or a checkpoint file.  The
     file is mapped, not read: only ``["state"]["params"]`` is touched (at
-    the VAS width 1.2 GB of a 3.6 GB train state).  The params are held to
-    ``exp.model``'s geometry; a mismatch raises the ValueError with the
-    ``--override`` hint.  Leaves are float32 CPU tensors, as saved."""
+    the VAS width 1.2 GB of a 3.6 GB train state) -- with ``part``
+    ("decoder" of a GPT-VAE run) only that subtree of it.  The params are
+    held to ``exp.model``'s geometry; a mismatch raises the ValueError
+    with the ``--override`` hint.  Leaves are float32 CPU tensors, as
+    saved."""
     root = os.path.join("lightning_logs", f"{experiment}-{dataset}",
                         "checkpoints")
     if not os.path.isdir(root):
@@ -88,13 +94,17 @@ def _restore_gpt_params(exp: ExperimentConfig, dataset: str,
     if not versions:
         raise FileNotFoundError(f"no checkpoints under {root}")
     ckpt = CheckpointManager(os.path.join(root, versions[-1]))
-    out = ckpt.restore(resume, template={
-        "state": {"params": gpt_param_template(exp.model)}, "epoch": 0},
-        mmap=True)
-    return out["state"]["params"], int(out["epoch"])
+    template = gpt_param_template(exp.model)
+    if part is not None:
+        template = {part: template}
+    out = ckpt.restore(resume, template={"state": {"params": template},
+                                         "epoch": 0}, mmap=True)
+    params = out["state"]["params"]
+    return (params if part is None else params[part]), int(out["epoch"])
 
 
-def build_pipeline(dataset: str = "vas", *, experiment: Optional[str] = None,
+def build_pipeline(dataset: str = "vas", *, model: str = "GPT",
+                   experiment: Optional[str] = None,
                    resume: str = "best", init_random: bool = False,
                    params: Optional[Mapping] = None,
                    vqvae_ckpt: Optional[str] = None,
@@ -141,6 +151,12 @@ def build_pipeline(dataset: str = "vas", *, experiment: Optional[str] = None,
     (``GenerationPipeline(mesh=)``, ``pipe.mesh``): the GPT and draft
     trees stay on the host, where each rank cuts them leaf by leaf and
     moves its parts alone to its card.
+    ``model`` names the preset: "GPT", the class-conditional GPT, or
+    "GPT_VAE", a GPT-VAE served from its prior: ``exp.model`` is then the
+    decoder's config (``make_vae_configs``) and the GPT weights are the
+    decoder's -- of a ``train_gpt_vae`` run (``experiment``), random, or
+    ``params["gpt"]["decoder"]`` of a JAX GPT-VAE tree; the encoder is
+    never built, and a draft is refused.
     Prints where each set of weights came from, as the JAX loader does.
     Returns ``(exp, pipe)``.
     """
@@ -148,6 +164,13 @@ def build_pipeline(dataset: str = "vas", *, experiment: Optional[str] = None,
             != 1:
         raise ValueError("pass exactly one of experiment=, "
                          "init_random=True or params=")
+    if model not in ("GPT", "GPT_VAE"):
+        raise ValueError(f"model={model!r}: expected 'GPT' or 'GPT_VAE'")
+    prior = model == "GPT_VAE"
+    if prior and (draft_experiment or draft_random or draft_override
+                  or (params is not None and "draft" in params)):
+        raise ValueError("a GPT-VAE's prior is sampled without a draft "
+                         "(speculative decoding is for class prompts)")
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError('build_pipeline: no CUDA card is visible; the '
@@ -167,20 +190,26 @@ def build_pipeline(dataset: str = "vas", *, experiment: Optional[str] = None,
     dtypes = dict(dtype="bfloat16" if on_card else "float32",
                   cache_dtype=kv,
                   decode_weight_dtype="int8" if int8_w else "auto")
-    exp = load_preset("GPT", dataset, **parse_overrides(override))
+    exp = load_preset(model, dataset, **parse_overrides(override))
     exp = dataclasses.replace(exp, model=exp.model.replace(**dtypes))
+    if prior:   # the decoder alone: prior sampling never runs the encoder
+        exp = dataclasses.replace(
+            exp, model=make_vae_configs(exp.model, exp.vae).decoder)
 
     # --- GPT weights ------------------------------------------------------
     vq = voc = None
+    what = "GPT-VAE decoder" if prior else "GPT"
     if init_random:
         gpt, vq, voc = random_weights(exp, seed)
-        print("GPT: random init (--init_random)")
+        print(f"{what}: random init (--init_random)")
     elif params is not None:
-        gpt = bridge.gpt_params_from_jax(params["gpt"])
-        print("GPT: JAX parameter tree")
+        gpt = bridge.gpt_params_from_jax(
+            params["gpt"]["decoder"] if prior else params["gpt"])
+        print(f"{what}: JAX parameter tree")
     else:
-        gpt, epoch = _restore_gpt_params(exp, dataset, experiment, resume)
-        print(f"GPT: restored {resume} (epoch {epoch})")
+        gpt, epoch = _restore_gpt_params(exp, dataset, experiment, resume,
+                                         "decoder" if prior else None)
+        print(f"{what}: restored {resume} (epoch {epoch})")
     # the trees stay on the host: the pipeline places them (over a mesh,
     # cut leaf by leaf, this rank's parts alone)
     gpt = tree_to(gpt, dtype=DTYPES[exp.model.dtype])
@@ -263,7 +292,9 @@ class ServiceOverloaded(RuntimeError):
 class GenerationService:
     """Thread-safe, fixed-batch wrapper around a GenerationPipeline.  Over
     a mesh (``pipe.mesh``) the data axis must divide the batch; rank 0's
-    service takes the requests and the others ``follow`` it."""
+    service takes the requests and the others ``follow`` it.  Over a
+    latent-prompt pipeline (a GPT-VAE's prior, ``pipe.prompt``) a request
+    is a count of clips, ``generate(clips=N)``."""
 
     def __init__(self, exp: ExperimentConfig, pipe: GenerationPipeline, *,
                  batch: int = 8, seed: int = 783435,
@@ -273,6 +304,7 @@ class GenerationService:
         self.pipe = pipe
         self.batch = max(1, int(batch))
         self.mesh = getattr(pipe, "mesh", None)
+        self.prior = getattr(pipe, "prompt", "class") == "latent"
         dp = pm.data_size(self.mesh)
         if self.batch % dp:
             raise SystemExit(f"the mesh data axis ({dp}) must divide "
@@ -289,24 +321,41 @@ class GenerationService:
         self._pending = 0
         self._pending_lock = threading.Lock()
 
-    def generate(self, classes, *, temperature=None, top_k=None, top_p=None,
+    def generate(self, classes=None, *, clips: Optional[int] = None,
+                 temperature=None, top_k=None, top_p=None,
                  sample: bool = True,
                  seed: Optional[int] = None) -> Dict[str, np.ndarray]:
-        """One clip per entry of ``classes`` (padded to the serving batch,
-        split when longer).  Recorded as the span ``service.request``, the
-        root of the request's spans."""
-        cs = np.asarray(classes, np.int32)
-        with profiling.span("service.request", request=True, clips=cs.size,
+        """One clip per entry of ``classes``, or over a GPT-VAE's prior
+        ``clips`` clips (their ``latents`` returned too); padded to the
+        serving batch, split when longer.  Recorded as the span
+        ``service.request``, the root of the request's spans."""
+        cs = self._prompt(classes, clips)
+        with profiling.span("service.request", request=True,
+                            clips=cs if self.prior else cs.size,
                             sample=sample):
             return self._generate(cs, temperature, top_k, top_p, sample,
                                   seed)
 
-    def _generate(self, cs, temperature, top_k, top_p, sample, seed):
+    def _prompt(self, classes, clips):
+        """The request's prompt: its class ids, or over the prior the count
+        of clips (the pipeline draws their latents)."""
+        if self.prior:
+            if classes is not None or clips is None or int(clips) < 1:
+                raise ValueError("the GPT-VAE's prior takes clips=N (N >= "
+                                 "1) and no classes")
+            return int(clips)
+        if clips is not None:
+            raise ValueError("clips= is a prior request; a class-"
+                             "conditional GPT takes classes")
+        cs = np.asarray(classes, np.int32)
         if cs.ndim != 1 or len(cs) == 0:
             raise ValueError("classes must be a non-empty 1-D list")
         if (cs < 0).any() or (cs >= self.exp.model.class_size).any():
             raise ValueError(
                 f"class indices must be in [0, {self.exp.model.class_size})")
+        return cs
+
+    def _generate(self, cs, temperature, top_k, top_p, sample, seed):
         t = self.defaults["temperature"] if temperature is None \
             else float(temperature)
         if not t > 0.0:
@@ -340,31 +389,33 @@ class GenerationService:
             self._lock.release()
 
     def _generate_locked(self, cs, t, k, p, sample, seed):
-        wavs, toks, specs = [], [], []
+        parts: Dict[str, list] = {}
         agg = {"rounds": 0, "drafted": 0, "accepted": 0}
         with self._locked():
-            for i in range(0, len(cs), self.batch):
-                part = cs[i:i + self.batch]
-                n = len(part)
-                if n < self.batch:   # pad to the fixed serving batch
-                    part = np.concatenate(
-                        [part, np.repeat(part[-1:], self.batch - n)])
+            rows = cs if self.prior else len(cs)
+            for i in range(0, rows, self.batch):
+                n = min(self.batch, rows - i)
+                if self.prior:   # a full serving batch of latents
+                    part = self.batch
+                else:
+                    part = cs[i:i + n]
+                    if n < self.batch:   # pad to the fixed serving batch
+                        part = np.concatenate(
+                            [part, np.repeat(part[-1:], self.batch - n)])
                 s = ((int(seed) + i) & 0xFFFFFFFF if seed is not None else
                      int(torch.randint(2 ** 62, (1,), generator=self._seeds)))
-                job = {"classes": part, "temperature": t, "top_k": k,
+                job = {"prompt": part, "temperature": t, "top_k": k,
                        "top_p": p, "sample": sample, "seed": s}
                 if self._leads():
                     pm.broadcast_object(job)
                 out = self._run(job)
-                wavs.append(out["wavs"][:n])
-                toks.append(out["tokens"][:n])
-                specs.append(out["specs"][:n])
+                for f in ("wavs", "tokens", "specs", "latents"):
+                    if f in out:
+                        parts.setdefault(f, []).append(out[f][:n])
                 for f in agg:   # whole-request stats, not the last part's
                     agg[f] += out.get("spec_stats", {}).get(f, 0)
             self.requests += 1
-        res = {"wavs": np.concatenate(wavs),
-               "tokens": np.concatenate(toks),
-               "specs": np.concatenate(specs)}
+        res = {f: np.concatenate(xs) for f, xs in parts.items()}
         if agg["drafted"]:
             agg["accept_rate"] = round(agg["accepted"] / agg["drafted"], 4)
             res["spec_stats"] = agg
@@ -379,7 +430,7 @@ class GenerationService:
         pipeline; None off rank 0 of a mesh."""
         gen = torch.Generator(device=self.pipe.device).manual_seed(
             job["seed"])
-        return self.pipe.generate(job["classes"], gen,
+        return self.pipe.generate(job["prompt"], gen,
                                   temperature=job["temperature"],
                                   top_k=job["top_k"], top_p=job["top_p"],
                                   sample=job["sample"])
@@ -413,8 +464,9 @@ class GenerationService:
         says so in ``sample_modes``, as the JAX package's artifact
         pipeline does (serving.py:289-297 there)."""
         t0 = time.time()
+        one = {"clips": 1} if self.prior else {"classes": [0]}
         for mode in getattr(self.pipe, "sample_modes", (True, False)):
-            self.generate([0], sample=mode)
+            self.generate(sample=mode, **one)
         print(f"warmup: {time.time() - t0:.1f}s (batch {self.batch})")
 
 
@@ -480,26 +532,32 @@ class _Handler(BaseHTTPRequestHandler):
     def _generate(self, params):
         svc = self.server.service
         try:
-            classes = params.get("classes", [int(params.get("class", 0))])
-            if isinstance(classes, int):
-                classes = [classes]
             num = int(params.get("num", 1))
-            if num < 1 or num * len(classes) > 64 * svc.batch:
+            if svc.prior:   # ``num`` clips from the prior; no classes
+                classes, n_clips = None, num
+                prompt = {"clips": num}
+            else:
+                classes = params.get("classes",
+                                     [int(params.get("class", 0))])
+                if isinstance(classes, int):
+                    classes = [classes]
+                classes = [c for c in classes for _ in range(num)]
+                n_clips = len(classes)
+                prompt = {"classes": classes}
+            if num < 1 or n_clips > 64 * svc.batch:
                 raise ValueError("num out of range")
-            classes = [c for c in classes for _ in range(num)]
-            fmt = params.get("format",
-                             "wav" if len(classes) == 1 else "json")
-            if fmt == "wav" and len(classes) != 1:
+            fmt = params.get("format", "wav" if n_clips == 1 else "json")
+            if fmt == "wav" and n_clips != 1:
                 # refused before a decode is spent on the batch
                 raise ValueError("format=wav needs exactly 1 clip")
             det = params.get("deterministic", False)
             if isinstance(det, str):   # the GET query form
                 det = det.lower() in ("1", "true", "yes")
             t0 = time.time()
-            out = svc.generate(classes, temperature=params.get("temperature"),
+            out = svc.generate(temperature=params.get("temperature"),
                                top_k=params.get("top_k"),
                                top_p=params.get("top_p"), sample=not det,
-                               seed=params.get("seed"))
+                               seed=params.get("seed"), **prompt)
         except ServiceOverloaded as e:
             # shed load rather than queue without bound: clients back off
             return self._json(503, {"error": str(e)},
@@ -510,10 +568,10 @@ class _Handler(BaseHTTPRequestHandler):
         if fmt == "wav":
             return self._send(200, wav_bytes(out["wavs"][0], sr),
                               "audio/wav")
-        clips = [{"class": int(c),
-                  "wav_base64": base64.b64encode(
-                      wav_bytes(out["wavs"][i], sr)).decode()}
-                 for i, c in enumerate(classes)]
+        clips = [{"wav_base64": base64.b64encode(
+                      wav_bytes(w, sr)).decode()} for w in out["wavs"]]
+        for clip, c in zip(clips, classes or ()):
+            clip["class"] = int(c)
         body = {"clips": clips, "sample_rate": sr,
                 "seconds": round(time.time() - t0, 3)}
         if out.get("spec_stats"):
