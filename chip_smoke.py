@@ -11,7 +11,9 @@
    bfloat16), B MelGAN resblock stack, C VQ nearest index, D mel, E
    decode attention over the int8 / int4 cache (the position read from
    device memory, with and without the new slot's quantise-and-write; at
-   batch 1 the rows of one (b, h) are split over up to 4 CTAs); and the
+   batch 1 the rows of one (b, h) are split over up to 4 CTAs; at 512 x 16
+   and 256 x 23 (b, h) pairs the streamed body, half the batch bit-equal
+   to the whole); and the
    int8 block product bit for bit against the CPU: the plain chain
    (``_int8_mm``, cuBLASLt), the two kernels around the same product
    (``quantize_rows``, ``rescale_bias``), with the quantising kernel's
@@ -752,6 +754,140 @@ def quantised_cache(g, dev, b, t, bits, heads=16):
     return out
 
 
+def check_bulk_decode_attention(dev, b, h, caps, label):
+    """Kernel E's streamed body (``use_streamed``: thousands of (b, h)
+    pairs) at batch ``b`` and ``h`` heads of 64 against the plain version,
+    at every cache length in ``caps`` and positions 0, T / 2 and T - 1,
+    int8 and int4: from device memory and from the host (bit-equal), each
+    without and with this step's rows quantised and written in the launch
+    (written bytes and scales bit-equal to the plain write, the output
+    bit-equal to attending the plain write's cache), q bfloat16 and, at
+    the last position of the longest cache, float32, at the JAX package's
+    bound (atol = rtol = 1e-4); a position past the cache gives NaN and
+    leaves the cache as it was.  A launch over the first half of the batch
+    with the whole batch's ``split_pairs`` must give the whole launch's
+    rows bit for bit.  Each launch must count in
+    ``decode_attend_int8.streamed``.  Then the program's shape (a cache of
+    266 positions, pos 265, bf16, the slot written) timed with each body
+    beside its bytes bound.  Returns the worst error and the timings."""
+    from melspec_gpt_vqvae_tpu_torch.ops import decode_attention as DA
+    E = DA.decode_attend_int8
+    check(DA.use_streamed(b * h), f"{label}: {b * h} pairs do not stream")
+    g = torch.Generator(device=dev).manual_seed(b * h)
+
+    def at(pos):
+        return torch.tensor([pos], dtype=torch.int64, device=dev)
+
+    def streamed(fn):
+        before = E.streamed
+        out = fn()
+        check(E.streamed == before + 1, f"{label}: a launch of {b * h} "
+              "pairs did not take the streamed body")
+        return out
+
+    def close(out, ref, case):
+        err = (out - ref).abs()
+        check(bool((err <= 1e-4 + 1e-4 * ref.abs()).all()),
+              f"{case}: max|err| {err.max().item():.3g}")
+        return err.max().item()
+
+    worst, n = 0.0, 0
+    for bits in ("int8", "int4"):
+        for t in caps:
+            k, ks, v, vs = quantised_cache(g, dev, b, t, bits, heads=h)
+            for pos in sorted({0, t // 2, t - 1}):
+                for qdt in ((torch.bfloat16, torch.float32)
+                            if (t, pos) == (caps[-1], t - 1)
+                            else (torch.bfloat16,)):
+                    case = (f"{label} {bits} B={b} H={h} T={t} pos={pos} "
+                            f"q {qdt}")
+                    q, k_new, v_new = (torch.randn(
+                        b, h, 64, generator=g, device=dev).to(qdt)
+                        for _ in range(3))
+                    out = streamed(lambda: E(q, k, v, ks, vs, 1, at(pos)))
+                    ref = DA.decode_attend_int8_xla(q, k, v, ks, vs, 1, pos)
+                    worst = max(worst, close(out, ref, case))
+                    check(torch.equal(out, streamed(
+                        lambda: E(q, k, v, ks, vs, 1, pos))),
+                        f"{case}: host and device position differ")
+                    for host in (False, True):
+                        mine = [x.clone() for x in (k, v, ks, vs)]
+                        plain = [x.clone() for x in (k, v, ks, vs)]
+                        DA.write_kv_rows(*plain, 1, pos, k_new, v_new)
+                        out_w = streamed(lambda: E(
+                            q, *mine, 1, pos if host else at(pos),
+                            k_new=k_new, v_new=v_new))
+                        check(all(torch.equal(x, y)
+                                  for x, y in zip(mine, plain)),
+                              f"{case}: the written slot differs from the "
+                              "plain write")
+                        ref_w = DA.decode_attend_int8_xla(q, *plain, 1, pos)
+                        worst = max(worst, close(out_w, ref_w,
+                                                 f"{case}, with the write"))
+                        check(torch.equal(out_w, E(q, *plain, 1, pos)),
+                              f"{case}: attending the row just quantised "
+                              "differs from reading it back")
+                    n += 1
+            # half the batch, the whole batch's split rule: one launch's rows
+            pos = t - 1
+            q, k_new, v_new = (torch.randn(b, h, 64, generator=g,
+                                           device=dev).bfloat16()
+                               for _ in range(3))
+            whole = [x.clone() for x in (k, v, ks, vs)]
+            full = E(q, *whole, 1, at(pos), k_new=k_new, v_new=v_new)
+            half = [x[:, :b // 2].contiguous() for x in (k, v, ks, vs)]
+            mine = streamed(lambda: E(
+                q[:b // 2].contiguous(), *half, 1, at(pos),
+                k_new=k_new[:b // 2].contiguous(),
+                v_new=v_new[:b // 2].contiguous(), split_pairs=b * h))
+            check(torch.equal(mine, full[:b // 2]) and all(
+                torch.equal(x, y[:, :b // 2]) for x, y in zip(half, whole)),
+                f"{label} {bits} T={t}: half the batch with the whole "
+                "batch's split_pairs is not the whole launch's rows")
+    # a position past the cache: NaN out, the cache untouched
+    k, ks, v, vs = quantised_cache(g, dev, b, caps[0], "int8", heads=h)
+    mine = [x.clone() for x in (k, v, ks, vs)]
+    q = torch.randn(b, h, 64, generator=g, device=dev).bfloat16()
+    out = streamed(lambda: E(q, *mine, 1, at(caps[0]), k_new=q, v_new=q))
+    check(bool(out.isnan().all()) and all(
+        torch.equal(x, y) for x, y in zip(mine, (k, v, ks, vs))),
+        f"{label}: a position outside the cache")
+    # the program's shape: the captured decode's cache of 266 positions
+    k, ks, v, vs = quantised_cache(g, dev, b, 266, "int8", heads=h)
+    q, k_new, v_new = (torch.randn(b, h, 64, generator=g,
+                                   device=dev).bfloat16() for _ in range(3))
+    p265 = at(265)
+
+    def kernel():
+        return E(q, k, v, ks, vs, 1, p265, k_new=k_new, v_new=v_new)
+    def plain():
+        DA.write_kv_rows(k, v, ks, vs, 1, p265, k_new, v_new)
+        return DA.decode_attend_int8_xla(q, k, v, ks, vs, 1, 265)
+    names = ["decode_attention_kernel"]
+    chosen = DA.use_streamed
+    timing = {"ms": cuda_ms(kernel, reps=50),
+              "device_ms": device_ms(kernel, names, reps=50),
+              "plain_ms": cuda_ms(plain, reps=10)}
+    DA.use_streamed = lambda pairs: False
+    try:
+        timing["split_body_device_ms"] = device_ms(kernel, names, reps=50)
+    finally:
+        DA.use_streamed = chosen
+    timing.update(bound(nbytes(k[1], v[1], ks[1], vs[1], q, k_new, v_new,
+                               q.float()), 4 * b * h * 266 * 64, "f32"))
+    print(f"  E streamed body {label} B={b} H={h}: {n} cases (int8/int4, T "
+          f"{list(caps)}, pos 0/T/2/T-1, device and host position, without "
+          f"and with the slot's write, q bf16 and f32), max|err| "
+          f"{worst:.3g}; half the batch bit-equal to the whole; NaN past "
+          f"the cache; T=266 "
+          f"pos=265 slot written: kernel {timing['ms']:.4f} ms (device "
+          f"{timing['device_ms']:.4f}, split body "
+          f"{timing['split_body_device_ms']:.4f}), plain "
+          f"{timing['plain_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
+          f"({timing['bound_by']})")
+    return {"max_abs_err": worst, **timing}
+
+
 def check_decode_attention(dev):
     from melspec_gpt_vqvae_tpu_torch.ops import decode_attention as DA
     decode_attend_int8 = DA.decode_attend_int8
@@ -774,6 +910,7 @@ def check_decode_attention(dev):
     # untouched).  The host-position entry (the eager loop's) must give the
     # device-position one's output bit for bit.
     worst, n, split_sizes = 0.0, 0, set()
+    streamed = DA.decode_attend_int8.streamed
     for bits in ("int8", "int4"):
         for b in (1, 8):
             for t in VAS_CAPS:
@@ -817,6 +954,8 @@ def check_decode_attention(dev):
                         split_sizes.add(DA.choose_splits(b * 16, pos + 1))
     check(split_sizes == set(range(1, DA.MAX_SPLITS + 1)),
           f"decode attention: the cases split the rows over {split_sizes}")
+    check(DA.decode_attend_int8.streamed == streamed,
+          "decode attention: a launch at batch 1 or 8 took the streamed body")
     # a position past the cache: NaN out, the cache untouched
     k, ks, v, vs = cache(1, 34, "int8")
     mine = [a.clone() for a in (k, v, ks, vs)]
@@ -910,9 +1049,11 @@ def check_decode_attention(dev):
         DA.choose_splits = choose
     print(f"  E device ms, int8, bf16 q, pos = T - 1, slot written: "
           f"{json.dumps(sweep)}")
+    # the VAS offline batch, 512 x 16 pairs: the streamed body
+    bulk = check_bulk_decode_attention(dev, 512, 16, VAS_CAPS, "VAS offline")
     return {"max_abs_err": worst, **res["int8"], "library_ms": None,
             "library_call": None, "int4": res["int4"],
-            "device_ms_by_shape": sweep}
+            "device_ms_by_shape": sweep, "streamed_b512_h16": bulk}
 
 
 def check_int8_linear(dev):
@@ -3272,9 +3413,10 @@ def check_xl_kernels(dev, cfg):
     """Kernels E and A at 23 heads against their plain versions, and the
     int8 block product at the XL widths against the CPU bit for bit:
     E over the int8 cache at each capacity of an 8-segment decode (batch
-    8: 184 (b, h) pairs, one CTA each; batch 1: 23 pairs, split; batch
-    256, the prior's bulk batch: 5,888 pairs), with and without the new
-    slot's write, at the JAX package's bound; A at T = 1, bf16 (the
+    8: 184 (b, h) pairs, one CTA each; batch 1: 23 pairs, split), with and
+    without the new slot's write, at the JAX package's bound, and at batch
+    256, the prior's bulk batch (5,888 pairs: the streamed body), by
+    ``check_bulk_decode_attention``; A at T = 1, bf16 (the
     prefill of the latent token) at 1e-2 of max |out|; the products 1472
     -> 4416, 1472 -> 1472, 1472 -> 5888, 5888 -> 1472 at M = 8 (the
     one-launch product) and M = 256 (the prior batch's chain): ``_int8_mm``,
@@ -3290,7 +3432,7 @@ def check_xl_kernels(dev, cfg):
     h = cfg.n_head
     caps = [c for c, _ in _segment_plan(1, 265, XL_SEGMENTS)]
     worst_e, splits = 0.0, set()
-    for b in (XL_BATCH, 1, XL_PRIOR_BATCH):
+    for b in (XL_BATCH, 1):
         for t in caps:
             k, ks, v, vs = quantised_cache(g, dev, b, t, "int8", heads=h)
             for pos in sorted({0, t // 2, t - 1}):
@@ -3317,6 +3459,9 @@ def check_xl_kernels(dev, cfg):
                       f"{case}: the written slot differs from the plain "
                       "write")
                 splits.add(DA.choose_splits(b * h, pos + 1))
+    bulk = check_bulk_decode_attention(dev, XL_PRIOR_BATCH, h, caps,
+                                       "XL prior")
+    worst_e = max(worst_e, bulk["max_abs_err"])
     worst_a = 0.0
     for b in (XL_BATCH, 64):
         q, k, v = (torch.randn(b, h, 1, 64, generator=g, device=dev)
@@ -3354,8 +3499,8 @@ def check_xl_kernels(dev, cfg):
                 lin = fn(x.to(dev), wq_d, ws_d, bias.to(dev))
                 check(torch.equal(lin.cpu(), ref.to(x.dtype) + bias),
                       f"xl {fn.__name__} {case}: card != CPU")
-    print(f"  E at H={h} (caps {caps}, batch {XL_BATCH}, 1 and "
-          f"{XL_PRIOR_BATCH}, splits {sorted(splits)}): max|err| "
+    print(f"  E at H={h} (caps {caps}, batch {XL_BATCH}, 1 (splits "
+          f"{sorted(splits)}) and {XL_PRIOR_BATCH} (streamed)): max|err| "
           f"{worst_e:.3g}; A at T=1 H={h} bf16: max|err| {worst_a:.3g}; "
           f"the int8 products at widths {d} / {3 * d} / {4 * d}, M = "
           f"{XL_BATCH} and {XL_PRIOR_BATCH} (_int8_mm, quantize_rows, "

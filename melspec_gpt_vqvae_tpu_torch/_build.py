@@ -41,7 +41,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # an undeclared pointer would be passed as a 32-bit int and cut.
 SIGNATURES = {
     "msgv_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "msgv_decode_attention": [_P] * 9 + [_I] * 12 + [_P],
+    "msgv_decode_attention": [_P] * 9 + [_I] * 13 + [_P],
     "msgv_flash_attention_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
     "msgv_flash_attention_bwd": [_P] * 11 + [_I] * 4 + [_F, _P],
     "msgv_resblock_stack": [_P] * 3 + [_I] * 8 + [_P],

@@ -20,8 +20,15 @@
 // cache once, pos + 1 rows of hd bytes (hd / 2 for int4) for K and for V,
 // and does ~4 flops per byte, so it is bound by memory and, at decode's
 // small batches (a few MB, 16 to 128 (b, h) pairs), by the latency of its
-// dependent steps, not by arithmetic.  The design pays the memory latency
-// once and keeps every later step in shared memory and registers:
+// dependent steps, not by arithmetic.  The two regimes want two bodies,
+// and ops/decode_attention.py::use_streamed picks one from the batch's
+// (b, h) count: the split body below for few pairs, the streamed body
+// (further down) for the thousands of pairs of a bulk decode, which keeps
+// the card's memory busy while it computes.  Both take every cached value
+// as a float without the conversion unit (unpack16).
+//
+// The split body pays the memory latency once and keeps every later step
+// in shared memory and registers:
 //
 //   * a CTA of 128 threads owns one (b, h) and a contiguous share of the
 //     rows t <= pos.  It requests its whole K and V slice (at most
@@ -77,7 +84,11 @@ constexpr int kWarps = kThreads / 32;
 
 // The 16 bytes a lane holds of a cache row, dequantised: 16 int8 values, or
 // 32 int4 values (byte j holds dims 2j in the low and 2j + 1 in the high
-// nibble).
+// nibble).  Every value comes out exactly, without the conversion unit
+// (which issues 16 a cycle an SM, about what the cache's bytes arrive at):
+// the value biased to a non-negative integer u (v + 128 for int8, v + 8 for
+// int4, an exclusive or) goes into the mantissa of 2^23, a byte permute or a
+// mask, and 2^23 plus the bias comes off in one exact subtraction.
 template <bool kInt4>
 __device__ __forceinline__ void unpack16(const uint4& w,
                                          float (&x)[kInt4 ? 32 : 16]) {
@@ -85,16 +96,19 @@ __device__ __forceinline__ void unpack16(const uint4& w,
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     if (kInt4) {
+      const uint32_t u = words[j] ^ 0x88888888u;   // each nibble v + 8
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int nib = (words[j] >> (4 * i)) & 0xF;
-        x[8 * j + i] = static_cast<float>(nib - 16 * (nib > 7));
-      }
+      for (int i = 0; i < 8; ++i)
+        x[8 * j + i] =
+            __uint_as_float(((u >> (4 * i)) & 0xFu) | 0x4B000000u) -
+            8388616.f;
     } else {
+      const uint32_t u = words[j] ^ 0x80808080u;   // each byte v + 128
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         x[4 * j + i] =
-            static_cast<float>(static_cast<int8_t>(words[j] >> (8 * i)));
+            __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440u | i)) -
+            8388736.f;
     }
   }
 }
@@ -104,27 +118,48 @@ constexpr int kSms = 132;
 constexpr int kMaxSplits = 4;
 constexpr int kMinShare = 64;
 
-// One warp quantises a row of kHd floats as the cache stores it: scale =
+// A row of kHd values as a warp holds it for the quantiser: lane l keeps
+// head dims 2j and 2j + 1 for j = l, l + 32, ... below kHd / 2 (zeros past).
+__host__ __device__ constexpr int held_per_lane(int hd) {
+  return 2 * ((hd / 2 + 31) / 32);
+}
+
+template <int kHd, typename X, int kN>
+__device__ __forceinline__ void hold_row(const X* x, int lane,
+                                         float (&h)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) {
+    const int j = lane + 32 * i;
+    h[2 * i] = j < kHd / 2 ? msgv::to_f(x[2 * j]) : 0.f;
+    h[2 * i + 1] = j < kHd / 2 ? msgv::to_f(x[2 * j + 1]) : 0.f;
+  }
+}
+
+// One warp quantises a held row as the cache stores it: scale =
 // max(absmax / lim, 1e-8) (true division), values = clip(rint(x / scale)),
 // int4 two to a byte with the even head dim in the low nibble; the scale is
 // kept as bfloat16, the values come from the float32 scale.  Writes the
 // bytes and the scale to shared memory (as the float the cached bfloat16
 // reads back as) and / or to device memory; a null pointer skips one.
-template <bool kInt4, int kHd>
-__device__ __forceinline__ void quantise_row(const float* x, int lane,
+template <bool kInt4, int kHd, int kN>
+__device__ __forceinline__ void quantise_row(const float (&h)[kN], int lane,
                                              uint8_t* s_row, float* s_scale,
                                              uint8_t* g_row,
                                              __nv_bfloat16* g_scale) {
   constexpr float kLim = kInt4 ? 7.f : 127.f;
   float amax = 0.f;
-  for (int d = lane; d < kHd; d += 32) amax = fmaxf(amax, fabsf(x[d]));
+#pragma unroll
+  for (int i = 0; i < kN; ++i) amax = fmaxf(amax, fabsf(h[i]));
   amax = msgv::warp_max(amax);
   const float scale = fmaxf(__fdiv_rn(amax, kLim), 1e-8f);
-  for (int j = lane; j < kHd / 2; j += 32) {   // head dims 2j and 2j + 1
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) {
+    const int j = lane + 32 * i;   // head dims 2j and 2j + 1
+    if (j >= kHd / 2) break;
     const int a = static_cast<int>(
-        fminf(fmaxf(rintf(__fdiv_rn(x[2 * j], scale)), -kLim), kLim));
+        fminf(fmaxf(rintf(__fdiv_rn(h[2 * i], scale)), -kLim), kLim));
     const int b = static_cast<int>(
-        fminf(fmaxf(rintf(__fdiv_rn(x[2 * j + 1], scale)), -kLim), kLim));
+        fminf(fmaxf(rintf(__fdiv_rn(h[2 * i + 1], scale)), -kLim), kLim));
     if (kInt4) {
       const uint8_t byte = static_cast<uint8_t>((a & 0xF) | ((b & 0xF) << 4));
       if (s_row) s_row[j] = byte;
@@ -177,7 +212,6 @@ __global__ void __launch_bounds__(kThreads)
   float* part = qs + kHd;                              // [kWarps][kHd]
   float* red = part + kWarps * kHd;                    // [2][kWarps]
   float* mine = red + 2 * kWarps;                      // [kHd + 2]
-  float* fresh = mine + kHd + 2;                       // [2][kHd] new k, v
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int row = blockIdx.x;                          // b * H + h
@@ -222,21 +256,16 @@ __global__ void __launch_bounds__(kThreads)
   const size_t qoff = static_cast<size_t>(row / heads) * row_stride +
                       static_cast<size_t>(row % heads) * kHd;
   for (int d = tid; d < kHd; d += kThreads) qs[d] = msgv::to_f(q[qoff + d]);
-  if (write && (owns_new || blockIdx.y == 0)) {
-    for (int d = tid; d < kHd; d += kThreads) {
-      fresh[d] = msgv::to_f(k_new[qoff + d]);
-      fresh[kHd + d] = msgv::to_f(v_new[qoff + d]);
-    }
-    __syncthreads();
-    if (warp < 2) {   // warp 0 the key row, warp 1 the value row
-      const size_t at = lrow * t_cap + pos;
-      quantise_row<kInt4, kHd>(
-          fresh + warp * kHd, lane,
-          owns_new ? (warp ? sv : sk) + (rows - 1) * kRowBytes : nullptr,
-          owns_new ? (warp ? svs : sks) + rows - 1 : nullptr,
-          blockIdx.y == 0 ? (warp ? v : k) + at * kRowBytes : nullptr,
-          blockIdx.y == 0 ? (warp ? v_scale : k_scale) + at : nullptr);
-    }
+  if (write && (owns_new || blockIdx.y == 0) && warp < 2) {
+    // warp 0 the key row, warp 1 the value row
+    float h[held_per_lane(kHd)];
+    hold_row<kHd>((warp ? v_new : k_new) + qoff, lane, h);
+    const size_t at = lrow * t_cap + pos;
+    quantise_row<kInt4, kHd>(
+        h, lane, owns_new ? (warp ? sv : sk) + (rows - 1) * kRowBytes : nullptr,
+        owns_new ? (warp ? svs : sks) + rows - 1 : nullptr,
+        blockIdx.y == 0 ? (warp ? v : k) + at * kRowBytes : nullptr,
+        blockIdx.y == 0 ? (warp ? v_scale : k_scale) + at : nullptr);
   }
   msgv::cp_async_wait<0>();
   __syncthreads();
@@ -353,12 +382,277 @@ __global__ void __launch_bounds__(kThreads)
   cluster.sync();   // nobody leaves while rank 0 reads its shared memory
 }
 
+// The streamed body, for thousands of (b, h) pairs (the bulk decodes:
+// 256 x 23, 512 x 16).  A persistent grid, as many CTAs as fit the card at
+// once; each warp owns the pairs first, first + W, first + 2W, ... (W the
+// grid's warps) and streams their rows t <= pos, pair after pair, in chunks
+// of kChunk positions, [c kChunk, (c + 1) kChunk): the edges depend on the
+// position alone.  A ring of kStages slots in shared memory keeps the next
+// chunk in flight while the warp computes the current one, across the end
+// of a pair too, so the card's memory stays busy.  Everything a chunk needs
+// comes through the ring by cp.async: its K and V rows (16-byte copies),
+// the 4-byte words that hold its bfloat16 scales, and with a pair's first
+// chunk the pair's q row and new k and v rows; no plain load from device
+// memory stalls a warp.  Shared memory is the ring's, whatever the
+// capacity, and the warps of a CTA never wait for each other.  The softmax
+// runs online over a pair's chunks, in their order: a running maximum m,
+// the sum l and the output o are scaled by e^(m - m') when a chunk raises
+// the maximum to m', and o / l is taken as o * (1 / l)
+// (ops/decode_attention.py::decode_attend_int8_streamed is the plain
+// version).  Within a chunk a lane takes kLPR rows, the same for the
+// scores and for P.V, so the weights stay in its registers, and the sums
+// merge in a fixed order at the pair's end: nothing depends on how many
+// pairs the launch holds or which warp takes a pair, so a rank of a serving
+// mesh gets one card's sums.  With k_new / v_new the warp quantises a
+// pair's rows when the pair starts (device memory and a staging row of its
+// own) and puts them into the pair's last chunk in place of a copy.
+constexpr int kStreamWarps = 4;   // warps a CTA
+constexpr int kChunk = 32;        // rows a chunk
+constexpr int kStages = 2;        // slots in a warp's ring
+constexpr int kScaleBytes = 80;   // kChunk / 2 + 1 words of two scales
+
+// a slot of the ring: K rows, V rows, K and V scale words, the q, k_new and
+// v_new rows of a pair that starts with it
+template <typename Q, bool kInt4, int kLPR>
+__host__ __device__ constexpr int stream_slot_bytes() {
+  return 2 * kChunk * kLPR * 16 + 2 * kScaleBytes +
+         3 * kLPR * (kInt4 ? 32 : 16) * static_cast<int>(sizeof(Q));
+}
+
+// a warp's shared memory: the ring, the staged new rows and their scales
+template <typename Q, bool kInt4, int kLPR>
+__host__ __device__ constexpr int stream_warp_bytes() {
+  return kStages * stream_slot_bytes<Q, kInt4, kLPR>() + 2 * kLPR * 16 + 16;
+}
+
+template <typename Q, bool kInt4, int kLPR>
+__global__ void __launch_bounds__(kStreamWarps * 32)
+    streamed_decode_attention_kernel(
+        const Q* __restrict__ q, const Q* __restrict__ k_new,
+        const Q* __restrict__ v_new, uint8_t* k, uint8_t* v,
+        __nv_bfloat16* k_scale, __nv_bfloat16* v_scale, float* __restrict__ o,
+        const long long* __restrict__ pos_ptr, int bh, int heads, int t_cap,
+        int layer, int pos_off, int row_stride, float scale) {
+  constexpr int kDPL = kInt4 ? 32 : 16;    // head dims per lane
+  constexpr int kHd = kLPR * kDPL;
+  constexpr int kRowBytes = kLPR * 16;
+  constexpr int kGroups = 32 / kLPR;       // rows a pass of the warp
+  constexpr int kRows = kChunk / kGroups;  // rows of a chunk a lane takes
+  constexpr int kQBytes = kHd * static_cast<int>(sizeof(Q));
+  constexpr int kSlot = stream_slot_bytes<Q, kInt4, kLPR>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int first_pair = blockIdx.x * kStreamWarps + warp;   // b * H + h
+  const int stride = gridDim.x * kStreamWarps;
+  if (first_pair >= bh) return;
+  const int pos = (pos_ptr ? static_cast<int>(*pos_ptr) : 0) + pos_off;
+  if (pos < 0 || pos >= t_cap) {   // NaN out, nothing else touched
+    for (int p = first_pair; p < bh; p += stride)
+      for (int d = lane; d < kHd; d += 32)
+        o[static_cast<size_t>(p) * kHd + d] = CUDART_NAN_F;
+    return;
+  }
+  unsigned char* ring = smem + warp * stream_warp_bytes<Q, kInt4, kLPR>();
+  uint8_t* fresh = ring + kStages * kSlot;             // [2][kRowBytes]
+  float* fresh_s = reinterpret_cast<float*>(fresh + 2 * kRowBytes);  // [2]
+  const int n = pos + 1;                       // rows t <= pos
+  const bool write = k_new != nullptr;
+  const int cached = write ? pos : n;          // rows read from the cache
+  const int chunks = (n + kChunk - 1) / kChunk;
+  // the warp's chunks, pair after pair: step i is chunk i % chunks of pair
+  // first_pair + (i / chunks) stride
+  const int steps = ((bh - 1 - first_pair) / stride + 1) * chunks;
+  auto pair_of = [&](int i) { return first_pair + (i / chunks) * stride; };
+  auto row0 = [&](int pair) {   // the pair's first cache row
+    return (static_cast<size_t>(layer) * bh + pair) * t_cap;
+  };
+  auto q_off = [&](int pair) {
+    return static_cast<size_t>(pair / heads) * row_stride +
+           static_cast<size_t>(pair % heads) * kHd;
+  };
+
+  auto issue = [&](int i) {   // step i into its slot; one group
+    if (i < steps) {
+      const int c = i % chunks, pair = pair_of(i);
+      unsigned char* sk = ring + (i % kStages) * kSlot;
+      const size_t e0 = row0(pair) + c * kChunk;   // the chunk's first row
+      const int rows = min(kChunk, cached - c * kChunk);
+      for (int j = lane; j < rows * kLPR; j += 32) {
+        msgv::cp_async16(sk + 16 * j, k + e0 * kRowBytes + 16 * j);
+        msgv::cp_async16(sk + kChunk * kRowBytes + 16 * j,
+                         v + e0 * kRowBytes + 16 * j);
+      }
+      // the words that hold those rows' scales, from row e0 & ~1
+      if (lane < (static_cast<int>(e0 & 1) + rows + 1) / 2) {
+        unsigned char* ss = sk + 2 * kChunk * kRowBytes;
+        msgv::cp_async4(ss + 4 * lane, k_scale + (e0 & ~size_t(1)) + 2 * lane);
+        msgv::cp_async4(ss + kScaleBytes + 4 * lane,
+                        v_scale + (e0 & ~size_t(1)) + 2 * lane);
+      }
+      if (c == 0) {   // the pair's q and new k, v rows
+        unsigned char* head = sk + 2 * kChunk * kRowBytes + 2 * kScaleBytes;
+        const size_t at = q_off(pair);
+        for (int j = lane; j < kQBytes / 16; j += 32) {
+          msgv::cp_async16(head + 16 * j,
+                           reinterpret_cast<const unsigned char*>(q + at) +
+                               16 * j);
+          if (write) {
+            msgv::cp_async16(head + kQBytes + 16 * j,
+                             reinterpret_cast<const unsigned char*>(
+                                 k_new + at) + 16 * j);
+            msgv::cp_async16(head + 2 * kQBytes + 16 * j,
+                             reinterpret_cast<const unsigned char*>(
+                                 v_new + at) + 16 * j);
+          }
+        }
+      }
+    }
+    msgv::cp_async_commit();
+  };
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+  const int li = lane % kLPR;   // which 16 bytes of a row
+  const int g = lane / kLPR;    // which row of a pass
+  float qr[kDPL], acc[kDPL];
+  float m = -CUDART_INF_F, l = 0.f;   // l: this lane's rows' share
+  for (int i = 0; i < steps; ++i) {
+    const int c = i % chunks, pair = pair_of(i);
+    issue(i + kStages - 1);              // into the slot step i - 1 left
+    msgv::cp_async_wait<kStages - 1>();  // step i has landed
+    __syncwarp();
+    uint8_t* sk = ring + (i % kStages) * kSlot;
+    uint8_t* sv = sk + kChunk * kRowBytes;
+    // scale of row r of the chunk: sks[shift + r] (the words start at an
+    // even row)
+    __nv_bfloat16* sks = reinterpret_cast<__nv_bfloat16*>(
+        sv + kChunk * kRowBytes);
+    __nv_bfloat16* svs = sks + kScaleBytes / 2;
+    const int shift = static_cast<int>(row0(pair) & 1);
+    if (c == 0) {   // a pair starts: its query, its new rows, fresh sums
+      const Q* head = reinterpret_cast<const Q*>(svs + kScaleBytes / 2);
+#pragma unroll
+      for (int d = 0; d < kDPL; ++d) qr[d] = msgv::to_f(head[li * kDPL + d]);
+      if (write) {
+        float hk[held_per_lane(kHd)], hv[held_per_lane(kHd)];
+        hold_row<kHd>(head + kHd, lane, hk);
+        hold_row<kHd>(head + 2 * kHd, lane, hv);
+        quantise_row<kInt4, kHd>(hk, lane, fresh, fresh_s, nullptr, nullptr);
+        quantise_row<kInt4, kHd>(hv, lane, fresh + kRowBytes, fresh_s + 1,
+                                 nullptr, nullptr);
+        __syncwarp();   // the staged rows, then into the cache
+        const size_t at = row0(pair) + pos;
+        if (lane < 2 * kLPR) {   // 16 bytes a store
+          const int half = lane / kLPR, piece = lane % kLPR;
+          *reinterpret_cast<uint4*>((half ? v : k) + at * kRowBytes +
+                                    16 * piece) =
+              *reinterpret_cast<const uint4*>(fresh + half * kRowBytes +
+                                              16 * piece);
+        } else if (lane < 2 * kLPR + 2) {
+          (lane % 2 ? v_scale : k_scale)[at] =
+              __float2bfloat16(fresh_s[lane % 2]);   // exact
+        }
+      }
+      m = -CUDART_INF_F;
+      l = 0.f;
+#pragma unroll
+      for (int d = 0; d < kDPL; ++d) acc[d] = 0.f;
+    }
+    if (write && c == chunks - 1) {   // row pos from the quantiser
+      const int r = pos - c * kChunk;
+      if (lane < 2 * kLPR) {
+        const int half = lane / kLPR, piece = lane % kLPR;
+        *reinterpret_cast<uint4*>((half ? sv : sk) + r * kRowBytes +
+                                  16 * piece) =
+            *reinterpret_cast<const uint4*>(fresh + half * kRowBytes +
+                                            16 * piece);
+      }
+      if (lane == 0) {
+        sks[shift + r] = __float2bfloat16(fresh_s[0]);   // exact
+        svs[shift + r] = __float2bfloat16(fresh_s[1]);
+      }
+    }
+    __syncwarp();
+
+    // a pass j holds rows kGroups j .. kGroups (j + 1) - 1 of the chunk:
+    // one whose first row lies past pos is skipped, by the whole warp
+    float s[kRows], cmax = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      s[j] = -CUDART_INF_F;
+      if (c * kChunk + kGroups * j >= n) continue;
+      const int r = g + kGroups * j;
+      float x[kDPL];
+      unpack16<kInt4>(
+          *reinterpret_cast<const uint4*>(sk + r * kRowBytes + 16 * li), x);
+      float s4[4] = {0.f, 0.f, 0.f, 0.f};   // four chains, fixed order
+#pragma unroll
+      for (int d = 0; d < kDPL; ++d)
+        s4[d % 4] = fmaf(qr[d], x[d], s4[d % 4]);
+      float sc = (s4[0] + s4[1]) + (s4[2] + s4[3]);
+#pragma unroll
+      for (int off = kLPR / 2; off > 0; off >>= 1)
+        sc += __shfl_xor_sync(0xffffffffu, sc, off);
+      // past pos the slot holds an older chunk's bytes and scales
+      s[j] = c * kChunk + r < n
+                 ? sc * __bfloat162float(sks[shift + r]) * scale
+                 : -CUDART_INF_F;
+      cmax = fmaxf(cmax, s[j]);
+    }
+#pragma unroll
+    for (int off = kLPR; off < 32; off <<= 1)
+      cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, off));
+    const float m_new = fmaxf(m, cmax);   // a chunk holds a row t <= pos
+    if (m_new != m) {
+      const float alpha = expf(m - m_new);   // 0 for a pair's first chunk
+      l *= alpha;
+#pragma unroll
+      for (int d = 0; d < kDPL; ++d) acc[d] *= alpha;
+      m = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      if (c * kChunk + kGroups * j >= n) continue;
+      const int r = g + kGroups * j;
+      const float e = expf(s[j] - m);   // 0 past pos
+      l += e;
+      float x[kDPL];
+      unpack16<kInt4>(
+          *reinterpret_cast<const uint4*>(sv + r * kRowBytes + 16 * li), x);
+      const float p = c * kChunk + r < n
+                          ? e * __bfloat162float(svs[shift + r]) : 0.f;
+#pragma unroll
+      for (int d = 0; d < kDPL; ++d) acc[d] = fmaf(p, x[d], acc[d]);
+    }
+    __syncwarp();   // the slot is free for step i + kStages
+    if (c == chunks - 1) {   // the pair's rows, always in this order
+      float lt = l;
+#pragma unroll
+      for (int off = kLPR; off < 32; off <<= 1) {
+        lt += __shfl_xor_sync(0xffffffffu, lt, off);
+#pragma unroll
+        for (int d = 0; d < kDPL; ++d)
+          acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], off);
+      }
+      if (lane < kLPR) {
+        const float inv = 1.f / lt;
+        float4* dst = reinterpret_cast<float4*>(
+            o + static_cast<size_t>(pair) * kHd + lane * kDPL);
+#pragma unroll
+        for (int d = 0; d < kDPL / 4; ++d)
+          dst[d] = make_float4(acc[4 * d] * inv, acc[4 * d + 1] * inv,
+                               acc[4 * d + 2] * inv, acc[4 * d + 3] * inv);
+      }
+    }
+  }
+}
+
 struct Args {
   const void *q, *k_new, *v_new;
   void *k, *v, *k_scale, *v_scale, *o;
   const void* pos_ptr;
   int bh, heads, t_cap, layer, pos_off, row_stride, splits, per_cap,
-      split_bh;
+      split_bh, streamed;
   cudaStream_t stream;
 };
 
@@ -368,7 +662,7 @@ int launch(const Args& a) {
   auto kernel = decode_attention_kernel<Q, kInt4, kLPR>;
   const size_t smem = static_cast<size_t>(a.per_cap) * (2 * kLPR * 16 + 12) +
                       sizeof(float) * (kHd + kWarps * kHd + 2 * kWarps +
-                                       kHd + 2 + 2 * kHd);
+                                       kHd + 2);
   // cudaFuncSetAttribute only when this launch needs more than any before
   // it: a captured launch was warmed up at the same capacity, so none is
   // made during a stream capture
@@ -402,17 +696,54 @@ int launch(const Args& a) {
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+template <typename Q, bool kInt4, int kLPR>
+int launch_streamed(const Args& a) {
+  constexpr int kHd = kLPR * (kInt4 ? 32 : 16);
+  auto kernel = streamed_decode_attention_kernel<Q, kInt4, kLPR>;
+  constexpr size_t smem =
+      kStreamWarps * stream_warp_bytes<Q, kInt4, kLPR>();
+  // once, before any capture: the size is the same at every launch
+  static const cudaError_t granted = msgv::allow_smem(kernel, smem);
+  if (granted != cudaSuccess) return granted;
+  // a persistent grid: as many CTAs as the card holds at once, or fewer
+  static const int resident = [&] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                  kStreamWarps * 32, smem);
+    return sms * per_sm;
+  }();
+  if (resident < 1) return cudaErrorInvalidConfiguration;
+  const int needed = (a.bh + kStreamWarps - 1) / kStreamWarps;
+  const int ctas = needed < resident ? needed : resident;
+  kernel<<<ctas, kStreamWarps * 32, smem, a.stream>>>(
+      static_cast<const Q*>(a.q), static_cast<const Q*>(a.k_new),
+      static_cast<const Q*>(a.v_new), static_cast<uint8_t*>(a.k),
+      static_cast<uint8_t*>(a.v), static_cast<__nv_bfloat16*>(a.k_scale),
+      static_cast<__nv_bfloat16*>(a.v_scale), static_cast<float*>(a.o),
+      static_cast<const long long*>(a.pos_ptr), a.bh, a.heads, a.t_cap,
+      a.layer, a.pos_off, a.row_stride, 1.0f / sqrtf(static_cast<float>(kHd)));
+  return cudaGetLastError();
+}
+
+template <typename Q, bool kInt4, int kLPR>
+int launch_body(const Args& a) {
+  return a.streamed ? launch_streamed<Q, kInt4, kLPR>(a)
+                    : launch<Q, kInt4, kLPR>(a);
+}
+
 template <typename Q, bool kInt4>
 int launch_hd(int lanes, const Args& a) {
   switch (lanes) {
     case 1:
-      return launch<Q, kInt4, 1>(a);
+      return launch_body<Q, kInt4, 1>(a);
     case 2:
-      return launch<Q, kInt4, 2>(a);
+      return launch_body<Q, kInt4, 2>(a);
     case 4:
-      return launch<Q, kInt4, 4>(a);
+      return launch_body<Q, kInt4, 4>(a);
     case 8:
-      return launch<Q, kInt4, 8>(a);
+      return launch_body<Q, kInt4, 8>(a);
   }
   return cudaErrorInvalidValue;
 }
@@ -428,8 +759,10 @@ int launch_hd(int lanes, const Args& a) {
 // o: (bh, hd) float32.  The position is *pos_ptr + pos_off (an int64 in
 // device memory), or pos_off alone when pos_ptr is null; outside
 // [0, t_cap) the launch writes NaN and touches no cache.  A cache row must
-// be 16, 32, 64 or 128 bytes.  ``splits`` (1..4) is the cluster's size, the
-// most CTAs a (b, h) can need at this capacity, and ``per_cap`` the largest
+// be 16, 32, 64 or 128 bytes.  ``streamed`` != 0 takes the streamed body
+// (ops/decode_attention.py::use_streamed), which reads neither ``splits``
+// nor ``per_cap``; else ``splits`` (1..4) is the cluster's size, the most
+// CTAs a (b, h) can need at this capacity, and ``per_cap`` the largest
 // share of rows one of them can get; ``split_bh`` (>= bh) the pairs the
 // split rule reads.
 MSGV_API int msgv_decode_attention(const void* q, const void* k_new,
@@ -439,17 +772,18 @@ MSGV_API int msgv_decode_attention(const void* q, const void* k_new,
                                    int t_cap, int hd, int layer, int pos_off,
                                    int row_stride, int q_bf16, int int4,
                                    int splits, int per_cap, int split_bh,
-                                   void* stream) {
+                                   int streamed, void* stream) {
   const int row_bytes = int4 ? hd / 2 : hd;
-  if (row_bytes % 16 || splits < 1 || splits > 4 || per_cap < 1 ||
-      split_bh < bh ||
-      per_cap > t_cap || heads < 1 || bh % heads ||
+  if (row_bytes % 16 || split_bh < bh || heads < 1 || bh % heads ||
+      (!streamed && (splits < 1 || splits > 4 || per_cap < 1 ||
+                     per_cap > t_cap)) ||
       (k_new == nullptr) != (v_new == nullptr) ||
       (pos_ptr == nullptr && (pos_off < 0 || pos_off >= t_cap)))
     return cudaErrorInvalidValue;
   const Args a = {q, k_new, v_new, k, v, k_scale, v_scale, o, pos_ptr,
                   bh, heads, t_cap, layer, pos_off, row_stride, splits,
-                  per_cap, split_bh, static_cast<cudaStream_t>(stream)};
+                  per_cap, split_bh, streamed,
+                  static_cast<cudaStream_t>(stream)};
   const int lanes = row_bytes / 16;
   if (q_bf16)
     return int4 ? launch_hd<__nv_bfloat16, true>(lanes, a)

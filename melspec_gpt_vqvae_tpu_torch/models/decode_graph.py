@@ -24,7 +24,7 @@ token and the decode step that follows it -- is recorded once in a
     nothing falls back to the eager loop;
   * under replay no wrapper runs, so ``Program`` notes how many launches of
     each counted kernel one run of the body holds and adds them to the
-    wrappers' ``launches`` on every replay.  The warm-up runs launch for
+    wrappers' counts on every replay.  The warm-up runs launch for
     real and count as such (``DecodeGraphs.warmup_launches`` says how many);
     a body built inside ``_build.kernels(False)`` is captured all the same,
     and its capture raises if it launched a counted kernel;
@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, Hashable, Optional
+from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import torch
 
@@ -75,25 +75,31 @@ def capture_stream(device: torch.device) -> "torch.cuda.Stream":
     return _CAPTURE_STREAMS[index]
 
 
-def counted_wrappers() -> Dict[str, Callable]:
-    """The kernel wrappers a decode body can launch, by name, looked up
-    now (each keeps its count in ``.launches``)."""
-    return {"decode_attention": _da.decode_attend_int8,
-            "quantize_rows": _il.quantize_rows,
-            "row_scales": _il.row_scales,
-            "rescale_bias": _il.rescale_bias,
-            "int8_linear_splitk": _il.int8_linear_splitk}
+def counted_wrappers() -> Dict[str, Tuple[Callable, str]]:
+    """The kernel wrappers a decode body can launch, by counter name,
+    looked up now: (wrapper, the attribute that keeps the count), each's
+    ``launches``, and kernel E's ``streamed`` beside it (its launches that
+    took the streamed body, counted in its ``launches`` too)."""
+    e = _da.decode_attend_int8
+    return {"decode_attention": (e, "launches"),
+            "decode_attention_streamed": (e, "streamed"),
+            "quantize_rows": (_il.quantize_rows, "launches"),
+            "row_scales": (_il.row_scales, "launches"),
+            "rescale_bias": (_il.rescale_bias, "launches"),
+            "int8_linear_splitk": (_il.int8_linear_splitk, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: w.launches for name, w in counted_wrappers().items()}
+    return {name: getattr(w, attr)
+            for name, (w, attr) in counted_wrappers().items()}
 
 
 def add_launches(delta: Dict[str, int]) -> None:
-    """Add ``delta`` (name -> launches) to the wrappers' counts."""
+    """Add ``delta`` (counter name -> launches) to the wrappers' counts."""
     wrappers = counted_wrappers()
     for name, n in delta.items():
-        wrappers[name].launches += n
+        w, attr = wrappers[name]
+        setattr(w, attr, getattr(w, attr) + n)
 
 
 class Program:

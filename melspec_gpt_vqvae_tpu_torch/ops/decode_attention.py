@@ -23,7 +23,11 @@ Counterpart of melspec_gpt_vqvae_tpu/ops/decode_attention.py (the Pallas
     shares one (b, h)'s rows among the CTAs of a cluster and merges their
     (max, sum, partial o); ``choose_splits`` picks how many take rows at a
     position, ``kernel_shares`` is the kernel's own arithmetic for a
-    cluster launched at the cache's capacity.
+    cluster launched at the cache's capacity;
+  * ``decode_attend_int8_streamed`` -- the plain version of the kernel's
+    streamed body, which ``use_streamed`` picks when the batch holds
+    thousands of (b, h) pairs: the rows in chunks of ``STREAM_CHUNK``
+    positions, folded in order into an online softmax.
 
 Both read one layer of the port's stacked cache, layout (L, B, H, T, hd):
 int8 values, or int4 packed two to a uint8 (L, B, H, T, hd/2) with even
@@ -175,6 +179,49 @@ def decode_attend_int8_split(q: torch.Tensor, k: torch.Tensor,
                           torch.stack(os_, -2))
 
 
+STREAM_CHUNK = 32   # rows a chunk of the streamed body (kChunk)
+
+
+def decode_attend_int8_streamed(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, k_scale: torch.Tensor,
+                                v_scale: torch.Tensor, layer: int, pos: int,
+                                chunk: int = STREAM_CHUNK) -> torch.Tensor:
+    """``decode_attend_int8_xla`` computed the way kernel E's streamed body
+    computes it: the rows t <= pos in chunks [c chunk, (c + 1) chunk), whose
+    edges depend on the position alone, folded in order into a running
+    maximum m, sum l and unnormalised output o:
+
+        m' = max(m, max of the chunk's scores),  a = e^(m - m')
+        l  = l a + sum e^(s - m'),   o = o a + sum e^(s - m') v_scale v
+
+    and o / l after the last chunk (a is 1, and nothing is scaled, when the
+    chunk leaves the maximum as it was).  ``merge_partials`` over the chunks'
+    (max, sum, o) is the same sum in another order."""
+    k_l, v_l = k[layer], v[layer]
+    if k_l.dtype == torch.uint8:
+        k_l, v_l = unpack4(k_l), unpack4(v_l)
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    n = pos + 1
+    m = l = o = None
+    for t0 in range(0, n, chunk):
+        t1 = min(t0 + chunk, n)
+        sc = torch.einsum("bhd,bhtd->bht", q.float(), k_l[:, :, t0:t1].float())
+        sc = sc * k_scale[layer][:, :, t0:t1].float() * scale
+        m_new = sc.amax(dim=-1) if m is None else torch.maximum(
+            m, sc.amax(dim=-1))
+        e = torch.exp(sc - m_new[..., None])
+        part = torch.einsum("bht,bhtd->bhd",
+                            e * v_scale[layer][:, :, t0:t1].float(),
+                            v_l[:, :, t0:t1].float())
+        if m is None:
+            l, o = e.sum(dim=-1), part
+        else:
+            a = torch.exp(m - m_new)
+            l, o = l * a + e.sum(dim=-1), o * a[..., None] + part
+        m = m_new
+    return o / l[..., None]
+
+
 N_SM = 132        # streaming multiprocessors of an H100
 MAX_SPLITS = 4    # measured on the card: 8 CTAs a (b, h) are no faster than 4
 MIN_SHARE = 64    # rows a CTA should at least get: two passes of the scores
@@ -199,6 +246,20 @@ def kernel_shares(bh: int, n: int, cluster: int):
     return [(r * per, max(0, min(n - r * per, per))) for r in range(cluster)]
 
 
+STREAM_MIN_PAIRS = 1024   # measured on the card (PERF.md, kernel E)
+
+
+def use_streamed(pairs: int) -> bool:
+    """Whether kernel E takes its streamed body for a batch of ``pairs``
+    (b, h) pairs -- the whole batch's and all heads', as the split rule
+    reads them, so a rank of a serving mesh chooses as one card does.  The
+    split body is for few pairs (a CTA each, the whole slice in flight at
+    once, a cluster when they leave SMs idle); the streamed body, a warp a
+    pair streaming its rows in chunks, for batches that fill the card's
+    SMs many times over."""
+    return pairs >= STREAM_MIN_PAIRS
+
+
 @functools.lru_cache(maxsize=256)
 def max_share(bh: int, t_cap: int, cluster: int) -> int:
     """The most rows one CTA of a cluster of ``cluster`` can get at any
@@ -210,10 +271,12 @@ def max_share(bh: int, t_cap: int, cluster: int) -> int:
 
 def _rows(x: torch.Tensor, hd: int):
     """(B, H, hd) rows as the kernel addresses them: element (b, h, d) at
-    b * stride + h * hd + d.  A view of that form (a slice of a projection
+    b * stride + h * hd + d, each row on 16 bytes (the streamed body copies
+    them 16 bytes at a time).  A view of that form (a slice of a projection
     buffer) is taken as it stands, anything else is copied."""
-    if x.stride(2) != 1 or x.stride(1) != hd:
-        x = x.contiguous()
+    if x.stride(2) != 1 or x.stride(1) != hd or x.data_ptr() % 16 \
+            or x.stride(0) * x.element_size() % 16:
+        x = x.clone(memory_format=torch.contiguous_format)
     return x
 
 
@@ -234,12 +297,15 @@ def decode_attend_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     that position of the cache, in place (``write_kv_rows``), and attends
     over them too.  The kernel reads and writes layer ``layer`` straight
     in the stacked cache, which must be contiguous (it is never copied);
-    scales are bfloat16 as the cache stores them.  The cluster is launched
-    at ``choose_splits`` of the capacity; the kernel works out from the
+    scales are bfloat16 as the cache stores them.  ``use_streamed`` picks
+    the kernel's body; the split body's cluster is launched at
+    ``choose_splits`` of the capacity, and the kernel works out from the
     position how many of its CTAs take rows.  ``split_pairs`` (None: B * H
-    of q) is the (b, h) count that rule reads: a rank of a serving mesh
-    passes the whole batch's and all heads', so that it splits its rows
-    as one card does and its sums are one card's."""
+    of q) is the (b, h) count both rules read: a rank of a serving mesh
+    passes the whole batch's and all heads', so that it takes the body and
+    splits its rows as one card does and its sums are one card's.
+    ``decode_attend_int8.streamed`` counts the launches that took the
+    streamed body (``.launches`` counts them all)."""
     if (k_new is None) != (v_new is None):
         raise ValueError("pass both k_new and v_new, or neither")
     tensors = [q, k, v, k_scale, v_scale]
@@ -285,10 +351,11 @@ def decode_attend_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"layer {layer} outside the cache ({n_layer} "
                          "layers)")
     if not all(a.is_contiguous() for a in (k, v, k_scale, v_scale)) \
-            or k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("the stacked cache must be contiguous and 16-byte "
-                         "aligned (the kernel copies rows 16 bytes at a "
-                         "time)")
+            or k.data_ptr() % 16 or v.data_ptr() % 16 \
+            or k_scale.data_ptr() % 4 or v_scale.data_ptr() % 4:
+        raise ValueError("the stacked cache must be contiguous, its values "
+                         "16-byte and its scales 4-byte aligned (the kernel "
+                         "copies rows 16 bytes and scales two at a time)")
     q = _rows(q, hd)
     new_ptrs = (None, None)
     if k_new is not None:
@@ -297,21 +364,26 @@ def decode_attend_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("k_new and v_new must have q's shape and dtype")
         k_new, v_new = _rows(k_new, hd), _rows(v_new, hd)
         if not (k_new.stride(0) == v_new.stride(0) == q.stride(0)):
-            q, k_new, v_new = (a.contiguous() for a in (q, k_new, v_new))
+            q, k_new, v_new = (a.clone(memory_format=torch.contiguous_format)
+                               for a in (q, k_new, v_new))
         new_ptrs = (k_new.data_ptr(), v_new.data_ptr())
     o = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
     pairs = b * h if split_pairs is None else int(split_pairs)
     if pairs < b * h:
         raise ValueError(f"split_pairs {pairs} < the launch's {b * h} pairs")
-    cluster = choose_splits(pairs, t)
+    streamed = use_streamed(pairs)
+    cluster = 1 if streamed else choose_splits(pairs, t)
     _build.launch("msgv_decode_attention", q.device, q.data_ptr(), *new_ptrs,
                   k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
                   v_scale.data_ptr(), o.data_ptr(), pos_ptr, b * h, h, t, hd,
                   int(layer), pos_host, q.stride(0),
                   int(q.dtype == torch.bfloat16), int(int4),
-                  cluster, max_share(pairs, t, cluster), pairs)
+                  cluster, 1 if streamed else max_share(pairs, t, cluster),
+                  pairs, int(streamed))
     decode_attend_int8.launches += 1
+    decode_attend_int8.streamed += int(streamed)
     return o
 
 
 decode_attend_int8.launches = 0
+decode_attend_int8.streamed = 0

@@ -557,20 +557,24 @@ def test_holder_launch_accounting(gpt, monkeypatch, batch):
         def wrapped(*a, **kw):
             wrapped.launches += 1
             return fn(*a, **kw)
-        wrapped.launches = 0
+        wrapped.launches = wrapped.streamed = 0
         return wrapped
     monkeypatch.setattr(TD, "decode_attend_int8",
                         counting(TD.decode_attend_int8))
     for name in ("quantize_rows", "rescale_bias", "row_scales",
                  "int8_linear_splitk"):
         monkeypatch.setattr(TL, name, counting(getattr(TL, name)))
-    zero = {"decode_attention": 0, "quantize_rows": 0, "row_scales": 0,
-            "rescale_bias": 0, "int8_linear_splitk": 0}
+    zero = {"decode_attention": 0, "decode_attention_streamed": 0,
+            "quantize_rows": 0, "row_scales": 0, "rescale_bias": 0,
+            "int8_linear_splitk": 0}
     assert DG.launch_counts() == zero
     TG.gpt_generate(tp, cfg, None, ct, steps=STEPS, sample=False, graph=True)
     n = STEPS * cfg.n_layer
     chain, one = (0, 4 * n) if batch == "small" else (4 * n, 0)
-    want = {"decode_attention": n, "quantize_rows": chain, "row_scales": 0,
+    # the plain versions launch nothing, so no launch took the streamed
+    # body; a replay adds what the capture noted of it (below)
+    want = {"decode_attention": n, "decode_attention_streamed": 0,
+            "quantize_rows": chain, "row_scales": 0,
             "rescale_bias": chain, "int8_linear_splitk": one}
     assert DG.launch_counts() == want
     # the eager loop's steps launch E as often (its int8 products run the
@@ -580,12 +584,13 @@ def test_holder_launch_accounting(gpt, monkeypatch, batch):
     assert DG.launch_counts() == want
     # what a replay of a captured program adds
     prog = DG.Program(lambda: None, torch.device("cpu"))
-    prog.launches = {"decode_attention": 2, "rescale_bias": 8,
-                     "int8_linear_splitk": 4}
+    prog.launches = {"decode_attention": 2, "decode_attention_streamed": 2,
+                     "rescale_bias": 8, "int8_linear_splitk": 4}
     prog.graph = type("G", (), {"replay": lambda self: None})()
     for _ in range(3):
         prog.replay()
     want["decode_attention"] += 6
+    want["decode_attention_streamed"] += 6
     want["rescale_bias"] += 24
     want["int8_linear_splitk"] += 12
     assert DG.launch_counts() == want

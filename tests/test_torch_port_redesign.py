@@ -80,6 +80,125 @@ def test_choose_splits(bh, n, want):
     assert 1 <= TDA.choose_splits(bh, n) <= TDA.MAX_SPLITS
 
 
+@pytest.mark.parametrize("pairs, want", [
+    (8192, True),    # the VAS offline batch: 512 x 16
+    (5888, True),    # the XL prior batch: 256 x 23
+    (128, False),    # a served batch of 8
+    (184, False),    # the XL decoder at batch 8
+    (16, False)])    # batch 1: the rows split over a cluster
+def test_use_streamed(pairs, want):
+    assert TDA.use_streamed(pairs) is want
+
+
+def _launched(monkeypatch, b, h, **kw):
+    """The arguments ``decode_attend_int8`` hands the kernel for a (b, h)
+    batch, recorded on the CPU in place of a launch."""
+    from melspec_gpt_vqvae_tpu_torch import _build
+    calls = []
+    monkeypatch.setattr(_build, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, dev, *args: calls.append(args))
+    q, k, ks, v, vs = _cache("int8", b, h, 8, 16, seed=b)
+    launches, streamed = (TDA.decode_attend_int8.launches,
+                          TDA.decode_attend_int8.streamed)
+    try:
+        TDA.decode_attend_int8(q, k, v, ks, vs, 1, 5, **kw)
+        counted = (TDA.decode_attend_int8.launches - launches,
+                   TDA.decode_attend_int8.streamed - streamed)
+    finally:
+        TDA.decode_attend_int8.launches = launches
+        TDA.decode_attend_int8.streamed = streamed
+    (args,) = calls
+    # ..., splits, per_cap, split_bh, streamed
+    return {"pairs": args[-2], "streamed": args[-1], "counted": counted}
+
+
+@pytest.mark.parametrize("b, h, split_pairs", [
+    (96, 16, None),       # one card: the whole batch, 96 x 16 = 1,536 pairs
+    (48, 16, 96 * 16),    # a data rank's half with the whole batch's count
+    (96, 8, 96 * 16)])    # a model rank's heads: given the same count
+def test_a_mesh_rank_takes_the_body_one_card_takes(monkeypatch, b, h,
+                                                    split_pairs):
+    """The body is chosen from ``split_pairs``, the whole batch's pairs
+    (models/gpt.py::split_pairs on a mesh), not from the launch's own: a
+    rank with half the batch, 768 pairs, streams as one card with 1,536
+    does; left to its own count it would not."""
+    kw = {} if split_pairs is None else {"split_pairs": split_pairs}
+    got = _launched(monkeypatch, b, h, **kw)
+    assert TDA.use_streamed(96 * 16) and not TDA.use_streamed(48 * 16)
+    assert got == {"pairs": 96 * 16, "streamed": 1, "counted": (1, 1)}
+
+
+def test_rows_off_16_bytes_are_copied_and_scales_off_4_refused(monkeypatch):
+    """The streamed body copies the q, k_new and v_new rows 16 bytes and
+    the scales 4 bytes at a time: the wrapper hands the kernel rows that
+    start on 16 bytes (a view that does not is copied) and refuses scales
+    that are not on 4."""
+    from melspec_gpt_vqvae_tpu_torch import _build
+    calls = []
+    monkeypatch.setattr(_build, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, dev, *args: calls.append(args))
+    q, k, ks, v, vs = _cache("int8", 4, 2, 8, 16, seed=0)
+    q_off = torch.zeros(q.numel() + 1)[1:].view_as(q)   # on 4 bytes only
+    q_off.copy_(q)
+    ks_off = torch.zeros(ks.numel() + 1, dtype=torch.bfloat16)[1:]
+    ks_off = ks_off.view_as(ks)
+    ks_off.copy_(ks)
+    assert q_off.data_ptr() % 16 and ks_off.data_ptr() % 4
+    launches, streamed = (TDA.decode_attend_int8.launches,
+                          TDA.decode_attend_int8.streamed)
+    try:
+        TDA.decode_attend_int8(q_off, k, v, ks, vs, 1, 5, k_new=q_off,
+                               v_new=q_off)
+        with pytest.raises(ValueError, match="4-byte aligned"):
+            TDA.decode_attend_int8(q, k, v, ks_off, vs, 1, 5)
+    finally:
+        TDA.decode_attend_int8.launches = launches
+        TDA.decode_attend_int8.streamed = streamed
+    (args,) = calls
+    # q, k_new, v_new: the first three pointers, each on 16 bytes
+    assert all(p % 16 == 0 for p in args[:3])
+
+
+def test_a_small_batch_takes_the_split_body(monkeypatch):
+    got = _launched(monkeypatch, 8, 16)
+    assert got == {"pairs": 128, "streamed": 0, "counted": (1, 0)}
+    assert not TDA.use_streamed(48 * 16)
+    got = _launched(monkeypatch, 48, 16)
+    assert got == {"pairs": 48 * 16, "streamed": 0, "counted": (1, 0)}
+
+
+@pytest.mark.parametrize("bits", ["int8", "int4"])
+@pytest.mark.parametrize("chunk, pos", [
+    (32, 0), (32, 31), (32, 32), (32, 33), (32, 64), (32, 69),
+    (4, 3), (4, 4), (4, 11), (5, 23)])
+@pytest.mark.parametrize("write", [False, True])
+def test_streamed_chunks_equal_the_plain_version(bits, chunk, pos, write):
+    """The streamed body's arithmetic -- the rows in chunks whose edges
+    depend on the position alone, an online softmax folded over them in
+    order -- against ``decode_attend_int8_xla`` within 1e-5 (float32 sums
+    in another order), at positions on and across chunk edges; with the
+    write, both read the cache after ``write_kv_rows`` put this step's
+    rows at ``pos``, as the kernel attends the row it quantised."""
+    q, k, ks, v, vs = _cache(bits, 2, 3, 70, 32, seed=pos + chunk)
+    if write:
+        rng = np.random.default_rng(pos)
+        kn, vn = (torch.from_numpy(rng.standard_normal((2, 3, 32))
+                                   .astype(np.float32)) for _ in range(2))
+        TDA.write_kv_rows(k, v, ks, vs, 1, pos, kn, vn)
+    ref = TDA.decode_attend_int8_xla(q, k, v, ks, vs, 1, pos)
+    out = TDA.decode_attend_int8_streamed(q, k, v, ks, vs, 1, pos, chunk)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    # the same chunks' (max, sum, o) merged at once: the same sum
+    splits = -(-(pos + 1) // chunk)
+    if (pos + 1) % chunk == 0 or splits == 1:
+        torch.testing.assert_close(
+            out, TDA.decode_attend_int8_split(q, k, v, ks, vs, 1, pos,
+                                              splits), rtol=1e-5, atol=1e-5)
+
+
 # ------------------------------- kernel B -----------------------------------
 
 def _stack(c, dtype, seed=0):
